@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the four CUDA kernels from ``jarvis_hybridnet_torch/kernels/csrc``,
+loads the committed MonkeyHand checkpoints through the port's own reader,
+and drives ``make_predictor3d`` at the production configuration (bf16,
+quarter_fused, 12 cameras of 1280x1024 on the synthetic rig, 23 joints,
+256^2 crops and CenterDetect input, 144 mm cube at 2 mm, T = 8 framesets of
+seeded uint8 frames). It then checks every kernel against its plain PyTorch
+version on the card at the main path's shapes and times kernel, plain
+version and library call. Prints the card, the predict3D rate, one
+``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+Exits non-zero on any failure, or when no CUDA device is present.
+Per-shape details go to ``chiprun_out/chip_smoke.txt``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+REPO = os.path.dirname(os.path.abspath(__file__))
+T, CAMS, H, W = 8, 12, 1024, 1280
+ITERS = 10
+REPEATS = 3
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms, by CUDA events around ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bf16_ulps(kernel_out, plain_out) -> float:
+    """Largest |kernel - plain| in bf16 ulps of max(|plain|, 1)."""
+    import torch
+
+    mag = plain_out.float().abs().clamp_min(1.0)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((kernel_out.float() - plain_out.float()).abs() / ulp).max())
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def stage_breakdown(predictor, frames, note) -> None:
+    """Device time of each stage of one step, timed alone (CUDA events)."""
+    import torch
+
+    from jarvis_hybridnet_torch import kernels
+
+    hybrid = predictor.hybrid_model
+    with torch.no_grad():
+        center_hm, center3d, _ = predictor.centers(frames)
+        crops = predictor.crops(frames, center_hm)
+        rows = hybrid.heatmap_rows(crops)
+        c3d = center3d.to(torch.int32).contiguous()
+        cams = [a.expand(frames.shape[0], *a.shape) for a in (predictor.P, predictor.K,
+                                                              predictor.D)]
+        out = hybrid.v2v_output(rows, center_hm, c3d, *cams).contiguous()
+        preds, maxvals = predictor.detect(frames)
+        H, W = frames.shape[2], frames.shape[3]
+        stages = {
+            "detect (K4 resize + normalize, CenterDetect, argmax)":
+                lambda: predictor.detect(frames),
+            "place (gate, DLT by QR, reprojection, clamp)":
+                lambda: predictor.place(preds, maxvals, H, W),
+            "crops + normalize": lambda: predictor.crops(frames, center_hm),
+            "KeypointDetect + pad (heatmap_rows)": lambda: hybrid.heatmap_rows(crops),
+            "K2 + V2V (v2v_output)": lambda: hybrid.v2v_output(rows, center_hm, c3d, *cams),
+            "K3 soft_argmax": lambda: kernels.soft_argmax(
+                out, c3d, float(hybrid.grid_spacing), float(hybrid.roi_cube_size)),
+        }
+        for name, fn in stages.items():
+            note(f"stage {name}: {cuda_ms(fn, iters=5, warmup=1):.3f} ms")
+
+
+def profile_steps(predictor, frames, out_dir, note) -> None:
+    """torch.profiler over two steps: device time by kernel and busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2):
+            predictor(frames[i % 2])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # kernels only: an operator's entry repeats the time of the kernels it launched
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in kernels),
+                  reverse=True)
+    device_us = sum(r[0] for r in rows)
+    with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
+        f.write(f"two steps, wall {wall_us:.0f} us, device kernel time {device_us:.0f} us\n")
+        for us, count, key in rows[:40]:
+            f.write(f"{us:12.0f} us {count:6d}x  {key[:110]}\n")
+    if device_us == 0:
+        note("profile: torch.profiler recorded no device time")
+    else:
+        note(f"profile: device busy {device_us / wall_us:.3f} of the wall time of two steps; "
+             f"top kernel {rows[0][2][:60]} {rows[0][0] / 2e3:.3f} ms per step")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import torch.nn.functional as F
+
+    from jarvis_hybridnet_torch import kernels
+    from jarvis_hybridnet_torch.kernels import build
+    from jarvis_hybridnet_torch.models import layers
+    from jarvis_hybridnet_torch.models.efficienttrack import EfficientTrackBackbone
+    from jarvis_hybridnet_torch.models.weights import params_from_jax
+    from jarvis_hybridnet_torch.prediction.loaders import make_predictor3d
+    from jarvis_hybridnet_torch.testing import monkeyhand_cfg, synthetic_rig
+    from jarvis_hybridnet_torch.utils.ckpt_io import read_ckpt
+
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    log = open(os.path.join(out_dir, "chip_smoke.txt"), "w")
+
+    def note(msg: str) -> None:
+        print(msg)
+        log.write(msg + "\n")
+        log.flush()
+
+    # 1. the card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    log.write(f"card: {smi}\n")
+    dev = torch.device("cuda")
+
+    # 2. kernels, one nvcc per source, all at once
+    t0 = time.perf_counter()
+    build.build_all()
+    note(f"build: {time.perf_counter() - t0:.1f} s for {len(build.SOURCES)} kernels")
+
+    # 3-5. checkpoints, rig, predictor at the production configuration
+    cfg = monkeyhand_cfg()
+    rig = synthetic_rig(CAMS, W, H)
+    ckpt = {n: os.path.join(REPO, "trained", "MonkeyHand", f"{n}_final.ckpt")
+            for n in ("CenterDetect", "KeypointDetect", "HybridNet")}
+    t0 = time.perf_counter()
+    keypoint = EfficientTrackBackbone("small", 23)
+    keypoint.load_state_dict(params_from_jax(read_ckpt(ckpt["KeypointDetect"]), "small"),
+                             strict=True)
+    predictor = make_predictor3d(cfg, rig, ckpt["CenterDetect"], ckpt["HybridNet"],
+                                 dtype="bfloat16", device="cuda")
+    n_params = sum(p.numel() for m in (predictor.center_model, predictor.hybrid_model)
+                   for p in m.parameters())
+    note(f"load: {time.perf_counter() - t0:.2f} s for the 3 MonkeyHand checkpoints "
+         f"(KeypointDetect loads strictly; the predictor holds {n_params} parameters)")
+    gens = [torch.Generator(device=dev).manual_seed(s) for s in (1, 2)]
+    frames = [torch.randint(0, 256, (T, CAMS, H, W, 3), dtype=torch.uint8, device=dev,
+                            generator=g) for g in gens]
+
+    t0 = time.perf_counter()
+    predictor(frames[0])
+    torch.cuda.synchronize()
+    note(f"warm-up step: {time.perf_counter() - t0:.2f} s")
+
+    kernels.reset_launch_counts()
+    points, conf, valid = predictor(frames[0])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    note(f"launches in one main-path step: {json.dumps(launches)}")
+
+    rates = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(ITERS):
+            out = predictor(frames[i % 2])
+        torch.cuda.synchronize()
+        rates.append(T * ITERS / (time.perf_counter() - t0))
+    rate = sorted(rates)[len(rates) // 2]
+    note(f"predict3D: {rate:.2f} poses/s, median of {REPEATS} runs of {ITERS} steps "
+         f"(T={T}, two alternating seeded batches): "
+         f"{', '.join(f'{r:.2f}' for r in rates)}; {T / rate * 1e3:.2f} ms per step")
+
+    # 6. outputs
+    for name, t, shape in (("points3D", points, (T, 23, 3)), ("confidences", conf, (T, 23)),
+                           ("valid", valid, (T,))):
+        if tuple(t.shape) != shape:
+            fail(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    finite = bool(torch.isfinite(points).all() and torch.isfinite(conf).all()
+                  and torch.isfinite(out[0]).all())
+    note(f"outputs: points3D {tuple(points.shape)}, confidences {tuple(conf.shape)}, "
+         f"valid {tuple(valid.shape)}; finite={finite}; framesets through the gate: "
+         f"{int(valid.sum())}/{T}")
+    if not finite:
+        fail("non-finite outputs")
+
+    # 7. every kernel ran on the main path
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+
+    hybrid = predictor.hybrid_model
+    stage_breakdown(predictor, frames[0], note)
+    profile_steps(predictor, frames, out_dir, note)
+
+    # 8-9. each kernel against its plain version at the main path's shapes.
+    # ``launches`` counts wrapper calls; ``kernels_per_call`` is how many
+    # __global__ kernels one call launches
+    report = []
+
+    # K4 resize_normalize on the step's frames
+    flat = frames[0].reshape(T * CAMS, H, W, 3)
+    cs = predictor.center_size
+    args = (flat, cs, cs, predictor.mean, predictor.std, torch.bfloat16)
+    k_out = kernels.resize_normalize(*args)
+    p_out = kernels.resize_normalize_plain(*args)
+    ulps = bf16_ulps(k_out, p_out)
+    if ulps > 1.0:
+        fail(f"resize_normalize differs by {ulps} bf16 ulps (tolerance 1)")
+    from jarvis_hybridnet_torch.kernels.resize_normalize import linear_tables
+    h_rows = len(set(linear_tables(cs, H)[0]) | set(linear_tables(cs, H)[1]))
+    k4_bytes = T * CAMS * h_rows * W * 3 + k_out.numel() * k_out.element_size()
+    report.append(dict(
+        name="resize_normalize", route="cuda", kernels_per_call=1,
+        source="jarvis_hybridnet_torch/kernels/csrc/resize_normalize.cu",
+        replaces="jarvis_hybridnet_tpu/ops/image.py:101", launches=launches["resize_normalize"],
+        max_abs_err=float((k_out.float() - p_out.float()).abs().max()),
+        ms=cuda_ms(lambda: kernels.resize_normalize(*args)),
+        plain_ms=cuda_ms(lambda: kernels.resize_normalize_plain(*args), iters=5),
+        bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None))
+
+    # inputs of K2 and K3 captured from the step's frames
+    with torch.no_grad():
+        center_hm, center3d, _ = predictor.centers(frames[0])
+        crops = predictor.crops(frames[0], center_hm)
+        rows = hybrid.heatmap_rows(crops)
+        c3d = center3d.to(torch.int32).contiguous()
+        cams = [a.expand(T, *a.shape).contiguous() for a in (predictor.P, predictor.K, predictor.D)]
+        g4, step = hybrid.grid_size // 4, float(hybrid.grid_spacing) * 4.0
+        k2_args = (rows, c3d, center_hm.contiguous(), *cams, g4, step)
+        k_vol, k_idx = kernels.repro_quarter_gather(*k2_args, return_indices=True)
+        p_vol, p_idx = kernels.repro_quarter_gather_plain(*k2_args)
+        if not torch.equal(k_idx, p_idx):
+            fail(f"repro_quarter_gather indices differ at {int((k_idx != p_idx).sum())} places")
+        rel = float((k_vol - p_vol).abs().max() / p_vol.abs().max().clamp_min(1e-30))
+        if rel > 1e-5:
+            fail(f"repro_quarter_gather volume differs by {rel} relative (tolerance 1e-5)")
+        # distinct heatmap rows read: a pixel index names a different row in
+        # every frameset, so count (frameset, index) pairs per camera
+        J, hs2 = rows.shape[-1], rows.shape[2]
+        frameset = torch.arange(T, device=dev, dtype=torch.int64)[:, None] * hs2
+        touched = sum(int(torch.unique(p_idx[:, c].long() + frameset).numel())
+                      for c in range(CAMS))
+        k2_bytes = touched * J * rows.element_size() + k_vol.numel() * 4
+        report.append(dict(
+            name="repro_quarter_gather", route="cuda", kernels_per_call=2,
+            source="jarvis_hybridnet_torch/kernels/csrc/repro_quarter_gather.cu",
+            replaces="jarvis_hybridnet_tpu/models/repro.py:280",
+            launches=launches["repro_quarter_gather"],
+            max_abs_err=float((k_vol - p_vol).abs().max()),
+            ms=cuda_ms(lambda: kernels.repro_quarter_gather(*k2_args)),
+            plain_ms=cuda_ms(lambda: kernels.repro_quarter_gather_plain(*k2_args), iters=5),
+            bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None))
+
+        vout = hybrid.v2v_output(rows, center_hm, c3d, *cams).contiguous()
+        k3_args = (vout, c3d, float(hybrid.grid_spacing), float(hybrid.roi_cube_size))
+        kp, kc = kernels.soft_argmax(*k3_args)
+        pp, pc = kernels.soft_argmax_plain(*k3_args)
+        perr, cerr = float((kp - pp).abs().max()), float((kc - pc).abs().max())
+        if perr > 1e-3 or cerr > 1e-6:
+            fail(f"soft_argmax differs: points {perr} mm (tol 1e-3), conf {cerr} (tol 1e-6)")
+        report.append(dict(
+            name="soft_argmax", route="cuda", kernels_per_call=2,
+            source="jarvis_hybridnet_torch/kernels/csrc/soft_argmax.cu",
+            replaces="jarvis_hybridnet_tpu/models/hybridnet.py:95",
+            launches=launches["soft_argmax"], max_abs_err=max(perr, cerr),
+            ms=cuda_ms(lambda: kernels.soft_argmax(*k3_args)),
+            plain_ms=cuda_ms(lambda: kernels.soft_argmax_plain(*k3_args)),
+            bound_ms=vout.numel() * vout.element_size() / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=None))
+
+    # K1: record every (shape, act) the main path gives it, then check and
+    # time each; the line reports the sum over one step's launches
+    seen: dict = {}
+    real = layers.instance_norm_act
+
+    def recorder(x, act="none", skip=None):
+        key = (tuple(x.shape), x.dtype, act)
+        seen[key] = seen.get(key, 0) + 1
+        return real(x, act, skip)
+
+    layers.instance_norm_act = recorder
+    try:
+        with torch.no_grad():
+            predictor(frames[0])
+    finally:
+        layers.instance_norm_act = real
+    if sum(seen.values()) != launches["instance_norm_act"]:
+        fail(f"recorded {sum(seen.values())} InstanceNorm calls, counted "
+             f"{launches['instance_norm_act']}")
+    acts = {"none": lambda y, s: y, "silu": lambda y, s: F.silu(y),
+            "relu": lambda y, s: F.relu(y), "add_relu": lambda y, s: F.relu(y + s)}
+    k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
+    worst_ulps = 0.0
+    log.write("K1 instance_norm_act per shape: shape dtype act count ms plain_ms "
+              "library_ms bound_ms ulps\n")
+    for (shape, dtype, act), count in sorted(seen.items(), key=lambda kv: -math.prod(kv[0][0])):
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(shape, device=dev, dtype=torch.float32, generator=g).mul(2).add(0.5)
+        x = x.to(dtype)
+        skip = torch.randn(shape, device=dev, generator=g).to(dtype) if act == "add_relu" else None
+        ko = kernels.instance_norm_act(x, act, skip)
+        po = kernels.instance_norm_act_plain(x, act, skip)
+        ulps = bf16_ulps(ko, po)
+        worst_ulps = max(worst_ulps, ulps)
+        # the kernel merges per-chunk statistics (Chan) where the plain version
+        # sums once, so the normalized value may round to the neighbouring bf16
+        # value; SiLU's three further bf16 roundings can grow that to 3 ulps
+        if ulps > 3.0:
+            fail(f"instance_norm_act {shape} {act} differs by {ulps} bf16 ulps (tolerance 3)")
+        xn = x.permute(0, 2, 1)  # (N, C, S) for the library call
+        sn = None if skip is None else skip.permute(0, 2, 1)
+        times = dict(
+            ms=cuda_ms(lambda: kernels.instance_norm_act(x, act, skip)),
+            plain_ms=cuda_ms(lambda: kernels.instance_norm_act_plain(x, act, skip)),
+            # F.instance_norm refuses a single spatial element
+            library_ms=(cuda_ms(lambda: acts[act](F.instance_norm(xn), sn))
+                        if shape[1] > 1 else 0.0))
+        nbytes = x.numel() * x.element_size() * (3 if skip is not None else 2)
+        times["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        for k, v in times.items():
+            k1[k] += v * count
+        k1["max_abs_err"] = max(k1["max_abs_err"], float((ko.float() - po.float()).abs().max()))
+        log.write(f"  {shape} {dtype} {act} x{count} {times['ms']:.4f} {times['plain_ms']:.4f} "
+                  f"{times['library_ms']:.4f} {times['bound_ms']:.4f} {ulps:.1f}\n")
+    note(f"instance_norm_act: {len(seen)} shapes, worst {worst_ulps:.1f} bf16 ulps vs plain")
+    report.insert(0, dict(
+        name="instance_norm_act", route="cuda", kernels_per_call=2,
+        source="jarvis_hybridnet_torch/kernels/csrc/instance_norm_act.cu",
+        replaces="tools/fused_norm_bench.py:58", launches=launches["instance_norm_act"],
+        bound_by="bytes", **k1))
+
+    # the whole cascade on the card against the same cascade on the CPU (the
+    # plain versions, which the CPU tests hold to the JAX package), float32,
+    # at the small size of tests/test_torch_predictor3d.py
+    small_cfg = monkeyhand_cfg(center_size=64, bbox=128, cube=144, spacing=4, num_cameras=4)
+    small_rig = synthetic_rig(4, 320, 256)
+    small = torch.randint(0, 256, (2, 4, 256, 320, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(4))
+    got, ref = ({}, {})
+    for device, res in (("cuda", got), ("cpu", ref)):
+        pred = make_predictor3d(small_cfg, small_rig, ckpt["CenterDetect"], ckpt["HybridNet"],
+                                dtype="float32", device=device)
+        frames_d = small.to(device)
+        res["centers"] = pred.centers(frames_d)[0].cpu()
+        res["points"], res["conf"], res["valid"] = (a.cpu() for a in pred(frames_d))
+    perr = float((got["points"] - ref["points"]).abs().max())
+    cerr = float((got["conf"] - ref["conf"]).abs().max())
+    note(f"cascade f32, card vs CPU (T=2, 4 cameras, 256x320): points {perr:.2e} mm "
+         f"(tol 2e-2), confidences {cerr:.2e} (tol 1e-4), crop centers and gate "
+         f"{'equal' if torch.equal(got['centers'], ref['centers']) else 'DIFFER'}")
+    if (perr > 2e-2 or cerr > 1e-4 or not torch.equal(got["centers"], ref["centers"])
+            or not torch.equal(got["valid"], ref["valid"])):
+        fail("the cascade on the card disagrees with the CPU cascade")
+
+    # f32 spot check of K1 at the largest V2V shape (the f32 path's tolerance)
+    x = torch.randn((8, 36 ** 3, 46), device=dev)
+    s = torch.randn_like(x)
+    err = float((kernels.instance_norm_act(x, "add_relu", s)
+                 - kernels.instance_norm_act_plain(x, "add_relu", s)).abs().max())
+    note(f"instance_norm_act f32 (8, 36^3, 46) add_relu: max abs err {err:.2e} (tol 1e-5)")
+    if err > 1e-5:
+        fail("instance_norm_act f32 check")
+
+    for r in report:
+        log.write(json.dumps(r) + "\n")
+    log.close()
+    print(json.dumps({"kernels": report}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

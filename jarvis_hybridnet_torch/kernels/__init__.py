@@ -1,0 +1,34 @@
+"""Hand-written CUDA kernels of the port, one wrapper module each.
+
+Every wrapper runs its plain PyTorch version on CPU tensors and launches its
+CUDA kernel on CUDA tensors (raising if it cannot); there is no fallback.
+Each wrapper counts the calls that launch its CUDA source in
+``<wrapper>.launches``. One call launches two ``__global__`` kernels for
+instance_norm_act (statistics, apply), repro_quarter_gather (quarter grid,
+upsample) and soft_argmax (partials, finish), and one for resize_normalize.
+"""
+
+from .instance_norm import instance_norm_act, instance_norm_act_plain
+from .repro_gather import repro_quarter_gather, repro_quarter_gather_plain
+from .resize_normalize import resize_normalize, resize_normalize_plain
+from .soft_argmax import soft_argmax, soft_argmax_plain
+
+WRAPPERS = (instance_norm_act, repro_quarter_gather, soft_argmax,
+            resize_normalize)
+
+
+def reset_launch_counts() -> None:
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {w.__name__: w.launches for w in WRAPPERS}
+
+
+__all__ = [
+    "WRAPPERS", "instance_norm_act", "instance_norm_act_plain",
+    "launch_counts", "repro_quarter_gather", "repro_quarter_gather_plain",
+    "reset_launch_counts", "resize_normalize", "resize_normalize_plain",
+    "soft_argmax", "soft_argmax_plain",
+]

@@ -1,0 +1,142 @@
+"""K2: quarter-grid voxel reprojection, gather, camera mean and 2x upsample.
+
+Replaces ``models/repro.py`` ``reproject_indices(upsample=False)`` at
+(grid_size // 2, 2 * spacing), ``gather_voxel_volume`` and the three
+``_upsample2_aligned_axis`` passes of ``reprojection_layer``'s
+quarter_fused mode. CUDA source: ``csrc/repro_quarter_gather.cu``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def quarter_indices_plain(center3d, center_hm, P, K, D, g4: int, step: float,
+                          hs: int) -> torch.Tensor:
+    """Flat pixel indices (B, C, g4^3) into each camera's padded heatmap.
+
+    The op order is that of ``reproject_indices`` (repro.py:107-153), one
+    rounding per op, so the indices are bit-identical to the JAX ones.
+    """
+    B, C = P.shape[0], P.shape[1]
+    dev = P.device
+    r = (torch.arange(g4, dtype=torch.float32, device=dev) - float(g4 // 2)) * step
+    coords = r[None, None, :] + center3d.float()[:, :, None]  # (B, 3, g4)
+    X = coords[:, 0][:, None, :, None, None]
+    Y = coords[:, 1][:, None, None, :, None]
+    Z = coords[:, 2][:, None, None, None, :]
+
+    def component(m):
+        e = (None, None, None)
+        term = (P[:, :, 0, m][(...,) + e] * X + P[:, :, 1, m][(...,) + e] * Y
+                + P[:, :, 2, m][(...,) + e] * Z + P[:, :, 3, m][(...,) + e])
+        return term.reshape(B, C, -1)
+
+    pu, pv, pw = component(0), component(1), component(2)
+    fx, fy = K[:, :, 0, 0, None], K[:, :, 1, 1, None]
+    cx, cy = K[:, :, 2, 0, None], K[:, :, 2, 1, None]
+    k1, k2 = D[:, :, 0, 0, None], D[:, :, 0, 1, None]
+
+    u = pu / pw - cx
+    v = pv / pw - cy
+    r2 = torch.square(u / fx) + torch.square(v / fy)
+    distort = 1.0 + (k1 + k2 * r2) * r2
+    u = u * distort + cx
+    v = v * distort + cy
+
+    chx = center_hm[:, :, 0:1].float()
+    chy = center_hm[:, :, 1:2].float()
+    u = torch.clamp(u, chx - (hs - 1), chx + hs - 2) - chx + (hs - 1)
+    v = torch.clamp(v, chy - (hs - 1), chy + hs - 2) - chy + (hs - 1)
+    return (v / 2.0).to(torch.int32) * hs + (u / 2.0).to(torch.int32)
+
+
+def _upsample2_aligned(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """out[2k] = in[k], out[2k+1] = (in[k] + in[k+1]) / 2, top edge clamped."""
+    nxt = torch.cat([x.narrow(axis, 1, x.shape[axis] - 1),
+                     x.narrow(axis, x.shape[axis] - 1, 1)], dim=axis)
+    odd = 0.5 * (x + nxt)
+    out = torch.stack([x, odd], dim=axis + 1)
+    shape = list(x.shape)
+    shape[axis] *= 2
+    return out.reshape(shape)
+
+
+def repro_quarter_gather_plain(rows, center3d, center_hm, P, K, D, g4: int,
+                               step: float):
+    """Plain PyTorch version; returns (half volume, indices)."""
+    B, C, hs2, J = rows.shape
+    hs = math.isqrt(hs2)
+    idx = quarter_indices_plain(center3d, center_hm, P, K, D, g4, step, hs)
+    acc = None
+    for c in range(C):
+        vals = torch.gather(rows[:, c], 1,
+                            idx[:, c, :, None].long().expand(-1, -1, J)).float()
+        acc = vals if acc is None else acc + vals
+    quarter = (acc / C).reshape(B, g4, g4, g4, J)
+    half = quarter
+    for axis in (1, 2, 3):
+        half = _upsample2_aligned(half, axis)
+    return half, idx
+
+
+def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
+                         center_hm: torch.Tensor, P: torch.Tensor,
+                         K: torch.Tensor, D: torch.Tensor, g4: int,
+                         step: float, return_indices: bool = False):
+    """Half-grid voxel volume (B, 2g4, 2g4, 2g4, J) float32.
+
+    rows: (B, C, hs*hs, J) padded heatmaps, J contiguous (bf16 or f32);
+    center3d (B, 3) and center_hm (B, C, 2) int32; P (B, C, 4, 3),
+    K (B, C, 3, 3), D (B, C, 1, 5) float32. The quarter grid has g4 points
+    per axis at ``step`` mm around center3d. With ``return_indices`` the
+    (B, C, g4^3) int32 gather indices come back too.
+    """
+    if build.on_cpu(rows, center3d, center_hm, P, K, D):
+        half, idx = repro_quarter_gather_plain(rows, center3d, center_hm, P, K,
+                                               D, g4, step)
+        return (half, idx) if return_indices else half
+    build.require(rows, "rows", _DTYPES, ndim=4)
+    B, C, hs2, J = rows.shape
+    hs = math.isqrt(hs2)
+    if hs * hs != hs2 or J > 32:
+        raise ValueError(f"rows must be (B, C, hs*hs, J<=32), got {tuple(rows.shape)}")
+    for t, name, shape in ((center3d, "center3d", (B, 3)),
+                           (center_hm, "center_hm", (B, C, 2)),
+                           (P, "P", (B, C, 4, 3)), (K, "K", (B, C, 3, 3)),
+                           (D, "D", (B, C, 1, 5))):
+        build.require(t, name, (torch.int32,) if name.startswith("center")
+                      else (torch.float32,))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+    dev = rows.device
+    quarter = torch.empty((B, g4 ** 3, J), dtype=torch.float32, device=dev)
+    out = torch.empty((B, 2 * g4, 2 * g4, 2 * g4, J), dtype=torch.float32,
+                      device=dev)
+    idx = (torch.empty((B, C, g4 ** 3), dtype=torch.int32, device=dev)
+           if return_indices else None)
+    p = build.ptr
+    err = _fn()(p(rows), p(center3d), p(center_hm), p(P), p(K), p(D),
+                p(quarter), p(out), p(idx), B, C, J, hs, g4, step,
+                _DTYPES[rows.dtype], build.stream())
+    build.check(err, "repro_quarter_gather")
+    repro_quarter_gather.launches += 1
+    return (out, idx) if return_indices else out
+
+
+repro_quarter_gather.launches = 0
+
+
+@functools.cache
+def _fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build.bind("repro_quarter_gather", "repro_quarter_gather",
+                      [p] * 9 + [i, i, i, i, i, ctypes.c_float, i, p])

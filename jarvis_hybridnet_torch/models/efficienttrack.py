@@ -1,0 +1,83 @@
+"""EfficientTrack 2D heatmap network (port of
+``jarvis_hybridnet_tpu/models/efficienttrack.py``).
+
+EfficientNet features, N BiFPN cells, a softplus-weighted merge of three
+scales at P3 (stride 4), one separable conv, then two heads: ``final_conv1``
+(3x3 conv, heatmap at input/4) and ``deconv1`` (ConvTranspose2d k4 s2 p1,
+heatmap at input/2). ``final_conv2`` is the reference's dead parameter,
+kept so reference state dicts load strictly; it is never applied.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..kernels.soft_argmax import softplus
+from .bifpn import BiFPN
+from .efficientnet import EfficientNetFeatures, build_block_plan, truncate_and_tap
+from .layers import SeparableConvBlock, conv, upsample_nearest
+
+
+@dataclass(frozen=True)
+class ModelSizeSpec:
+    compound_coef: int
+    fpn_num_filters: int
+    fpn_cell_repeats: int
+    final_layer_sizes: int
+
+
+MODEL_SIZES = {
+    "small": ModelSizeSpec(0, 56, 3, 64),
+    "medium": ModelSizeSpec(1, 88, 4, 88),
+    "large": ModelSizeSpec(3, 160, 6, 160),
+}
+
+
+def _tap_channels(compound_coef: int) -> tuple[int, int, int]:
+    _, full = build_block_plan(compound_coef)
+    blocks, taps = truncate_and_tap(full)
+    return tuple(blocks[i].out_filters for i in taps)
+
+
+class EfficientTrackBackbone(nn.Module):
+    """Input (N, 3, S, S) normalized images; ``forward`` returns the
+    (heatmap at S/4, heatmap at S/2) pair as (N, J, h, w)."""
+
+    def __init__(self, model_size: str = "small", output_channels: int = 1):
+        super().__init__()
+        spec = MODEL_SIZES[model_size]
+        self.backbone_net = EfficientNetFeatures(spec.compound_coef)
+        n = spec.fpn_num_filters
+        self.bifpn = nn.ModuleList(
+            [BiFPN(n, _tap_channels(spec.compound_coef))]
+            + [BiFPN(n) for _ in range(1, spec.fpn_cell_repeats)])
+        self.weights_cat = nn.Parameter(torch.ones(3))
+        self.first_conv = SeparableConvBlock(n, spec.final_layer_sizes)
+        self.deconv1 = nn.ConvTranspose2d(spec.final_layer_sizes, output_channels,
+                                          4, stride=2, padding=1, bias=False)
+        self.final_conv1 = nn.Conv2d(spec.final_layer_sizes, output_channels, 3,
+                                     padding=1, bias=False)
+        self.final_conv2 = nn.Conv2d(spec.final_layer_sizes, output_channels, 1,
+                                     bias=False)
+
+    def merged(self, x: torch.Tensor) -> torch.Tensor:
+        """Output of ``first_conv``, which both heads read."""
+        feats = self.backbone_net(x)
+        for cell in self.bifpn:
+            feats = cell(feats)
+        w = softplus(self.weights_cat)
+        w = w / (w.sum() + 1e-4)
+        x1 = (w[0] * feats[0].float() + w[1] * upsample_nearest(feats[1], 2).float()
+              + w[2] * upsample_nearest(feats[2], 4).float())
+        return self.first_conv(x1)
+
+    def heatmap2(self, x: torch.Tensor) -> torch.Tensor:
+        """The stride-2 head alone: what both predictors consume."""
+        return conv(self.deconv1, self.merged(x))
+
+    def forward(self, x: torch.Tensor):
+        m = self.merged(x)
+        return conv(self.final_conv1, m), conv(self.deconv1, m)

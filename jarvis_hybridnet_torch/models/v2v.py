@@ -1,0 +1,108 @@
+"""V2V-PoseNet-style 3D CNN (port of ``jarvis_hybridnet_tpu/models/v2v.py``).
+
+Module and parameter names are those of the reference torch V2VNet
+(jarvis/hybridnet/v2vnet.py), so its state dicts load strictly:
+``front_layers.{0: Basic3DBlock, 1: Res3DBlock}``, ``encoder_decoder.*`` and
+``output_layer``; a Basic3DBlock's conv is ``block.0`` and a Res3DBlock's
+convs are ``res_branch.0`` and ``res_branch.3``. InstanceNorm + ReLU (and
+the residual add) run through K1; dropout is inert at inference.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.fused_upfront import fused_up_conv3d, prepare_fused_weights
+from .layers import conv, instance_norm
+
+
+class Basic3DBlock(nn.Module):
+    """conv -> IN -> ReLU. With ``fused_up`` the input is the half-res
+    volume and the conv is the exact fused up2 + stride-2 conv."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+                 fused_up: bool = False):
+        super().__init__()
+        self.block = nn.ModuleList(
+            [nn.Conv3d(cin, cout, kernel, stride, (kernel - 1) // 2)])
+        self.fused_up = fused_up
+        self._fused = None  # (key, interior, corrections), built on first use
+
+    def _fused_weights(self):
+        w = self.block[0].weight
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if self._fused is None or self._fused[0] != key:
+            self._fused = (key, *prepare_fused_weights(w, w.dtype))
+        return self._fused[1], self._fused[2]
+
+    def forward(self, x):
+        if self.fused_up:
+            interior, corr = self._fused_weights()
+            x = fused_up_conv3d(x, interior, corr, self.block[0].bias)
+        else:
+            x = conv(self.block[0], x)
+        return instance_norm(x, "relu")
+
+
+class Res3DBlock(nn.Module):
+    """relu(IN(conv2(relu(IN(conv1(x))))) + x)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.res_branch = nn.ModuleDict({
+            "0": nn.Conv3d(channels, channels, 3, 1, 1),
+            "3": nn.Conv3d(channels, channels, 3, 1, 1),
+        })
+
+    def forward(self, x):
+        res = instance_norm(conv(self.res_branch["0"], x), "relu")
+        return instance_norm(conv(self.res_branch["3"], res), "add_relu",
+                             skip=x)
+
+
+class Upsample3DBlock(nn.Module):
+    """ConvTranspose3d(k2, s2) -> IN -> ReLU."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.block = nn.ModuleList([nn.ConvTranspose3d(cin, cout, 2, 2)])
+
+    def forward(self, x):
+        return instance_norm(conv(self.block[0], x), "relu")
+
+
+class _EncoderDecoder(nn.Module):
+    def __init__(self, j: int):
+        super().__init__()
+        self.encoder_pool1 = Basic3DBlock(2 * j, 4 * j, 2, 2)
+        self.mid_res = Res3DBlock(4 * j)
+        self.decoder_upsample1 = Upsample3DBlock(4 * j, 2 * j)
+        self.decoder_res1 = Res3DBlock(2 * j)
+        self.skip_res1 = Res3DBlock(2 * j)
+
+    def forward(self, x):
+        skip = self.skip_res1(x)
+        x = self.mid_res(self.encoder_pool1(x))
+        x = self.decoder_res1(self.decoder_upsample1(x))
+        return x + skip
+
+
+class V2VNet(nn.Module):
+    """(B, J, G, G, G) -> (B, J, G/2, G/2, G/2). With
+    ``fused_upsample_front`` the input is the half-res (G/2)^3 volume."""
+
+    def __init__(self, channels: int, fused_upsample_front: bool = False):
+        super().__init__()
+        j = channels
+        self.front_layers = nn.ModuleList([
+            Basic3DBlock(j, 2 * j, 3, 2, fused_up=fused_upsample_front),
+            Res3DBlock(2 * j),
+        ])
+        self.encoder_decoder = _EncoderDecoder(j)
+        self.output_layer = nn.Conv3d(2 * j, j, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.front_layers:
+            x = layer(x)
+        return conv(self.output_layer, self.encoder_decoder(x))
