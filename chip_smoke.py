@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --baseline-csrc DIR
+
 Builds the four CUDA kernels from ``jarvis_hybridnet_torch/kernels/csrc``,
 loads the committed MonkeyHand checkpoints through the port's own reader,
 and drives ``make_predictor3d`` at the production configuration (bf16,
@@ -10,14 +12,25 @@ quarter_fused, 12 cameras of 1280x1024 on the synthetic rig, 23 joints,
 256^2 crops and CenterDetect input, 144 mm cube at 2 mm, T = 8 framesets of
 seeded uint8 frames). It then checks every kernel against its plain PyTorch
 version on the card at the main path's shapes and times kernel, plain
-version and library call. Prints the card, the predict3D rate, one
-``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
-Exits non-zero on any failure, or when no CUDA device is present.
-Per-shape details go to ``chiprun_out/chip_smoke.txt``.
+version and library call. A kernel's ``ms`` is device time: a CUDA graph of
+``GRAPH_CALLS`` captured calls is replayed, so host launch gaps do not count;
+``wall_ms`` is the event time of calls launched one by one from Python.
+Prints the card, the predict3D rate, one ``{"kernels": [...]}`` line and,
+last, the ``{"ok": true, ...}`` line. Exits non-zero on any failure, or when
+no CUDA device is present. Per-shape details go to
+``chiprun_out/chip_smoke.txt``.
+
+With ``--baseline-csrc DIR``, DIR holds an earlier version of the kernel
+sources with the two-kernel K1 and K2 designs (the C interfaces of
+``BASELINE_SIGNATURES``); it builds them too and times them beside the
+current kernels at the same shapes, in the order baseline, current,
+current, baseline, into ``chiprun_out/chip_smoke_baseline.txt``.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import math
 import os
@@ -30,6 +43,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 T, CAMS, H, W = 8, 12, 1024, 1280
 ITERS = 10
 REPEATS = 3
+GRAPH_CALLS = 20
+GRAPH_REPLAYS = 5
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -45,6 +60,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = GRAPH_CALLS, replays: int = GRAPH_REPLAYS) -> float:
+    """Device time of one fn() in ms: a CUDA graph of ``calls`` captured
+    calls, replayed ``replays`` times between two CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def bf16_ulps(kernel_out, plain_out) -> float:
@@ -121,7 +162,94 @@ def profile_steps(predictor, frames, out_dir, note) -> None:
              f"top kernel {rows[0][2][:60]} {rows[0][0] / 2e3:.3f} ms per step")
 
 
+# The C interfaces of the two-kernel designs that --baseline-csrc builds:
+# K1 with a float32 scratch for per-chunk statistics, K2 with a float32
+# scratch for the quarter grid.
+BASELINE_SIGNATURES = {
+    "instance_norm_act": "x, skip, out, part, N, S, C, V, tile_c, rows_per_chunk, chunks, "
+                         "eps, act, dtype, stream",
+    "repro_quarter_gather": "rows, center3d, center_hm, P, K, D, quarter, out, idx_out, "
+                            "B, C, J, hs, g4, step, dtype, stream",
+}
+
+
+class Baseline:
+    """The two-kernel K1 and K2, built from the sources in ``csrc``."""
+
+    def __init__(self, csrc: str):
+        from jarvis_hybridnet_torch.kernels import build
+
+        self.build = build
+        out_dir = os.path.join(csrc, "build")
+        os.makedirs(out_dir, exist_ok=True)
+        jobs = {}
+        for name in BASELINE_SIGNATURES:
+            lib = os.path.join(out_dir, f"lib{name}.so")
+            cmd = [build._nvcc(), *build._flags(name), "-o", lib, os.path.join(csrc, f"{name}.cu")]
+            jobs[name] = lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)
+        fns = {}
+        for name, (lib, proc) in jobs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                fail(f"nvcc failed for the baseline {name}.cu:\n{log}")
+            fns[name] = getattr(ctypes.CDLL(lib), name)
+            fns[name].restype = ctypes.c_int
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fns["instance_norm_act"].argtypes = [p] * 4 + [i] * 7 + [f, i, i, p]
+        fns["repro_quarter_gather"].argtypes = [p] * 9 + [i] * 5 + [f, i, p]
+        self.fns = fns
+
+    def instance_norm_act(self, x, act, skip):
+        import torch
+
+        from jarvis_hybridnet_torch.kernels.instance_norm import ACTS, EPS
+
+        n, s, c = x.shape
+        size = x.element_size()
+        out = torch.empty_like(x)
+        vec = next((v for v in (8, 4, 2) if v * size <= 16 and c % v == 0 and all(
+            t.data_ptr() % (v * size) == 0 for t in (x, skip, out) if t is not None)), 1)
+        tile_c = min(c, 256 * vec)
+        chunks = -(-(4 * 132) // (n * -(-c // tile_c)))
+        chunks = max(1, min(chunks, s // 256))
+        rows = -(-s // chunks)
+        chunks = -(-s // rows)
+        part = torch.empty((n, chunks, c, 2), dtype=torch.float32, device=x.device)
+        b = self.build
+        b.check(self.fns["instance_norm_act"](
+            b.ptr(x), b.ptr(skip), b.ptr(out), b.ptr(part), n, s, c, vec, tile_c, rows, chunks,
+            EPS, ACTS[act], int(x.dtype == torch.bfloat16), b.stream()), "baseline K1")
+        return out
+
+    def repro_quarter_gather(self, rows, center3d, center_hm, P, K, D, g4, step):
+        import torch
+
+        B, C, hs2, J = rows.shape
+        quarter = torch.empty((B, g4 ** 3, J), dtype=torch.float32, device=rows.device)
+        out = torch.empty((B, 2 * g4, 2 * g4, 2 * g4, J), dtype=torch.float32, device=rows.device)
+        b = self.build
+        b.check(self.fns["repro_quarter_gather"](
+            *(b.ptr(t) for t in (rows, center3d, center_hm, P, K, D, quarter, out)), b.ptr(None),
+            B, C, J, math.isqrt(hs2), g4, step, int(rows.dtype == torch.bfloat16), b.stream()),
+            "baseline K2")
+        return out
+
+
+def against_baseline(current, baseline, check) -> tuple[float, float]:
+    """Device ms of the current and the baseline call, timed in the order
+    baseline, current, current, baseline (the mean of each pair); ``check``
+    compares their outputs first."""
+    check(current(), baseline())
+    b1, c1, c2, b2 = (graph_ms(f) for f in (baseline, current, current, baseline))
+    return (c1 + c2) / 2, (b1 + b2) / 2
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline-csrc", metavar="DIR",
+                    help="time the two-kernel K1 and K2 built from DIR beside the current ones")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -160,6 +288,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     note(f"build: {time.perf_counter() - t0:.1f} s for {len(build.SOURCES)} kernels")
+    baseline = Baseline(os.path.abspath(args.baseline_csrc)) if args.baseline_csrc else None
+    base_log = open(os.path.join(out_dir, "chip_smoke_baseline.txt"), "w") if baseline else None
 
     # 3-5. checkpoints, rig, predictor at the production configuration
     cfg = monkeyhand_cfg()
@@ -261,13 +391,20 @@ def main() -> int:
         cams = [a.expand(T, *a.shape).contiguous() for a in (predictor.P, predictor.K, predictor.D)]
         g4, step = hybrid.grid_size // 4, float(hybrid.grid_spacing) * 4.0
         k2_args = (rows, c3d, center_hm.contiguous(), *cams, g4, step)
-        k_vol, k_idx = kernels.repro_quarter_gather(*k2_args, return_indices=True)
-        p_vol, p_idx = kernels.repro_quarter_gather_plain(*k2_args)
-        if not torch.equal(k_idx, p_idx):
-            fail(f"repro_quarter_gather indices differ at {int((k_idx != p_idx).sum())} places")
-        rel = float((k_vol - p_vol).abs().max() / p_vol.abs().max().clamp_min(1e-30))
-        if rel > 1e-5:
-            fail(f"repro_quarter_gather volume differs by {rel} relative (tolerance 1e-5)")
+        # the production grid (g4 = 18, whole tiles) and the test grid (g4 = 9, a
+        # partial tile at the top edge) on the same heatmap rows
+        for g4_check in (9, g4):
+            a = (rows, c3d, center_hm.contiguous(), *cams, g4_check, step * g4 / g4_check)
+            k_vol, k_idx = kernels.repro_quarter_gather(*a, return_indices=True)
+            p_vol, p_idx = kernels.repro_quarter_gather_plain(*a)
+            if not torch.equal(k_idx, p_idx):
+                fail(f"repro_quarter_gather g4={g4_check}: indices differ at "
+                     f"{int((k_idx != p_idx).sum())} places")
+            rel = float((k_vol - p_vol).abs().max() / p_vol.abs().max().clamp_min(1e-30))
+            note(f"repro_quarter_gather g4={g4_check}: indices equal, volume {rel:.2e} "
+                 f"relative to the plain version (tol 1e-5)")
+            if rel > 1e-5:
+                fail(f"repro_quarter_gather volume differs by {rel} relative (tolerance 1e-5)")
         # distinct heatmap rows read: a pixel index names a different row in
         # every frameset, so count (frameset, index) pairs per camera
         J, hs2 = rows.shape[-1], rows.shape[2]
@@ -275,15 +412,25 @@ def main() -> int:
         touched = sum(int(torch.unique(p_idx[:, c].long() + frameset).numel())
                       for c in range(CAMS))
         k2_bytes = touched * J * rows.element_size() + k_vol.numel() * 4
+        k2_ms = graph_ms(lambda: kernels.repro_quarter_gather(*k2_args))
         report.append(dict(
-            name="repro_quarter_gather", route="cuda", kernels_per_call=2,
+            name="repro_quarter_gather", route="cuda", kernels_per_call=1,
             source="jarvis_hybridnet_torch/kernels/csrc/repro_quarter_gather.cu",
             replaces="jarvis_hybridnet_tpu/models/repro.py:280",
             launches=launches["repro_quarter_gather"],
-            max_abs_err=float((k_vol - p_vol).abs().max()),
-            ms=cuda_ms(lambda: kernels.repro_quarter_gather(*k2_args)),
+            max_abs_err=float((k_vol - p_vol).abs().max()), ms=k2_ms,
+            wall_ms=cuda_ms(lambda: kernels.repro_quarter_gather(*k2_args)),
             plain_ms=cuda_ms(lambda: kernels.repro_quarter_gather_plain(*k2_args), iters=5),
             bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None))
+        if baseline is not None:
+            def same(new, old):
+                if not torch.equal(new, old):
+                    fail("repro_quarter_gather: the baseline design's volume differs")
+            cur, base = against_baseline(lambda: kernels.repro_quarter_gather(*k2_args),
+                                         lambda: baseline.repro_quarter_gather(*k2_args), same)
+            base_log.write(f"K2 repro_quarter_gather {tuple(rows.shape)} g4={g4}: current "
+                           f"{cur:.4f} ms, baseline {base:.4f} ms, bound "
+                           f"{k2_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; volumes equal\n")
 
         vout = hybrid.v2v_output(rows, center_hm, c3d, *cams).contiguous()
         k3_args = (vout, c3d, float(hybrid.grid_spacing), float(hybrid.roi_cube_size))
@@ -321,12 +468,15 @@ def main() -> int:
     if sum(seen.values()) != launches["instance_norm_act"]:
         fail(f"recorded {sum(seen.values())} InstanceNorm calls, counted "
              f"{launches['instance_norm_act']}")
+    from jarvis_hybridnet_torch.kernels.instance_norm import launch_plan, max_active_clusters
+
     acts = {"none": lambda y, s: y, "silu": lambda y, s: F.silu(y),
             "relu": lambda y, s: F.relu(y), "add_relu": lambda y, s: F.relu(y + s)}
-    k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
+    k1 = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
     worst_ulps = 0.0
-    log.write("K1 instance_norm_act per shape: shape dtype act count ms plain_ms "
-              "library_ms bound_ms ulps\n")
+    log.write("K1 instance_norm_act per shape: shape dtype act count ms wall_ms plain_ms "
+              "library_ms bound_ms ulps | cluster threads span resident ring_rows smem "
+              "max_active_clusters\n")
     for (shape, dtype, act), count in sorted(seen.items(), key=lambda kv: -math.prod(kv[0][0])):
         g = torch.Generator(device=dev).manual_seed(3)
         x = torch.randn(shape, device=dev, dtype=torch.float32, generator=g).mul(2).add(0.5)
@@ -336,7 +486,7 @@ def main() -> int:
         po = kernels.instance_norm_act_plain(x, act, skip)
         ulps = bf16_ulps(ko, po)
         worst_ulps = max(worst_ulps, ulps)
-        # the kernel merges per-chunk statistics (Chan) where the plain version
+        # the kernel merges per-span statistics (Chan) where the plain version
         # sums once, so the normalized value may round to the neighbouring bf16
         # value; SiLU's three further bf16 roundings can grow that to 3 ulps
         if ulps > 3.0:
@@ -344,24 +494,41 @@ def main() -> int:
         xn = x.permute(0, 2, 1)  # (N, C, S) for the library call
         sn = None if skip is None else skip.permute(0, 2, 1)
         times = dict(
-            ms=cuda_ms(lambda: kernels.instance_norm_act(x, act, skip)),
+            ms=graph_ms(lambda: kernels.instance_norm_act(x, act, skip)),
+            wall_ms=cuda_ms(lambda: kernels.instance_norm_act(x, act, skip)),
             plain_ms=cuda_ms(lambda: kernels.instance_norm_act_plain(x, act, skip)),
             # F.instance_norm refuses a single spatial element
-            library_ms=(cuda_ms(lambda: acts[act](F.instance_norm(xn), sn))
+            library_ms=(graph_ms(lambda: acts[act](F.instance_norm(xn), sn))
                         if shape[1] > 1 else 0.0))
         nbytes = x.numel() * x.element_size() * (3 if skip is not None else 2)
         times["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         for k, v in times.items():
             k1[k] += v * count
         k1["max_abs_err"] = max(k1["max_abs_err"], float((ko.float() - po.float()).abs().max()))
-        log.write(f"  {shape} {dtype} {act} x{count} {times['ms']:.4f} {times['plain_ms']:.4f} "
-                  f"{times['library_ms']:.4f} {times['bound_ms']:.4f} {ulps:.1f}\n")
+        plan = launch_plan(*shape, x.element_size())
+        log.write(f"  {shape} {dtype} {act} x{count} {times['ms']:.4f} {times['wall_ms']:.4f} "
+                  f"{times['plain_ms']:.4f} {times['library_ms']:.4f} {times['bound_ms']:.4f} "
+                  f"{ulps:.1f} | {plan.cluster} {plan.threads} {plan.span} {plan.resident} "
+                  f"{plan.ring_rows} {plan.smem} {max_active_clusters(plan, dtype)}\n")
+        if baseline is not None:
+            def near(new, old, shape=shape, act=act):
+                u = bf16_ulps(new, old)
+                if u > 3.0:
+                    fail(f"instance_norm_act {shape} {act}: the baseline design differs by "
+                         f"{u} bf16 ulps")
+            cur, base = against_baseline(
+                lambda: kernels.instance_norm_act(x, act, skip),
+                lambda: baseline.instance_norm_act(x, act, skip), near)
+            base_log.write(f"K1 instance_norm_act {shape} {act} x{count}: current {cur:.4f} ms, "
+                           f"baseline {base:.4f} ms, bound {times['bound_ms']:.4f} ms\n")
     note(f"instance_norm_act: {len(seen)} shapes, worst {worst_ulps:.1f} bf16 ulps vs plain")
     report.insert(0, dict(
-        name="instance_norm_act", route="cuda", kernels_per_call=2,
+        name="instance_norm_act", route="cuda", kernels_per_call=1,
         source="jarvis_hybridnet_torch/kernels/csrc/instance_norm_act.cu",
         replaces="tools/fused_norm_bench.py:58", launches=launches["instance_norm_act"],
         bound_by="bytes", **k1))
+    if base_log is not None:
+        base_log.close()
 
     # the whole cascade on the card against the same cascade on the CPU (the
     # plain versions, which the CPU tests hold to the JAX package), float32,
@@ -386,14 +553,27 @@ def main() -> int:
             or not torch.equal(got["valid"], ref["valid"])):
         fail("the cascade on the card disagrees with the CPU cascade")
 
-    # f32 spot check of K1 at the largest V2V shape (the f32 path's tolerance)
-    x = torch.randn((8, 36 ** 3, 46), device=dev)
-    s = torch.randn_like(x)
-    err = float((kernels.instance_norm_act(x, "add_relu", s)
-                 - kernels.instance_norm_act_plain(x, "add_relu", s)).abs().max())
-    note(f"instance_norm_act f32 (8, 36^3, 46) add_relu: max abs err {err:.2e} (tol 1e-5)")
-    if err > 1e-5:
-        fail("instance_norm_act f32 check")
+    # f32 spot check of K1 at the largest V2V shape (the f32 path's tolerance),
+    # and shapes off the main path: a sample that does not start on 16 bytes
+    # (no bulk copies), a ragged tail, a single row, a cluster of one
+    for shape, dtype, act in (((8, 36 ** 3, 46), torch.float32, "add_relu"),
+                              ((3, 1001, 46), torch.bfloat16, "silu"),
+                              ((5, 4099, 24), torch.float32, "relu"),
+                              ((4, 1, 16), torch.float32, "none"),
+                              ((2, 300, 12), torch.bfloat16, "add_relu")):
+        x = torch.randn(shape, device=dev).to(dtype)
+        s = torch.randn_like(x) if act == "add_relu" else None
+        ko, po = kernels.instance_norm_act(x, act, s), kernels.instance_norm_act_plain(x, act, s)
+        if dtype == torch.float32:
+            err = float((ko - po).abs().max())
+            note(f"instance_norm_act f32 {shape} {act}: max abs err {err:.2e} (tol 1e-5)")
+            if err > 1e-5:
+                fail(f"instance_norm_act f32 check {shape}")
+        else:
+            ulps = bf16_ulps(ko, po)
+            note(f"instance_norm_act bf16 {shape} {act}: {ulps:.1f} bf16 ulps (tol 3)")
+            if ulps > 3.0:
+                fail(f"instance_norm_act bf16 check {shape}")
 
     for r in report:
         log.write(json.dumps(r) + "\n")

@@ -3,9 +3,16 @@
 Every wrapper runs its plain PyTorch version on CPU tensors and launches its
 CUDA kernel on CUDA tensors (raising if it cannot); there is no fallback.
 Each wrapper counts the calls that launch its CUDA source in
-``<wrapper>.launches``. One call launches two ``__global__`` kernels for
-instance_norm_act (statistics, apply), repro_quarter_gather (quarter grid,
-upsample) and soft_argmax (partials, finish), and one for resize_normalize.
+``<wrapper>.launches``. One call launches one ``__global__`` kernel for
+instance_norm_act, repro_quarter_gather and resize_normalize, and two for
+soft_argmax (partials, finish).
+
+instance_norm_act launches with ``cudaLaunchKernelEx`` and a thread block
+cluster per sample: its CTAs bring their rows into shared memory with bulk
+TMA copies and merge their statistics through distributed shared memory,
+so it needs ``sm_90a`` and the cluster launch API. repro_quarter_gather
+computes a tile of the quarter grid with a one-voxel halo in shared memory
+(index, gather, upsample) and writes the half grid from it.
 """
 
 from .instance_norm import instance_norm_act, instance_norm_act_plain

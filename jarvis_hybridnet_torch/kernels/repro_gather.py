@@ -3,7 +3,9 @@
 Replaces ``models/repro.py`` ``reproject_indices(upsample=False)`` at
 (grid_size // 2, 2 * spacing), ``gather_voxel_volume`` and the three
 ``_upsample2_aligned_axis`` passes of ``reprojection_layer``'s
-quarter_fused mode. CUDA source: ``csrc/repro_quarter_gather.cu``.
+quarter_fused mode. CUDA source: ``csrc/repro_quarter_gather.cu``: one
+launch per call, a block per tile of ``TILE``^3 quarter voxels (plus a
+one-voxel halo on the high side) of one frameset.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 6  # quarter voxels per tile edge: 27 tiles of the 18^3 production grid
 
 
 def quarter_indices_plain(center3d, center_hm, P, K, D, g4: int, step: float,
@@ -118,14 +121,13 @@ def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
     dev = rows.device
-    quarter = torch.empty((B, g4 ** 3, J), dtype=torch.float32, device=dev)
     out = torch.empty((B, 2 * g4, 2 * g4, 2 * g4, J), dtype=torch.float32,
                       device=dev)
     idx = (torch.empty((B, C, g4 ** 3), dtype=torch.int32, device=dev)
            if return_indices else None)
     p = build.ptr
     err = _fn()(p(rows), p(center3d), p(center_hm), p(P), p(K), p(D),
-                p(quarter), p(out), p(idx), B, C, J, hs, g4, step,
+                p(out), p(idx), B, C, J, hs, g4, TILE, step,
                 _DTYPES[rows.dtype], build.stream())
     build.check(err, "repro_quarter_gather")
     repro_quarter_gather.launches += 1
@@ -139,4 +141,4 @@ repro_quarter_gather.launches = 0
 def _fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.bind("repro_quarter_gather", "repro_quarter_gather",
-                      [p] * 9 + [i, i, i, i, i, ctypes.c_float, i, p])
+                      [p] * 8 + [i] * 6 + [ctypes.c_float, i, p])
