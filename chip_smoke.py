@@ -5,24 +5,27 @@
 
     python3 chip_smoke.py --baseline-csrc DIR
 
-Builds the four CUDA kernels from ``jarvis_hybridnet_torch/kernels/csrc``,
+Builds the five CUDA kernels from ``jarvis_hybridnet_torch/kernels/csrc``,
 loads the committed MonkeyHand checkpoints through the port's own reader,
 and drives ``make_predictor3d`` at the production configuration (bf16,
 quarter_fused, 12 cameras of 1280x1024 on the synthetic rig, 23 joints,
 256^2 crops and CenterDetect input, 144 mm cube at 2 mm, T = 8 framesets of
-seeded uint8 frames). It then checks every kernel against its plain PyTorch
-version on the card at the main path's shapes and times kernel, plain
-version and library call. A kernel's ``ms`` is device time: a CUDA graph of
-``GRAPH_CALLS`` captured calls is replayed, so host launch gaps do not count;
-``wall_ms`` is the event time of calls launched one by one from Python.
-Prints the card, the predict3D rate, one ``{"kernels": [...]}`` line and,
-last, the ``{"ok": true, ...}`` line. Exits non-zero on any failure, or when
+seeded uint8 frames), then the same cascade in the exact, half_fused and
+half repro modes on the same frames, each with the launch counts set to 0
+before one step and read after it. It then checks every kernel against its
+plain PyTorch version on the card at the main path's shapes and times
+kernel, plain version and library call. A kernel's ``ms`` is device time: a
+CUDA graph of ``GRAPH_CALLS`` captured calls is replayed, so host launch
+gaps do not count; ``wall_ms`` is the event time of calls launched one by
+one from Python. Prints the card, the predict3D rates, one
+``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+Exits non-zero on any failure, or when
 no CUDA device is present. Per-shape details go to
 ``chiprun_out/chip_smoke.txt``.
 
 With ``--baseline-csrc DIR``, DIR holds an earlier version of the kernel
-sources with the two-kernel K1 and K2 designs (the C interfaces of
-``BASELINE_SIGNATURES``); it builds them too and times them beside the
+sources with the C interfaces of ``BASELINE_SIGNATURES`` (K1, K2 and the
+two-kernel K3); it builds them too and times them beside the
 current kernels at the same shapes, in the order baseline, current,
 current, baseline, into ``chiprun_out/chip_smoke_baseline.txt``.
 """
@@ -97,6 +100,15 @@ def bf16_ulps(kernel_out, plain_out) -> float:
     return float(((kernel_out.float() - plain_out.float()).abs() / ulp).max())
 
 
+def f32_ulps(kernel_out, plain_out) -> float:
+    """Largest |kernel - plain| in float32 ulps of |plain|."""
+    import torch
+
+    mag = plain_out.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 23)
+    return float(((kernel_out - plain_out).abs() / ulp).max())
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -125,7 +137,8 @@ def stage_breakdown(predictor, frames, note) -> None:
                 lambda: predictor.place(preds, maxvals, H, W),
             "crops + normalize": lambda: predictor.crops(frames, center_hm),
             "KeypointDetect + pad (heatmap_rows)": lambda: hybrid.heatmap_rows(crops),
-            "K2 + V2V (v2v_output)": lambda: hybrid.v2v_output(rows, center_hm, c3d, *cams),
+            f"repro + V2V (v2v_output, {hybrid.repro_mode})":
+                lambda: hybrid.v2v_output(rows, center_hm, c3d, *cams),
             "K3 soft_argmax": lambda: kernels.soft_argmax(
                 out, c3d, float(hybrid.grid_spacing), float(hybrid.roi_cube_size)),
         }
@@ -162,19 +175,21 @@ def profile_steps(predictor, frames, out_dir, note) -> None:
              f"top kernel {rows[0][2][:60]} {rows[0][0] / 2e3:.3f} ms per step")
 
 
-# The C interfaces of the two-kernel designs that --baseline-csrc builds:
-# K1 with a float32 scratch for per-chunk statistics, K2 with a float32
-# scratch for the quarter grid.
+# The C interfaces of the earlier designs that --baseline-csrc builds: K1
+# and K2 as the current ones take them (launch plan, tile), K3 with its
+# two kernels and a float32 scratch of per-chunk partials.
 BASELINE_SIGNATURES = {
-    "instance_norm_act": "x, skip, out, part, N, S, C, V, tile_c, rows_per_chunk, chunks, "
-                         "eps, act, dtype, stream",
-    "repro_quarter_gather": "rows, center3d, center_hm, P, K, D, quarter, out, idx_out, "
-                            "B, C, J, hs, g4, step, dtype, stream",
+    "instance_norm_act": "x, skip, out, N, S, C, V, cluster, threads, span, resident, "
+                         "ring_rows, q, data_off, ring_off, smem, eps, act, dtype, stream",
+    "repro_quarter_gather": "rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, hs, "
+                            "g4, tile, step, dtype, stream",
+    "soft_argmax": "vol, center3d, part, points, conf, B, g, J, vox_per_chunk, chunks, "
+                   "spacing, cube, dtype, stream",
 }
 
 
 class Baseline:
-    """The two-kernel K1 and K2, built from the sources in ``csrc``."""
+    """K1, K2 and the two-kernel K3, built from the sources in ``csrc``."""
 
     def __init__(self, csrc: str):
         from jarvis_hybridnet_torch.kernels import build
@@ -196,44 +211,57 @@ class Baseline:
             fns[name] = getattr(ctypes.CDLL(lib), name)
             fns[name].restype = ctypes.c_int
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fns["instance_norm_act"].argtypes = [p] * 4 + [i] * 7 + [f, i, i, p]
-        fns["repro_quarter_gather"].argtypes = [p] * 9 + [i] * 5 + [f, i, p]
+        fns["instance_norm_act"].argtypes = [p] * 3 + [i] * 13 + [f, i, i, p]
+        fns["repro_quarter_gather"].argtypes = [p] * 8 + [i] * 6 + [f, i, p]
+        fns["soft_argmax"].argtypes = [p] * 5 + [i] * 5 + [f, f, i, p]
         self.fns = fns
 
     def instance_norm_act(self, x, act, skip):
         import torch
 
-        from jarvis_hybridnet_torch.kernels.instance_norm import ACTS, EPS
+        from jarvis_hybridnet_torch.kernels.instance_norm import ACTS, EPS, launch_plan
 
         n, s, c = x.shape
-        size = x.element_size()
+        plan = launch_plan(n, s, c, x.element_size())
         out = torch.empty_like(x)
-        vec = next((v for v in (8, 4, 2) if v * size <= 16 and c % v == 0 and all(
-            t.data_ptr() % (v * size) == 0 for t in (x, skip, out) if t is not None)), 1)
-        tile_c = min(c, 256 * vec)
-        chunks = -(-(4 * 132) // (n * -(-c // tile_c)))
-        chunks = max(1, min(chunks, s // 256))
-        rows = -(-s // chunks)
-        chunks = -(-s // rows)
-        part = torch.empty((n, chunks, c, 2), dtype=torch.float32, device=x.device)
         b = self.build
         b.check(self.fns["instance_norm_act"](
-            b.ptr(x), b.ptr(skip), b.ptr(out), b.ptr(part), n, s, c, vec, tile_c, rows, chunks,
-            EPS, ACTS[act], int(x.dtype == torch.bfloat16), b.stream()), "baseline K1")
+            b.ptr(x), b.ptr(skip), b.ptr(out), n, s, c, plan.vec, plan.cluster, plan.threads,
+            plan.span, plan.resident, plan.ring_rows, plan.q, plan.data_off, plan.ring_off,
+            plan.smem, EPS, ACTS[act], int(x.dtype == torch.bfloat16), b.stream()), "baseline K1")
         return out
 
     def repro_quarter_gather(self, rows, center3d, center_hm, P, K, D, g4, step):
         import torch
 
+        from jarvis_hybridnet_torch.kernels.repro_gather import TILE
+
         B, C, hs2, J = rows.shape
-        quarter = torch.empty((B, g4 ** 3, J), dtype=torch.float32, device=rows.device)
         out = torch.empty((B, 2 * g4, 2 * g4, 2 * g4, J), dtype=torch.float32, device=rows.device)
         b = self.build
         b.check(self.fns["repro_quarter_gather"](
-            *(b.ptr(t) for t in (rows, center3d, center_hm, P, K, D, quarter, out)), b.ptr(None),
-            B, C, J, math.isqrt(hs2), g4, step, int(rows.dtype == torch.bfloat16), b.stream()),
-            "baseline K2")
+            *(b.ptr(t) for t in (rows, center3d, center_hm, P, K, D, out)), b.ptr(None),
+            B, C, J, math.isqrt(hs2), g4, TILE, step, int(rows.dtype == torch.bfloat16),
+            b.stream()), "baseline K2")
         return out
+
+    def soft_argmax(self, vol, center3d, spacing, cube):
+        import torch
+
+        B, g, J = vol.shape[0], vol.shape[1], vol.shape[-1]
+        nvox = g ** 3
+        chunks = max(1, min(-(-(2 * 132) // B), nvox // 512))
+        per_chunk = -(-nvox // chunks)
+        chunks = -(-nvox // per_chunk)
+        dev = vol.device
+        part = torch.empty((B, chunks, 5, J), dtype=torch.float32, device=dev)
+        points = torch.empty((B, J, 3), dtype=torch.float32, device=dev)
+        conf = torch.empty((B, J), dtype=torch.float32, device=dev)
+        b = self.build
+        b.check(self.fns["soft_argmax"](
+            *(b.ptr(t) for t in (vol, center3d, part, points, conf)), B, g, J, per_chunk, chunks,
+            spacing, cube, int(vol.dtype == torch.bfloat16), b.stream()), "baseline K3")
+        return points, conf
 
 
 def against_baseline(current, baseline, check) -> tuple[float, float]:
@@ -245,10 +273,112 @@ def against_baseline(current, baseline, check) -> tuple[float, float]:
     return (c1 + c2) / 2, (b1 + b2) / 2
 
 
+# the kernels of the quarter_fused main path, and of the paths of the other
+# repro modes (K5 in place of K2)
+MAIN_PATH_KERNELS = ("instance_norm_act", "repro_quarter_gather", "soft_argmax",
+                     "resize_normalize")
+OTHER_MODES = ("exact", "half_fused", "half")
+MODE_PATH_KERNELS = ("instance_norm_act", "repro_grid_gather", "soft_argmax", "resize_normalize")
+
+
+def rows_touched(idx, hs2: int) -> int:
+    """Distinct heatmap rows a gather reads: a pixel index names a different
+    row in every frameset, so (frameset, index) pairs, counted per camera."""
+    import torch
+
+    frameset = torch.arange(idx.shape[0], device=idx.device, dtype=torch.int64)[:, None] * hs2
+    return sum(int(torch.unique(idx[:, c].long() + frameset).numel())
+               for c in range(idx.shape[1]))
+
+
+def check_k5(kernels, rows, c3d, center_hm, cams, grid_size, spacing, mode_launches, note):
+    """K5 in each mode against its plain version: indices equal and volumes
+    within 1e-5 relative at the production grid and at G = 44 (a partial
+    tile at the top edge in every mode), then timed at the production grid."""
+    import torch
+
+    from jarvis_hybridnet_torch.kernels.repro_grid_gather import TILE
+
+    out = []
+    J, hs2 = rows.shape[-1], rows.shape[2]
+    for mode in OTHER_MODES:
+        for G, sp in ((44, 3.0), (grid_size, spacing)):
+            a = (rows, c3d, center_hm, *cams, G, sp, mode)
+            k_vol, k_idx = kernels.repro_grid_gather(*a, return_indices=True)
+            p_vol, p_idx = kernels.repro_grid_gather_plain(*a)
+            if not torch.equal(k_idx, p_idx):
+                fail(f"repro_grid_gather {mode} G={G}: indices differ at "
+                     f"{int((k_idx != p_idx).sum())} places")
+            rel = float((k_vol - p_vol).abs().max() / p_vol.abs().max().clamp_min(1e-30))
+            note(f"repro_grid_gather {mode} G={G} tile {TILE[mode]}: indices equal, volume "
+                 f"{rel:.2e} relative to the plain version (tol 1e-5)")
+            if rel > 1e-5:
+                fail(f"repro_grid_gather {mode} volume differs by {rel} relative (tol 1e-5)")
+        nbytes = rows_touched(p_idx, hs2) * J * rows.element_size() + k_vol.numel() * 4
+        a = (rows, c3d, center_hm, *cams, grid_size, spacing, mode)
+        out.append(dict(
+            name=f"repro_grid_gather[{mode}]", route="cuda", kernels_per_call=1, mode=mode,
+            source="jarvis_hybridnet_torch/kernels/csrc/repro_grid_gather.cu",
+            replaces=("jarvis_hybridnet_tpu/models/repro.py:266" if mode == "exact"
+                      else "jarvis_hybridnet_tpu/models/repro.py:302"),
+            launches=mode_launches[mode]["repro_grid_gather"],
+            max_abs_err=float((k_vol - p_vol).abs().max()),
+            ms=graph_ms(lambda: kernels.repro_grid_gather(*a)),
+            wall_ms=cuda_ms(lambda: kernels.repro_grid_gather(*a)),
+            plain_ms=cuda_ms(lambda: kernels.repro_grid_gather_plain(*a), iters=3, warmup=1),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None))
+        del k_vol, p_vol, k_idx, p_idx
+    return out
+
+
+def check_k3(kernels, vout, c3d, spacing, cube, launches, baseline, base_log, note):
+    """K3 against its plain version (points and confidences with the fast
+    softplus of the predict path and with the accurate one of the volume
+    output, and the double-softplus volume), timed with and without the
+    volume output, and beside the baseline's two-kernel design."""
+    from jarvis_hybridnet_torch.kernels.soft_argmax import launch_plan, max_active_clusters
+
+    args = (vout, c3d, spacing, cube)
+    pp, pc, pv = kernels.soft_argmax_plain(*args, return_volume=True)
+    kp, kc = kernels.soft_argmax(*args)
+    vp, vc, kv = kernels.soft_argmax(*args, return_volume=True)
+    perr = max(float((kp - pp).abs().max()), float((vp - pp).abs().max()))
+    cerr = max(float((kc - pc).abs().max()), float((vc - pc).abs().max()))
+    ulps = f32_ulps(kv, pv)
+    plan = launch_plan(vout.shape[0], vout.shape[1], vout.shape[-1], vout.element_size())
+    note(f"soft_argmax {tuple(vout.shape)} {vout.dtype}: points {perr:.2e} mm (tol 1e-3), "
+         f"conf {cerr:.2e} (tol 1e-6), volume {ulps:.1f} float32 ulps (tol 4); plan {plan}, "
+         f"{max_active_clusters(plan, vout.dtype)} clusters at once")
+    if perr > 1e-3 or cerr > 1e-6 or ulps > 4.0:
+        fail(f"soft_argmax differs: points {perr} mm, conf {cerr}, volume {ulps} ulps")
+    in_bytes = vout.numel() * vout.element_size()
+    entry = dict(
+        name="soft_argmax", route="cuda", kernels_per_call=1,
+        source="jarvis_hybridnet_torch/kernels/csrc/soft_argmax.cu",
+        replaces="jarvis_hybridnet_tpu/models/hybridnet.py:95",
+        launches=launches, max_abs_err=max(perr, cerr),
+        ms=graph_ms(lambda: kernels.soft_argmax(*args)),
+        wall_ms=cuda_ms(lambda: kernels.soft_argmax(*args)),
+        plain_ms=cuda_ms(lambda: kernels.soft_argmax_plain(*args)),
+        bound_ms=in_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+        volume_ms=graph_ms(lambda: kernels.soft_argmax(*args, return_volume=True)),
+        volume_bound_ms=(in_bytes + kv.numel() * 4) / HBM_BYTES_PER_S * 1e3,
+        volume_ulps=ulps)
+    if baseline is not None:
+        def near(new, old):
+            if (new[0] - old[0]).abs().max() > 1e-3 or (new[1] - old[1]).abs().max() > 1e-6:
+                fail("soft_argmax: the baseline design differs")
+        cur, base = against_baseline(lambda: kernels.soft_argmax(*args),
+                                     lambda: baseline.soft_argmax(*args), near)
+        base_log.write(f"K3 soft_argmax {tuple(vout.shape)}: current {cur:.4f} ms, baseline "
+                       f"{base:.4f} ms, bound {entry['bound_ms']:.4f} ms\n")
+    return entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-csrc", metavar="DIR",
-                    help="time the two-kernel K1 and K2 built from DIR beside the current ones")
+                    help="time K1, K2 and the two-kernel K3 built from DIR beside the current ones")
     args = ap.parse_args()
     import torch
 
@@ -347,14 +477,56 @@ def main() -> int:
     if not finite:
         fail("non-finite outputs")
 
-    # 7. every kernel ran on the main path
-    for name, n in launches.items():
-        if n <= 0:
+    # 7. every kernel of the main path ran on it
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
 
     hybrid = predictor.hybrid_model
     stage_breakdown(predictor, frames[0], note)
     profile_steps(predictor, frames, out_dir, note)
+
+    # 7b. the same cascade in the other repro modes, on the same frames: each
+    # path's launches are counted over one step
+    mode_launches, mode_points = {}, {"quarter_fused": points}
+    for mode in OTHER_MODES:
+        mcfg = cfg.clone()
+        mcfg.TPU.REPRO_MODE = mode
+        pred = make_predictor3d(mcfg, rig, ckpt["CenterDetect"], ckpt["HybridNet"],
+                                dtype="bfloat16", device="cuda")
+        pred(frames[0])
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        mode_points[mode], _, _ = pred(frames[0])
+        torch.cuda.synchronize()
+        mode_launches[mode] = kernels.launch_counts()
+        for name in MODE_PATH_KERNELS:
+            if mode_launches[mode][name] <= 0:
+                fail(f"kernel {name} was not launched on the {mode} path")
+        if not torch.isfinite(mode_points[mode]).all():
+            fail(f"non-finite points on the {mode} path")
+        mrates = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(ITERS):
+                pred(frames[i % 2])
+            torch.cuda.synchronize()
+            mrates.append(T * ITERS / (time.perf_counter() - t0))
+        mrate = sorted(mrates)[len(mrates) // 2]
+        note(f"predict3D {mode}: {mrate:.2f} poses/s, median of {REPEATS} runs of {ITERS} steps: "
+             f"{', '.join(f'{r:.2f}' for r in mrates)}; {T / mrate * 1e3:.2f} ms per step; "
+             f"launches in one step: {json.dumps(mode_launches[mode])}")
+        stage_breakdown(pred, frames[0], note)
+        del pred
+    for mode in ("quarter_fused", "half_fused", "half"):
+        dist = (mode_points[mode] - mode_points["exact"]).norm(dim=-1)
+        gated = dist[valid]
+        note(f"points {mode} vs exact, bf16, frames of seed 1 (noise; information, not a "
+             f"bound): max {float(dist.max()):.4f} mm, RMS "
+             f"{float(dist.square().mean().sqrt()):.4f} mm over {T} framesets; over the "
+             f"{int(valid.sum())} through the gate: max "
+             f"{float(gated.max()) if gated.numel() else float('nan'):.4f} mm")
 
     # 8-9. each kernel against its plain version at the main path's shapes.
     # ``launches`` counts wrapper calls; ``kernels_per_call`` is how many
@@ -378,7 +550,8 @@ def main() -> int:
         source="jarvis_hybridnet_torch/kernels/csrc/resize_normalize.cu",
         replaces="jarvis_hybridnet_tpu/ops/image.py:101", launches=launches["resize_normalize"],
         max_abs_err=float((k_out.float() - p_out.float()).abs().max()),
-        ms=cuda_ms(lambda: kernels.resize_normalize(*args)),
+        ms=graph_ms(lambda: kernels.resize_normalize(*args)),
+        wall_ms=cuda_ms(lambda: kernels.resize_normalize(*args)),
         plain_ms=cuda_ms(lambda: kernels.resize_normalize_plain(*args), iters=5),
         bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None))
 
@@ -405,13 +578,8 @@ def main() -> int:
                  f"relative to the plain version (tol 1e-5)")
             if rel > 1e-5:
                 fail(f"repro_quarter_gather volume differs by {rel} relative (tolerance 1e-5)")
-        # distinct heatmap rows read: a pixel index names a different row in
-        # every frameset, so count (frameset, index) pairs per camera
         J, hs2 = rows.shape[-1], rows.shape[2]
-        frameset = torch.arange(T, device=dev, dtype=torch.int64)[:, None] * hs2
-        touched = sum(int(torch.unique(p_idx[:, c].long() + frameset).numel())
-                      for c in range(CAMS))
-        k2_bytes = touched * J * rows.element_size() + k_vol.numel() * 4
+        k2_bytes = rows_touched(p_idx, hs2) * J * rows.element_size() + k_vol.numel() * 4
         k2_ms = graph_ms(lambda: kernels.repro_quarter_gather(*k2_args))
         report.append(dict(
             name="repro_quarter_gather", route="cuda", kernels_per_call=1,
@@ -432,22 +600,14 @@ def main() -> int:
                            f"{cur:.4f} ms, baseline {base:.4f} ms, bound "
                            f"{k2_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; volumes equal\n")
 
+        report.extend(check_k5(kernels, rows, c3d, center_hm.contiguous(), cams,
+                               hybrid.grid_size, float(hybrid.grid_spacing), mode_launches,
+                               note))
+
         vout = hybrid.v2v_output(rows, center_hm, c3d, *cams).contiguous()
-        k3_args = (vout, c3d, float(hybrid.grid_spacing), float(hybrid.roi_cube_size))
-        kp, kc = kernels.soft_argmax(*k3_args)
-        pp, pc = kernels.soft_argmax_plain(*k3_args)
-        perr, cerr = float((kp - pp).abs().max()), float((kc - pc).abs().max())
-        if perr > 1e-3 or cerr > 1e-6:
-            fail(f"soft_argmax differs: points {perr} mm (tol 1e-3), conf {cerr} (tol 1e-6)")
-        report.append(dict(
-            name="soft_argmax", route="cuda", kernels_per_call=2,
-            source="jarvis_hybridnet_torch/kernels/csrc/soft_argmax.cu",
-            replaces="jarvis_hybridnet_tpu/models/hybridnet.py:95",
-            launches=launches["soft_argmax"], max_abs_err=max(perr, cerr),
-            ms=cuda_ms(lambda: kernels.soft_argmax(*k3_args)),
-            plain_ms=cuda_ms(lambda: kernels.soft_argmax_plain(*k3_args)),
-            bound_ms=vout.numel() * vout.element_size() / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", library_ms=None))
+        report.append(check_k3(kernels, vout, c3d, float(hybrid.grid_spacing),
+                               float(hybrid.roi_cube_size), launches["soft_argmax"], baseline,
+                               base_log, note))
 
     # K1: record every (shape, act) the main path gives it, then check and
     # time each; the line reports the sum over one step's launches
@@ -532,26 +692,29 @@ def main() -> int:
 
     # the whole cascade on the card against the same cascade on the CPU (the
     # plain versions, which the CPU tests hold to the JAX package), float32,
-    # at the small size of tests/test_torch_predictor3d.py
-    small_cfg = monkeyhand_cfg(center_size=64, bbox=128, cube=144, spacing=4, num_cameras=4)
-    small_rig = synthetic_rig(4, 320, 256)
+    # at the small size of tests/test_torch_predictor3d.py, in the
+    # production mode and in exact mode
     small = torch.randint(0, 256, (2, 4, 256, 320, 3), dtype=torch.uint8,
                           generator=torch.Generator().manual_seed(4))
-    got, ref = ({}, {})
-    for device, res in (("cuda", got), ("cpu", ref)):
-        pred = make_predictor3d(small_cfg, small_rig, ckpt["CenterDetect"], ckpt["HybridNet"],
-                                dtype="float32", device=device)
-        frames_d = small.to(device)
-        res["centers"] = pred.centers(frames_d)[0].cpu()
-        res["points"], res["conf"], res["valid"] = (a.cpu() for a in pred(frames_d))
-    perr = float((got["points"] - ref["points"]).abs().max())
-    cerr = float((got["conf"] - ref["conf"]).abs().max())
-    note(f"cascade f32, card vs CPU (T=2, 4 cameras, 256x320): points {perr:.2e} mm "
-         f"(tol 2e-2), confidences {cerr:.2e} (tol 1e-4), crop centers and gate "
-         f"{'equal' if torch.equal(got['centers'], ref['centers']) else 'DIFFER'}")
-    if (perr > 2e-2 or cerr > 1e-4 or not torch.equal(got["centers"], ref["centers"])
-            or not torch.equal(got["valid"], ref["valid"])):
-        fail("the cascade on the card disagrees with the CPU cascade")
+    for mode in ("quarter_fused", "exact"):
+        small_cfg = monkeyhand_cfg(center_size=64, bbox=128, cube=144, spacing=4, num_cameras=4)
+        small_cfg.TPU.REPRO_MODE = mode
+        small_rig = synthetic_rig(4, 320, 256)
+        got, ref = ({}, {})
+        for device, res in (("cuda", got), ("cpu", ref)):
+            pred = make_predictor3d(small_cfg, small_rig, ckpt["CenterDetect"],
+                                    ckpt["HybridNet"], dtype="float32", device=device)
+            frames_d = small.to(device)
+            res["centers"] = pred.centers(frames_d)[0].cpu()
+            res["points"], res["conf"], res["valid"] = (a.cpu() for a in pred(frames_d))
+        perr = float((got["points"] - ref["points"]).abs().max())
+        cerr = float((got["conf"] - ref["conf"]).abs().max())
+        note(f"cascade f32 {mode}, card vs CPU (T=2, 4 cameras, 256x320): points "
+             f"{perr:.2e} mm (tol 2e-2), confidences {cerr:.2e} (tol 1e-4), crop centers and "
+             f"gate {'equal' if torch.equal(got['centers'], ref['centers']) else 'DIFFER'}")
+        if (perr > 2e-2 or cerr > 1e-4 or not torch.equal(got["centers"], ref["centers"])
+                or not torch.equal(got["valid"], ref["valid"])):
+            fail(f"the {mode} cascade on the card disagrees with the CPU cascade")
 
     # f32 spot check of K1 at the largest V2V shape (the f32 path's tolerance),
     # and shapes off the main path: a sample that does not start on 16 bytes

@@ -3,24 +3,29 @@
 Every wrapper runs its plain PyTorch version on CPU tensors and launches its
 CUDA kernel on CUDA tensors (raising if it cannot); there is no fallback.
 Each wrapper counts the calls that launch its CUDA source in
-``<wrapper>.launches``. One call launches one ``__global__`` kernel for
-instance_norm_act, repro_quarter_gather and resize_normalize, and two for
-soft_argmax (partials, finish).
+``<wrapper>.launches``. Every call launches one ``__global__`` kernel:
 
-instance_norm_act launches with ``cudaLaunchKernelEx`` and a thread block
-cluster per sample: its CTAs bring their rows into shared memory with bulk
-TMA copies and merge their statistics through distributed shared memory,
-so it needs ``sm_90a`` and the cluster launch API. repro_quarter_gather
-computes a tile of the quarter grid with a one-voxel halo in shared memory
-(index, gather, upsample) and writes the half grid from it.
+- instance_norm_act (K1) launches with ``cudaLaunchKernelEx`` and a thread
+  block cluster per sample: its CTAs bring their rows into shared memory
+  with bulk TMA copies and merge their statistics through distributed
+  shared memory, so it needs ``sm_90a`` and the cluster launch API;
+- repro_quarter_gather (K2, quarter_fused) computes a tile of the quarter
+  grid with a one-voxel halo in shared memory (index, gather, upsample) and
+  writes the half grid from it;
+- repro_grid_gather (K5, exact / half / half_fused) does the same on the
+  half grid, with the index upsample (exact) or the value upsample (half);
+- soft_argmax (K3) runs a thread block cluster per frameset whose CTAs merge
+  their sums through distributed shared memory;
+- resize_normalize (K4) resizes and normalizes the uint8 frames.
 """
 
 from .instance_norm import instance_norm_act, instance_norm_act_plain
 from .repro_gather import repro_quarter_gather, repro_quarter_gather_plain
+from .repro_grid_gather import repro_grid_gather, repro_grid_gather_plain
 from .resize_normalize import resize_normalize, resize_normalize_plain
 from .soft_argmax import soft_argmax, soft_argmax_plain
 
-WRAPPERS = (instance_norm_act, repro_quarter_gather, soft_argmax,
+WRAPPERS = (instance_norm_act, repro_quarter_gather, repro_grid_gather, soft_argmax,
             resize_normalize)
 
 
@@ -35,7 +40,8 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "WRAPPERS", "instance_norm_act", "instance_norm_act_plain",
-    "launch_counts", "repro_quarter_gather", "repro_quarter_gather_plain",
+    "launch_counts", "repro_grid_gather", "repro_grid_gather_plain",
+    "repro_quarter_gather", "repro_quarter_gather_plain",
     "reset_launch_counts", "resize_normalize", "resize_normalize_plain",
     "soft_argmax", "soft_argmax_plain",
 ]

@@ -21,15 +21,18 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("instance_norm_act", "repro_quarter_gather", "soft_argmax",
-           "resize_normalize")
+SOURCES = ("instance_norm_act", "repro_quarter_gather", "repro_grid_gather",
+           "soft_argmax", "resize_normalize")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 # The repro index arithmetic must round after every operation, as the JAX
-# reference does; the source uses __f*_rn intrinsics and this flag keeps
-# nvcc from contracting anything else into an FMA.
-_EXTRA_FLAGS = {"repro_quarter_gather": ["--fmad=false"]}
+# reference does; the sources use __f*_rn intrinsics and this flag keeps
+# nvcc from contracting anything else into an FMA. soft_argmax flushes
+# denormals, which drops the scaling around its exp2 / log2 operations.
+_EXTRA_FLAGS = {"repro_quarter_gather": ["--fmad=false"],
+                "repro_grid_gather": ["--fmad=false"],
+                "soft_argmax": ["-ftz=true"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -20,26 +20,19 @@
 //             distortion, clamp to the crop window and flat pixel index,
 //             computed once and kept in shared memory;
 //   gather  — a group of J threads per tile voxel, one per joint, two voxels
-//             at a time: all 2 C row loads are issued before the sums, which
-//             add in camera order 0..C-1 and divide by C (the same sums as a
-//             warp reading each camera's J-row);
+//             at a time (gather_means in repro_common.cuh): the sums add in
+//             camera order 0..C-1 and divide by C;
 //   upsample— a group of threads per half-grid (X, Y) row, one per (z, joint):
 //             the center-aligned 2x stencil along x, then y, then z in the
 //             reference's op order, from the shared tile, with 32-bit index
 //             arithmetic; each thread writes two z-neighbours, and
 //             consecutive threads write consecutive joints.
-// The index arithmetic rounds after every op with __f*_rn intrinsics in the
-// JAX op order (a division by 2 is the exact multiplication by 0.5), and the
-// file is built with --fmad=false: an FMA contraction moves a value across an
-// integer boundary often enough to change indices.
-#include "common.cuh"
+// The index arithmetic (repro_common.cuh, shared with K5) rounds after every
+// op in the JAX op order, and the file is built with --fmad=false.
+#include "repro_common.cuh"
 
 constexpr int kThreads = 512;
-constexpr int kCamFields = 20;  // P (12), fx, fy, cx, cy, k1, k2, center_hm x, y
-constexpr int kLoadBatch = 16;  // camera rows loaded before they are summed
 constexpr int kSmemMax = 232448;
-
-__device__ __forceinline__ float sq_rn(float a) { return __fmul_rn(a, a); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -62,19 +55,7 @@ __global__ void __launch_bounds__(kThreads)
   const int x0 = tx * tile, y0 = ty * tile, z0 = tz * tile;
   const int hs2 = hs * hs, nvox = g4 * g4 * g4;
 
-  for (int i = threadIdx.x; i < C * kCamFields; i += kThreads) {
-    const int c = i / kCamFields, f = i % kCamFields, bc = b * C + c;
-    float v;
-    if (f < 12) v = P[bc * 12 + f];  // (4, 3) row-major
-    else if (f == 12) v = K[bc * 9 + 0];
-    else if (f == 13) v = K[bc * 9 + 4];
-    else if (f == 14) v = K[bc * 9 + 6];
-    else if (f == 15) v = K[bc * 9 + 7];
-    else if (f == 16) v = D[bc * 5 + 0];
-    else if (f == 17) v = D[bc * 5 + 1];
-    else v = (float)center_hm[bc * 2 + (f - 18)];
-    cam[i] = v;
-  }
+  load_cameras(cam, P, K, D, center_hm, b, C);
   for (int v = threadIdx.x; v < ne; v += kThreads)
     vox[v] = v / (e * e) | ((v / e) % e) << 10 | (v % e) << 20;
   __syncthreads();
@@ -86,33 +67,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int w = threadIdx.x, c = w / ne, v = w - c * ne; w < C * ne; w += kThreads) {
     const int li = vox[v] & 1023, lj = vox[v] >> 10 & 1023, lk = vox[v] >> 20;
     const int i = min(x0 + li, g4 - 1), j = min(y0 + lj, g4 - 1), k = min(z0 + lk, g4 - 1);
-    // coords = (arange - half) * step + center3d   (repro.py:114-115)
-    const float X = __fadd_rn(__fmul_rn((float)(i - mid), step), cx3);
-    const float Y = __fadd_rn(__fmul_rn((float)(j - mid), step), cy3);
-    const float Z = __fadd_rn(__fmul_rn((float)(k - mid), step), cz3);
-    const float* p = cam + c * kCamFields;
-    float proj[3];
-#pragma unroll
-    for (int m = 0; m < 3; ++m)
-      proj[m] = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(p[m], X), __fmul_rn(p[3 + m], Y)), __fmul_rn(p[6 + m], Z)),
-          p[9 + m]);
-    const float fx = p[12], fy = p[13], cx = p[14], cy = p[15], k1 = p[16], k2 = p[17];
-
-    float u = __fsub_rn(__fdiv_rn(proj[0], proj[2]), cx);
-    float q = __fsub_rn(__fdiv_rn(proj[1], proj[2]), cy);
-    const float r2 = __fadd_rn(sq_rn(__fdiv_rn(u, fx)), sq_rn(__fdiv_rn(q, fy)));
-    const float distort = __fadd_rn(1.f, __fmul_rn(__fadd_rn(k1, __fmul_rn(k2, r2)), r2));
-    u = __fadd_rn(__fmul_rn(u, distort), cx);
-    q = __fadd_rn(__fmul_rn(q, distort), cy);
-
-    // clamp to the crop window, shift to crop-local (repro.py:143-147)
-    const float chx = p[18], chy = p[19];
-    const float lo = (float)(hs - 1), hi = (float)hs;
-    u = __fadd_rn(__fsub_rn(fminf(fmaxf(u, __fsub_rn(chx, lo)), __fsub_rn(__fadd_rn(chx, hi), 2.f)), chx), lo);
-    q = __fadd_rn(__fsub_rn(fminf(fmaxf(q, __fsub_rn(chy, lo)), __fsub_rn(__fadd_rn(chy, hi), 2.f)), chy), lo);
-    int pix = (int)__fmul_rn(q, 0.5f) * hs + (int)__fmul_rn(u, 0.5f);
-    pix = min(max(pix, 0), hs2 - 1);  // memory safety only: the clamp keeps pix in range
+    float u, q;
+    project_uv(cam + c * kCamFields, grid_coord(i, mid, step, cx3), grid_coord(j, mid, step, cy3),
+               grid_coord(k, mid, step, cz3), hs, &u, &q);
+    const int pix = pixel_index(u, q, hs);
     idx[w] = pix;
     if (idx_out != nullptr && li < tile && lj < tile && lk < tile && x0 + li < g4 &&
         y0 + lj < g4 && z0 + lk < g4)
@@ -122,33 +80,8 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // gather phase: camera mean of the J-rows at the indices
-  const T* rb = rows + (size_t)b * C * hs2 * J;
-  const int groups = kThreads / J;
-  if ((int)threadIdx.x < groups * J) {
-    const int g = threadIdx.x / J, jj = threadIdx.x % J;
-    for (int v = g; v < ne; v += 2 * groups) {
-      const int v2 = v + groups;
-      const bool two = v2 < ne;
-      float acc = 0.f, acc2 = 0.f;
-      for (int c0 = 0; c0 < C; c0 += kLoadBatch) {
-        float val[kLoadBatch], val2[kLoadBatch];
-#pragma unroll
-        for (int u = 0; u < kLoadBatch; ++u) {
-          const int c = c0 + u;
-          val[u] = c < C ? to_f(rb[(c * hs2 + idx[c * ne + v]) * J + jj]) : 0.f;
-          val2[u] = c < C && two ? to_f(rb[(c * hs2 + idx[c * ne + v2]) * J + jj]) : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < kLoadBatch; ++u)
-          if (c0 + u < C) {
-            acc += val[u];
-            acc2 += val2[u];
-          }
-      }
-      quarter[v * J + jj] = __fdiv_rn(acc, (float)C);
-      if (two) quarter[v2 * J + jj] = __fdiv_rn(acc2, (float)C);
-    }
-  }
+  gather_means(rows + (size_t)b * C * hs2 * J, idx, ne, C, J, hs2, kThreads,
+               [&](int v, int jj, float m) { quarter[v * J + jj] = m; });
   __syncthreads();
 
   // upsample phase: out[2k] = in[k], out[2k+1] = 0.5 * (in[k] + in[min(k+1, L-1)])

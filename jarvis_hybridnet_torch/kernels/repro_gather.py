@@ -6,6 +6,9 @@ Replaces ``models/repro.py`` ``reproject_indices(upsample=False)`` at
 quarter_fused mode. CUDA source: ``csrc/repro_quarter_gather.cu``: one
 launch per call, a block per tile of ``TILE``^3 quarter voxels (plus a
 one-voxel halo on the high side) of one frameset.
+
+The plain helpers here (``reproject_indices_plain``, the two upsample
+stencils, ``camera_mean``) also serve K5 (``repro_grid_gather.py``).
 """
 
 from __future__ import annotations
@@ -22,17 +25,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 6  # quarter voxels per tile edge: 27 tiles of the 18^3 production grid
 
 
-def quarter_indices_plain(center3d, center_hm, P, K, D, g4: int, step: float,
-                          hs: int) -> torch.Tensor:
-    """Flat pixel indices (B, C, g4^3) into each camera's padded heatmap.
-
-    The op order is that of ``reproject_indices`` (repro.py:107-153), one
-    rounding per op, so the indices are bit-identical to the JAX ones.
-    """
+def crop_uv_plain(center3d, center_hm, P, K, D, grid_size: int, grid_spacing: float,
+                  hs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The crop-local pixel coordinates (u, v), each (B, C, (G/2)^3), of the
+    (G/2)^3 half grid at ``2 * grid_spacing`` mm, centered at index G/4:
+    projected (k1/k2 distortion), clamped to the crop window and shifted
+    (repro.py:107-147), one rounding per op in the JAX op order."""
     B, C = P.shape[0], P.shape[1]
+    g2 = grid_size // 2
     dev = P.device
-    r = (torch.arange(g4, dtype=torch.float32, device=dev) - float(g4 // 2)) * step
-    coords = r[None, None, :] + center3d.float()[:, :, None]  # (B, 3, g4)
+    r = (torch.arange(g2, dtype=torch.float32, device=dev) - float(g2 // 2)) * (
+        grid_spacing * 2.0)
+    coords = r[None, None, :] + center3d.float()[:, :, None]  # (B, 3, g2)
     X = coords[:, 0][:, None, :, None, None]
     Y = coords[:, 1][:, None, None, :, None]
     Z = coords[:, 2][:, None, None, None, :]
@@ -59,7 +63,48 @@ def quarter_indices_plain(center3d, center_hm, P, K, D, g4: int, step: float,
     chy = center_hm[:, :, 1:2].float()
     u = torch.clamp(u, chx - (hs - 1), chx + hs - 2) - chx + (hs - 1)
     v = torch.clamp(v, chy - (hs - 1), chy + hs - 2) - chy + (hs - 1)
+    return u, v
+
+
+def reproject_indices_plain(center3d, center_hm, P, K, D, grid_size: int,
+                            grid_spacing: float, hs: int,
+                            upsample: bool = True) -> torch.Tensor:
+    """Flat pixel indices into each camera's padded heatmap, batched:
+    (B, C, G^3), or (B, C, (G/2)^3) with ``upsample=False``.
+
+    Mirrors ``reproject_indices`` (repro.py:94-154) op for op, so the
+    indices are bit-identical to the JAX ones: with ``upsample`` the (u, v)
+    maps of :func:`crop_uv_plain` are upsampled to G^3 by the 0.25/0.75
+    stencil before the truncation. Called with (G/2, 2 * spacing) it gives
+    the quarter grid of quarter_fused.
+    """
+    u, v = crop_uv_plain(center3d, center_hm, P, K, D, grid_size, grid_spacing, hs)
+    if upsample:
+        B, C, g2 = P.shape[0], P.shape[1], grid_size // 2
+        u, v = (upsample_trilinear(a.reshape(B, C, g2, g2, g2)).reshape(B, C, -1)
+                for a in (u, v))
     return (v / 2.0).to(torch.int32) * hs + (u / 2.0).to(torch.int32)
+
+
+def _upsample2(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """2x linear upsample along ``axis`` (align_corners=False):
+    out[2k] = 0.25 in[k-1] + 0.75 in[k], out[2k+1] = 0.75 in[k] + 0.25 in[k+1],
+    both edges clamped; ``_upsample2_axis`` of repro.py:47-66, op for op."""
+    n = x.shape[axis]
+    prev = torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], dim=axis)
+    nxt = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)], dim=axis)
+    even = 0.25 * prev + 0.75 * x
+    odd = 0.75 * x + 0.25 * nxt
+    shape = list(x.shape)
+    shape[axis] *= 2
+    return torch.stack([even, odd], dim=axis + 1).reshape(shape)
+
+
+def upsample_trilinear(x: torch.Tensor) -> torch.Tensor:
+    """``_upsample2`` over the trailing three axes, X then Y then Z."""
+    for axis in (x.dim() - 3, x.dim() - 2, x.dim() - 1):
+        x = _upsample2(x, axis)
+    return x
 
 
 def _upsample2_aligned(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -73,22 +118,49 @@ def _upsample2_aligned(x: torch.Tensor, axis: int) -> torch.Tensor:
     return out.reshape(shape)
 
 
-def repro_quarter_gather_plain(rows, center3d, center_hm, P, K, D, g4: int,
-                               step: float):
-    """Plain PyTorch version; returns (half volume, indices)."""
-    B, C, hs2, J = rows.shape
-    hs = math.isqrt(hs2)
-    idx = quarter_indices_plain(center3d, center_hm, P, K, D, g4, step, hs)
+def camera_mean(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The rows (B, C, hs*hs, J) gathered at idx (B, C, N), summed over the
+    cameras in camera order in float32 and divided by C: (B, N, J), as
+    ``gather_voxel_volume`` (repro.py:157-213)."""
+    C, J = rows.shape[1], rows.shape[3]
     acc = None
     for c in range(C):
         vals = torch.gather(rows[:, c], 1,
                             idx[:, c, :, None].long().expand(-1, -1, J)).float()
         acc = vals if acc is None else acc + vals
-    quarter = (acc / C).reshape(B, g4, g4, g4, J)
-    half = quarter
+    return acc / C
+
+
+def repro_quarter_gather_plain(rows, center3d, center_hm, P, K, D, g4: int,
+                               step: float):
+    """Plain PyTorch version; returns (half volume, indices)."""
+    B, hs2, J = rows.shape[0], rows.shape[2], rows.shape[3]
+    # reproject_indices(G/2, 2 * spacing, upsample=False) is the quarter grid
+    idx = reproject_indices_plain(center3d, center_hm, P, K, D, 2 * g4, step / 2.0,
+                                  math.isqrt(hs2), upsample=False)
+    half = camera_mean(rows, idx).reshape(B, g4, g4, g4, J)
     for axis in (1, 2, 3):
         half = _upsample2_aligned(half, axis)
     return half, idx
+
+
+def check_cameras(rows, center3d, center_hm, P, K, D) -> tuple[int, int, int, int]:
+    """Raise unless the arguments are what the repro kernels take; returns
+    (B, C, hs, J)."""
+    build.require(rows, "rows", _DTYPES, ndim=4)
+    B, C, hs2, J = rows.shape
+    hs = math.isqrt(hs2)
+    if hs * hs != hs2 or J > 32:
+        raise ValueError(f"rows must be (B, C, hs*hs, J<=32), got {tuple(rows.shape)}")
+    for t, name, shape in ((center3d, "center3d", (B, 3)),
+                           (center_hm, "center_hm", (B, C, 2)),
+                           (P, "P", (B, C, 4, 3)), (K, "K", (B, C, 3, 3)),
+                           (D, "D", (B, C, 1, 5))):
+        build.require(t, name, (torch.int32,) if name.startswith("center")
+                      else (torch.float32,))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+    return B, C, hs, J
 
 
 def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
@@ -107,19 +179,7 @@ def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
         half, idx = repro_quarter_gather_plain(rows, center3d, center_hm, P, K,
                                                D, g4, step)
         return (half, idx) if return_indices else half
-    build.require(rows, "rows", _DTYPES, ndim=4)
-    B, C, hs2, J = rows.shape
-    hs = math.isqrt(hs2)
-    if hs * hs != hs2 or J > 32:
-        raise ValueError(f"rows must be (B, C, hs*hs, J<=32), got {tuple(rows.shape)}")
-    for t, name, shape in ((center3d, "center3d", (B, 3)),
-                           (center_hm, "center_hm", (B, C, 2)),
-                           (P, "P", (B, C, 4, 3)), (K, "K", (B, C, 3, 3)),
-                           (D, "D", (B, C, 1, 5))):
-        build.require(t, name, (torch.int32,) if name.startswith("center")
-                      else (torch.float32,))
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+    B, C, hs, J = check_cameras(rows, center3d, center_hm, P, K, D)
     dev = rows.device
     out = torch.empty((B, 2 * g4, 2 * g4, 2 * g4, J), dtype=torch.float32,
                       device=dev)

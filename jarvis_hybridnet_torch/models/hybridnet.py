@@ -1,9 +1,11 @@
 """HybridNet 3D backbone (port of ``jarvis_hybridnet_tpu/models/hybridnet.py``).
 
 KeypointDetect runs on all camera crops as one batch; its stride-2 heatmaps
-are zero-padded by 1 px, reprojected into the voxel grid (quarter_fused,
-K2), divided by 255, refined by V2V with the fused up-front conv, and
-decoded by softplus + soft-argmax (K3) into world mm and confidences.
+are zero-padded by 1 px, reprojected into the voxel grid (``repro_mode``:
+quarter_fused through K2, exact / half / half_fused through K5), divided by
+255, refined by V2V (with the fused up-front conv for the modes that give
+the half grid, half_fused and quarter_fused), and decoded by softplus +
+soft-argmax (K3) into world mm and confidences.
 """
 
 from __future__ import annotations
@@ -12,9 +14,8 @@ import torch
 from torch import nn
 
 from ..kernels import soft_argmax
-from ..kernels.soft_argmax import softplus
 from .efficienttrack import EfficientTrackBackbone
-from .repro import reproject_rows
+from .repro import REPRO_MODES, reproject_rows
 from .v2v import V2VNet
 
 
@@ -22,15 +23,16 @@ class HybridNetBackbone(nn.Module):
     def __init__(self, num_joints: int, model_size: str, roi_cube_size: int,
                  grid_spacing: int, repro_mode: str = "quarter_fused"):
         super().__init__()
-        if repro_mode != "quarter_fused":
-            raise NotImplementedError(
-                f"repro mode {repro_mode!r} is not ported; only 'quarter_fused' is")
+        if repro_mode not in REPRO_MODES:
+            raise ValueError(f"unknown repro mode {repro_mode!r}; one of {REPRO_MODES}")
+        self.repro_mode = repro_mode
         self.num_joints = num_joints
         self.roi_cube_size = roi_cube_size
         self.grid_spacing = grid_spacing
         self.grid_size = int(roi_cube_size / grid_spacing)
         self.effTrack = EfficientTrackBackbone(model_size, num_joints)
-        self.v2vNet = V2VNet(num_joints, fused_upsample_front=True)
+        self.v2vNet = V2VNet(num_joints, fused_upsample_front=repro_mode in (
+            "half_fused", "quarter_fused"))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -50,8 +52,8 @@ class HybridNetBackbone(nn.Module):
 
     def v2v_output(self, rows, center_hm, center3d, P, K, D) -> torch.Tensor:
         """Heatmap rows -> V2V output (B, g, g, g, J) in the compute dtype."""
-        voxels = reproject_rows(rows, center3d, center_hm, P, K, D,
-                                self.grid_size, float(self.grid_spacing))
+        voxels = reproject_rows(rows, center3d, center_hm, P, K, D, self.grid_size,
+                                float(self.grid_spacing), self.repro_mode)
         vol = (voxels / 255.0).to(self.dtype).permute(0, 4, 1, 2, 3)
         return self.v2vNet(vol).permute(0, 2, 3, 4, 1)
 
@@ -68,11 +70,10 @@ class HybridNetBackbone(nn.Module):
         center3d = center3d.to(torch.int32).contiguous()
         rows = self.heatmap_rows(imgs)
         out = self.v2v_output(rows, center_hm, center3d, P, K, D)
-        points, conf = soft_argmax(out.contiguous(), center3d,
-                                   float(self.grid_spacing),
-                                   float(self.roi_cube_size))
+        points, conf, volume = soft_argmax(out.contiguous(), center3d,
+                                           float(self.grid_spacing),
+                                           float(self.roi_cube_size), return_volume=True)
         B, C, hs2, J = rows.shape
         hs = int(round(hs2 ** 0.5))
         heatmaps = rows.reshape(B, C, hs, hs, J).permute(0, 1, 4, 2, 3).float()
-        volume = softplus(softplus(out.float()))
         return volume, heatmaps, points, conf

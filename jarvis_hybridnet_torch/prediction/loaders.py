@@ -37,6 +37,9 @@ def make_predictor3d(cfg, rig, weights_center_detect: str,
                      device="cuda") -> Predict3D:
     """Fused 3D predictor from two flax ``.ckpt`` files.
 
+    ``TPU.REPRO_MODE`` picks the reprojection mode (exact, half, half_fused
+    or quarter_fused; exact when the configuration names none).
+
     ``rig`` provides camera_matrices (C, 4, 3), intrinsics (C, 3, 3) and
     distortions (C, 1, 5). Runs on ``device`` (CUDA by default); float32
     runs turn cuDNN's TF32 off, as the JAX package runs float32 at full
@@ -46,7 +49,9 @@ def make_predictor3d(cfg, rig, weights_center_detect: str,
     if dtype == torch.float32:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    mode = str(cfg.get("TPU", {}).get("REPRO_MODE", "quarter_fused"))
+    # as the JAX predictor (predictor3d.py:80): a config that names no mode
+    # gets the reference-faithful one
+    mode = str(cfg.get("TPU", {}).get("REPRO_MODE", "exact"))
     center = _load(EfficientTrackBackbone(cfg.CENTERDETECT.MODEL_SIZE, 1),
                    weights_center_detect, cfg.CENTERDETECT.MODEL_SIZE, dtype, device)
     hybrid = _load(HybridNetBackbone(

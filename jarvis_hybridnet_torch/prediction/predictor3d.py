@@ -6,7 +6,8 @@ CenterDetect, first-index argmax, the >= 2-camera maxval > 50 gate, the
 confidence-weighted DLT of the subject center, its reprojection into every
 camera for the crop centers (truncated, clamped to [bbox/2, W - bbox/2]),
 the bbox^2 crops normalized in float32, then HybridNet (K1 throughout the
-2D and 3D nets, K2 reprojection, K3 soft-argmax). Everything stays on the
+2D and 3D nets, K2 or K5 reprojection by the configured mode, K3
+soft-argmax). Everything stays on the
 predictor's device; nothing synchronizes with the host.
 """
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Launch-plan sweep of the K1 and K2 kernels on one CUDA card.
+"""Launch-plan sweep of the K1, K2, K3 and K5 kernels on one CUDA card.
 
-    python3 kernel_sweep.py
+    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5]
 
 K1 instance_norm_act: for V2V's and the 2D networks' largest main-path
 shapes (bf16), times the kernel under every cluster size (1, 2, 4, 8, 16),
@@ -10,15 +10,27 @@ that ``launch_plan`` picks, and prints how many clusters the card holds at
 once (``cudaOccupancyMaxActiveClusters``) for V2V's largest shape at each
 cluster size 1-16. K2 repro_quarter_gather: times tile edges 4, 5 and 6 on
 the production grid (g4 = 18, 12 cameras, 23 joints, 130^2 padded maps).
+K5 repro_grid_gather: times tile edges per mode on the production grid
+(G = 72) of the same maps. K3 soft_argmax: times cluster sizes 8, 9 and
+16, blocks of 256, 512 and 1024 threads and runs of 8, 16, 24 and 32 voxels
+per lane on the main path's (8, 36, 36, 36, 23) bf16 volume, beside the plan
+that ``launch_plan`` picks. ``k3probe`` splits K3's time at its launch plan:
+it builds variants of ``csrc/soft_argmax.cu`` made by textual substitution
+(no tiles: launch, reductions and cluster barriers; loads only; the loop
+without loads or copies; the loop without softplus; without ``-ftz``) and
+times each beside the kernel itself.
 
 Times are device times of CUDA-graph replays (``chip_smoke.graph_ms``);
 every configuration is also checked against the plain version (bf16 ulps
-for K1, equal volumes for K2). Output goes to stdout and
+for K1, equal volumes for K2 and K5, points and confidences for K3).
+Output goes to stdout and
 ``chiprun_out/kernel_sweep.txt``. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
+import importlib
 import itertools
 import os
 import subprocess
@@ -29,21 +41,227 @@ SHAPES = [((8, 46656, 46), "relu"), ((8, 46656, 46), "add_relu"), ((8, 5832, 92)
           ((96, 16384, 16), "silu"), ((96, 4096, 48), "silu"), ((96, 4096, 56), "none"),
           ((96, 1024, 96), "silu"), ((96, 1024, 56), "none"), ((96, 256, 336), "silu"),
           ((96, 256, 56), "none")]
+# K5 tile edges (half-grid points) per mode; each must fit shared memory
+K5_TILES = {"exact": (2, 3, 4, 6), "half": (4, 6, 9), "half_fused": (4, 6, 9)}
+
+
+def sweep_k1(say, dev) -> None:
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch import kernels
+    from jarvis_hybridnet_torch.kernels import build
+    from jarvis_hybridnet_torch.kernels import instance_norm as k1
+
+    fn = k1._fn()
+    say("K1 (8, 46656, 46) bf16, 1024 threads: clusters the card holds at once, "
+        "by cluster size")
+    for cs in range(1, 17):
+        plan = k1.make_plan(8, 46656, 46, 2, cs, 1024)
+        say(f"  cluster {cs:2d}: {k1.max_active_clusters(plan, torch.bfloat16)}")
+
+    for shape, act in SHAPES:
+        n, s, c = shape
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(shape, device=dev, generator=g).mul(2).add(0.5).to(torch.bfloat16)
+        skip = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+                if act == "add_relu" else None)
+        ref = kernels.instance_norm_act_plain(x, act, skip)
+        nbytes = x.numel() * 2 * (3 if skip is not None else 2)
+        bound = nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+        chosen = k1.launch_plan(n, s, c, 2)
+        say(f"K1 {shape} {act}: bound {bound:.4f} ms; launch_plan {chosen}")
+        for cs, threads, ring in itertools.product((1, 2, 4, 8, 16), (256, 512, 1024),
+                                                   (k1.RING_BYTES // 2, k1.RING_BYTES)):
+            try:
+                plan = k1.make_plan(n, s, c, 2, cs, threads, ring)
+            except ValueError:
+                continue
+            if ring != k1.RING_BYTES and not plan.ring_rows:
+                continue
+            active = k1.max_active_clusters(plan, torch.bfloat16)
+            if active < 1:
+                continue
+
+            def run(plan=plan):
+                out = torch.empty_like(x)
+                build.check(fn(build.ptr(x), build.ptr(skip), build.ptr(out), n, s, c, plan.vec,
+                               plan.cluster, plan.threads, plan.span, plan.resident,
+                               plan.ring_rows, plan.q, plan.data_off, plan.ring_off, plan.smem,
+                               k1.EPS, k1.ACTS[act], 1, build.stream()), "instance_norm_act")
+                return out
+
+            ulps = chip_smoke.bf16_ulps(run(), ref)
+            ms = chip_smoke.graph_ms(run)
+            mark = " <- launch_plan" if plan == chosen else ""
+            say(f"  cluster {cs:2d} threads {threads:4d} ring_rows {plan.ring_rows:4d} "
+                f"resident {plan.resident:5d} smem {plan.smem:6d} "
+                f"clusters at once {active:3d}: {ms:.4f} ms ({ms / bound:.2f}x bound), "
+                f"{ulps:.1f} ulps{mark}")
+
+
+def _tiles(say, name, call, plain, module, key, tiles) -> None:
+    """Time ``call()`` at each tile edge set on ``module.TILE`` (``key``: the
+    entry of a per-mode dict, or None), against ``plain``."""
+    import chip_smoke
+
+    def get():
+        return module.TILE if key is None else module.TILE[key]
+
+    def put(t):
+        if key is None:
+            module.TILE = t
+        else:
+            module.TILE[key] = t
+
+    chosen = get()
+    try:
+        for tile in tiles:
+            put(tile)
+            rel = float((call() - plain).abs().max() / plain.abs().max())
+            ms = chip_smoke.graph_ms(call)
+            say(f"{name} tile {tile}: {ms:.4f} ms, volume {rel:.1e} relative to the plain "
+                "version" + (" <- TILE" if tile == chosen else ""))
+    finally:
+        put(chosen)
+
+
+def sweep_repro(say, dev, only) -> None:
+    import torch
+
+    from jarvis_hybridnet_torch import kernels
+    from jarvis_hybridnet_torch.kernels import repro_gather as k2
+    from jarvis_hybridnet_torch.testing import synthetic_rig
+
+    k5 = importlib.import_module("jarvis_hybridnet_torch.kernels.repro_grid_gather")
+    B, C, J, hs = 8, 12, 23, 130
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = (torch.rand((B, C, hs * hs, J), device=dev, generator=g) * 255).to(torch.bfloat16)
+    rig = synthetic_rig(C, 1280, 1024)
+    cams = [torch.tensor(a, device=dev).expand(B, *a.shape).contiguous()
+            for a in (rig.camera_matrices, rig.intrinsics, rig.distortions)]
+    c3d = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    chm = torch.full((B, C, 2), 600, dtype=torch.int32, device=dev)
+    if "k2" in only:
+        a2 = (rows, c3d, chm, *cams, 18, 8.0)
+        _tiles(say, "K2", lambda: kernels.repro_quarter_gather(*a2),
+               kernels.repro_quarter_gather_plain(*a2)[0], k2, None, (4, 5, 6))
+    if "k5" in only:
+        for mode, tiles in K5_TILES.items():
+            a5 = (rows, c3d, chm, *cams, 72, 2.0, mode)
+            _tiles(say, f"K5 {mode}", lambda: kernels.repro_grid_gather(*a5),
+                   kernels.repro_grid_gather_plain(*a5)[0], k5, mode, tiles)
+
+
+def sweep_k3(say, dev) -> None:
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch import kernels
+
+    k3 = importlib.import_module("jarvis_hybridnet_torch.kernels.soft_argmax")
+    g3 = torch.Generator(device=dev).manual_seed(7)
+    vol = (torch.randn((8, 36, 36, 36, 23), device=dev, generator=g3) * 4 - 2).to(torch.bfloat16)
+    c3 = torch.zeros((8, 3), dtype=torch.int32, device=dev)
+    rp, rc = kernels.soft_argmax_plain(vol, c3, 2.0, 144.0)
+    bound = vol.numel() * 2 / chip_smoke.HBM_BYTES_PER_S * 1e3
+    chosen = k3.launch_plan(8, 36, 23, 2)
+    say(f"K3 (8, 36, 36, 36, 23) bf16: bound {bound:.4f} ms; launch_plan {chosen}")
+    for cs, threads, run_len in itertools.product((8, 9, 16), (256, 512, 1024), (8, 16, 24, 32)):
+        try:
+            plan = k3.make_plan(36, 23, 2, cs, threads, run_len)
+        except ValueError:
+            continue
+        active = k3.max_active_clusters(plan, torch.bfloat16)
+        if active < 1:
+            say(f"  cluster {cs:2d} threads {threads:4d} run {plan.run}: not schedulable")
+            continue
+        kp, kc = k3.run_plan(plan, vol, c3, 2.0, 144.0)
+        err = max(float((kp - rp).abs().max()), float((kc - rc).abs().max()))
+        ms = chip_smoke.graph_ms(lambda: k3.run_plan(plan, vol, c3, 2.0, 144.0))
+        mark = " <- launch_plan" if plan == chosen else ""
+        say(f"  cluster {cs:2d} threads {threads:4d} run {plan.run:2d} tile {plan.tile:4d} "
+            f"smem {plan.smem:6d} clusters at once {active:3d}: {ms:.4f} ms "
+            f"({ms / bound:.2f}x bound), max abs err {err:.1e}{mark}")
+
+
+# K3 probe variants: (substitutions in csrc/soft_argmax.cu, drop -ftz=true)
+K3_PROBES = {
+    "kernel": ([], False),
+    "no tiles": ([("const int ntiles = (hi - lo + tile - 1) / tile;", "const int ntiles = 0;")],
+                 False),
+    "loads only": ([("    if (on) {\n      const int cnt", "    if (on && t < 0) {\n      const int cnt")],
+                   False),
+    "loop, no loads": ([("const float in = to_f(tb[k * J]);", "const float in = 0.01f * (k + jj);"),
+                        ("    if (t < ntiles) {\n      const int a = lo",
+                         "    if (false) {\n      const int a = lo")], False),
+    "no softplus": ([("const float sp = kVolume ? softplus_f(in) : softplus_fast(in);",
+                      "const float sp = in;")], False),
+    "no -ftz": ([], True),
+}
+
+
+def sweep_k3probe(say, dev) -> None:
+    import ctypes
+
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch.kernels import build
+
+    k3 = importlib.import_module("jarvis_hybridnet_torch.kernels.soft_argmax")
+    src = (build.CSRC / "soft_argmax.cu").read_text()
+    out_dir = build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for i, (name, (subs, no_ftz)) in enumerate(K3_PROBES.items()):
+        text = src
+        for a, b in subs:
+            if text.count(a) != 1:
+                raise SystemExit(f"kernel_sweep: probe {name!r} no longer applies to the source")
+            text = text.replace(a, b)
+        cu, lib = out_dir / f"probe{i}.cu", out_dir / f"libprobe{i}.so"
+        cu.write_text(text)
+        flags = [f for f in build._flags("soft_argmax") if not (no_ftz and f == "-ftz=true")]
+        jobs[name] = lib, subprocess.Popen([build._nvcc(), *flags, f"-I{build.CSRC}", "-o", str(lib),
+                                            str(cu)], stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+    g3 = torch.Generator(device=dev).manual_seed(7)
+    vol = (torch.randn((8, 36, 36, 36, 23), device=dev, generator=g3) * 4 - 2).to(torch.bfloat16)
+    c3 = torch.zeros((8, 3), dtype=torch.int32, device=dev)
+    plan = k3.launch_plan(8, 36, 23, 2)
+    say(f"K3 probe at {plan}")
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"kernel_sweep: nvcc failed for probe {name!r}:\n{log}")
+        fn = ctypes.CDLL(str(lib)).soft_argmax
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes, fn.restype = [p] * 5 + [i] * 9 + [f, f, i, p], ctypes.c_int
+
+        def call(fn=fn):
+            pts = torch.empty((8, 23, 3), device=dev)
+            conf = torch.empty((8, 23), device=dev)
+            b = build.ptr
+            build.check(fn(b(vol), b(c3), b(pts), b(conf), None, 8, 36, 23, plan.cluster,
+                           plan.threads, plan.span, plan.run, plan.smem, 1, 2.0, 144.0, 1,
+                           build.stream()), "soft_argmax probe")
+
+        say(f"  {name:15s}: {chip_smoke.graph_ms(call):.4f} ms")
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="k1,k2,k3,k5",
+                    help="comma-separated kernels to sweep (default: all)")
+    only = set(ap.parse_args().only.split(","))
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_sweep: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    import chip_smoke
-    from jarvis_hybridnet_torch import kernels
     from jarvis_hybridnet_torch.kernels import build
-    from jarvis_hybridnet_torch.kernels import instance_norm as k1
-    from jarvis_hybridnet_torch.kernels import repro_gather as k2
-    from jarvis_hybridnet_torch.testing import synthetic_rig
 
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "kernel_sweep.txt"), "w") as log:
@@ -55,74 +273,14 @@ def main() -> int:
                            capture_output=True, text=True, check=True).stdout.strip())
         build.build_all()
         dev = torch.device("cuda")
-        fn = k1._fn()
-
-        say("K1 (8, 46656, 46) bf16, 1024 threads: clusters the card holds at once, "
-            "by cluster size")
-        for cs in range(1, 17):
-            plan = k1.make_plan(8, 46656, 46, 2, cs, 1024)
-            say(f"  cluster {cs:2d}: {k1.max_active_clusters(plan, torch.bfloat16)}")
-
-        for shape, act in SHAPES:
-            n, s, c = shape
-            g = torch.Generator(device=dev).manual_seed(3)
-            x = torch.randn(shape, device=dev, generator=g).mul(2).add(0.5).to(torch.bfloat16)
-            skip = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
-                    if act == "add_relu" else None)
-            ref = kernels.instance_norm_act_plain(x, act, skip)
-            nbytes = x.numel() * 2 * (3 if skip is not None else 2)
-            bound = nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3
-            chosen = k1.launch_plan(n, s, c, 2)
-            say(f"K1 {shape} {act}: bound {bound:.4f} ms; launch_plan {chosen}")
-            for cs, threads, ring in itertools.product((1, 2, 4, 8, 16), (256, 512, 1024),
-                                                       (k1.RING_BYTES // 2, k1.RING_BYTES)):
-                try:
-                    plan = k1.make_plan(n, s, c, 2, cs, threads, ring)
-                except ValueError:
-                    continue
-                if ring != k1.RING_BYTES and not plan.ring_rows:
-                    continue
-                active = k1.max_active_clusters(plan, torch.bfloat16)
-                if active < 1:
-                    continue
-
-                def run(plan=plan):
-                    out = torch.empty_like(x)
-                    build.check(fn(build.ptr(x), build.ptr(skip), build.ptr(out), n, s, c, plan.vec,
-                                   plan.cluster, plan.threads, plan.span, plan.resident,
-                                   plan.ring_rows, plan.q, plan.data_off, plan.ring_off, plan.smem,
-                                   k1.EPS, k1.ACTS[act], 1, build.stream()), "instance_norm_act")
-                    return out
-
-                ulps = chip_smoke.bf16_ulps(run(), ref)
-                ms = chip_smoke.graph_ms(run)
-                mark = " <- launch_plan" if plan == chosen else ""
-                say(f"  cluster {cs:2d} threads {threads:4d} ring_rows {plan.ring_rows:4d} "
-                    f"resident {plan.resident:5d} smem {plan.smem:6d} "
-                    f"clusters at once {active:3d}: {ms:.4f} ms ({ms / bound:.2f}x bound), "
-                    f"{ulps:.1f} ulps{mark}")
-
-        B, C, J, hs = 8, 12, 23, 130
-        g = torch.Generator(device=dev).manual_seed(5)
-        rows = (torch.rand((B, C, hs * hs, J), device=dev, generator=g) * 255).to(torch.bfloat16)
-        rig = synthetic_rig(C, 1280, 1024)
-        cams = [torch.tensor(a, device=dev).expand(B, *a.shape).contiguous()
-                for a in (rig.camera_matrices, rig.intrinsics, rig.distortions)]
-        c3d = torch.zeros((B, 3), dtype=torch.int32, device=dev)
-        chm = torch.full((B, C, 2), 600, dtype=torch.int32, device=dev)
-        args = (rows, c3d, chm, *cams, 18, 8.0)
-        ref = kernels.repro_quarter_gather_plain(*args)[0]
-        chosen = k2.TILE
-        try:
-            for tile in (4, 5, 6):
-                k2.TILE = tile
-                out = kernels.repro_quarter_gather(*args)
-                rel = float((out - ref).abs().max() / ref.abs().max())
-                ms = chip_smoke.graph_ms(lambda: kernels.repro_quarter_gather(*args))
-                say(f"K2 tile {tile}: {ms:.4f} ms, volume {rel:.1e} relative to the plain version"
-                    + (" <- TILE" if tile == chosen else ""))
-        finally:
-            k2.TILE = chosen
+        if "k1" in only:
+            sweep_k1(say, dev)
+        if only & {"k2", "k5"}:
+            sweep_repro(say, dev, only)
+        if "k3" in only:
+            sweep_k3(say, dev)
+        if "k3probe" in only:
+            sweep_k3probe(say, dev)
     return 0
 
 

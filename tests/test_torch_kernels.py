@@ -6,7 +6,9 @@ K1 instance_norm_act   vs models.layers.instance_norm + activation, and
                           (interpret mode);
 K2 repro_quarter_gather vs models.repro.reprojection_layer('quarter_fused'),
                           indices bit-identical to reproject_indices;
-K3 soft_argmax          vs the epilogue of models/hybridnet.py:95-112;
+K5 repro_grid_gather    vs reprojection_layer('exact' / 'half' / 'half_fused'),
+                          indices bit-identical to reproject_indices;
+K3 soft_argmax          vs the epilogue of models/hybridnet.py:95-114;
 K4 resize_normalize     vs ops.image resize_bilinear(_mxu) + normalize_imagenet.
 The CUDA kernels themselves are checked against these on the card by
 chip_smoke.py.
@@ -195,11 +197,40 @@ def test_k2_indices_depend_on_distortion():
     assert (ia != ib).mean() > 0.05
 
 
-def test_k2_rejects_other_modes():
-    hm, c3d, chm, P, K, D = _k2_inputs("float32")
-    with pytest.raises(NotImplementedError):
-        port_repro(torch.from_numpy(hm), *(torch.from_numpy(a) for a in (c3d, chm, P, K, D)),
-                   36, 4.0, mode="exact")
+# ---------------------------------------------------------------- K5 -------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["exact", "half", "half_fused"])
+def test_k5_matches_reprojection_layer(mode, dtype):
+    """Indices bit-identical to reproject_indices (with the trilinear index
+    upsample in exact mode), volumes within 1e-5 relative of
+    reprojection_layer. JAX gathers float32 in exact mode and the compute
+    dtype in the half modes; the port gathers the rows in their own dtype,
+    which gives the same values (the bf16 heatmaps widened to float32)."""
+    G, spacing = 36, 4.0
+    hm, c3d, chm, P, K, D = _k2_inputs(dtype)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    ref = np.asarray(reprojection_layer(jnp.asarray(hm), c3d, chm, P, K, D, G, spacing,
+                                        mode=mode,
+                                        gather_dtype=None if mode == "exact" else jdt))
+    hs = hm.shape[-1]
+    ref_idx = np.asarray(jax.vmap(lambda a, b, p, k, d: reproject_indices(
+        a, b, p, k, d, G, spacing, hs, upsample=mode == "exact"))(c3d, chm, P, K, D))
+
+    B, C, J = hm.shape[:3]
+    rows = torch.from_numpy(np.array(hm)).permute(0, 1, 3, 4, 2).reshape(B, C, hs * hs, J)
+    rows = rows.contiguous().to(getattr(torch, dtype))
+    t = [torch.from_numpy(a) for a in (c3d, chm, P, K, D)]
+    vol, idx = kernels.repro_grid_gather(rows, *t, G, spacing, mode, return_indices=True)
+    n = G // 2 if mode == "half_fused" else G
+    assert vol.shape == ref.shape == (B, n, n, n, J)
+    np.testing.assert_array_equal(idx.numpy(), ref_idx.reshape(idx.shape))
+    assert np.abs(vol.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+    # the public layer takes the JAX layout and gives the same volume
+    via_layer = port_repro(torch.from_numpy(hm).to(getattr(torch, dtype)), *t, G, spacing,
+                           mode=mode)
+    np.testing.assert_array_equal(via_layer.numpy(), vol.numpy())
 
 
 # ---------------------------------------------------------------- K3 -------

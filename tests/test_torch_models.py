@@ -256,9 +256,20 @@ def test_v2v_fused_front_matches_jax():
     assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
 
 
-def test_hybridnet_backbone_matches_jax_f32():
+@pytest.mark.parametrize("mode", ["exact", "half", "half_fused", "quarter_fused"])
+def test_hybridnet_backbone_matches_jax_f32(mode):
     """All four outputs on the trained HybridNet: double-softplus volume,
-    padded heatmaps, points3D and confidences, on a fixed cube center."""
+    padded heatmaps, points3D and confidences, on a fixed cube center, in
+    every repro mode. exact and half run V2V's unfused front (a stride-2
+    conv on the G^3 volume) with the checkpoint's conv weights, so the same
+    weight bridge loads every mode.
+
+    In every mode the port's float32 run is held to its float64 run at the
+    bounds it is held to JAX's (measured: 1.0e-5 of the volume's range,
+    0.0006 mm). In exact mode the JAX package's own float32 run is 7.8e-4 of
+    the volume's range and 0.0173 mm from that float64 run (half 5.0e-5 and
+    0.0076 mm), so there the port is held to JAX within 1e-3 of the range and
+    2e-2 mm (ROADMAP.md section C)."""
     tree = read_ckpt(str(TRAINED / "HybridNet_final.ckpt"))
     B, C, S, cube, spacing = 1, 4, 128, 144, 4
     rig = synthetic_rig(C, 320, 256)
@@ -270,21 +281,26 @@ def test_hybridnet_backbone_matches_jax_f32():
     cams = [np.broadcast_to(a, (B,) + a.shape).copy()
             for a in (rig.camera_matrices, rig.intrinsics, rig.distortions)]
     jm = JaxHybridNet(num_joints=23, model_size="small", roi_cube_size=cube,
-                      grid_spacing=spacing, repro_mode="quarter_fused")
+                      grid_spacing=spacing, repro_mode=mode)
     ref = [np.asarray(a) for a in jax.jit(jm.apply)({"params": tree}, imgs, center_hm,
                                                      center3d, *cams)]
-    model = _load(HybridNetBackbone(23, "small", cube, spacing), tree)
+    model = _load(HybridNetBackbone(23, "small", cube, spacing, repro_mode=mode), tree)
+    assert model.v2vNet.front_layers[0].fused_up == (mode in ("half_fused", "quarter_fused"))
+    args = [torch.from_numpy(a) for a in (imgs, center_hm, center3d, *cams)]
     with torch.no_grad():
-        got = [a.numpy() for a in model(torch.from_numpy(imgs), torch.from_numpy(center_hm),
-                                        torch.from_numpy(center3d),
-                                        *(torch.from_numpy(a) for a in cams))]
+        got = [a.numpy() for a in model(*args)]
+        exact = [a.numpy() for a in model.double()(*(
+            a.double() if a.is_floating_point() else a for a in args))]
+        model.float()
     volume, heatmaps, points, conf = got
     assert volume.shape == ref[0].shape == (B, 18, 18, 18, 23)
     assert heatmaps.shape == ref[1].shape == (B, C, 23, 66, 66)
-    assert np.abs(heatmaps - ref[1]).max() <= 1e-4 * np.abs(ref[1]).max()
-    assert np.abs(volume - ref[0]).max() <= 1e-4 * np.abs(ref[0]).max()
-    np.testing.assert_allclose(points, ref[2], rtol=0, atol=1e-2)
-    np.testing.assert_allclose(conf, ref[3], rtol=0, atol=1e-4)
+    vol_tol, pts_tol = (1e-3, 2e-2) if mode == "exact" else (1e-4, 1e-2)
+    for other, vt, pt in ((ref, vol_tol, pts_tol), (exact, 1e-4, 1e-2)):
+        assert np.abs(heatmaps - other[1]).max() <= 1e-4 * np.abs(other[1]).max()
+        assert np.abs(volume - other[0]).max() <= vt * np.abs(other[0]).max()
+        np.testing.assert_allclose(points, other[2], rtol=0, atol=pt)
+        np.testing.assert_allclose(conf, other[3], rtol=0, atol=1e-4)
     with torch.no_grad():  # the predictor's path gives the same points
         p2, c2 = model.points(torch.from_numpy(imgs), torch.from_numpy(center_hm),
                               torch.from_numpy(center3d), *(torch.from_numpy(a) for a in cams))

@@ -98,6 +98,34 @@ def test_predictor3d_f32_matches_jax(setup):
     np.testing.assert_allclose(conf.numpy(), ref_c, rtol=0, atol=1e-4)
 
 
+def test_predictor3d_exact_f32_matches_jax(setup):
+    """The reference-faithful repro mode end to end (K5's exact gather, V2V's
+    unfused front), at the bound of test_predictor3d_f32_matches_jax."""
+    cfg, jcfg, rig, frames = (setup[0].clone(), setup[1].clone(), *setup[2:])
+    cfg.TPU.REPRO_MODE = jcfg.TPU.REPRO_MODE = "exact"
+    ref_p, ref_c, ref_v = (np.asarray(a) for a in jax_make_predictor3d(
+        jcfg, rig, CENTER, HYBRID, dtype=jnp.float32)(frames))
+    predictor = make_predictor3d(cfg, rig, CENTER, HYBRID, dtype="float32", device="cpu")
+    assert predictor.hybrid_model.repro_mode == "exact"
+    points, conf, valid = predictor(frames)
+    np.testing.assert_array_equal(valid.numpy(), ref_v)
+    np.testing.assert_allclose(points.numpy(), ref_p, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(conf.numpy(), ref_c, rtol=0, atol=1e-4)
+
+
+def test_repro_mode_falls_back_to_exact(setup):
+    """A configuration without TPU.REPRO_MODE gets exact, as the JAX
+    predictor's (predictor3d.py:80); one that names a mode gets it."""
+    cfg, _, rig, _ = setup
+    bare = cfg.clone()
+    del bare.TPU["REPRO_MODE"]
+    modes = {}
+    for name, c in (("bare", bare), ("named", cfg)):
+        predictor = make_predictor3d(c, rig, CENTER, HYBRID, dtype="float32", device="cpu")
+        modes[name] = predictor.hybrid_model.repro_mode
+    assert modes == {"bare": "exact", "named": "quarter_fused"}
+
+
 def test_center_stage_f32_matches_jax(setup):
     """Resize + CenterDetect + argmax + gate + DLT + crop placement."""
     cfg, jcfg, rig, frames = setup
