@@ -24,10 +24,12 @@ no CUDA device is present. Per-shape details go to
 ``chiprun_out/chip_smoke.txt``.
 
 With ``--baseline-csrc DIR``, DIR holds an earlier version of the kernel
-sources with the C interfaces of ``BASELINE_SIGNATURES`` (K1, K2 and the
-two-kernel K3); it builds them too and times them beside the
-current kernels at the same shapes, in the order baseline, current,
-current, baseline, into ``chiprun_out/chip_smoke_baseline.txt``.
+sources with the C interfaces of ``BASELINE_SIGNATURES`` (K1, K2, the
+one-kernel K3 and K5 with unpadded rows); it builds them too and times them
+beside the current kernels at the same shapes, in the order baseline,
+current, current, baseline, into ``chiprun_out/chip_smoke_baseline.txt``;
+K5's volumes and indices must equal the baseline's bit for bit in every
+mode at G = 72 and 44, and K2's volume too.
 """
 
 from __future__ import annotations
@@ -176,20 +178,26 @@ def profile_steps(predictor, frames, out_dir, note) -> None:
 
 
 # The C interfaces of the earlier designs that --baseline-csrc builds: K1
-# and K2 as the current ones take them (launch plan, tile), K3 with its
-# two kernels and a float32 scratch of per-chunk partials.
+# as the current one takes it (launch plan), K2 and K5 with contiguous
+# (unpadded) rows, K5 with a block per tile of BASELINE_K5_TILE's edges,
+# K3 as the current one takes it (launch plan).
 BASELINE_SIGNATURES = {
     "instance_norm_act": "x, skip, out, N, S, C, V, cluster, threads, span, resident, "
                          "ring_rows, q, data_off, ring_off, smem, eps, act, dtype, stream",
     "repro_quarter_gather": "rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, hs, "
                             "g4, tile, step, dtype, stream",
-    "soft_argmax": "vol, center3d, part, points, conf, B, g, J, vox_per_chunk, chunks, "
-                   "spacing, cube, dtype, stream",
+    "soft_argmax": "vol, center3d, points, conf, heat, B, g, J, cluster, threads, span, run, "
+                   "smem, aligned, spacing, cube, dtype, stream",
+    "repro_grid_gather": "rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, hs, n2, "
+                         "tile, step, mode, dtype, stream",
 }
+BASELINE_K5_TILE = {"exact": 4, "half": 6, "half_fused": 6}
 
 
 class Baseline:
-    """K1, K2 and the two-kernel K3, built from the sources in ``csrc``."""
+    """K1, K2, K3 and K5 of an earlier design, built from the sources in
+    ``csrc`` (each against that directory's own headers). K2 and K5 take
+    contiguous rows, J apart."""
 
     def __init__(self, csrc: str):
         from jarvis_hybridnet_torch.kernels import build
@@ -213,7 +221,8 @@ class Baseline:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fns["instance_norm_act"].argtypes = [p] * 3 + [i] * 13 + [f, i, i, p]
         fns["repro_quarter_gather"].argtypes = [p] * 8 + [i] * 6 + [f, i, p]
-        fns["soft_argmax"].argtypes = [p] * 5 + [i] * 5 + [f, f, i, p]
+        fns["soft_argmax"].argtypes = [p] * 5 + [i] * 9 + [f, f, i, p]
+        fns["repro_grid_gather"].argtypes = [p] * 8 + [i] * 6 + [f, i, i, p]
         self.fns = fns
 
     def instance_norm_act(self, x, act, skip):
@@ -248,20 +257,40 @@ class Baseline:
     def soft_argmax(self, vol, center3d, spacing, cube):
         import torch
 
+        from jarvis_hybridnet_torch.kernels.soft_argmax import launch_plan
+
         B, g, J = vol.shape[0], vol.shape[1], vol.shape[-1]
-        nvox = g ** 3
-        chunks = max(1, min(-(-(2 * 132) // B), nvox // 512))
-        per_chunk = -(-nvox // chunks)
-        chunks = -(-nvox // per_chunk)
+        plan = launch_plan(B, g, J, vol.element_size())
         dev = vol.device
-        part = torch.empty((B, chunks, 5, J), dtype=torch.float32, device=dev)
         points = torch.empty((B, J, 3), dtype=torch.float32, device=dev)
         conf = torch.empty((B, J), dtype=torch.float32, device=dev)
+        aligned = vol.data_ptr() % 16 == 0 and (g ** 3 * J * vol.element_size()) % 16 == 0
         b = self.build
         b.check(self.fns["soft_argmax"](
-            *(b.ptr(t) for t in (vol, center3d, part, points, conf)), B, g, J, per_chunk, chunks,
-            spacing, cube, int(vol.dtype == torch.bfloat16), b.stream()), "baseline K3")
+            *(b.ptr(t) for t in (vol, center3d, points, conf)), None, B, g, J, plan.cluster,
+            plan.threads, plan.span, plan.run, plan.smem, int(aligned), spacing, cube,
+            int(vol.dtype == torch.bfloat16), b.stream()), "baseline K3")
         return points, conf
+
+    def repro_grid_gather(self, rows, center3d, center_hm, P, K, D, grid_size, spacing, mode,
+                          return_indices=False):
+        import torch
+
+        from jarvis_hybridnet_torch.kernels.repro_grid_gather import MODES
+
+        B, C, hs2, J = rows.shape
+        n = grid_size // 2 if mode == "half_fused" else grid_size
+        dev = rows.device
+        out = torch.empty((B, n, n, n, J), dtype=torch.float32, device=dev)
+        n_idx = grid_size ** 3 if mode == "exact" else (grid_size // 2) ** 3
+        idx = (torch.empty((B, C, n_idx), dtype=torch.int32, device=dev)
+               if return_indices else None)
+        b = self.build
+        b.check(self.fns["repro_grid_gather"](
+            *(b.ptr(t) for t in (rows, center3d, center_hm, P, K, D, out, idx)), B, C, J,
+            math.isqrt(hs2), grid_size // 2, BASELINE_K5_TILE[mode], float(spacing) * 2.0,
+            MODES[mode], int(rows.dtype == torch.bfloat16), b.stream()), "baseline K5")
+        return (out, idx) if return_indices else out
 
 
 def against_baseline(current, baseline, check) -> tuple[float, float]:
@@ -291,17 +320,23 @@ def rows_touched(idx, hs2: int) -> int:
                for c in range(idx.shape[1]))
 
 
-def check_k5(kernels, rows, c3d, center_hm, cams, grid_size, spacing, mode_launches, note):
+def check_k5(kernels, rows, c3d, center_hm, cams, grid_size, spacing, mode_launches, baseline,
+             base_log, note):
     """K5 in each mode against its plain version: indices equal and volumes
     within 1e-5 relative at the production grid and at G = 44 (a partial
-    tile at the top edge in every mode), then timed at the production grid."""
+    tile at the top edge in every mode), then timed at the production grid;
+    with a baseline, volumes and indices bit-equal to the earlier design's
+    at both grids and both timed in turns."""
+    import importlib
+
     import torch
 
-    from jarvis_hybridnet_torch.kernels.repro_grid_gather import TILE
-
+    k5 = importlib.import_module("jarvis_hybridnet_torch.kernels.repro_grid_gather")
     out = []
     J, hs2 = rows.shape[-1], rows.shape[2]
+    rows_c = rows.contiguous() if baseline is not None else None  # the earlier layout
     for mode in OTHER_MODES:
+        base_ms = {}
         for G, sp in ((44, 3.0), (grid_size, spacing)):
             a = (rows, c3d, center_hm, *cams, G, sp, mode)
             k_vol, k_idx = kernels.repro_grid_gather(*a, return_indices=True)
@@ -310,13 +345,34 @@ def check_k5(kernels, rows, c3d, center_hm, cams, grid_size, spacing, mode_launc
                 fail(f"repro_grid_gather {mode} G={G}: indices differ at "
                      f"{int((k_idx != p_idx).sum())} places")
             rel = float((k_vol - p_vol).abs().max() / p_vol.abs().max().clamp_min(1e-30))
-            note(f"repro_grid_gather {mode} G={G} tile {TILE[mode]}: indices equal, volume "
-                 f"{rel:.2e} relative to the plain version (tol 1e-5)")
+            plan = k5.launch_plan(rows.shape[0], rows.shape[1], J, math.isqrt(hs2), G, mode,
+                                  rows.element_size())
+            note(f"repro_grid_gather {mode} G={G}: indices equal, volume {rel:.2e} relative to "
+                 f"the plain version (tol 1e-5); {plan}, {k5.occupancy(plan, rows.dtype)} "
+                 f"blocks per SM")
             if rel > 1e-5:
                 fail(f"repro_grid_gather {mode} volume differs by {rel} relative (tol 1e-5)")
+            if baseline is not None:
+                b_args = (rows_c, *a[1:])
+                b_vol, b_idx = baseline.repro_grid_gather(*b_args, return_indices=True)
+                if not (torch.equal(k_vol, b_vol) and torch.equal(k_idx, b_idx)):
+                    fail(f"repro_grid_gather {mode} G={G}: differs from the baseline design "
+                         f"(volume {float((k_vol - b_vol).abs().max())}, indices at "
+                         f"{int((k_idx != b_idx).sum())} places)")
+                del b_vol, b_idx
+
+                def same(new, old):
+                    if not torch.equal(new, old):
+                        fail(f"repro_grid_gather {mode}: the baseline design's volume differs")
+                cur, base_ms[G] = against_baseline(
+                    lambda: kernels.repro_grid_gather(*a),
+                    lambda: baseline.repro_grid_gather(*b_args), same)
+                base_log.write(f"K5 repro_grid_gather {mode} {tuple(rows.shape)} G={G}: current "
+                               f"{cur:.4f} ms, baseline {base_ms[G]:.4f} ms "
+                               f"({base_ms[G] / cur:.2f}x); volumes and indices equal\n")
         nbytes = rows_touched(p_idx, hs2) * J * rows.element_size() + k_vol.numel() * 4
         a = (rows, c3d, center_hm, *cams, grid_size, spacing, mode)
-        out.append(dict(
+        entry = dict(
             name=f"repro_grid_gather[{mode}]", route="cuda", kernels_per_call=1, mode=mode,
             source="jarvis_hybridnet_torch/kernels/csrc/repro_grid_gather.cu",
             replaces=("jarvis_hybridnet_tpu/models/repro.py:266" if mode == "exact"
@@ -326,16 +382,31 @@ def check_k5(kernels, rows, c3d, center_hm, cams, grid_size, spacing, mode_launc
             ms=graph_ms(lambda: kernels.repro_grid_gather(*a)),
             wall_ms=cuda_ms(lambda: kernels.repro_grid_gather(*a)),
             plain_ms=cuda_ms(lambda: kernels.repro_grid_gather_plain(*a), iters=3, warmup=1),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None))
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+        if baseline is not None:
+            entry["baseline_ms"] = base_ms[grid_size]
+        out.append(entry)
         del k_vol, p_vol, k_idx, p_idx
     return out
+
+
+def ptxas_lines(name: str) -> list[str]:
+    """The register, shared memory and spill lines ``nvcc -Xptxas -v`` wrote
+    for a kernel library (``build.py`` keeps the log beside it)."""
+    from jarvis_hybridnet_torch.kernels import build
+
+    log = build.log_path(name)
+    if not log.is_file():
+        return [f"no build log for {name}"]
+    keep = ("Compiling entry", "registers", "spill")
+    return [ln.strip() for ln in log.read_text().splitlines() if any(k in ln for k in keep)]
 
 
 def check_k3(kernels, vout, c3d, spacing, cube, launches, baseline, base_log, note):
     """K3 against its plain version (points and confidences with the fast
     softplus of the predict path and with the accurate one of the volume
     output, and the double-softplus volume), timed with and without the
-    volume output, and beside the baseline's two-kernel design."""
+    volume output, and beside the baseline's design."""
     from jarvis_hybridnet_torch.kernels.soft_argmax import launch_plan, max_active_clusters
 
     args = (vout, c3d, spacing, cube)
@@ -378,7 +449,7 @@ def check_k3(kernels, vout, c3d, spacing, cube, launches, baseline, base_log, no
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-csrc", metavar="DIR",
-                    help="time K1, K2 and the two-kernel K3 built from DIR beside the current ones")
+                    help="time K1, K2, K3 and K5 built from DIR beside the current ones")
     args = ap.parse_args()
     import torch
 
@@ -418,6 +489,9 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     note(f"build: {time.perf_counter() - t0:.1f} s for {len(build.SOURCES)} kernels")
+    log.write("ptxas for repro_grid_gather.cu (K5):\n")
+    for line in ptxas_lines("repro_grid_gather"):
+        log.write(f"  {line}\n")
     baseline = Baseline(os.path.abspath(args.baseline_csrc)) if args.baseline_csrc else None
     base_log = open(os.path.join(out_dir, "chip_smoke_baseline.txt"), "w") if baseline else None
 
@@ -594,15 +668,16 @@ def main() -> int:
             def same(new, old):
                 if not torch.equal(new, old):
                     fail("repro_quarter_gather: the baseline design's volume differs")
+            b_args = (rows.contiguous(), *k2_args[1:])  # the earlier layout
             cur, base = against_baseline(lambda: kernels.repro_quarter_gather(*k2_args),
-                                         lambda: baseline.repro_quarter_gather(*k2_args), same)
+                                         lambda: baseline.repro_quarter_gather(*b_args), same)
             base_log.write(f"K2 repro_quarter_gather {tuple(rows.shape)} g4={g4}: current "
                            f"{cur:.4f} ms, baseline {base:.4f} ms, bound "
                            f"{k2_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; volumes equal\n")
 
         report.extend(check_k5(kernels, rows, c3d, center_hm.contiguous(), cams,
                                hybrid.grid_size, float(hybrid.grid_spacing), mode_launches,
-                               note))
+                               baseline, base_log, note))
 
         vout = hybrid.v2v_output(rows, center_hm, c3d, *cams).contiguous()
         report.append(check_k3(kernels, vout, c3d, float(hybrid.grid_spacing),

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
 into ``build/lib<name>-<hash>.so``, where the hash covers the source, the
 shared headers and the flags: an edited source gets a new library and a
-stale one is never loaded. A library is built at its first use, or all of
-them at once, one ``nvcc`` each in parallel, by :func:`build_all`. The C
+stale one is never loaded; nvcc's output is kept beside it (``log_path``).
+A library is built at its first use, or all of them at once, one ``nvcc``
+each in parallel, by :func:`build_all`. The C
 functions take raw pointers and the stream as ``void*`` and return
 ``cudaGetLastError()`` after the launch.
 """
@@ -30,8 +31,9 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # reference does; the sources use __f*_rn intrinsics and this flag keeps
 # nvcc from contracting anything else into an FMA. soft_argmax flushes
 # denormals, which drops the scaling around its exp2 / log2 operations.
+# ptxas reports K5's registers and spills into its build log.
 _EXTRA_FLAGS = {"repro_quarter_gather": ["--fmad=false"],
-                "repro_grid_gather": ["--fmad=false"],
+                "repro_grid_gather": ["--fmad=false", "-Xptxas=-v"],
                 "soft_argmax": ["-ftz=true"]}
 
 _lock = threading.Lock()
@@ -82,7 +84,13 @@ def _finish(name: str, job) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    log_path(name).write_text(log)
     os.replace(tmp, out)
+
+
+def log_path(name: str) -> Path:
+    """nvcc's output for the current library of ``csrc/<name>.cu``."""
+    return _target(name).with_suffix(".log")
 
 
 def build_all() -> None:

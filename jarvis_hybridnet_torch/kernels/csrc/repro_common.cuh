@@ -1,8 +1,8 @@
 // Device helpers shared by the two voxel reprojection kernels, K2
 // (repro_quarter_gather.cu) and K5 (repro_grid_gather.cu): the per-camera
 // fields staged in shared memory, the projection of one grid point into a
-// camera's crop, the flat pixel index, and the camera mean of the gathered
-// J-rows.
+// camera's crop and the flat pixel index; and K2's camera mean of the
+// gathered J-rows (K5 gathers 16-byte lanes of padded rows instead).
 //
 // The index arithmetic rounds after every operation with __f*_rn
 // intrinsics in the op order of models/repro.py reproject_indices
@@ -78,14 +78,15 @@ __device__ __forceinline__ int pixel_index(float u, float v, int hs) {
   return min(max(pix, 0), hs * hs - 1);  // memory safety only: the clamp keeps pix in range
 }
 
-// The camera mean of n voxels' J-rows: idx[c * n + v] is voxel v's pixel in
-// camera c. A group of J threads per voxel, one per joint, two voxels at a
+// The camera mean of n voxels' J-rows, S elements apart: idx[c * n + v] is
+// voxel v's pixel in camera c. A group of J threads per voxel, one per joint, two voxels at a
 // time: all 2 C row loads start before the sums, which add in camera
 // order 0..C-1 and divide by C (gather_voxel_volume, repro.py:206-213).
 // store(v, joint, mean) receives each result.
 template <typename T, typename Store>
 __device__ __forceinline__ void gather_means(const T* __restrict__ rb, const int* idx, int n,
-                                             int C, int J, int hs2, int threads, Store store) {
+                                             int C, int J, int S, int hs2, int threads,
+                                             Store store) {
   const int groups = threads / J;
   if ((int)threadIdx.x >= groups * J) return;
   const int g = threadIdx.x / J, jj = threadIdx.x % J;
@@ -98,8 +99,8 @@ __device__ __forceinline__ void gather_means(const T* __restrict__ rb, const int
 #pragma unroll
       for (int u = 0; u < kLoadBatch; ++u) {
         const int c = c0 + u;
-        val[u] = c < C ? to_f(rb[(c * hs2 + idx[c * n + v]) * J + jj]) : 0.f;
-        val2[u] = c < C && two ? to_f(rb[(c * hs2 + idx[c * n + v2]) * J + jj]) : 0.f;
+        val[u] = c < C ? to_f(rb[(c * hs2 + idx[c * n + v]) * S + jj]) : 0.f;
+        val2[u] = c < C && two ? to_f(rb[(c * hs2 + idx[c * n + v2]) * S + jj]) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kLoadBatch; ++u)

@@ -39,8 +39,8 @@ __global__ void __launch_bounds__(kThreads)
     repro_tile(const T* __restrict__ rows, const int* __restrict__ center3d,
                const int* __restrict__ center_hm, const float* __restrict__ P,
                const float* __restrict__ K, const float* __restrict__ D, float* __restrict__ out,
-               int* __restrict__ idx_out, int C, int J, int hs, int g4, int tile, int tiles,
-               float step) {
+               int* __restrict__ idx_out, int C, int J, int S, int hs, int g4, int tile,
+               int tiles, float step) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int e = tile + 1;  // tile edge with the halo
   const int ne = e * e * e;
@@ -80,7 +80,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // gather phase: camera mean of the J-rows at the indices
-  gather_means(rows + (size_t)b * C * hs2 * J, idx, ne, C, J, hs2, kThreads,
+  gather_means(rows + (size_t)b * C * hs2 * S, idx, ne, C, J, S, hs2, kThreads,
                [&](int v, int jj, float m) { quarter[v * J + jj] = m; });
   __syncthreads();
 
@@ -119,7 +119,7 @@ static size_t smem_bytes(int C, int J, int tile) {
 template <typename T>
 static int launch(const void* rows, const void* center3d, const void* center_hm, const void* P,
                   const void* K, const void* D, void* out, void* idx_out, int B, int C, int J,
-                  int hs, int g4, int tile, float step, cudaStream_t st) {
+                  int S, int hs, int g4, int tile, float step, cudaStream_t st) {
   static bool ready = false;  // the function attribute, set once per instantiation
   if (!ready) {
     const cudaError_t e =
@@ -132,24 +132,24 @@ static int launch(const void* rows, const void* center3d, const void* center_hm,
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   repro_tile<T><<<dim3(tiles * tiles * tiles, B), kThreads, smem, st>>>(
       (const T*)rows, (const int*)center3d, (const int*)center_hm, (const float*)P,
-      (const float*)K, (const float*)D, (float*)out, (int*)idx_out, C, J, hs, g4, tile, tiles,
+      (const float*)K, (const float*)D, (float*)out, (int*)idx_out, C, J, S, hs, g4, tile, tiles,
       step);
   return launch_status();
 }
 
-// rows: (B, C, hs*hs, J) heatmap rows; center3d (B, 3) int32; center_hm
+// rows: (B, C, hs*hs, J) heatmap rows S >= J elements apart; center3d (B, 3) int32; center_hm
 // (B, C, 2) int32; P (B, C, 4, 3), K (B, C, 3, 3), D (B, C, 1, 5) float32.
 // out: float32 (B, 2g4, 2g4, 2g4, J); idx_out: null, or int32 (B, C, g4^3)
 // to receive the gather indices. tile: quarter voxels per tile edge.
 extern "C" int repro_quarter_gather(const void* rows, const void* center3d,
                                     const void* center_hm, const void* P, const void* K,
                                     const void* D, void* out, void* idx_out, int B, int C, int J,
-                                    int hs, int g4, int tile, float step, int dtype,
+                                    int S, int hs, int g4, int tile, float step, int dtype,
                                     void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, hs,
-                                 g4, tile, step, st);
-  return launch<float>(rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, hs, g4, tile,
+    return launch<__nv_bfloat16>(rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, S,
+                                 hs, g4, tile, step, st);
+  return launch<float>(rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, S, hs, g4, tile,
                        step, st);
 }

@@ -8,7 +8,13 @@ launch per call, a block per tile of ``TILE``^3 quarter voxels (plus a
 one-voxel halo on the high side) of one frameset.
 
 The plain helpers here (``reproject_indices_plain``, the two upsample
-stencils, ``camera_mean``) also serve K5 (``repro_grid_gather.py``).
+stencils, ``camera_mean``) and the row layout (``pad_rows``,
+``check_cameras``) also serve K5 (``repro_grid_gather.py``).
+
+Heatmap rows are a (B, C, hs*hs, J) view whose rows lie S >= J elements
+apart in a contiguous (B, C, hs*hs, S) buffer: ``pad_rows`` (and
+``HybridNetBackbone.heatmap_rows``) make S * itemsize a multiple of 16
+bytes, zero-filled, so K5 reads a row in 16-byte loads. K2 takes any S.
 """
 
 from __future__ import annotations
@@ -23,6 +29,22 @@ from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 6  # quarter voxels per tile edge: 27 tiles of the 18^3 production grid
+
+
+def padded_width(j: int, itemsize: int) -> int:
+    """J rounded up to a whole number of 16-byte loads (23 -> 24 for bf16
+    and float32)."""
+    per = 16 // itemsize
+    return -(-j // per) * per
+
+
+def pad_rows(rows: torch.Tensor) -> torch.Tensor:
+    """(B, C, hs*hs, J) rows as the J-view of a zero-padded buffer whose rows
+    are ``padded_width`` elements apart."""
+    J = rows.shape[-1]
+    buf = rows.new_zeros(rows.shape[:-1] + (padded_width(J, rows.element_size()),))
+    buf[..., :J] = rows
+    return buf[..., :J]
 
 
 def crop_uv_plain(center3d, center_hm, P, K, D, grid_size: int, grid_spacing: float,
@@ -144,13 +166,31 @@ def repro_quarter_gather_plain(rows, center3d, center_hm, P, K, D, g4: int,
     return half, idx
 
 
-def check_cameras(rows, center3d, center_hm, P, K, D) -> tuple[int, int, int, int]:
+def row_stride(rows: torch.Tensor) -> int:
+    """S, the elements between consecutive rows of the (B, C, hs*hs, J) view
+    ``rows``; raises unless it is the J-view of a contiguous (B, C, hs*hs, S)
+    buffer."""
+    if rows.dim() != 4:
+        raise ValueError(f"rows must be (B, C, hs*hs, J), got {tuple(rows.shape)}")
+    B, C, hs2, J = rows.shape
+    S = rows.stride(2) if hs2 > 1 else J
+    want = (C * hs2 * S, hs2 * S, S, 1)
+    if S < J or any(n > 1 and st != w for n, st, w in zip(rows.shape, rows.stride(), want)):
+        raise ValueError(f"rows must be the J-view of a contiguous (B, C, hs*hs, S) buffer, got "
+                         f"shape {tuple(rows.shape)}, strides {rows.stride()}")
+    return S
+
+
+def check_cameras(rows, center3d, center_hm, P, K, D) -> tuple[int, int, int, int, int]:
     """Raise unless the arguments are what the repro kernels take; returns
-    (B, C, hs, J)."""
-    build.require(rows, "rows", _DTYPES, ndim=4)
+    (B, C, hs, J, S)."""
+    if rows.device.type != "cuda" or rows.dtype not in _DTYPES:
+        raise ValueError(f"rows: expected a CUDA tensor of {tuple(_DTYPES)}, got {rows.dtype} "
+                         f"on {rows.device}")
+    S = row_stride(rows)
     B, C, hs2, J = rows.shape
     hs = math.isqrt(hs2)
-    if hs * hs != hs2 or J > 32:
+    if hs * hs != hs2 or J > 32 or C * hs2 * S >= 2 ** 31:
         raise ValueError(f"rows must be (B, C, hs*hs, J<=32), got {tuple(rows.shape)}")
     for t, name, shape in ((center3d, "center3d", (B, 3)),
                            (center_hm, "center_hm", (B, C, 2)),
@@ -160,7 +200,7 @@ def check_cameras(rows, center3d, center_hm, P, K, D) -> tuple[int, int, int, in
                       else (torch.float32,))
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
-    return B, C, hs, J
+    return B, C, hs, J, S
 
 
 def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
@@ -169,17 +209,18 @@ def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
                          step: float, return_indices: bool = False):
     """Half-grid voxel volume (B, 2g4, 2g4, 2g4, J) float32.
 
-    rows: (B, C, hs*hs, J) padded heatmaps, J contiguous (bf16 or f32);
-    center3d (B, 3) and center_hm (B, C, 2) int32; P (B, C, 4, 3),
-    K (B, C, 3, 3), D (B, C, 1, 5) float32. The quarter grid has g4 points
-    per axis at ``step`` mm around center3d. With ``return_indices`` the
-    (B, C, g4^3) int32 gather indices come back too.
+    rows: (B, C, hs*hs, J) padded heatmaps (bf16 or f32), J contiguous, rows
+    S >= J elements apart (module docstring); center3d (B, 3) and center_hm
+    (B, C, 2) int32; P (B, C, 4, 3), K (B, C, 3, 3), D (B, C, 1, 5) float32.
+    The quarter grid has g4 points per axis at ``step`` mm around center3d.
+    With ``return_indices`` the (B, C, g4^3) int32 gather indices come back
+    too.
     """
     if build.on_cpu(rows, center3d, center_hm, P, K, D):
         half, idx = repro_quarter_gather_plain(rows, center3d, center_hm, P, K,
                                                D, g4, step)
         return (half, idx) if return_indices else half
-    B, C, hs, J = check_cameras(rows, center3d, center_hm, P, K, D)
+    B, C, hs, J, S = check_cameras(rows, center3d, center_hm, P, K, D)
     dev = rows.device
     out = torch.empty((B, 2 * g4, 2 * g4, 2 * g4, J), dtype=torch.float32,
                       device=dev)
@@ -187,7 +228,7 @@ def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
            if return_indices else None)
     p = build.ptr
     err = _fn()(p(rows), p(center3d), p(center_hm), p(P), p(K), p(D),
-                p(out), p(idx), B, C, J, hs, g4, TILE, step,
+                p(out), p(idx), B, C, J, S, hs, g4, TILE, step,
                 _DTYPES[rows.dtype], build.stream())
     build.check(err, "repro_quarter_gather")
     repro_quarter_gather.launches += 1
@@ -201,4 +242,4 @@ repro_quarter_gather.launches = 0
 def _fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.bind("repro_quarter_gather", "repro_quarter_gather",
-                      [p] * 8 + [i] * 6 + [ctypes.c_float, i, p])
+                      [p] * 8 + [i] * 7 + [ctypes.c_float, i, p])

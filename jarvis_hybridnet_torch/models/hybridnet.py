@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..kernels import soft_argmax
+from ..kernels.repro_gather import padded_width
 from .efficienttrack import EfficientTrackBackbone
 from .repro import REPRO_MODES, reproject_rows
 from .v2v import V2VNet
@@ -40,15 +41,17 @@ class HybridNetBackbone(nn.Module):
 
     def heatmap_rows(self, imgs: torch.Tensor) -> torch.Tensor:
         """Normalized crops (B, C, S, S, 3) -> padded KeypointDetect heatmaps
-        as rows (B, C, hs*hs, J) in the compute dtype, hs = S/2 + 2."""
+        as rows (B, C, hs*hs, J) in the compute dtype, hs = S/2 + 2: the
+        J-view of a zero-filled buffer whose rows are whole 16-byte loads
+        (``repro_gather.pad_rows``)."""
         B, C, S = imgs.shape[0], imgs.shape[1], imgs.shape[2]
         flat = imgs.reshape(B * C, S, S, imgs.shape[-1]).permute(0, 3, 1, 2)
         hm = self.effTrack.heatmap2(flat)  # (B*C, J, h, h), channels last
         h, J = hm.shape[-1], self.num_joints
-        rows = torch.zeros((B, C, h + 2, h + 2, J), dtype=hm.dtype,
-                           device=hm.device)
-        rows[:, :, 1:-1, 1:-1, :] = hm.permute(0, 2, 3, 1).reshape(B, C, h, h, J)
-        return rows.reshape(B, C, (h + 2) ** 2, J)
+        width = padded_width(J, hm.element_size())
+        rows = torch.zeros((B, C, h + 2, h + 2, width), dtype=hm.dtype, device=hm.device)
+        rows[:, :, 1:-1, 1:-1, :J] = hm.permute(0, 2, 3, 1).reshape(B, C, h, h, J)
+        return rows.reshape(B, C, (h + 2) ** 2, width)[..., :J]
 
     def v2v_output(self, rows, center_hm, center3d, P, K, D) -> torch.Tensor:
         """Heatmap rows -> V2V output (B, g, g, g, J) in the compute dtype."""

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import repro_grid_gather, repro_quarter_gather
+from ..kernels.repro_gather import pad_rows
 
 REPRO_MODES = ("exact", "half", "half_fused", "quarter_fused")
 
@@ -30,8 +31,8 @@ REPRO_MODES = ("exact", "half", "half_fused", "quarter_fused")
 def reproject_rows(rows, center3d, center_hm, P, K, D, grid_size: int,
                    grid_spacing: float, mode: str = "quarter_fused",
                    return_indices: bool = False):
-    """Reprojection of heatmap rows (B, C, hs*hs, J), gathered in their own
-    dtype, into the ``mode``'s volume in float32: (B, G, G, G, J) for exact
+    """Reprojection of heatmap rows (B, C, hs*hs, J), padded as
+    ``repro_gather.pad_rows`` makes them and gathered in their own dtype, into the ``mode``'s volume in float32: (B, G, G, G, J) for exact
     and half, (B, G/2, G/2, G/2, J) for half_fused and quarter_fused. With
     ``return_indices`` the gather indices come back too."""
     if mode not in REPRO_MODES:
@@ -57,6 +58,6 @@ def reprojection_layer(heatmaps, center3d, center_hm, camera_matrices,
     (B, C, 3, 3), (B, C, 1, 5).
     """
     B, C, J, hs, _ = heatmaps.shape
-    rows = heatmaps.permute(0, 1, 3, 4, 2).reshape(B, C, hs * hs, J).contiguous()
+    rows = pad_rows(heatmaps.permute(0, 1, 3, 4, 2).reshape(B, C, hs * hs, J))
     return reproject_rows(rows, center3d, center_hm, camera_matrices, intrinsics,
                           distortions, grid_size, grid_spacing, mode)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Launch-plan sweep of the K1, K2, K3 and K5 kernels on one CUDA card.
 
-    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5]
+    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5,k5probe]
 
 K1 instance_norm_act: for V2V's and the 2D networks' largest main-path
 shapes (bf16), times the kernel under every cluster size (1, 2, 4, 8, 16),
@@ -9,9 +9,15 @@ block size (256, 512, 1024) and ring stage size that fits, beside the plan
 that ``launch_plan`` picks, and prints how many clusters the card holds at
 once (``cudaOccupancyMaxActiveClusters``) for V2V's largest shape at each
 cluster size 1-16. K2 repro_quarter_gather: times tile edges 4, 5 and 6 on
-the production grid (g4 = 18, 12 cameras, 23 joints, 130^2 padded maps).
-K5 repro_grid_gather: times tile edges per mode on the production grid
-(G = 72) of the same maps. K3 soft_argmax: times cluster sizes 8, 9 and
+the production grid (g4 = 18, 12 cameras, 23 joints, 130^2 padded maps,
+bf16 rows padded to 24 joints). K5 repro_grid_gather: times every compiled
+tile edge per mode on the production grid (G = 72) of the same maps, beside the plan that
+``launch_plan`` picks. ``k5probe`` splits K5's time per mode at its launch
+plan by variants of ``csrc/repro_grid_gather.cu`` made by textual
+substitution: the row loads replaced by a constant (index work, sums,
+writes), the index work replaced by a copy of a precomputed index map
+(loads, sums, writes), no gather (index work and writes) and neither
+(writes alone). K3 soft_argmax: times cluster sizes 8, 9 and
 16, blocks of 256, 512 and 1024 threads and runs of 8, 16, 24 and 32 voxels
 per lane on the main path's (8, 36, 36, 36, 23) bf16 volume, beside the plan
 that ``launch_plan`` picks. ``k3probe`` splits K3's time at its launch plan:
@@ -22,7 +28,8 @@ times each beside the kernel itself.
 
 Times are device times of CUDA-graph replays (``chip_smoke.graph_ms``);
 every configuration is also checked against the plain version (bf16 ulps
-for K1, equal volumes for K2 and K5, points and confidences for K3).
+for K1, equal volumes for K2, points and confidences for K3) or, for K5,
+against the volume of its launch plan (bit for bit).
 Output goes to stdout and
 ``chiprun_out/kernel_sweep.txt``. Exits non-zero without a CUDA device.
 """
@@ -41,8 +48,6 @@ SHAPES = [((8, 46656, 46), "relu"), ((8, 46656, 46), "add_relu"), ((8, 5832, 92)
           ((96, 16384, 16), "silu"), ((96, 4096, 48), "silu"), ((96, 4096, 56), "none"),
           ((96, 1024, 96), "silu"), ((96, 1024, 56), "none"), ((96, 256, 336), "silu"),
           ((96, 256, 56), "none")]
-# K5 tile edges (half-grid points) per mode; each must fit shared memory
-K5_TILES = {"exact": (2, 3, 4, 6), "half": (4, 6, 9), "half_fused": (4, 6, 9)}
 
 
 def sweep_k1(say, dev) -> None:
@@ -100,57 +105,180 @@ def sweep_k1(say, dev) -> None:
                 f"{ulps:.1f} ulps{mark}")
 
 
-def _tiles(say, name, call, plain, module, key, tiles) -> None:
-    """Time ``call()`` at each tile edge set on ``module.TILE`` (``key``: the
-    entry of a per-mode dict, or None), against ``plain``."""
+def _k2_tiles(say, call, plain, tiles) -> None:
+    """Time K2's ``call()`` at each tile edge set on ``repro_gather.TILE``,
+    against ``plain``."""
     import chip_smoke
+    from jarvis_hybridnet_torch.kernels import repro_gather as k2
 
-    def get():
-        return module.TILE if key is None else module.TILE[key]
-
-    def put(t):
-        if key is None:
-            module.TILE = t
-        else:
-            module.TILE[key] = t
-
-    chosen = get()
+    chosen = k2.TILE
     try:
         for tile in tiles:
-            put(tile)
+            k2.TILE = tile
             rel = float((call() - plain).abs().max() / plain.abs().max())
             ms = chip_smoke.graph_ms(call)
-            say(f"{name} tile {tile}: {ms:.4f} ms, volume {rel:.1e} relative to the plain "
+            say(f"K2 tile {tile}: {ms:.4f} ms, volume {rel:.1e} relative to the plain "
                 "version" + (" <- TILE" if tile == chosen else ""))
     finally:
-        put(chosen)
+        k2.TILE = chosen
 
 
-def sweep_repro(say, dev, only) -> None:
+def repro_inputs(dev):
+    """The production shapes of K2 and K5: bf16 rows (B 8, C 12, hs 130,
+    J 23 padded to 24) of seeded noise, the synthetic 12-camera rig."""
     import torch
 
-    from jarvis_hybridnet_torch import kernels
-    from jarvis_hybridnet_torch.kernels import repro_gather as k2
+    from jarvis_hybridnet_torch.kernels.repro_gather import pad_rows
     from jarvis_hybridnet_torch.testing import synthetic_rig
 
-    k5 = importlib.import_module("jarvis_hybridnet_torch.kernels.repro_grid_gather")
     B, C, J, hs = 8, 12, 23, 130
     g = torch.Generator(device=dev).manual_seed(5)
-    rows = (torch.rand((B, C, hs * hs, J), device=dev, generator=g) * 255).to(torch.bfloat16)
+    rows = pad_rows((torch.rand((B, C, hs * hs, J), device=dev, generator=g) * 255)
+                    .to(torch.bfloat16))
     rig = synthetic_rig(C, 1280, 1024)
     cams = [torch.tensor(a, device=dev).expand(B, *a.shape).contiguous()
             for a in (rig.camera_matrices, rig.intrinsics, rig.distortions)]
     c3d = torch.zeros((B, 3), dtype=torch.int32, device=dev)
     chm = torch.full((B, C, 2), 600, dtype=torch.int32, device=dev)
+    return rows, c3d, chm, cams
+
+
+def sweep_repro(say, dev, only) -> None:
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch import kernels
+
+    k5 = importlib.import_module("jarvis_hybridnet_torch.kernels.repro_grid_gather")
+    rows, c3d, chm, cams = repro_inputs(dev)
+    B, C, _, J = rows.shape
     if "k2" in only:
         a2 = (rows, c3d, chm, *cams, 18, 8.0)
-        _tiles(say, "K2", lambda: kernels.repro_quarter_gather(*a2),
-               kernels.repro_quarter_gather_plain(*a2)[0], k2, None, (4, 5, 6))
-    if "k5" in only:
-        for mode, tiles in K5_TILES.items():
-            a5 = (rows, c3d, chm, *cams, 72, 2.0, mode)
-            _tiles(say, f"K5 {mode}", lambda: kernels.repro_grid_gather(*a5),
-                   kernels.repro_grid_gather_plain(*a5)[0], k5, mode, tiles)
+        _k2_tiles(say, lambda: kernels.repro_quarter_gather(*a2),
+                  kernels.repro_quarter_gather_plain(*a2)[0], (4, 5, 6))
+    if "k5" not in only:
+        return
+    for mode, tiles in k5.TILES.items():
+        a5 = (rows, c3d, chm, *cams, 72, 2.0)
+        ref = kernels.repro_grid_gather(*a5, mode)
+        chosen = k5.launch_plan(B, C, J, 130, 72, mode, 2)
+        for tile in tiles:
+            try:
+                plan = k5.make_plan(B, C, J, 72, mode, 2, tile)
+            except ValueError as e:
+                say(f"K5 {mode} tile {tile}: {e}")
+                continue
+            same = torch.equal(k5.run_plan(plan, *a5), ref)
+            ms = chip_smoke.graph_ms(lambda plan=plan: k5.run_plan(plan, *a5))
+            mark = " <- launch_plan" if plan == chosen else ""
+            say(f"K5 {mode} tile {tile}: {ms:.4f} ms, {plan.work} blocks, smem {plan.smem}, "
+                f"{k5.occupancy(plan, torch.bfloat16)} blocks per SM, volume "
+                f"{'equal to' if same else 'DIFFERS from'} the launch plan's{mark}")
+            if not same:
+                raise SystemExit(f"kernel_sweep: K5 {mode} tile {tile} gives another volume")
+
+
+# K5 probe variants: substitutions in csrc/repro_grid_gather.cu
+_K5_LOAD = "__ldg(reinterpret_cast<const uint4*>(rc + ic[pt[k]] * S + lane[k]))"
+# a row of ones (bf16 0x3f80, float 0x3f800000) keeps the sums off zero
+_K5_ONES = ("(sizeof(T) == 2 ? make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u) "
+            ": make_uint4(0x3f800000u, 0x3f800000u, 0x3f800000u, 0x3f800000u))")
+_K5_STORES = [("o[i] = s[i];", "__stcs(o + i, s[i]);"),
+              ("reinterpret_cast<float4*>(o)[i] = reinterpret_cast<const float4*>(s)[i];",
+               "__stcs(reinterpret_cast<float4*>(o) + i, reinterpret_cast<const float4*>(s)[i]);"),
+              ("o[r] = up2(y[cc * J + j], y[(cc + 1) * J + j], fk & 1);",
+               "__stcs(o + r, up2(y[cc * J + j], y[(cc + 1) * J + j], fk & 1));")]
+_K5_INDEX = ("  tile_indices<MODE, TILE>(smem, lay, center3d, idx_out, b, C, hs, n2, step, t0x, "
+             "t0y, t0z);\n")
+_K5_CAMERAS = "  for (int c = 0; c < C; ++c) {\n    const T* rc"
+_K5_KERNEL = "template <typename T, int MODE, int TILE>\n__global__"
+# the index tile copied from a precomputed (B, C, n^3) index map passed as idx_out
+_K5_COPY = """template <int MODE, int TILE>
+__device__ void probe_copy_indices(float* smem, Layout lay, const int* idx_in, int b, int C,
+                                   int n2, int t0x, int t0y, int t0z) {
+  using G = Tile<MODE, TILE>;
+  constexpr int E = MODE == MODE_EXACT ? G::F : G::e;
+  int* idx = reinterpret_cast<int*>(smem + (MODE == MODE_EXACT ? lay.b : lay.a));
+  const int n = MODE == MODE_EXACT ? 2 * n2 : n2;
+  const int x0 = MODE == MODE_EXACT ? 2 * t0x : t0x - G::halo;
+  const int y0 = MODE == MODE_EXACT ? 2 * t0y : t0y - G::halo;
+  const int z0 = MODE == MODE_EXACT ? 2 * t0z : t0z - G::halo;
+  for (int w = threadIdx.x; w < C * G::np; w += kThreads) {
+    const int c = w / G::np, v = w % G::np;
+    const int i = min(max(x0 + v / (E * E), 0), n - 1), j = min(max(y0 + v / E % E, 0), n - 1),
+              k = min(max(z0 + v % E, 0), n - 1);
+    idx[w] = idx_in[(size_t)(b * C + c) * n * n * n + (i * n + j) * n + k];
+  }
+}
+
+"""
+K5_PROBES = {
+    "kernel": [],
+    "no row loads (index, sums, writes)": [(_K5_LOAD, _K5_ONES)],
+    "precomputed indices (loads, sums, writes)": [
+        (_K5_INDEX, "  probe_copy_indices<MODE, TILE>(smem, lay, idx_out, b, C, n2, t0x, t0y, "
+                    "t0z);\n"),
+        (_K5_KERNEL, _K5_COPY + _K5_KERNEL)],
+    "writes alone (no index, no row loads)": [(_K5_INDEX, ""), (_K5_LOAD, _K5_ONES)],
+    "streaming stores": _K5_STORES,
+    "cameras unrolled by 2": [(_K5_CAMERAS, "#pragma unroll 2\n" + _K5_CAMERAS)],
+}
+
+
+def sweep_k5probe(say, dev) -> None:
+    import ctypes
+
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch import kernels
+    from jarvis_hybridnet_torch.kernels import build
+
+    k5 = importlib.import_module("jarvis_hybridnet_torch.kernels.repro_grid_gather")
+    src = (build.CSRC / "repro_grid_gather.cu").read_text()
+    out_dir = build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for i, (name, subs) in enumerate(K5_PROBES.items()):
+        text = src
+        for a, b in subs:
+            if text.count(a) != 1:
+                raise SystemExit(f"kernel_sweep: probe {name!r} no longer applies to the source")
+            text = text.replace(a, b)
+        cu, lib = out_dir / f"k5probe{i}.cu", out_dir / f"libk5probe{i}.so"
+        cu.write_text(text)
+        jobs[name] = lib, subprocess.Popen(
+            [build._nvcc(), *build._flags("repro_grid_gather"), f"-I{build.CSRC}", "-o", str(lib),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"kernel_sweep: nvcc failed for probe {name!r}:\n{log}")
+        fn = ctypes.CDLL(str(lib)).repro_grid_gather
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float] + [i] * 3 + [p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    rows, c3d, chm, cams = repro_inputs(dev)
+    B, C, hs2, J = rows.shape
+    for mode in k5.MODES:
+        plan = k5.launch_plan(B, C, J, 130, 72, mode, 2)
+        _, idx = kernels.repro_grid_gather(rows, c3d, chm, *cams, 72, 2.0, mode,
+                                           return_indices=True)
+        n = 36 if mode == "half_fused" else 72
+        out = torch.empty((B, n, n, n, J), device=dev)
+        say(f"K5 probe {mode} at {plan}")
+        for name, fn in fns.items():
+            def call(fn=fn):
+                b = build.ptr
+                build.check(fn(b(rows), b(c3d), b(chm), *(b(t) for t in cams), b(out),
+                               b(idx) if name.startswith("precomputed") else None, B, C, J,
+                               rows.stride(2), 130, 36, plan.tile, 4.0, k5.MODES[mode],
+                               plan.smem, 1, build.stream()), "K5 probe")
+            say(f"  {name:42s}: {chip_smoke.graph_ms(call):.4f} ms")
+        say(f"  {'zero_() of the volume (the write alone)':42s}: "
+            f"{chip_smoke.graph_ms(out.zero_):.4f} ms")
 
 
 def sweep_k3(say, dev) -> None:
@@ -281,6 +409,8 @@ def main() -> int:
             sweep_k3(say, dev)
         if "k3probe" in only:
             sweep_k3probe(say, dev)
+        if "k5probe" in only:
+            sweep_k5probe(say, dev)
     return 0
 
 
