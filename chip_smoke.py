@@ -11,10 +11,16 @@ and drives ``make_predictor3d`` at the production configuration (bf16,
 quarter_fused, 12 cameras of 1280x1024 on the synthetic rig, 23 joints,
 256^2 crops and CenterDetect input, 144 mm cube at 2 mm, T = 8 framesets of
 seeded uint8 frames), then the same cascade in the exact, half_fused and
-half repro modes on the same frames, each with the launch counts set to 0
-before one step and read after it. It then checks every kernel against its
-plain PyTorch version on the card at the main path's shapes and times
-kernel, plain version and library call. A kernel's ``ms`` is device time: a
+half repro modes on the same frames, the production cascade on the same
+frames as float32 in [0, 1], ``make_predictor2d`` on T = 8 frames of one
+camera, the two-phase cascade (``make_predictor3d_twophase``: low-resolution
+frames reduced 4x, host crops, phase B) and the streaming loop of the
+``predict3D`` driver writing ``data3D.csv`` from a reader of seeded
+batches, each path with the launch counts set to 0 before one step and read
+after it; K1's and K4's arguments are recorded over each path's step.
+It then checks every kernel against its plain PyTorch version on the card:
+K1 and K4 at every shape a driven path gave them, K2, K3 and K5 at the main
+path's, and times kernel, plain version and library call. A kernel's ``ms`` is device time: a
 CUDA graph of ``GRAPH_CALLS`` captured calls is replayed, so host launch
 gaps do not count; ``wall_ms`` is the event time of calls launched one by
 one from Python. Prints the card, the predict3D rates, one
@@ -35,6 +41,7 @@ mode at G = 72 and 44, and K2's volume too.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -446,6 +453,351 @@ def check_k3(kernels, vout, c3d, spacing, cube, launches, baseline, base_log, no
     return entry
 
 
+
+def kernel_entry(name, source, replaces, launches, max_abs_err, call, plain, bound_ms,
+                 **extra):
+    """One entry of the kernels line: device time of ``call`` by graph
+    replay (``ms``), event time of one-by-one calls (``wall_ms``), the
+    plain version's time."""
+    return dict(name=name, route="cuda", kernels_per_call=1,
+                source=f"jarvis_hybridnet_torch/kernels/csrc/{source}", replaces=replaces,
+                launches=launches, max_abs_err=max_abs_err, ms=graph_ms(call),
+                wall_ms=cuda_ms(call), plain_ms=cuda_ms(plain, iters=5), bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, **extra)
+
+
+def k4_bytes(x, out, height: int) -> int:
+    """Bytes K4 must move: the rows its H taps touch, whole (at 1280 wide
+    a tap every 5 pixels touches every 32-byte sector), and its output."""
+    from jarvis_hybridnet_torch.kernels.resize_normalize import linear_tables
+
+    N, H, W = x.shape[:3]
+    i0, i1, _ = linear_tables(height, H)
+    rows = len(set(i0) | set(i1))
+    return N * rows * W * 3 * x.element_size() + out.numel() * out.element_size()
+
+
+def rate(step, count: int, note, label: str, unit: str) -> float:
+    """Median over REPEATS runs of ITERS calls of ``step`` of ``count`` items
+    per call, per second (host clock around ``torch.cuda.synchronize``)."""
+    import torch
+
+    rates = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(ITERS):
+            step(i)
+        torch.cuda.synchronize()
+        rates.append(count * ITERS / (time.perf_counter() - t0))
+    r = sorted(rates)[len(rates) // 2]
+    note(f"{label}: {r:.2f} {unit}, median of {REPEATS} runs of {ITERS} steps: "
+         f"{', '.join(f'{x:.2f}' for x in rates)}; {count / r * 1e3:.2f} ms per step")
+    return r
+
+
+class ShapeRecorder:
+    """What K1 and K4 are called with on each driven path: the (shape,
+    dtype, act) of every K1 call and the (input shape, input dtype, height,
+    width, output dtype) of every K4 call, each with its calls per path; K4
+    keeps its first call's arguments. It wraps the names by which the models
+    and the predictors call the two wrappers."""
+
+    def __init__(self):
+        self.k1: dict = {}  # key -> {path: calls}
+        self.k4: dict = {}  # key -> (arguments, {path: calls})
+
+    @contextlib.contextmanager
+    def on(self, path: str):
+        from jarvis_hybridnet_torch.models import layers
+        from jarvis_hybridnet_torch.prediction import predictor2d, predictor3d
+
+        k1, k4 = layers.instance_norm_act, predictor3d.resize_normalize
+
+        def rec_k1(x, act="none", skip=None):
+            per = self.k1.setdefault((tuple(x.shape), x.dtype, act), {})
+            per[path] = per.get(path, 0) + 1
+            return k1(x, act, skip)
+
+        def rec_k4(x, height, width, mean, std, dtype):
+            key = (tuple(x.shape), x.dtype, height, width, dtype)
+            _, per = self.k4.setdefault(key, ((x, height, width, mean, std, dtype), {}))
+            per[path] = per.get(path, 0) + 1
+            return k4(x, height, width, mean, std, dtype)
+
+        layers.instance_norm_act = rec_k1
+        predictor2d.resize_normalize = predictor3d.resize_normalize = rec_k4
+        try:
+            yield
+        finally:
+            layers.instance_norm_act = k1
+            predictor2d.resize_normalize = predictor3d.resize_normalize = k4
+
+    def calls(self, name: str, path: str) -> int:
+        table = {"instance_norm_act": self.k1,
+                 "resize_normalize": {k: per for k, (_, per) in self.k4.items()}}[name]
+        return sum(per.get(path, 0) for per in table.values())
+
+
+def path_launches(run, kernels, names, path, recorder):
+    """Launch counts of one call of ``run`` (counts set to 0 just before,
+    read just after); fails unless every kernel of ``names`` launched, and
+    unless ``recorder``, which records K1's and K4's arguments over the
+    call under ``path``, saw as many calls of each as were counted."""
+    import torch
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with recorder.on(path):
+        out = run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for name in names:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the {path} path")
+    for name in ("instance_norm_act", "resize_normalize"):
+        if recorder.calls(name, path) != counts[name]:
+            fail(f"recorded {recorder.calls(name, path)} calls of {name} on the {path} path, "
+                 f"counted {counts[name]} launches")
+    return out, counts
+
+
+def predict2d_phase(kernels, cfg, ckpt, frames, recorder, note):
+    """``make_predictor2d`` (bf16) on T frames of camera 0: launches, frames/s,
+    stage split; then float32 on the card against float32 on the CPU at the
+    same size: argmax points and gate identical, confidences to 1e-4."""
+    import torch
+
+    from jarvis_hybridnet_torch.prediction.loaders import make_predictor2d
+
+    imgs = [f[:, 0].contiguous() for f in frames]
+    pred = make_predictor2d(cfg, ckpt["CenterDetect"], ckpt["KeypointDetect"],
+                            dtype="bfloat16", device="cuda")
+    pred(imgs[0])
+    out, counts = path_launches(lambda: pred(imgs[0]), kernels,
+                                ("instance_norm_act", "resize_normalize"), "predict2d", recorder)
+    points, conf, valid = out
+    if not (torch.isfinite(points).all() and torch.isfinite(conf).all()):
+        fail("non-finite outputs on the predict2D path")
+    note(f"predict2D launches in one step: {json.dumps(counts)}; frames through the gate: "
+         f"{int(valid.sum())}/{T}")
+    rate(lambda i: pred(imgs[i % 2]), T, note, f"predict2D (T={T}, one camera of {W}x{H})",
+         "frames/s")
+    cx, cy, _, _ = pred.detect(imgs[0])
+    for name, fn in (("detect (K4, CenterDetect, argmax, gate)", lambda: pred.detect(imgs[0])),
+                     ("crop + KeypointDetect + argmax",
+                      lambda: pred.keypoints(imgs[0], cx, cy))):
+        note(f"predict2D stage {name}: {cuda_ms(fn, iters=5, warmup=1):.3f} ms")
+    res = {}
+    for device in ("cuda", "cpu"):
+        p = make_predictor2d(cfg, ckpt["CenterDetect"], ckpt["KeypointDetect"],
+                             dtype="float32", device=device)
+        res[device] = [a.cpu() for a in p(imgs[0].to(device))]
+    same = torch.equal(res["cuda"][0], res["cpu"][0]) and torch.equal(res["cuda"][2],
+                                                                      res["cpu"][2])
+    cerr = float((res["cuda"][1] - res["cpu"][1]).abs().max())
+    note(f"predict2D f32, card vs CPU (T={T}, {W}x{H}): points and gate "
+         f"{'identical' if same else 'DIFFER'}, confidences {cerr:.2e} (tol 1e-4)")
+    if not same or cerr > 1e-4:
+        fail("the predict2D cascade on the card disagrees with the CPU cascade")
+    return counts
+
+
+def area_reduce(frames, f: int):
+    """Mean of f x f pixel blocks, rounded, on the card: the reader's area
+    downscale of (T, C, H, W, 3) uint8 frames."""
+    import torch
+    import torch.nn.functional as F
+
+    t, c, h, w, _ = frames.shape
+    x = frames.reshape(t * c, h, w, 3).permute(0, 3, 1, 2).float()
+    low = F.avg_pool2d(x, f).round().to(torch.uint8)
+    return low.permute(0, 2, 3, 1).reshape(t, c, h // f, w // f, 3).contiguous()
+
+
+def twophase_phase(kernels, cfg, rig, ckpt, frames, fused_points, recorder, note):
+    """``make_predictor3d_twophase`` (bf16, f = 4) on host frames as a driver
+    gives them: phase A on the low-resolution frames, ``cx, cy`` to the
+    host, host crops, phase B. Launches, poses/s, host-to-device bytes;
+    float32 on the card against float32 on the CPU at the small size."""
+    import torch
+
+    from jarvis_hybridnet_torch.prediction.loaders import make_predictor3d_twophase
+    from jarvis_hybridnet_torch.testing import monkeyhand_cfg, synthetic_rig
+
+    f = 4
+    full = [fr.cpu().numpy() for fr in frames]
+    low = [area_reduce(fr, f).cpu().numpy() for fr in frames]
+    phase_a, phase_b, crop_fn = make_predictor3d_twophase(
+        cfg, rig, (W, H), ckpt["CenterDetect"], ckpt["HybridNet"], lowres_factor=f,
+        dtype="bfloat16", device="cuda")
+
+    def step(i):
+        cx, cy, c3d, valid = phase_a(low[i % 2])
+        crops = crop_fn(full[i % 2], cx.cpu().numpy(), cy.cpu().numpy())
+        return (*phase_b(crops, cx, cy, c3d), valid, crops)
+
+    step(0)
+    out, counts = path_launches(lambda: step(0), kernels, MAIN_PATH_KERNELS, "twophase",
+                                recorder)
+    points, conf, valid, crops = out
+    if not (torch.isfinite(points).all() and torch.isfinite(conf).all()):
+        fail("non-finite outputs on the two-phase path")
+    h2d = low[0].nbytes + crops.nbytes
+    note(f"two-phase launches in one step: {json.dumps(counts)}; host-to-device bytes per "
+         f"batch: {h2d} (low-res {low[0].nbytes} + crops {crops.nbytes}) against "
+         f"{full[0].nbytes} for the fused path's frames ({full[0].nbytes / h2d:.2f}x)")
+    rate(step, T, note, f"predict3D two-phase (f={f}, frames on the host)", "poses/s")
+    split = {"phase A (low-res frames to the card, K4, CenterDetect, gate, DLT)": 0.0,
+             "cx, cy to the host + crop_fn": 0.0,
+             "phase B (crops to the card, KeypointDetect, K2, V2V, K3)": 0.0}
+    names = list(split)
+    for i in range(5):
+        t0 = time.perf_counter()
+        cx, cy, c3d, _ = phase_a(low[i % 2])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        crops = crop_fn(full[i % 2], cx.cpu().numpy(), cy.cpu().numpy())
+        t2 = time.perf_counter()
+        phase_b(crops, cx, cy, c3d)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, dt in zip(names, (t1 - t0, t2 - t1, t3 - t2)):
+            split[name] += dt * 1e3 / 5
+    note("two-phase step split (host clock, synchronized after each part, mean of 5): " +
+         "; ".join(f"{k} {v:.2f} ms" for k, v in split.items()))
+    dist = (points - fused_points).norm(dim=-1)
+    note(f"points two-phase vs fused, bf16, frames of seed 1 (noise; information, not a "
+         f"bound): max {float(dist.max()):.4f} mm, RMS {float(dist.square().mean().sqrt()):.4f} "
+         f"mm; framesets through the gate {int(valid.sum())}/{T}")
+
+    small_cfg = monkeyhand_cfg(center_size=64, bbox=128, cube=144, spacing=4, num_cameras=4)
+    small_rig = synthetic_rig(4, 320, 256)
+    small = torch.randint(0, 256, (2, 4, 256, 320, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(4))
+    small_low = area_reduce(small.cuda(), f).cpu().numpy()
+    res = {}
+    for device in ("cuda", "cpu"):
+        a, b, cf = make_predictor3d_twophase(small_cfg, small_rig, (320, 256),
+                                             ckpt["CenterDetect"], ckpt["HybridNet"],
+                                             lowres_factor=f, dtype="float32", device=device)
+        cx, cy, c3d, v = a(small_low)
+        pts, conf = b(cf(small.numpy(), cx.cpu().numpy(), cy.cpu().numpy()), cx, cy, c3d)
+        res[device] = [t.cpu() for t in (cx, cy, c3d, v, pts, conf)]
+    same = all(torch.equal(x, y) for x, y in zip(res["cuda"][:4], res["cpu"][:4]))
+    perr = float((res["cuda"][4] - res["cpu"][4]).abs().max())
+    cerr = float((res["cuda"][5] - res["cpu"][5]).abs().max())
+    note(f"two-phase f32, card vs CPU (T=2, 4 cameras, 256x320, low-res 64x80): cx, cy, "
+         f"center3d and gate {'identical' if same else 'DIFFER'}, points {perr:.2e} mm (tol "
+         f"2e-2), confidences {cerr:.2e} (tol 1e-4)")
+    if not same or perr > 2e-2 or cerr > 1e-4:
+        fail("the two-phase cascade on the card disagrees with the CPU cascade")
+    return counts
+
+
+class BatchReader:
+    """A reader with the driver's interface over seeded host batches:
+    ``(frames, n)`` per batch, ``recycle``, ``release``, ``number_frames``,
+    ``img_size``."""
+
+    def __init__(self, batches, repeats: int):
+        self.batches, self.repeats = batches, repeats
+        self.number_frames = T * repeats
+        self.img_size = (W, H)
+        self.recycled = 0
+
+    def __iter__(self):
+        for i in range(self.repeats):
+            yield self.batches[i % len(self.batches)], T
+
+    def recycle(self, batch) -> None:
+        self.recycled += 1
+
+    def release(self) -> None:
+        pass
+
+
+def driver_phase(kernels, cfg, predictor, frames, out_dir, recorder, note):
+    """The streaming loop of the predict3D driver (``stream_predict3d``) on
+    the card over seeded host batches into ``data3D.csv``: launches, rows
+    against the predictor's own outputs (NaN rows where ``valid`` is false),
+    poses/s through the driver beside the bare predictor's."""
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from jarvis_hybridnet_torch.prediction.predict3d import stream_predict3d
+
+    cfg = cfg.clone()  # a project's joint names give the CSV its two header rows
+    cfg.KEYPOINT_NAMES = [f"joint_{j}" for j in range(int(cfg.KEYPOINTDETECT.NUM_JOINTS))]
+    host = [fr.cpu().numpy() for fr in frames]
+    expect = [[a.cpu().numpy() for a in predictor(fr)] for fr in frames]
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        reader = BatchReader(host, 2)
+        _, counts = path_launches(lambda: stream_predict3d(cfg, predictor, reader, tmp),
+                                  kernels, MAIN_PATH_KERNELS, "driver", recorder)
+        with open(os.path.join(tmp, "data3D.csv"), newline="") as f:
+            rows = list(csv.reader(f))
+        if reader.recycled != 2:
+            fail(f"the driver recycled {reader.recycled} of 2 ring buffers")
+        header, body = rows[:2], np.array(rows[2:], dtype=np.float64)
+        if header[1][:4] != ["x", "y", "z", "confidence"] or body.shape != (2 * T, 23 * 4):
+            fail(f"data3D.csv has header {header[1][:4]} and shape {body.shape}")
+        worst, nan_rows = 0.0, 0
+        for k in range(2):
+            points, conf, valid = expect[k]
+            got = body[k * T:(k + 1) * T]
+            nan = np.isnan(got).all(axis=1)
+            if not np.array_equal(nan, ~valid):
+                fail(f"data3D.csv batch {k}: NaN rows {nan.tolist()} where valid is "
+                     f"{valid.tolist()}")
+            nan_rows += int(nan.sum())
+            ref = np.concatenate([points, conf[..., None]], axis=-1).reshape(T, -1)
+            if (~nan).any():
+                worst = max(worst, float(np.abs(got[~nan] - ref[~nan]).max()))
+        note(f"driver: data3D.csv {len(rows)} rows (2 header rows, {2 * T} framesets, "
+             f"{nan_rows} NaN rows where valid is false), values against the predictor's "
+             f"own outputs {worst:.2e} (tol 1e-4); launches in the run of 2 batches: "
+             f"{json.dumps(counts)}")
+        if worst > 1e-4:
+            fail(f"data3D.csv differs from the predictor's outputs by {worst}")
+        runs = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream_predict3d(cfg, predictor, BatchReader(host, ITERS), tmp)
+            torch.cuda.synchronize()
+            runs.append(T * ITERS / (time.perf_counter() - t0))
+    r = sorted(runs)[len(runs) // 2]
+    note(f"driver predict3D: {r:.2f} poses/s through the streaming loop (host batches, "
+         f"host-to-device copy of {host[0].nbytes} bytes a batch, CSV rows), median of "
+         f"{REPEATS} runs of {ITERS} batches: {', '.join(f'{x:.2f}' for x in runs)}")
+    bare = rate(lambda i: predictor(frames[i % 2]), T, note,
+                "bare predictor, same process (frames on the card)", "poses/s")
+    copies = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(host[i % 2]).to(predictor.device)
+        torch.cuda.synchronize()
+        copies.append((time.perf_counter() - t0) * 1e3)
+    copy_ms = sorted(copies)[2]
+    note(f"host-to-device copy of one batch (pageable memory, as the driver copies): "
+         f"{copy_ms:.2f} ms, {host[0].nbytes / copy_ms / 1e6:.2f} GB/s, median of 5")
+    note(f"driver / bare predictor: {r / bare:.3f}")
+    try:
+        import cv2  # noqa: F401
+        have_cv2 = True
+    except ImportError:
+        have_cv2 = False
+    from jarvis_hybridnet_torch import native
+    note(f"host decode (information only): cv2 imports: {have_cv2}; native video library "
+         f"builds and loads: {native.video_available()}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-csrc", metavar="DIR",
@@ -461,7 +813,6 @@ def main() -> int:
 
     from jarvis_hybridnet_torch import kernels
     from jarvis_hybridnet_torch.kernels import build
-    from jarvis_hybridnet_torch.models import layers
     from jarvis_hybridnet_torch.models.efficienttrack import EfficientTrackBackbone
     from jarvis_hybridnet_torch.models.weights import params_from_jax
     from jarvis_hybridnet_torch.prediction.loaders import make_predictor3d
@@ -519,24 +870,14 @@ def main() -> int:
     torch.cuda.synchronize()
     note(f"warm-up step: {time.perf_counter() - t0:.2f} s")
 
-    kernels.reset_launch_counts()
-    points, conf, valid = predictor(frames[0])
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
+    recorder = ShapeRecorder()
+    (points, conf, valid), launches = path_launches(lambda: predictor(frames[0]), kernels,
+                                                    MAIN_PATH_KERNELS, "quarter_fused",
+                                                    recorder)
     note(f"launches in one main-path step: {json.dumps(launches)}")
 
-    rates = []
-    for _ in range(REPEATS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(ITERS):
-            out = predictor(frames[i % 2])
-        torch.cuda.synchronize()
-        rates.append(T * ITERS / (time.perf_counter() - t0))
-    rate = sorted(rates)[len(rates) // 2]
-    note(f"predict3D: {rate:.2f} poses/s, median of {REPEATS} runs of {ITERS} steps "
-         f"(T={T}, two alternating seeded batches): "
-         f"{', '.join(f'{r:.2f}' for r in rates)}; {T / rate * 1e3:.2f} ms per step")
+    rate(lambda i: predictor(frames[i % 2]), T, note,
+         f"predict3D (T={T}, two alternating seeded batches)", "poses/s")
 
     # 6. outputs
     for name, t, shape in (("points3D", points, (T, 23, 3)), ("confidences", conf, (T, 23)),
@@ -544,23 +885,18 @@ def main() -> int:
         if tuple(t.shape) != shape:
             fail(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     finite = bool(torch.isfinite(points).all() and torch.isfinite(conf).all()
-                  and torch.isfinite(out[0]).all())
+                  and torch.isfinite(predictor(frames[1])[0]).all())
     note(f"outputs: points3D {tuple(points.shape)}, confidences {tuple(conf.shape)}, "
          f"valid {tuple(valid.shape)}; finite={finite}; framesets through the gate: "
          f"{int(valid.sum())}/{T}")
     if not finite:
         fail("non-finite outputs")
 
-    # 7. every kernel of the main path ran on it
-    for name in MAIN_PATH_KERNELS:
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-
     hybrid = predictor.hybrid_model
     stage_breakdown(predictor, frames[0], note)
     profile_steps(predictor, frames, out_dir, note)
 
-    # 7b. the same cascade in the other repro modes, on the same frames: each
+    # 7. the same cascade in the other repro modes, on the same frames: each
     # path's launches are counted over one step
     mode_launches, mode_points = {}, {"quarter_fused": points}
     for mode in OTHER_MODES:
@@ -569,28 +905,12 @@ def main() -> int:
         pred = make_predictor3d(mcfg, rig, ckpt["CenterDetect"], ckpt["HybridNet"],
                                 dtype="bfloat16", device="cuda")
         pred(frames[0])
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        mode_points[mode], _, _ = pred(frames[0])
-        torch.cuda.synchronize()
-        mode_launches[mode] = kernels.launch_counts()
-        for name in MODE_PATH_KERNELS:
-            if mode_launches[mode][name] <= 0:
-                fail(f"kernel {name} was not launched on the {mode} path")
+        (mode_points[mode], _, _), mode_launches[mode] = path_launches(
+            lambda: pred(frames[0]), kernels, MODE_PATH_KERNELS, mode, recorder)
         if not torch.isfinite(mode_points[mode]).all():
             fail(f"non-finite points on the {mode} path")
-        mrates = []
-        for _ in range(REPEATS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(ITERS):
-                pred(frames[i % 2])
-            torch.cuda.synchronize()
-            mrates.append(T * ITERS / (time.perf_counter() - t0))
-        mrate = sorted(mrates)[len(mrates) // 2]
-        note(f"predict3D {mode}: {mrate:.2f} poses/s, median of {REPEATS} runs of {ITERS} steps: "
-             f"{', '.join(f'{r:.2f}' for r in mrates)}; {T / mrate * 1e3:.2f} ms per step; "
-             f"launches in one step: {json.dumps(mode_launches[mode])}")
+        rate(lambda i: pred(frames[i % 2]), T, note, f"predict3D {mode}", "poses/s")
+        note(f"predict3D {mode} launches in one step: {json.dumps(mode_launches[mode])}")
         stage_breakdown(pred, frames[0], note)
         del pred
     for mode in ("quarter_fused", "half_fused", "half"):
@@ -602,32 +922,64 @@ def main() -> int:
              f"{int(valid.sum())} through the gate: max "
              f"{float(gated.max()) if gated.numel() else float('nan'):.4f} mm")
 
-    # 8-9. each kernel against its plain version at the main path's shapes.
+    # 8. the production cascade on the same frames as float32 in [0, 1]
+    float_frames = frames[0].float() / 255.0
+    predictor(float_frames)
+    out, float_launches = path_launches(lambda: predictor(float_frames), kernels,
+                                        MAIN_PATH_KERNELS, "float_frames", recorder)
+    if not torch.isfinite(out[0]).all():
+        fail("non-finite points on the float-frame path")
+    dist = (out[0] - points).norm(dim=-1)
+    note(f"float frames (frames/255 as float32): launches in one step "
+         f"{json.dumps(float_launches)}; points float vs uint8, bf16 (information, not a "
+         f"bound): max {float(dist.max()):.4f} mm, RMS {float(dist.square().mean().sqrt()):.4f} "
+         f"mm; gate {'equal' if torch.equal(out[2], valid) else 'differs'}")
+
+    # 9-11. predict2D, the two-phase cascade and the driver's streaming loop
+    path_counts = {"quarter_fused": launches, **mode_launches, "float_frames": float_launches}
+    path_counts["predict2d"] = predict2d_phase(kernels, cfg, ckpt, frames, recorder, note)
+    path_counts["twophase"] = twophase_phase(kernels, cfg, rig, ckpt, frames, points, recorder,
+                                             note)
+    path_counts["driver"] = driver_phase(kernels, cfg, predictor, frames, out_dir, recorder,
+                                         note)
+
+    # 12. each kernel against its plain version at the main path's shapes.
     # ``launches`` counts wrapper calls; ``kernels_per_call`` is how many
     # __global__ kernels one call launches
     report = []
 
-    # K4 resize_normalize on the step's frames
-    flat = frames[0].reshape(T * CAMS, H, W, 3)
-    cs = predictor.center_size
-    args = (flat, cs, cs, predictor.mean, predictor.std, torch.bfloat16)
-    k_out = kernels.resize_normalize(*args)
-    p_out = kernels.resize_normalize_plain(*args)
-    ulps = bf16_ulps(k_out, p_out)
-    if ulps > 1.0:
-        fail(f"resize_normalize differs by {ulps} bf16 ulps (tolerance 1)")
-    from jarvis_hybridnet_torch.kernels.resize_normalize import linear_tables
-    h_rows = len(set(linear_tables(cs, H)[0]) | set(linear_tables(cs, H)[1]))
-    k4_bytes = T * CAMS * h_rows * W * 3 + k_out.numel() * k_out.element_size()
-    report.append(dict(
-        name="resize_normalize", route="cuda", kernels_per_call=1,
-        source="jarvis_hybridnet_torch/kernels/csrc/resize_normalize.cu",
-        replaces="jarvis_hybridnet_tpu/ops/image.py:101", launches=launches["resize_normalize"],
-        max_abs_err=float((k_out.float() - p_out.float()).abs().max()),
-        ms=graph_ms(lambda: kernels.resize_normalize(*args)),
-        wall_ms=cuda_ms(lambda: kernels.resize_normalize(*args)),
-        plain_ms=cuda_ms(lambda: kernels.resize_normalize_plain(*args), iters=5),
-        bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None))
+    # K4 resize_normalize at every (input shape, dtype, output size) a driven
+    # path gave it, on the arguments of its first call there: the step's
+    # uint8 and float32 frames, predict2D's one camera, phase A's low-res
+    # frames (ratios 1 and 1.25). One rounding to bf16 in the kernel and in
+    # the plain version
+    k4_out = {}
+    for key, (a, per) in recorder.k4.items():
+        k_out = kernels.resize_normalize(*a)
+        p_out = kernels.resize_normalize_plain(*a)
+        ulps = bf16_ulps(k_out, p_out)
+        shape, in_dtype, height, width, out_dtype = key
+        note(f"resize_normalize {shape} {in_dtype} -> {height}x{width} {out_dtype} (calls per "
+             f"path {json.dumps(per)}): {ulps:.1f} bf16 ulps from the plain version "
+             f"(tolerance 1)")
+        if ulps > 1.0:
+            fail(f"resize_normalize {shape} {in_dtype} differs by {ulps} bf16 ulps (tolerance 1)")
+        k4_out[key] = k_out, float((k_out.float() - p_out.float()).abs().max())
+        del p_out
+    # the kernels line: the production cascade's uint8 and float32 frames
+    for path, name in (("quarter_fused", "resize_normalize"),
+                       ("float_frames", "resize_normalize[float32]")):
+        (key,) = (k for k, (_, per) in recorder.k4.items() if path in per)
+        args, (k_out, err) = recorder.k4[key][0], k4_out[key]
+        report.append(kernel_entry(
+            name, "resize_normalize.cu", "jarvis_hybridnet_tpu/ops/image.py:101",
+            path_counts[path]["resize_normalize"], err,
+            lambda a=args: kernels.resize_normalize(*a),
+            lambda a=args: kernels.resize_normalize_plain(*a),
+            k4_bytes(args[0], k_out, args[1]) / HBM_BYTES_PER_S * 1e3,
+            input_dtype=str(args[0].dtype).replace("torch.", "")))
+    del float_frames, k4_out
+    recorder.k4.clear()  # the frames it holds
 
     # inputs of K2 and K3 captured from the step's frames
     with torch.no_grad():
@@ -684,25 +1036,9 @@ def main() -> int:
                                float(hybrid.roi_cube_size), launches["soft_argmax"], baseline,
                                base_log, note))
 
-    # K1: record every (shape, act) the main path gives it, then check and
-    # time each; the line reports the sum over one step's launches
-    seen: dict = {}
-    real = layers.instance_norm_act
-
-    def recorder(x, act="none", skip=None):
-        key = (tuple(x.shape), x.dtype, act)
-        seen[key] = seen.get(key, 0) + 1
-        return real(x, act, skip)
-
-    layers.instance_norm_act = recorder
-    try:
-        with torch.no_grad():
-            predictor(frames[0])
-    finally:
-        layers.instance_norm_act = real
-    if sum(seen.values()) != launches["instance_norm_act"]:
-        fail(f"recorded {sum(seen.values())} InstanceNorm calls, counted "
-             f"{launches['instance_norm_act']}")
+    # K1: every (shape, dtype, act) a driven path gave it, checked against
+    # the plain version; the main path's shapes are timed too, and the line
+    # reports the sum over one main-path step's launches
     from jarvis_hybridnet_torch.kernels.instance_norm import launch_plan, max_active_clusters
 
     acts = {"none": lambda y, s: y, "silu": lambda y, s: F.silu(y),
@@ -711,8 +1047,12 @@ def main() -> int:
     worst_ulps = 0.0
     log.write("K1 instance_norm_act per shape: shape dtype act count ms wall_ms plain_ms "
               "library_ms bound_ms ulps | cluster threads span resident ring_rows smem "
-              "max_active_clusters\n")
-    for (shape, dtype, act), count in sorted(seen.items(), key=lambda kv: -math.prod(kv[0][0])):
+              "max_active_clusters | calls per path (count: calls on the main path; shapes "
+              "off it are checked, not timed)\n")
+    off_main = 0
+    for (shape, dtype, act), per in sorted(recorder.k1.items(),
+                                           key=lambda kv: -math.prod(kv[0][0])):
+        count = per.get("quarter_fused", 0)
         g = torch.Generator(device=dev).manual_seed(3)
         x = torch.randn(shape, device=dev, dtype=torch.float32, generator=g).mul(2).add(0.5)
         x = x.to(dtype)
@@ -725,7 +1065,17 @@ def main() -> int:
         # sums once, so the normalized value may round to the neighbouring bf16
         # value; SiLU's three further bf16 roundings can grow that to 3 ulps
         if ulps > 3.0:
-            fail(f"instance_norm_act {shape} {act} differs by {ulps} bf16 ulps (tolerance 3)")
+            fail(f"instance_norm_act {shape} {dtype} {act} differs by {ulps} bf16 ulps "
+                 f"(tolerance 3); calls per path {json.dumps(per)}")
+        k1["max_abs_err"] = max(k1["max_abs_err"], float((ko.float() - po.float()).abs().max()))
+        plan = launch_plan(*shape, x.element_size())
+        plan_cols = (f"{plan.cluster} {plan.threads} {plan.span} {plan.resident} "
+                     f"{plan.ring_rows} {plan.smem} {max_active_clusters(plan, dtype)}")
+        if not count:
+            off_main += 1
+            log.write(f"  {shape} {dtype} {act} x0 - - - - - {ulps:.1f} | {plan_cols} | "
+                      f"{json.dumps(per)}\n")
+            continue
         xn = x.permute(0, 2, 1)  # (N, C, S) for the library call
         sn = None if skip is None else skip.permute(0, 2, 1)
         times = dict(
@@ -739,12 +1089,9 @@ def main() -> int:
         times["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         for k, v in times.items():
             k1[k] += v * count
-        k1["max_abs_err"] = max(k1["max_abs_err"], float((ko.float() - po.float()).abs().max()))
-        plan = launch_plan(*shape, x.element_size())
         log.write(f"  {shape} {dtype} {act} x{count} {times['ms']:.4f} {times['wall_ms']:.4f} "
                   f"{times['plain_ms']:.4f} {times['library_ms']:.4f} {times['bound_ms']:.4f} "
-                  f"{ulps:.1f} | {plan.cluster} {plan.threads} {plan.span} {plan.resident} "
-                  f"{plan.ring_rows} {plan.smem} {max_active_clusters(plan, dtype)}\n")
+                  f"{ulps:.1f} | {plan_cols} | {json.dumps(per)}\n")
         if baseline is not None:
             def near(new, old, shape=shape, act=act):
                 u = bf16_ulps(new, old)
@@ -756,7 +1103,9 @@ def main() -> int:
                 lambda: baseline.instance_norm_act(x, act, skip), near)
             base_log.write(f"K1 instance_norm_act {shape} {act} x{count}: current {cur:.4f} ms, "
                            f"baseline {base:.4f} ms, bound {times['bound_ms']:.4f} ms\n")
-    note(f"instance_norm_act: {len(seen)} shapes, worst {worst_ulps:.1f} bf16 ulps vs plain")
+    note(f"instance_norm_act: {len(recorder.k1)} (shape, dtype, act) over the driven paths, "
+         f"{off_main} of them off the main path; worst {worst_ulps:.1f} bf16 ulps vs plain "
+         f"(tolerance 3)")
     report.insert(0, dict(
         name="instance_norm_act", route="cuda", kernels_per_call=1,
         source="jarvis_hybridnet_torch/kernels/csrc/instance_norm_act.cu",
@@ -771,15 +1120,17 @@ def main() -> int:
     # production mode and in exact mode
     small = torch.randint(0, 256, (2, 4, 256, 320, 3), dtype=torch.uint8,
                           generator=torch.Generator().manual_seed(4))
-    for mode in ("quarter_fused", "exact"):
+    for mode, scale in (("quarter_fused", None), ("exact", None), ("quarter_fused", 255.0)):
         small_cfg = monkeyhand_cfg(center_size=64, bbox=128, cube=144, spacing=4, num_cameras=4)
         small_cfg.TPU.REPRO_MODE = mode
         small_rig = synthetic_rig(4, 320, 256)
         got, ref = ({}, {})
+        if scale is not None:
+            mode = f"{mode}, float frames"
         for device, res in (("cuda", got), ("cpu", ref)):
             pred = make_predictor3d(small_cfg, small_rig, ckpt["CenterDetect"],
                                     ckpt["HybridNet"], dtype="float32", device=device)
-            frames_d = small.to(device)
+            frames_d = small.to(device) if scale is None else small.to(device).float() / scale
             res["centers"] = pred.centers(frames_d)[0].cpu()
             res["points"], res["conf"], res["valid"] = (a.cpu() for a in pred(frames_d))
         perr = float((got["points"] - ref["points"]).abs().max())
@@ -813,6 +1164,15 @@ def main() -> int:
             if ulps > 3.0:
                 fail(f"instance_norm_act bf16 check {shape}")
 
+    # every kernel's launches on each path (one step; the driver: two batches)
+    for r in report:
+        wrapper, paths = r["name"].split("[")[0], path_counts
+        if wrapper == "resize_normalize":  # K4's float32 input instantiation
+            float_input = r["input_dtype"] == "float32"
+            paths = {p: c for p, c in paths.items() if (p == "float_frames") == float_input}
+        if "mode" in r:  # K5 counts its launches in every mode together
+            paths = {r["mode"]: paths[r["mode"]]}
+        r["paths"] = {p: c[wrapper] for p, c in paths.items() if c[wrapper]}
     for r in report:
         log.write(json.dumps(r) + "\n")
     log.close()

@@ -1,7 +1,10 @@
-"""PyTorch / CUDA port of the JARVIS-HybridNet predict3D cascade.
+"""PyTorch / CUDA port of the JARVIS-HybridNet prediction cascades.
 
 Runs beside the JAX package ``jarvis_hybridnet_tpu`` and imports nothing of
-it. Entry point: ``prediction.loaders.make_predictor3d``. The hand-written
+it. Entry points: ``prediction.loaders`` (``make_predictor3d``,
+``make_predictor3d_twophase``, ``make_predictor2d``) and the video -> CSV
+drivers ``prediction.predict3d.predict3D`` and
+``prediction.predict2d.predict2D``. The hand-written
 Hopper kernels live in ``kernels/``; each wrapper launches its CUDA kernel on
 a CUDA tensor and runs its plain PyTorch version on a CPU tensor.
 """

@@ -16,7 +16,7 @@ Each wrapper counts the calls that launch its CUDA source in
   half grid, with the index upsample (exact) or the value upsample (half);
 - soft_argmax (K3) runs a thread block cluster per frameset whose CTAs merge
   their sums through distributed shared memory;
-- resize_normalize (K4) resizes and normalizes the uint8 frames.
+- resize_normalize (K4) resizes and normalizes the uint8 or float32 frames.
 """
 
 from .instance_norm import instance_norm_act, instance_norm_act_plain

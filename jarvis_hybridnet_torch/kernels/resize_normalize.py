@@ -1,8 +1,12 @@
-"""K4: uint8 frames -> bilinear resize (no antialias) -> ImageNet normalize.
+"""K4: uint8 or float32 frames -> bilinear resize (no antialias) -> ImageNet
+normalize.
 
 Replaces ``ops/image.py`` ``resize_bilinear`` (:64), ``resize_bilinear_mxu``
-(:101) and ``normalize_imagenet`` (:127) as ``predictor3d.py:96-108`` uses
-them. CUDA source: ``csrc/resize_normalize.cu``.
+(:101) and ``normalize_imagenet`` (:127) as ``predictor3d.py:96-108`` and
+``predictor2d.py:83-92`` use them: uint8 frames are divided by 255 after the
+resize, float32 frames in [0, 1] are not (the JAX ``value_scale``). CUDA
+source: ``csrc/resize_normalize.cu``, one instantiation per (input, output)
+type.
 """
 
 from __future__ import annotations
@@ -16,6 +20,13 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INPUTS = (torch.uint8, torch.float32)
+
+
+def value_scale(x: torch.Tensor) -> float:
+    """255 for uint8 frames, 1 for float frames in [0, 1]
+    (``predictor3d.py:88-89``)."""
+    return 255.0 if x.dtype == torch.uint8 else 1.0
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,8 +61,11 @@ def _resize_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
 
 def resize_normalize_plain(x: torch.Tensor, height: int, width: int, mean,
                            std, dtype=torch.float32) -> torch.Tensor:
-    """Plain PyTorch version: uint8 (N, H, W, 3) -> (N, height, width, 3)."""
-    y = _resize_axis(_resize_axis(x, 1, height), 2, width) / 255.0
+    """Plain PyTorch version: uint8 or float32 (N, H, W, 3) ->
+    (N, height, width, 3)."""
+    y = _resize_axis(_resize_axis(x, 1, height), 2, width)
+    if x.dtype == torch.uint8:
+        y = y / 255.0
     mean = torch.as_tensor(mean, dtype=torch.float32, device=x.device)
     std = torch.as_tensor(std, dtype=torch.float32, device=x.device)
     return ((y - mean) / std).to(dtype)
@@ -59,14 +73,15 @@ def resize_normalize_plain(x: torch.Tensor, height: int, width: int, mean,
 
 def resize_normalize(x: torch.Tensor, height: int, width: int, mean, std,
                      dtype=torch.float32) -> torch.Tensor:
-    """Resize uint8 frames (N, H, W, 3) to (N, height, width, 3) with
-    half-pixel bilinear taps and no antialias, then (x/255 - mean) / std.
-    Computes in float32 and rounds once to ``dtype`` (f32 or bf16)."""
+    """Resize frames (N, H, W, 3) to (N, height, width, 3) with half-pixel
+    bilinear taps and no antialias, then (x / value_scale - mean) / std, for
+    uint8 frames (value_scale 255) or float32 frames in [0, 1] (value_scale
+    1). Computes in float32 and rounds once to ``dtype`` (f32 or bf16)."""
     if build.on_cpu(x):
         return resize_normalize_plain(x, height, width, mean, std, dtype)
-    build.require(x, "x", (torch.uint8,), ndim=4)
+    build.require(x, "x", _INPUTS, ndim=4)
     if x.shape[-1] != 3 or dtype not in _DTYPES:
-        raise ValueError(f"expected (N, H, W, 3) uint8 -> f32/bf16, got "
+        raise ValueError(f"expected (N, H, W, 3) uint8/f32 -> f32/bf16, got "
                          f"{tuple(x.shape)} -> {dtype}")
     N, H, W, _ = x.shape
     dev = str(x.device)
@@ -77,7 +92,8 @@ def resize_normalize(x: torch.Tensor, height: int, width: int, mean, std,
     s = [float(v) for v in std]
     p = build.ptr
     err = _fn()(p(x), p(out), N, H, W, height, width, p(hi0), p(hi1), p(hw1),
-                p(wi0), p(wi1), p(ww1), *m, *s, _DTYPES[dtype], build.stream())
+                p(wi0), p(wi1), p(ww1), *m, *s, _DTYPES[dtype],
+                int(x.dtype == torch.float32), build.stream())
     build.check(err, "resize_normalize")
     resize_normalize.launches += 1
     return out
@@ -90,4 +106,4 @@ resize_normalize.launches = 0
 def _fn():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return build.bind("resize_normalize", "resize_normalize",
-                      [p, p, i, i, i, i, i] + [p] * 6 + [f] * 6 + [i, p])
+                      [p, p, i, i, i, i, i] + [p] * 6 + [f] * 6 + [i, i, p])

@@ -1,7 +1,9 @@
-"""Fused 3D prediction cascade (port of
-``jarvis_hybridnet_tpu/prediction/predictor3d.py::build_predict3d``).
+"""Fused and two-phase 3D prediction cascades (port of
+``jarvis_hybridnet_tpu/prediction/predictor3d.py``: ``build_predict3d`` and
+``build_predict3d_twophase``).
 
-Per batch of T framesets of C uint8 frames: resize + normalize (K4),
+Per batch of T framesets of C uint8 or float32 [0, 1] frames: resize +
+normalize (K4),
 CenterDetect, first-index argmax, the >= 2-camera maxval > 50 gate, the
 confidence-weighted DLT of the subject center, its reprojection into every
 camera for the crop centers (truncated, clamped to [bbox/2, W - bbox/2]),
@@ -9,6 +11,11 @@ the bbox^2 crops normalized in float32, then HybridNet (K1 throughout the
 2D and 3D nets, K2 or K5 reprojection by the configured mode, K3
 soft-argmax). Everything stays on the
 predictor's device; nothing synchronizes with the host.
+
+The two-phase cascade splits that step for streaming: phase A runs the
+center stage on low-resolution frames and returns crop centers in
+full-resolution pixels, the host cuts the crops out of its full-resolution
+frames, and phase B runs HybridNet on them.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import numpy as np
 import torch
 
 from ..kernels import resize_normalize
+from ..kernels.resize_normalize import value_scale
 from ..models.efficienttrack import EfficientTrackBackbone
 from ..models.hybridnet import HybridNetBackbone
 from ..ops.heatmap import argmax_2d
@@ -25,8 +33,8 @@ from ..utils.reprojection import project_points, triangulate
 
 class Predict3D:
     """``predictor(imgs) -> (points3D (T, J, 3) mm, confidences (T, J),
-    valid (T,) bool)`` for uint8 imgs (T, C, H, W, 3) on the predictor's
-    device."""
+    valid (T,) bool)`` for imgs (T, C, H, W, 3), uint8 or float32 RGB in
+    [0, 1], on the predictor's device."""
 
     def __init__(self, cfg, center_model: EfficientTrackBackbone,
                  hybrid_model: HybridNetBackbone, camera_matrices, intrinsics,
@@ -87,6 +95,10 @@ class Predict3D:
         """:meth:`detect` then :meth:`place`."""
         return self.place(*self.detect(imgs), imgs.shape[2], imgs.shape[3])
 
+    def normalize(self, crops: torch.Tensor) -> torch.Tensor:
+        """uint8 or float [0, 1] crops -> ImageNet-normalized float32."""
+        return (crops.float() / value_scale(crops) - self.mean_t) / self.std_t
+
     def crops(self, imgs: torch.Tensor, center_hm: torch.Tensor) -> torch.Tensor:
         """The bbox^2 windows at the crop centers, normalized in float32:
         (T, C, bbox, bbox, 3)."""
@@ -97,22 +109,88 @@ class Predict3D:
         cols = (center_hm[..., 0, None] - hw + r)[..., None, :]  # (T, C, 1, bbox)
         t = torch.arange(T, device=imgs.device)[:, None, None, None]
         c = torch.arange(C, device=imgs.device)[None, :, None, None]
-        crops = imgs[t, c, rows, cols]  # (T, C, bbox, bbox, 3)
-        return (crops.float() / 255.0 - self.mean_t) / self.std_t
+        return self.normalize(imgs[t, c, rows, cols])  # (T, C, bbox, bbox, 3)
+
+    def frames(self, imgs) -> torch.Tensor:
+        """``imgs`` on the predictor's device, checked: (T, C, H, W, 3) uint8
+        or float32."""
+        imgs = torch.as_tensor(imgs, device=self.device)
+        if imgs.dtype not in FRAME_DTYPES or imgs.dim() != 5 or imgs.shape[-1] != 3:
+            raise ValueError("expected uint8 or float32 frames (T, C, H, W, 3), got "
+                             f"{imgs.dtype} {tuple(imgs.shape)}")
+        return imgs
 
     @torch.no_grad()
-    def __call__(self, imgs):
-        imgs = torch.as_tensor(imgs, device=self.device)
-        if imgs.dtype != torch.uint8 or imgs.dim() != 5 or imgs.shape[-1] != 3:
-            raise ValueError("expected uint8 frames (T, C, H, W, 3), got "
-                             f"{imgs.dtype} {tuple(imgs.shape)}")
-        center_hm, center3d, valid = self.centers(imgs)
-        T = imgs.shape[0]
+    def hybrid_points(self, crops, center_hm, center3d):
+        """HybridNet on normalized crops: (points3D, confidences)."""
+        T = crops.shape[0]
 
         def per_frameset(a):
             return a.expand(T, *a.shape)
 
-        points, conf = self.hybrid_model.points(
-            self.crops(imgs, center_hm), center_hm, center3d.to(torch.int32),
-            per_frameset(self.P), per_frameset(self.K), per_frameset(self.D))
+        return self.hybrid_model.points(
+            crops, center_hm, center3d.to(torch.int32), per_frameset(self.P),
+            per_frameset(self.K), per_frameset(self.D))
+
+    @torch.no_grad()
+    def __call__(self, imgs):
+        imgs = self.frames(imgs)
+        center_hm, center3d, valid = self.centers(imgs)
+        points, conf = self.hybrid_points(self.crops(imgs, center_hm), center_hm, center3d)
         return points, conf, valid
+
+
+FRAME_DTYPES = (torch.uint8, torch.float32)
+
+
+def build_predict3d_twophase(predictor: Predict3D, full_size):
+    """Split cascade for streaming (``predictor3d.py:165-306``), on the
+    models and rig of ``predictor``. ``full_size`` is (W, H) of the
+    full-resolution recording.
+
+    Returns ``(phase_a, phase_b, crop_fn)``:
+
+    - ``phase_a(lowres (T, C, H/f, W/f, 3) uint8 or float32) -> (cx, cy
+      (T, C) int32, center3d (T, 3) int32, valid (T,))``: K4 to the
+      CenterDetect input, CenterDetect, argmax, gate and DLT, with the crop
+      centers in full-resolution pixels clamped to [bbox/2, W - bbox/2];
+    - ``phase_b(crops (T, C, bbox, bbox, 3) uint8 or float32, cx, cy,
+      center3d) -> (points3D (T, J, 3), confidences (T, J))``;
+    - ``crop_fn(frames (T, C, H, W, 3) numpy, cx, cy) -> crops``: the
+      windows cut on the host, as numpy.
+
+    Inputs may be numpy arrays or tensors; they are moved to the predictor's
+    device. Nothing synchronizes with the host, so the caller's copy of
+    ``cx, cy`` to the host for ``crop_fn`` is the one synchronization of a
+    step.
+    """
+    W_full, H_full = int(full_size[0]), int(full_size[1])
+    bbox, hw = predictor.bbox, predictor.bbox // 2
+
+    @torch.no_grad()
+    def phase_a(lowres):
+        lowres = predictor.frames(lowres)
+        center_hm, center3d, valid = predictor.place(*predictor.detect(lowres), H_full,
+                                                     W_full)
+        return center_hm[..., 0], center_hm[..., 1], center3d.to(torch.int32), valid
+
+    @torch.no_grad()
+    def phase_b(crops, cx, cy, center3d):
+        crops = predictor.frames(crops)
+        dev = predictor.device
+        center_hm = torch.stack([torch.as_tensor(cx, device=dev),
+                                 torch.as_tensor(cy, device=dev)], dim=-1)
+        return predictor.hybrid_points(predictor.normalize(crops), center_hm,
+                                       torch.as_tensor(center3d, device=dev))
+
+    def crop_fn(frames: np.ndarray, cx: np.ndarray, cy: np.ndarray) -> np.ndarray:
+        """Host-side window slicing from the full-resolution frames."""
+        T, C = frames.shape[0], frames.shape[1]
+        out = np.empty((T, C, bbox, bbox, 3), frames.dtype)
+        for t in range(T):
+            for c in range(C):
+                x0, y0 = int(cx[t, c]) - hw, int(cy[t, c]) - hw
+                out[t, c] = frames[t, c, y0:y0 + bbox, x0:x0 + bbox]
+        return out
+
+    return phase_a, phase_b, crop_fn

@@ -1,0 +1,48 @@
+"""Parameter dataclasses of the prediction drivers
+(reference: jarvis/utils/paramClasses.py:11-57).
+
+A copy of ``Predict3DParams`` and ``Predict2DParams`` from
+``jarvis_hybridnet_tpu/utils/param_classes.py``, with the same fields and
+defaults. The port's drivers run on one device: a ``process_count`` above 1
+(pod streaming) is refused by them."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+
+@dataclass
+class Predict3DParams:
+    project_name: str
+    recording_path: str
+    weights_center_detect: str = "latest"
+    weights_hybridnet: str = "latest"
+    output_dir: str = ""
+    frame_start: int = 0
+    number_frames: int = -1
+    dataset_name: Any = None
+    # reference trt_mode ('off'/'new'/'previous'); the port takes 'off' only
+    trt_mode: str = "off"
+    progress_bar: Any = None
+    # multi-host (pod) streaming identity; the port runs one process
+    process_index: Any = None
+    process_count: Any = None
+    merge_shards: bool = True
+
+
+@dataclass
+class Predict2DParams:
+    project_name: str
+    recording_path: str
+    weights_center_detect: str = "latest"
+    weights_keypoint_detect: str = "latest"
+    output_dir: str = ""
+    frame_start: int = 0
+    number_frames: int = -1
+    trt_mode: str = "off"
+    progress_bar: Any = None
+    # multi-host (pod) streaming identity; the port runs one process
+    process_index: Any = None
+    process_count: Any = None
+    merge_shards: bool = True

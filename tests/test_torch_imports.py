@@ -1,4 +1,7 @@
-"""The port and chip_smoke.py import nothing of JAX or of the JAX package."""
+"""The port and chip_smoke.py import nothing of JAX or of the JAX package,
+and the port's modules import without yaml, cv2 or tqdm (the card's machine
+has none of them: the modules that need them import them where they are
+used)."""
 
 import ast
 import pathlib
@@ -35,6 +38,20 @@ def test_loaders_import_with_jax_blocked():
             "import jarvis_hybridnet_torch.testing\n"
             "assert not any(m.split('.')[0] in %r for m in sys.modules\n"
             "               if sys.modules[m] is not None)\n" % (FORBIDDEN, FORBIDDEN))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+HOST_ONLY = ("yaml", "cv2", "tqdm")
+
+
+def test_every_module_imports_without_yaml_cv2_tqdm():
+    modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+                     for p in (REPO / "jarvis_hybridnet_torch").rglob("*.py"))
+    code = ("import importlib, sys\n"
+            "for m in %r: sys.modules[m] = None\n"
+            "for m in %r: importlib.import_module(m)\n" % (FORBIDDEN + HOST_ONLY, modules))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

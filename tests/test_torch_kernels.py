@@ -313,3 +313,30 @@ def test_k4_bf16_rounds_once_and_tracks_resize_bilinear_mxu():
     got = got.float().numpy()
     assert bf16_ulps(got, exact, floor=1.0).max() <= 0.5
     assert bf16_ulps(got, mxu, floor=1.0).max() <= 3.0
+
+
+@pytest.mark.parametrize("frame_type", ["uint8", "float32"])
+@pytest.mark.parametrize("src", [(1024, 1280), (256, 320)])
+def test_k4_production_ratios_match_jax(src, frame_type):
+    """uint8 frames and float32 frames in [0, 1] (value_scale 1, no /255)
+    at the production ratios 1280x1024 -> 256^2 (integer: JAX's bf16 path
+    resizes by bf16 selection matmuls) and 320x256 -> 256^2 (the two-phase
+    low-resolution frames, 1 and 1.25: JAX falls back to the exact resize,
+    ``ops/image.py:117-118``). float32: equal to ``resize_bilinear`` +
+    normalize to 1e-6 (0 measured on float frames); bf16: within half an
+    ulp of that and 3 ulps of JAX's bf16 path (float frames: 3.0 and 2.0
+    measured), the bounds of the uint8 tests (ROADMAP.md section C)."""
+    x, scale = _frames((2,) + src + (3,)), 255.0
+    if frame_type == "float32":
+        x, scale = x.astype(np.float32) / 255.0, 1.0
+    exact = np.asarray(normalize_imagenet(resize_bilinear(jnp.asarray(x), 256, 256) / scale,
+                                          MEAN, STD))
+    mxu = np.asarray(normalize_imagenet(
+        resize_bilinear_mxu(jnp.asarray(x), 256, 256, jnp.bfloat16) / scale,
+        MEAN.astype(jnp.bfloat16), STD.astype(jnp.bfloat16)).astype(jnp.float32))
+    got = kernels.resize_normalize(torch.from_numpy(x), 256, 256, MEAN, STD, torch.float32)
+    np.testing.assert_allclose(got.numpy(), exact, rtol=0, atol=1e-6)
+    got = kernels.resize_normalize(torch.from_numpy(x), 256, 256, MEAN, STD, torch.bfloat16)
+    got = got.float().numpy()
+    assert bf16_ulps(got, exact, floor=1.0).max() <= 0.5
+    assert bf16_ulps(got, mxu, floor=1.0).max() <= 3.0

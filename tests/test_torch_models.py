@@ -47,6 +47,19 @@ TRAINED = REPO / "trained" / "MonkeyHand"
 BF16 = jnp.bfloat16
 
 
+@pytest.fixture(scope="module")
+def few_torch_threads():
+    """Two PyTorch intra-op threads for a module's tests: the Tier-1 command
+    runs six test processes at once, and PyTorch's default of a thread per
+    core oversubscribes the CPU (on 8 cores the four end-to-end files of the
+    serving entry points took 157 s together with the default and 38 s
+    with two threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def range_ulps(got, ref) -> float:
     """Largest |got - ref| in bf16 ulps of max|ref|: the resolution of a
     bf16 output of that range."""

@@ -28,7 +28,9 @@ from jarvis_hybridnet_tpu.ops.image import normalize_imagenet, resize_bilinear
 from jarvis_hybridnet_tpu.prediction.loaders import make_predictor3d as jax_make_predictor3d
 from jarvis_hybridnet_tpu.training.checkpoints import load_checkpoint
 from jarvis_hybridnet_tpu.utils.reprojection import project_points, triangulate
-from tests.test_torch_models import range_ulps
+from tests.test_torch_models import few_torch_threads, range_ulps  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_torch_threads")
 
 TRAINED = pathlib.Path(__file__).resolve().parents[1] / "trained" / "MonkeyHand"
 CENTER = str(TRAINED / "CenterDetect_final.ckpt")
@@ -60,7 +62,8 @@ def _jax_centers(jcfg, rig, frames):
     @jax.jit
     def centers(imgs):
         flat = imgs.reshape(T * C, H, W, 3)
-        inp = normalize_imagenet(resize_bilinear(flat, cs, cs) / 255.0,
+        value_scale = 255.0 if imgs.dtype == jnp.uint8 else 1.0
+        inp = normalize_imagenet(resize_bilinear(flat, cs, cs) / value_scale,
                                  np.asarray(jcfg.DATASET.MEAN, np.float32),
                                  np.asarray(jcfg.DATASET.STD, np.float32))
         _, hm = EfficientTrackBackbone(model_size="small", output_channels=1).apply(
@@ -166,23 +169,12 @@ def test_dlt_and_crop_centers_match_jax():
     assert not torch.isfinite(zero).all()
 
 
-def test_predictor3d_bf16_fixed_crops(setup):
-    """bf16 with the crop centers fixed (JAX's float32 ones), so no argmax
-    flip can move a crop. The padded KeypointDetect heatmaps are held
-    within 32 bf16 ulps of their range of JAX's bf16 ones (23.5 measured;
-    JAX's bf16 run is 19.4 from its float32 one) and the double-softplus
-    volume within 48 (32.2 measured; JAX's own 31.1): on these crops the
-    two packages differ by about JAX's own bf16 error, which the per-block
-    bf16 tests of test_torch_models.py bound tightly.
-
-    The JAX package's own budget for its bf16 fast mode is 0.65 mm per
-    point, measured on real frames; on these synthetic frames the networks
-    are far less confident, and bf16 rounding moves points by millimetres
-    in both packages (ROADMAP.md section C). So the points are held to the
-    size of JAX's bf16 error instead: against the float32 result, the
-    port's RMS point error stays within 1.5x that of JAX's bf16 run (13.8
-    against 10.4 mm measured)."""
-    cfg, jcfg, rig, frames = setup
+def _bf16_fixed_crops(setup, frames):
+    """bf16 HybridNet of both packages on the crops of ``frames`` at JAX's
+    float32 crop centers: (padded heatmaps and volume in bf16 ulps of their
+    range against JAX's bf16 run, RMS point error against the port's float32
+    points of the port's bf16 run and of JAX's)."""
+    cfg, jcfg, rig, _ = setup
     center_hm, center3d, _ = _jax_centers(jcfg, rig, frames)
     center3d = center3d.astype(np.int32)
     cams = [np.broadcast_to(a, (T,) + a.shape).copy()
@@ -201,17 +193,53 @@ def test_predictor3d_bf16_fixed_crops(setup):
     jvol16, jhm16, j16, _ = (np.asarray(a, np.float32) for a in jax.jit(model.apply)(
         {"params": params}, crops.numpy(), center_hm, center3d, *cams))
     assert np.isfinite(p16).all()
-    hm_ulps, vol_ulps = range_ulps(hm16, jhm16), range_ulps(vol16, jvol16)
 
     def rms(a):
         return float(np.sqrt((np.linalg.norm(a - p32, axis=-1) ** 2).mean()))
 
+    return range_ulps(hm16, jhm16), range_ulps(vol16, jvol16), rms(p16), rms(j16)
+
+
+def test_predictor3d_bf16_fixed_crops(setup):
+    """bf16 with the crop centers fixed (JAX's float32 ones), so no argmax
+    flip can move a crop. The padded KeypointDetect heatmaps are held
+    within 32 bf16 ulps of their range of JAX's bf16 ones (23.5 measured;
+    JAX's bf16 run is 19.4 from its float32 one) and the double-softplus
+    volume within 48 (32.2 measured; JAX's own 31.1): on these crops the
+    two packages differ by about JAX's own bf16 error, which the per-block
+    bf16 tests of test_torch_models.py bound tightly.
+
+    The JAX package's own budget for its bf16 fast mode is 0.65 mm per
+    point, measured on real frames; on these synthetic frames the networks
+    are far less confident, and bf16 rounding moves points by millimetres
+    in both packages (ROADMAP.md section C). So the points are held to the
+    size of JAX's bf16 error instead: against the float32 result, the
+    port's RMS point error stays within 1.5x that of JAX's bf16 run (13.8
+    against 10.4 mm measured)."""
+    hm_ulps, vol_ulps, rms16, jrms16 = _bf16_fixed_crops(setup, setup[3])
     assert hm_ulps <= 32.0 and vol_ulps <= 48.0, (hm_ulps, vol_ulps)
-    assert rms(p16) <= 1.5 * rms(j16), (rms(p16), rms(j16))
+    assert rms16 <= 1.5 * jrms16, (rms16, jrms16)
 
 
-def test_predictor3d_rejects_float_frames(setup):
-    cfg, _, rig, frames = setup
+def test_predictor3d_float_frames_match_jax(setup):
+    """float32 RGB frames in [0, 1] (the JAX predictor's documented input,
+    ``value_scale`` 1): at float32 the points hold JAX's within 2e-2 mm and
+    the gate is identical, as for uint8 frames; at bf16, with the crop
+    centers fixed, the bounds of test_predictor3d_bf16_fixed_crops
+    (ROADMAP.md section C; 23.5 and 32.2 ulps, RMS 13.8 against JAX's
+    10.4 mm measured, as for uint8 frames). Any other dtype is still
+    refused."""
+    cfg, jcfg, rig, frames = setup
+    frames = frames.astype(np.float32) / 255.0
+    ref_p, ref_c, ref_v = (np.asarray(a) for a in jax_make_predictor3d(
+        jcfg, rig, CENTER, HYBRID, dtype=jnp.float32)(frames))
     predictor = make_predictor3d(cfg, rig, CENTER, HYBRID, dtype="float32", device="cpu")
+    points, conf, valid = predictor(frames)
+    np.testing.assert_array_equal(valid.numpy(), ref_v)
+    np.testing.assert_allclose(points.numpy(), ref_p, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(conf.numpy(), ref_c, rtol=0, atol=1e-4)
+    hm_ulps, vol_ulps, rms16, jrms16 = _bf16_fixed_crops(setup, frames)
+    assert hm_ulps <= 32.0 and vol_ulps <= 48.0, (hm_ulps, vol_ulps)
+    assert rms16 <= 1.5 * jrms16, (rms16, jrms16)
     with pytest.raises(ValueError):
-        predictor(frames.astype(np.float32) / 255.0)
+        predictor(frames.astype(np.float64))
