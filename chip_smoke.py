@@ -5,7 +5,7 @@
 
     python3 chip_smoke.py --baseline-csrc DIR
 
-Builds the five CUDA kernels from ``jarvis_hybridnet_torch/kernels/csrc``,
+Builds the seven CUDA kernel sources from ``jarvis_hybridnet_torch/kernels/csrc``,
 loads the committed MonkeyHand checkpoints through the port's own reader,
 and drives ``make_predictor3d`` at the production configuration (bf16,
 quarter_fused, 12 cameras of 1280x1024 on the synthetic rig, 23 joints,
@@ -17,10 +17,22 @@ camera, the two-phase cascade (``make_predictor3d_twophase``: low-resolution
 frames reduced 4x, host crops, phase B) and the streaming loop of the
 ``predict3D`` driver writing ``data3D.csv`` from a reader of seeded
 batches, each path with the launch counts set to 0 before one step and read
-after it; K1's and K4's arguments are recorded over each path's step.
-It then checks every kernel against its plain PyTorch version on the card:
-K1 and K4 at every shape a driven path gave them, K2, K3 and K5 at the main
-path's, and times kernel, plain version and library call. A kernel's ``ms`` is device time: a
+after it; the arguments of K1, K2 and K4 are recorded over each path's
+step. Last, the training phase: ``train_hybridnet`` in 3D_only from the
+committed HybridNet checkpoint, for two epochs on a synthetic COCO-style
+dataset it writes to a temporary directory (12 cameras of 1280x1024 JPEG
+frames, 23 keypoints, 4 train and 2 val framesets; float32, quarter_fused,
+G = 72), with the launch counts set to 0 before the run and read after it
+and the arguments of K1, K2 and K6 recorded; the 2D net must be bit-equal
+after it, V2V's weights changed and the written ``.ckpt`` / ``.pth``
+reload; the step's framesets/s, ms and device busy share; one small step
+on the card against the same step on the CPU (float32, TF32 off, dropout
+off, the CPU's ReLU masks set to the card's; a TF32 step as the control
+the comparison must refuse); K6 and K7 against their plain versions at the
+training step's shapes. It then checks every kernel against its plain
+PyTorch version on the card: K1, K2 and K4 at every shape a driven path
+gave them, K3 and K5 at the main path's, and times kernel, plain version
+and library call. A kernel's ``ms`` is device time: a
 CUDA graph of ``GRAPH_CALLS`` captured calls is replayed, so host launch
 gaps do not count; ``wall_ms`` is the event time of calls launched one by
 one from Python. Prints the card, the predict3D rates, one
@@ -53,7 +65,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 REPO = os.path.dirname(os.path.abspath(__file__))
 T, CAMS, H, W = 8, 12, 1024, 1280
-ITERS = 10
+ITERS = 5
 REPEATS = 3
 GRAPH_CALLS = 20
 GRAPH_REPLAYS = 5
@@ -122,8 +134,9 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def stage_breakdown(predictor, frames, note) -> None:
-    """Device time of each stage of one step, timed alone (CUDA events)."""
+def stage_breakdown(predictor, frames, note, iters: int = 5) -> None:
+    """Device time of each stage of one step, timed alone (CUDA events over
+    ``iters`` calls)."""
     import torch
 
     from jarvis_hybridnet_torch import kernels
@@ -152,7 +165,7 @@ def stage_breakdown(predictor, frames, note) -> None:
                 out, c3d, float(hybrid.grid_spacing), float(hybrid.roi_cube_size)),
         }
         for name, fn in stages.items():
-            note(f"stage {name}: {cuda_ms(fn, iters=5, warmup=1):.3f} ms")
+            note(f"stage {name}: {cuda_ms(fn, iters=iters, warmup=1):.3f} ms")
 
 
 def profile_steps(predictor, frames, out_dir, note) -> None:
@@ -161,7 +174,7 @@ def profile_steps(predictor, frames, out_dir, note) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(2):
             predictor(frames[i % 2])
@@ -497,44 +510,71 @@ def rate(step, count: int, note, label: str, unit: str) -> float:
 
 
 class ShapeRecorder:
-    """What K1 and K4 are called with on each driven path: the (shape,
-    dtype, act) of every K1 call and the (input shape, input dtype, height,
-    width, output dtype) of every K4 call, each with its calls per path; K4
-    keeps its first call's arguments. It wraps the names by which the models
-    and the predictors call the two wrappers."""
+    """What K1, K2, K4 and K6 are called with on each driven path: the
+    (shape, dtype, act) of every K1 and K6 call, the (rows shape, rows
+    dtype, g4, step) of every K2 call and the (input shape, input dtype,
+    height, width, output dtype) of every K4 call, each with its calls per
+    path; K2 and K4 keep their first call's arguments. It wraps the names by
+    which the models and the predictors call the wrappers, and the training
+    step's autograd Function's own (``InstanceNormAct.k1``, ``.k6``)."""
 
     def __init__(self):
         self.k1: dict = {}  # key -> {path: calls}
+        self.k2: dict = {}  # key -> (arguments, {path: calls})
         self.k4: dict = {}  # key -> (arguments, {path: calls})
+        self.k6: dict = {}  # key -> {path: calls}
 
     @contextlib.contextmanager
     def on(self, path: str):
-        from jarvis_hybridnet_torch.models import layers
+        from jarvis_hybridnet_torch.kernels import instance_norm
+        from jarvis_hybridnet_torch.models import layers, repro
         from jarvis_hybridnet_torch.prediction import predictor2d, predictor3d
 
         k1, k4 = layers.instance_norm_act, predictor3d.resize_normalize
+        k2 = repro.repro_quarter_gather
+        k6 = instance_norm.instance_norm_act_backward
+        fn = instance_norm.InstanceNormAct
+
+        def count(table, key, args=None):
+            if args is None:
+                per = table.setdefault(key, {})
+            else:
+                _, per = table.setdefault(key, (args, {}))
+            per[path] = per.get(path, 0) + 1
 
         def rec_k1(x, act="none", skip=None):
-            per = self.k1.setdefault((tuple(x.shape), x.dtype, act), {})
-            per[path] = per.get(path, 0) + 1
+            count(self.k1, (tuple(x.shape), x.dtype, act))
             return k1(x, act, skip)
 
+        def rec_k2(rows, center3d, center_hm, P, K, D, g4, step, return_indices=False):
+            count(self.k2, (tuple(rows.shape), rows.dtype, g4, step),
+                  (rows, center3d, center_hm, P, K, D, g4, step))
+            return k2(rows, center3d, center_hm, P, K, D, g4, step, return_indices)
+
         def rec_k4(x, height, width, mean, std, dtype):
-            key = (tuple(x.shape), x.dtype, height, width, dtype)
-            _, per = self.k4.setdefault(key, ((x, height, width, mean, std, dtype), {}))
-            per[path] = per.get(path, 0) + 1
+            count(self.k4, (tuple(x.shape), x.dtype, height, width, dtype),
+                  (x, height, width, mean, std, dtype))
             return k4(x, height, width, mean, std, dtype)
 
+        def rec_k6(x, dy, out, act="none"):
+            count(self.k6, (tuple(x.shape), x.dtype, act))
+            return k6(x, dy, out, act)
+
         layers.instance_norm_act = rec_k1
+        repro.repro_quarter_gather = rec_k2
+        fn.k1, fn.k6 = staticmethod(rec_k1), staticmethod(rec_k6)
         predictor2d.resize_normalize = predictor3d.resize_normalize = rec_k4
         try:
             yield
         finally:
             layers.instance_norm_act = k1
+            repro.repro_quarter_gather = k2
+            fn.k1, fn.k6 = staticmethod(k1), staticmethod(k6)
             predictor2d.resize_normalize = predictor3d.resize_normalize = k4
 
     def calls(self, name: str, path: str) -> int:
-        table = {"instance_norm_act": self.k1,
+        table = {"instance_norm_act": self.k1, "instance_norm_act_backward": self.k6,
+                 "repro_quarter_gather": {k: per for k, (_, per) in self.k2.items()},
                  "resize_normalize": {k: per for k, (_, per) in self.k4.items()}}[name]
         return sum(per.get(path, 0) for per in table.values())
 
@@ -542,8 +582,9 @@ class ShapeRecorder:
 def path_launches(run, kernels, names, path, recorder):
     """Launch counts of one call of ``run`` (counts set to 0 just before,
     read just after); fails unless every kernel of ``names`` launched, and
-    unless ``recorder``, which records K1's and K4's arguments over the
-    call under ``path``, saw as many calls of each as were counted."""
+    unless ``recorder``, which records the arguments of K1, K2, K4 and K6
+    over the call under ``path``, saw as many calls of each as were
+    counted."""
     import torch
 
     torch.cuda.synchronize()
@@ -555,7 +596,8 @@ def path_launches(run, kernels, names, path, recorder):
     for name in names:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the {path} path")
-    for name in ("instance_norm_act", "resize_normalize"):
+    for name in ("instance_norm_act", "repro_quarter_gather", "resize_normalize",
+                 "instance_norm_act_backward"):
         if recorder.calls(name, path) != counts[name]:
             fail(f"recorded {recorder.calls(name, path)} calls of {name} on the {path} path, "
                  f"counted {counts[name]} launches")
@@ -776,16 +818,23 @@ def driver_phase(kernels, cfg, predictor, frames, out_dir, recorder, note):
          f"{REPEATS} runs of {ITERS} batches: {', '.join(f'{x:.2f}' for x in runs)}")
     bare = rate(lambda i: predictor(frames[i % 2]), T, note,
                 "bare predictor, same process (frames on the card)", "poses/s")
-    copies = []
-    for i in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        torch.from_numpy(host[i % 2]).to(predictor.device)
-        torch.cuda.synchronize()
-        copies.append((time.perf_counter() - t0) * 1e3)
-    copy_ms = sorted(copies)[2]
-    note(f"host-to-device copy of one batch (pageable memory, as the driver copies): "
-         f"{copy_ms:.2f} ms, {host[0].nbytes / copy_ms / 1e6:.2f} GB/s, median of 5")
+    from jarvis_hybridnet_torch.utils.transfer import HostToDevice
+
+    upload = HostToDevice(predictor.device)
+    for label, copy in (("pageable memory, synchronous",
+                         lambda a: torch.from_numpy(a).to(predictor.device)),
+                        ("the driver's pinned staging pair: host memcpy, then the async copy",
+                         upload)):
+        copies = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            copy(host[i % 2])
+            torch.cuda.synchronize()
+            copies.append((time.perf_counter() - t0) * 1e3)
+        copy_ms = sorted(copies)[2]
+        note(f"host-to-device copy of one batch ({label}): {copy_ms:.2f} ms, "
+             f"{host[0].nbytes / copy_ms / 1e6:.2f} GB/s, median of 5")
     note(f"driver / bare predictor: {r / bare:.3f}")
     try:
         import cv2  # noqa: F401
@@ -798,11 +847,453 @@ def driver_phase(kernels, cfg, predictor, frames, out_dir, recorder, note):
     return counts
 
 
+TRAIN_EPOCHS = 2
+TRAIN_SPLITS = (("train", 4), ("val", 2))
+TRAINING_KERNELS = ("instance_norm_act", "repro_quarter_gather", "soft_argmax",
+                    "instance_norm_act_backward", "hybridnet_loss_fwd", "hybridnet_loss_bwd")
+
+
+def training_project(parent: str, dataset: str, epochs: int, bbox: int, cube: int,
+                     spacing: int, joints: int, workers: int = 4) -> None:
+    """The synthetic project ``Train`` whose ``train_hybridnet`` run the
+    training phase drives: MonkeyHand's networks, 3D_only in float32,
+    quarter_fused, host color augmentation (``TPU.DEVICE_AUG`` false)."""
+    from jarvis_hybridnet_torch.testing import write_project
+
+    write_project(parent, "Train", {
+        "DATASET": {"DATASET_3D": dataset},
+        "KEYPOINTDETECT": {"MODEL_SIZE": "small", "NUM_JOINTS": joints,
+                           "BOUNDING_BOX_SIZE": bbox},
+        "HYBRIDNET": {"ROI_CUBE_SIZE": cube, "GRID_SPACING": spacing, "BATCH_SIZE": 1,
+                      "NUM_EPOCHS": epochs},
+        "TPU": {"DEVICE_AUG": False, "REPRO_MODE": "quarter_fused", "TRAIN_DTYPE": "float32"},
+        "DATALOADER_NUM_WORKERS": workers,
+    })
+
+
+def k6_library(x, dy, act, skip):
+    """The same backward through PyTorch's own ops: a function that runs
+    autograd's backward of F.instance_norm + act, on (N, C, S) views of the
+    (N, S, C) inputs, through a graph built once here (the forward is not
+    timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    xn = x.permute(0, 2, 1).detach().requires_grad_()
+    sn = None if skip is None else skip.permute(0, 2, 1).detach().requires_grad_()
+    y = F.instance_norm(xn)
+    y = {"none": lambda: y, "silu": lambda: F.silu(y), "relu": lambda: F.relu(y),
+         "add_relu": lambda: F.relu(y + sn)}[act]()
+    inputs, grad = [xn] + ([sn] if sn is not None else []), dy.permute(0, 2, 1)
+    return lambda: torch.autograd.grad(y, inputs, grad, retain_graph=True)
+
+
+def training_phase(kernels, ckpt, recorder, smi, note):
+    """``train_hybridnet`` in 3D_only on the card, from the committed
+    checkpoints, on a synthetic COCO-style dataset written to a temporary
+    directory (12 cameras of 1280x1024 JPEG frames on the synthetic rig, 23
+    seeded keypoints spanning under 144 mm, 4 train and 2 val framesets),
+    for TRAIN_EPOCHS epochs; the launches of the run; the 2D net bitwise
+    frozen, V2V (front conv included) updated, ``.ckpt`` and ``.pth``
+    written and reloaded; then the step's framesets/s, ms and busy share;
+    one step on the card against the same step on the CPU; K6 at every
+    (shape, dtype, act) the run gave it and K7 at its shape against their
+    plain versions. Returns (launch counts of the run, kernels line
+    entries)."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from jarvis_hybridnet_torch.models.weights import params_from_jax
+    from jarvis_hybridnet_torch.testing import synthetic_rig, write_dataset3d
+    from jarvis_hybridnet_torch.training import checkpoints
+    from jarvis_hybridnet_torch.training.train_interface import train_hybridnet
+    from jarvis_hybridnet_torch.training.trainer3d import BATCH_KEYS
+    from jarvis_hybridnet_torch.utils.ckpt_io import read_ckpt
+
+    t_phase = time.perf_counter()
+    start = {k: v.clone() for k, v in params_from_jax(read_ckpt(ckpt["HybridNet"]),
+                                                      "small").items()}
+    with tempfile.TemporaryDirectory() as parent:
+        t0 = time.perf_counter()
+        dataset = write_dataset3d(os.path.join(parent, "datasets", "Synth"),
+                                  synthetic_rig(CAMS, W, H), W, H, 23, splits=TRAIN_SPLITS,
+                                  extent_mm=100.0, seed=5)
+        training_project(parent, dataset, TRAIN_EPOCHS, 256, 144, 2, 23)
+        note(f"training: synthetic dataset of {sum(n for _, n in TRAIN_SPLITS)} framesets "
+             f"x {CAMS} cameras of {W}x{H} JPEG written in {time.perf_counter() - t0:.2f} s")
+        os.environ["JARVIS_PARENT_DIR"] = parent
+        res = {}
+        t0 = time.perf_counter()
+        ok, counts = path_launches(
+            lambda: train_hybridnet("Train", TRAIN_EPOCHS, None, ckpt["HybridNet"],
+                                    mode="3D_only", run_name="Run", device="cuda",
+                                    results=res),
+            kernels, TRAINING_KERNELS, "training", recorder)
+        run_s = time.perf_counter() - t0
+        if not ok:
+            fail("train_hybridnet did not finish")
+        trainer, hist = res["trainer"], res["history"]
+        n_steps = TRAIN_EPOCHS * TRAIN_SPLITS[0][1]
+        note(f"training: train_hybridnet 3D_only, {TRAIN_EPOCHS} epochs of "
+             f"{TRAIN_SPLITS[0][1]} steps (batch 1) and {TRAIN_SPLITS[1][1]} val framesets, "
+             f"{run_s:.2f} s (data loading, JPEG decode and checkpoints included: "
+             f"{n_steps / run_s:.2f} framesets/s); history {json.dumps(hist)}; launches "
+             f"{json.dumps(counts)}")
+        losses = hist["train_loss"] + hist["val_loss"]
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"non-finite training loss: {losses}")
+        state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+        moved_2d = [k for k in state if k.startswith("effTrack.") and
+                    not torch.equal(state[k], start[k].to(state[k].dtype))]
+        v2v_w = [k for k in state if k.startswith("v2vNet.") and k.endswith(".weight")]
+        still = [k for k in v2v_w if torch.equal(state[k], start[k])]
+        front = "v2vNet.front_layers.0.block.0.weight"
+        note(f"training: 2D net {'bit-equal' if not moved_2d else 'CHANGED'} after training "
+             f"({sum(k.startswith('effTrack.') for k in state)} tensors); V2V weights changed: "
+             f"{len(v2v_w) - len(still)} of {len(v2v_w)} (front conv "
+             f"{'changed' if front not in still else 'UNCHANGED'}, max |delta| "
+             f"{float((state[front] - start[front]).abs().max()):.3e})")
+        if moved_2d or still:
+            fail(f"the 2D net moved ({moved_2d[:3]}) or V2V weights did not ({still[:3]})")
+        run_dir = os.path.join(parent, "projects", "Train", "models", "HybridNet", "Run")
+        final = os.path.join(run_dir, "HybridNet-small_final")
+        back = params_from_jax(read_ckpt(final + ".ckpt"), "small")
+        pth = checkpoints.load_torch_state_dict(final + ".pth")
+        same_ckpt = set(back) <= set(state) and all(torch.equal(back[k], state[k])
+                                                     for k in back)
+        same_pth = set(pth) == set(state) and all(torch.equal(pth[k], state[k]) for k in pth)
+        note(f"training: {os.path.basename(final)}.ckpt ({len(back)} tensors) and .pth "
+             f"({len(pth)}) reload in the port equal to the trained state: "
+             f"{same_ckpt and same_pth}")
+        if not (same_ckpt and same_pth):
+            fail("the written checkpoints do not reload to the trained state")
+
+        note(f"training phase: {time.perf_counter() - t_phase:.1f} s so far")
+        # the step alone: one batch of the run's data, on the card
+        from jarvis_hybridnet_torch.dataset.dataset3d import Dataset3D
+        from jarvis_hybridnet_torch.utils.transfer import HostToDevice
+
+        ds = Dataset3D(trainer.cfg, set="train", device_targets=True)
+        batch = {k: np.stack([np.asarray(ds[i][k]) for i in range(1)]) for k in BATCH_KEYS}
+        b = HostToDevice("cuda")(batch)
+        opt, model = trainer.optimizer, trainer.model
+        model.train()
+        for _ in range(2):
+            trainer.train_step(b, opt, 1e-6)
+        times = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(b, opt, 1e-6)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms = statistics.median(times)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                trainer.train_step(b, opt, 1e-6)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        note(f"training step (batch 1 frameset of {CAMS} crops of 256^2, G = 72, 3D_only, "
+             f"float32, AdamW; batch on the card): {1e3 / step_ms:.2f} framesets/s, "
+             f"{step_ms:.2f} ms a step (median of 8 after 2 warm-up: "
+             f"{', '.join(f'{t:.2f}' for t in times)}); device busy "
+             f"{dev_us / wall_us:.3f} of two profiled steps ({dev_us / 1e3:.2f} ms of device "
+             f"time in {wall_us / 1e3:.2f} ms); card: {smi}")
+        with open(os.path.join(REPO, "chiprun_out", "chip_smoke_train_profile.txt"), "w") as f:
+            rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+            f.write(f"two training steps, wall {wall_us:.0f} us, device {dev_us:.0f} us\n")
+            for us, count, key in rows[:40]:
+                f.write(f"{us:12.0f} us {count:6d}x  {key[:110]}\n")
+
+        note(f"training phase: {time.perf_counter() - t_phase:.1f} s so far")
+        # K6 and K7 at the training step's calls of them, against their plain versions
+        per_step = {}
+        path_launches(lambda: trainer.train_step(b, opt, 1e-6), kernels, TRAINING_KERNELS,
+                      "training_step", recorder)
+        for key, per in recorder.k6.items():
+            per_step[key] = per.get("training_step", 0)
+        entries = []
+        k6 = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                  max_abs_err=0.0)
+        dev = torch.device("cuda")
+        for (shape, dtype, act), per in sorted(recorder.k6.items(), key=lambda kv: str(kv[0])):
+            g = torch.Generator(device=dev).manual_seed(11)
+            x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dtype)
+            skip = torch.randn(shape, device=dev, generator=g).to(dtype) if act == "add_relu" \
+                else None
+            out = kernels.instance_norm_act(x, act, skip)
+            dy = torch.randn(shape, device=dev, generator=g).to(dtype)
+            kd, ks = kernels.instance_norm_act_backward(x, dy, out, act)
+            pd, ps = kernels.instance_norm_act_backward_plain(x, dy, out, act)
+            err = float((kd - pd).abs().max())
+            rel = err / max(float(pd.abs().max()), 1e-30)
+            serr = 0.0 if ks is None else float((ks - ps).abs().max())
+            note(f"instance_norm_act_backward {shape} {dtype} {act} (calls per path "
+                 f"{json.dumps(per)}): dx {err:.2e} abs, {rel:.2e} of max|dx| (tol 1e-5), "
+                 f"dskip {serr:.2e} (tol 0)")
+            if rel > 1e-5 or serr > 0:
+                fail(f"instance_norm_act_backward {shape} {act} differs: dx {rel}, dskip {serr}")
+            k6["max_abs_err"] = max(k6["max_abs_err"], err)
+            count = per_step[(shape, dtype, act)]
+            if not count:
+                continue
+            # the function reads x and dy (and, for add_relu, y or the skip:
+            # the mask needs one of them) and writes dx (and dskip); relu's
+            # mask is xhat > 0, which x gives
+            tensors = 3 if act != "add_relu" else 5
+            nbytes = x.numel() * x.element_size() * tensors
+            times = dict(
+                ms=graph_ms(lambda: kernels.instance_norm_act_backward(x, dy, out, act)),
+                wall_ms=cuda_ms(lambda: kernels.instance_norm_act_backward(x, dy, out, act)),
+                plain_ms=cuda_ms(lambda: kernels.instance_norm_act_backward_plain(x, dy, out,
+                                                                                  act)),
+                library_ms=cuda_ms(k6_library(x, dy, act, skip)),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+            note(f"  timed x{count} per step: device {times['ms']:.4f} ms, wall "
+                 f"{times['wall_ms']:.4f}, plain {times['plain_ms']:.4f}, library (autograd's "
+                 f"backward of F.instance_norm + act) {times['library_ms']:.4f}, bound "
+                 f"{times['bound_ms']:.4f}")
+            for k, v in times.items():
+                k6[k] += v * count
+        entries.append(dict(
+            name="instance_norm_act_backward", route="cuda", kernels_per_call=3,
+            source="jarvis_hybridnet_torch/kernels/csrc/instance_norm_act_backward.cu",
+            replaces="tools/fused_norm_bench.py:58", launches=counts["instance_norm_act_backward"],
+            bound_by="bytes", per="training step", **k6))
+
+        with torch.no_grad():
+            out, _ = model.train_outputs(trainer.prepare(b), b["center_hm"], b["center3d"],
+                                         b["camera_matrices"], b["intrinsics"],
+                                         b["distortions"])
+        kv, kw = b["kp_vox"].float().contiguous(), b["keypoints3D"].float().contiguous()
+        kl, kvalid, kvol = kernels.hybridnet_loss_fwd(out, kv, kw, True)
+        pl, pvalid, pvol = kernels.hybridnet_loss_fwd_plain(out, kv, kw, True)
+        dl = torch.ones((), device=dev)
+        kg = kernels.hybridnet_loss_bwd(out, kv, kw, kvalid, dl)
+        pg = kernels.hybridnet_loss_bwd_plain(out, kv, kw, pvalid, dl)
+        lrel = abs(float(kl) - float(pl)) / max(abs(float(pl)), 1e-30)
+        grel = float((kg - pg).abs().max()) / max(float(pg.abs().max()), 1e-30)
+        vrel = float((kvol - pvol).abs().max()) / max(float(pvol.abs().max()), 1e-30)
+        same_valid = torch.equal(kvalid, pvalid)
+        note(f"hybridnet_loss {tuple(out.shape)}: loss {float(kl):.6f} vs plain {float(pl):.6f} "
+             f"({lrel:.2e} relative, tol 1e-5), valid joints {int(kvalid.sum())}/"
+             f"{kvalid.numel()} {'equal' if same_valid else 'DIFFER'}, gradient {grel:.2e} of "
+             f"max (tol 1e-5), double-softplus volume {vrel:.2e} of max (tol 1e-6)")
+        if lrel > 1e-5 or grel > 1e-5 or vrel > 1e-6 or not same_valid:
+            fail("hybridnet_loss differs from its plain version")
+        o_bytes = out.numel() * 4
+        for name, call, plain, nbytes, launches in (
+                ("hybridnet_loss_fwd", lambda: kernels.hybridnet_loss_fwd(out, kv, kw),
+                 lambda: kernels.hybridnet_loss_fwd_plain(out, kv, kw), o_bytes,
+                 counts["hybridnet_loss_fwd"]),
+                ("hybridnet_loss_bwd", lambda: kernels.hybridnet_loss_bwd(out, kv, kw, kvalid, dl),
+                 lambda: kernels.hybridnet_loss_bwd_plain(out, kv, kw, kvalid, dl), 2 * o_bytes,
+                 counts["hybridnet_loss_bwd"])):
+            e = kernel_entry(name, "hybridnet_loss.cu",
+                             "jarvis_hybridnet_tpu/training/trainer3d.py:171", launches,
+                             float((kl - pl).abs()) if name.endswith("fwd")
+                             else float((kg - pg).abs().max()), call, plain,
+                             nbytes / HBM_BYTES_PER_S * 1e3, per="training step")
+            e["kernels_per_call"] = 2 if name.endswith("fwd") else 1
+            note(f"{name}: device {e['ms']:.4f} ms, wall {e['wall_ms']:.4f}, plain "
+                 f"{e['plain_ms']:.4f}, bound {e['bound_ms']:.4f} (no single library call)")
+            entries.append(e)
+    os.environ.pop("JARVIS_PARENT_DIR", None)
+    return counts, entries
+
+
+GRAD_TOL = 1e-3  # card vs CPU training step, ReLU masks matched: per element of the tensor's max
+FLIP_TOL = 1e-3  # |pre-activation| of a ReLU element on another branch on the card than on the CPU
+
+
+def training_step_on(cfg, batch, ckpt, device, lr, tf32=False, like=None) -> dict:
+    """One 3D_only SGD step (Nesterov momentum 0.9, ``lr``) of a
+    ``HybridNetTrainer`` from the committed HybridNet checkpoint on
+    ``device``, float32, in ``eval()`` (dropout and drop-connect off), TF32
+    as ``tf32`` says. Returns the loss, V2V's gradients and updated
+    parameters (on the CPU) and, for each ReLU of the step's K1 calls in
+    order, (act, output, pre-activation) on the CPU. With ``like`` (another
+    step's ReLU calls) each ReLU's mask is set to ``like``'s: the output
+    takes ``like``'s value where only ``like``'s is positive and 0 where
+    only this step's is; each element so set is listed under ``flips`` with
+    its pre-activation on this device and in ``like``."""
+    import torch
+
+    from jarvis_hybridnet_torch.kernels.instance_norm import InstanceNormAct
+    from jarvis_hybridnet_torch.training import optim
+    from jarvis_hybridnet_torch.training.trainer3d import HybridNetTrainer
+    from jarvis_hybridnet_torch.utils.transfer import HostToDevice
+
+    trainer = HybridNetTrainer("train", cfg, weights=ckpt["HybridNet"], device=device,
+                               run_name=f"step_{device}")
+    model = trainer.model
+    trained = optim.apply_freeze(model, optim.hybridnet_freeze_labels(model, "3D_only"))
+    opt = torch.optim.SGD(trained, lr=lr, momentum=0.9, nesterov=True)
+    model.eval()
+    k1 = InstanceNormAct.k1
+    calls, flips = [], []
+
+    def relu_k1(x, act="none", skip=None):
+        out = k1(x, act, skip)
+        if act not in ("relu", "add_relu"):
+            return out
+        pre = k1(x, "none", None) + (0 if skip is None else skip)
+        if like is not None:
+            _, ref, ref_pre = like[len(calls)]
+            want = ref.to(out.device) > 0
+            for idx in (want != (out > 0)).nonzero().tolist():
+                flips.append((len(calls), act, tuple(idx), float(pre[tuple(idx)]),
+                              float(ref_pre[tuple(idx)])))
+            out = torch.where(want, torch.where(out > 0, out, ref.to(out.device)),
+                              torch.zeros_like(out))
+        calls.append((act, out.cpu(), pre.cpu()))
+        return out
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    InstanceNormAct.k1 = staticmethod(relu_k1)
+    try:
+        loss, _ = trainer.forward(HostToDevice(device)(batch))
+        opt.zero_grad()
+        loss.backward()
+        live = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        # copied before the step: SGD's foreach path on the card adds the
+        # momentum buffer to the gradients in place
+        grads = {n: p.grad.detach().cpu().clone() for n, p in live}
+        opt.step()
+    finally:
+        InstanceNormAct.k1 = staticmethod(k1)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    return dict(loss=float(loss.detach()), calls=calls, flips=flips, grads=grads,
+                params={n: p.detach().cpu().clone() for n, p in live})
+
+
+def step_gap(a: dict, b: dict, lr: float) -> dict:
+    """How far step ``a``'s V2V gradients and parameters lie from ``b``'s:
+    ``elem``, the largest |difference| of a gradient over its tensor's
+    largest |element| (the conv biases ahead of an InstanceNorm left out:
+    their gradient is zero but for round-off; ``bias``, the largest of
+    those over the largest weight gradient); ``norm``, the same in norm;
+    ``param``, the largest parameter difference over 1.9 * lr * GRAD_TOL *
+    max|grad| + 2 float32 ulps of the parameter (Nesterov's first step moves
+    a parameter by lr * 1.9 * grad)."""
+    import torch
+
+    ga, gb, pa, pb = a["grads"], b["grads"], a["params"], b["params"]
+    zero = [n for n in gb if n.endswith(".bias") and "output_layer" not in n]
+    rest = [n for n in gb if n not in zero]
+    scale = max(float(gb[n].abs().max()) for n in rest if n.endswith(".weight"))
+    elem = {n: float((ga[n] - gb[n]).abs().max() / gb[n].abs().max().clamp_min(1e-30))
+            for n in rest}
+    norm = {n: float((ga[n] - gb[n]).norm() / gb[n].norm().clamp_min(1e-30)) for n in rest}
+    param = 0.0
+    for n in rest:
+        ulp = torch.exp2(torch.floor(torch.log2(pb[n].abs().clamp_min(1e-30))) - 23)
+        allowed = 1.9 * lr * GRAD_TOL * float(gb[n].abs().max()) + 2 * ulp
+        param = max(param, float(((pa[n] - pb[n]).abs() / allowed).max()))
+    worst = sorted(elem, key=elem.get, reverse=True)
+    return dict(elem=elem[worst[0]], worst=", ".join(f"{n} {elem[n]:.2e}" for n in worst[:3]),
+                norm=max(norm.values()), param=param,
+                bias=max(max(float(ga[n].abs().max()), float(gb[n].abs().max())) / scale
+                         for n in zero), tensors=len(rest), biases=len(zero))
+
+
+def training_card_vs_cpu(ckpt, note) -> None:
+    """One 3D_only training step on the card against the same step on the
+    CPU, float32, TF32 off, dropout and drop-connect off, at the tests' size
+    (4 cameras of 320x256, 128^2 crops, a 48 mm cube at 4 mm), from the
+    committed HybridNet checkpoint, with SGD (lr 1e-3).
+
+    A ReLU whose input lies within round-off of zero can take the other
+    branch on the other device and then passes, or stops, a whole element
+    of the incoming gradient. So the CPU step runs twice: as it is, which
+    is printed (information), and with each ReLU's mask set to the card's,
+    which is held to the card's step: the loss within 1e-4 relative, each
+    V2V gradient element within GRAD_TOL of its tensor's largest, the conv
+    biases ahead of an InstanceNorm (zero but for round-off) within 1e-4 of
+    the largest weight gradient, the updated parameters within what those
+    gradients allow (``step_gap``). Every ReLU element whose mask was set is
+    printed with its pre-activation on both devices, and each must lie
+    within FLIP_TOL of zero on both (a normalized value: a round-off tie,
+    not a different activation). The control is the
+    card's step with TF32 allowed, compared the same way: the gate must
+    refuse it."""
+    import tempfile
+
+    import numpy as np
+
+    from jarvis_hybridnet_torch.config.project_manager import ProjectManager
+    from jarvis_hybridnet_torch.dataset.dataset3d import Dataset3D
+    from jarvis_hybridnet_torch.testing import synthetic_rig, write_dataset3d
+    from jarvis_hybridnet_torch.training.trainer3d import BATCH_KEYS
+
+    lr = 1e-3
+    with tempfile.TemporaryDirectory() as parent:
+        dataset = write_dataset3d(os.path.join(parent, "datasets", "Small"),
+                                  synthetic_rig(4, 320, 256), 320, 256, 23,
+                                  splits=(("val", 1),), extent_mm=40.0, seed=6)
+        training_project(parent, dataset, 1, 128, 48, 4, 23, workers=0)
+        pm = ProjectManager(parent)
+        pm.load("Train")
+        cfg = pm.get_cfg()
+        sample = Dataset3D(cfg, set="val", device_targets=True)[0]
+        batch = {k: np.asarray(sample[k])[None] for k in BATCH_KEYS}
+        card = training_step_on(cfg, batch, ckpt, "cuda", lr)
+        cpu = training_step_on(cfg, batch, ckpt, "cpu", lr)
+        matched = training_step_on(cfg, batch, ckpt, "cpu", lr, like=card["calls"])
+        tf32 = training_step_on(cfg, batch, ckpt, "cuda", lr, tf32=True)
+        tf32_matched = training_step_on(cfg, batch, ckpt, "cpu", lr, like=tf32["calls"])
+    as_is, gap, control = (step_gap(card, cpu, lr), step_gap(card, matched, lr),
+                           step_gap(tf32, tf32_matched, lr))
+    relus = sum(c[1].numel() for c in card["calls"])
+    flips = matched["flips"]
+    flip_pre = max((max(abs(f[3]), abs(f[4])) for f in flips), default=0.0)
+    tf32_pre = max((max(abs(f[3]), abs(f[4])) for f in tf32_matched["flips"]), default=0.0)
+    shown = "; ".join(f"call {i} ({act}) element {idx}: CPU {pc:.3e}, card {pg:.3e}"
+                      for i, act, idx, pc, pg in flips[:8])
+    note(f"training step, card vs CPU (4 cameras, 128^2 crops, G = 12, float32, TF32 off, "
+         f"eval, SGD lr {lr}): loss {card['loss']:.6f} vs {cpu['loss']:.6f}; as it is (no "
+         f"bound): V2V gradients within {as_is['elem']:.2e} of their tensor's max per element, "
+         f"{as_is['norm']:.2e} in norm; ReLU elements on another branch on the CPU than on "
+         f"the card: {len(flips)} of {relus} over {len(card['calls'])} K1 calls, largest "
+         f"|pre-activation| among them {flip_pre:.3e} (tol {FLIP_TOL:g})"
+         f"{': ' + shown if flips else ''}")
+    note(f"training step, card vs CPU with the CPU's ReLU masks set to the card's: V2V "
+         f"gradients of {gap['tensors']} tensors within {gap['elem']:.2e} of their tensor's max "
+         f"per element (worst: {gap['worst']}; tol {GRAD_TOL:g}), {gap['norm']:.2e} in norm; the "
+         f"{gap['biases']} biases ahead of an InstanceNorm within {gap['bias']:.2e} of the "
+         f"largest weight gradient (tol 1e-4); parameters at {gap['param']:.3f} of their "
+         f"bound (tol 1); loss {matched['loss']:.6f}")
+    note(f"training step control, the card with TF32 allowed against the CPU with its "
+         f"masks ({len(tf32_matched['flips'])} set, largest |pre-activation| {tf32_pre:.3e}): "
+         f"gradients within {control['elem']:.2e} of their tensor's max per element (worst: "
+         f"{control['worst']}), {control['norm']:.2e} in norm, "
+         f"parameters at {control['param']:.3f} of their bound: "
+         f"{'refused' if control['elem'] > GRAD_TOL else 'NOT refused'} by the gate")
+    if (abs(card["loss"] - matched["loss"]) > 1e-4 * abs(matched["loss"])
+            or abs(card["loss"] - cpu["loss"]) > 1e-4 * abs(cpu["loss"])
+            or gap["elem"] > GRAD_TOL or gap["bias"] > 1e-4 or gap["param"] > 1.0
+            or flip_pre > FLIP_TOL):
+        fail("the training step on the card disagrees with the CPU step")
+    if control["elem"] <= GRAD_TOL:
+        fail("the card-vs-CPU training gate does not tell a TF32 step from a float32 one")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-csrc", metavar="DIR",
                     help="time K1, K2, K3 and K5 built from DIR beside the current ones")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -828,6 +1319,9 @@ def main() -> int:
         log.write(msg + "\n")
         log.flush()
 
+    def phase(name: str) -> None:
+        note(f"phase {name}: starts {time.perf_counter() - t_start:.1f} s into the run")
+
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -836,6 +1330,7 @@ def main() -> int:
     log.write(f"card: {smi}\n")
     dev = torch.device("cuda")
 
+    phase("build")
     # 2. kernels, one nvcc per source, all at once
     t0 = time.perf_counter()
     build.build_all()
@@ -846,6 +1341,7 @@ def main() -> int:
     baseline = Baseline(os.path.abspath(args.baseline_csrc)) if args.baseline_csrc else None
     base_log = open(os.path.join(out_dir, "chip_smoke_baseline.txt"), "w") if baseline else None
 
+    phase("load")
     # 3-5. checkpoints, rig, predictor at the production configuration
     cfg = monkeyhand_cfg()
     rig = synthetic_rig(CAMS, W, H)
@@ -892,10 +1388,13 @@ def main() -> int:
     if not finite:
         fail("non-finite outputs")
 
+    phase("main path stages")
     hybrid = predictor.hybrid_model
     stage_breakdown(predictor, frames[0], note)
+    phase("main path profile")
     profile_steps(predictor, frames, out_dir, note)
 
+    phase("other repro modes")
     # 7. the same cascade in the other repro modes, on the same frames: each
     # path's launches are counted over one step
     mode_launches, mode_points = {}, {"quarter_fused": points}
@@ -911,7 +1410,7 @@ def main() -> int:
             fail(f"non-finite points on the {mode} path")
         rate(lambda i: pred(frames[i % 2]), T, note, f"predict3D {mode}", "poses/s")
         note(f"predict3D {mode} launches in one step: {json.dumps(mode_launches[mode])}")
-        stage_breakdown(pred, frames[0], note)
+        stage_breakdown(pred, frames[0], note, iters=3)
         del pred
     for mode in ("quarter_fused", "half_fused", "half"):
         dist = (mode_points[mode] - mode_points["exact"]).norm(dim=-1)
@@ -922,6 +1421,7 @@ def main() -> int:
              f"{int(valid.sum())} through the gate: max "
              f"{float(gated.max()) if gated.numel() else float('nan'):.4f} mm")
 
+    phase("float frames")
     # 8. the production cascade on the same frames as float32 in [0, 1]
     float_frames = frames[0].float() / 255.0
     predictor(float_frames)
@@ -937,17 +1437,28 @@ def main() -> int:
 
     # 9-11. predict2D, the two-phase cascade and the driver's streaming loop
     path_counts = {"quarter_fused": launches, **mode_launches, "float_frames": float_launches}
+    phase("predict2D")
     path_counts["predict2d"] = predict2d_phase(kernels, cfg, ckpt, frames, recorder, note)
+    phase("two-phase")
     path_counts["twophase"] = twophase_phase(kernels, cfg, rig, ckpt, frames, points, recorder,
                                              note)
+    phase("driver")
     path_counts["driver"] = driver_phase(kernels, cfg, predictor, frames, out_dir, recorder,
                                          note)
 
-    # 12. each kernel against its plain version at the main path's shapes.
+    # 12. training: train_hybridnet in 3D_only from the committed checkpoints,
+    # K6 and K7 against their plain versions, one step card vs CPU
+    phase("training")
+    path_counts["training"], train_entries = training_phase(kernels, ckpt, recorder, smi, note)
+    phase("training step card vs CPU")
+    training_card_vs_cpu(ckpt, note)
+
+    # 13. each kernel against its plain version at the main path's shapes.
     # ``launches`` counts wrapper calls; ``kernels_per_call`` is how many
     # __global__ kernels one call launches
     report = []
 
+    phase("K4 checks")
     # K4 resize_normalize at every (input shape, dtype, output size) a driven
     # path gave it, on the arguments of its first call there: the step's
     # uint8 and float32 frames, predict2D's one camera, phase A's low-res
@@ -981,6 +1492,7 @@ def main() -> int:
     del float_frames, k4_out
     recorder.k4.clear()  # the frames it holds
 
+    phase("K2, K5, K3 checks")
     # inputs of K2 and K3 captured from the step's frames
     with torch.no_grad():
         center_hm, center3d, _ = predictor.centers(frames[0])
@@ -990,20 +1502,28 @@ def main() -> int:
         cams = [a.expand(T, *a.shape).contiguous() for a in (predictor.P, predictor.K, predictor.D)]
         g4, step = hybrid.grid_size // 4, float(hybrid.grid_spacing) * 4.0
         k2_args = (rows, c3d, center_hm.contiguous(), *cams, g4, step)
-        # the production grid (g4 = 18, whole tiles) and the test grid (g4 = 9, a
-        # partial tile at the top edge) on the same heatmap rows
-        for g4_check in (9, g4):
-            a = (rows, c3d, center_hm.contiguous(), *cams, g4_check, step * g4 / g4_check)
+        # K2 at every (rows shape, dtype, g4, step) a driven path gave it, on
+        # the arguments of its first call there (the serving paths' bf16 rows,
+        # the training step's float32 rows), and at the test grid (g4 = 9, a
+        # partial tile at the top edge) on the main path's rows
+        k2_checks = [(f"{key[0]} {key[1]} g4={key[2]} (calls per path {json.dumps(per)})", a)
+                     for key, (a, per) in recorder.k2.items()]
+        k2_checks.append((f"{tuple(rows.shape)} {rows.dtype} g4=9 (off the paths)",
+                          (*k2_args[:6], 9, step * g4 / 9)))
+        for label, a in k2_checks + [("main path", k2_args)]:
             k_vol, k_idx = kernels.repro_quarter_gather(*a, return_indices=True)
             p_vol, p_idx = kernels.repro_quarter_gather_plain(*a)
             if not torch.equal(k_idx, p_idx):
-                fail(f"repro_quarter_gather g4={g4_check}: indices differ at "
+                fail(f"repro_quarter_gather {label}: indices differ at "
                      f"{int((k_idx != p_idx).sum())} places")
             rel = float((k_vol - p_vol).abs().max() / p_vol.abs().max().clamp_min(1e-30))
-            note(f"repro_quarter_gather g4={g4_check}: indices equal, volume {rel:.2e} "
-                 f"relative to the plain version (tol 1e-5)")
             if rel > 1e-5:
-                fail(f"repro_quarter_gather volume differs by {rel} relative (tolerance 1e-5)")
+                fail(f"repro_quarter_gather {label}: volume differs by {rel} relative "
+                     f"(tolerance 1e-5)")
+            if label != "main path":
+                note(f"repro_quarter_gather {label}: indices equal, volume {rel:.2e} relative "
+                     f"to the plain version (tol 1e-5)")
+        recorder.k2.clear()  # the rows it holds
         J, hs2 = rows.shape[-1], rows.shape[2]
         k2_bytes = rows_touched(p_idx, hs2) * J * rows.element_size() + k_vol.numel() * 4
         k2_ms = graph_ms(lambda: kernels.repro_quarter_gather(*k2_args))
@@ -1036,6 +1556,7 @@ def main() -> int:
                                float(hybrid.roi_cube_size), launches["soft_argmax"], baseline,
                                base_log, note))
 
+    phase("K1 checks")
     # K1: every (shape, dtype, act) a driven path gave it, checked against
     # the plain version; the main path's shapes are timed too, and the line
     # reports the sum over one main-path step's launches
@@ -1044,11 +1565,11 @@ def main() -> int:
     acts = {"none": lambda y, s: y, "silu": lambda y, s: F.silu(y),
             "relu": lambda y, s: F.relu(y), "add_relu": lambda y, s: F.relu(y + s)}
     k1 = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
-    worst_ulps = 0.0
+    worst_ulps = worst_f32 = 0.0
     log.write("K1 instance_norm_act per shape: shape dtype act count ms wall_ms plain_ms "
-              "library_ms bound_ms ulps | cluster threads span resident ring_rows smem "
-              "max_active_clusters | calls per path (count: calls on the main path; shapes "
-              "off it are checked, not timed)\n")
+              "library_ms bound_ms error (bf16 ulps; float32 abs) | cluster threads span "
+              "resident ring_rows smem max_active_clusters | calls per path (count: calls on "
+              "the main path; shapes off it are checked, not timed)\n")
     off_main = 0
     for (shape, dtype, act), per in sorted(recorder.k1.items(),
                                            key=lambda kv: -math.prod(kv[0][0])):
@@ -1059,21 +1580,31 @@ def main() -> int:
         skip = torch.randn(shape, device=dev, generator=g).to(dtype) if act == "add_relu" else None
         ko = kernels.instance_norm_act(x, act, skip)
         po = kernels.instance_norm_act_plain(x, act, skip)
-        ulps = bf16_ulps(ko, po)
-        worst_ulps = max(worst_ulps, ulps)
-        # the kernel merges per-span statistics (Chan) where the plain version
-        # sums once, so the normalized value may round to the neighbouring bf16
-        # value; SiLU's three further bf16 roundings can grow that to 3 ulps
-        if ulps > 3.0:
-            fail(f"instance_norm_act {shape} {dtype} {act} differs by {ulps} bf16 ulps "
-                 f"(tolerance 3); calls per path {json.dumps(per)}")
-        k1["max_abs_err"] = max(k1["max_abs_err"], float((ko.float() - po.float()).abs().max()))
+        err = float((ko.float() - po.float()).abs().max())
+        if dtype == torch.float32:
+            # the float32 path's bound, as in the f32 spot checks below
+            ulps = f"{err:.2e} abs"
+            worst_f32 = max(worst_f32, err)
+            if err > 1e-5:
+                fail(f"instance_norm_act {shape} {dtype} {act} differs by {err} (tolerance "
+                     f"1e-5); calls per path {json.dumps(per)}")
+        else:
+            # the kernel merges per-span statistics (Chan) where the plain version
+            # sums once, so the normalized value may round to the neighbouring bf16
+            # value; SiLU's three further bf16 roundings can grow that to 3 ulps
+            u = bf16_ulps(ko, po)
+            ulps = f"{u:.1f}"
+            worst_ulps = max(worst_ulps, u)
+            if u > 3.0:
+                fail(f"instance_norm_act {shape} {dtype} {act} differs by {u} bf16 ulps "
+                     f"(tolerance 3); calls per path {json.dumps(per)}")
+        k1["max_abs_err"] = max(k1["max_abs_err"], err)
         plan = launch_plan(*shape, x.element_size())
         plan_cols = (f"{plan.cluster} {plan.threads} {plan.span} {plan.resident} "
                      f"{plan.ring_rows} {plan.smem} {max_active_clusters(plan, dtype)}")
         if not count:
             off_main += 1
-            log.write(f"  {shape} {dtype} {act} x0 - - - - - {ulps:.1f} | {plan_cols} | "
+            log.write(f"  {shape} {dtype} {act} x0 - - - - - {ulps} | {plan_cols} | "
                       f"{json.dumps(per)}\n")
             continue
         xn = x.permute(0, 2, 1)  # (N, C, S) for the library call
@@ -1091,7 +1622,7 @@ def main() -> int:
             k1[k] += v * count
         log.write(f"  {shape} {dtype} {act} x{count} {times['ms']:.4f} {times['wall_ms']:.4f} "
                   f"{times['plain_ms']:.4f} {times['library_ms']:.4f} {times['bound_ms']:.4f} "
-                  f"{ulps:.1f} | {plan_cols} | {json.dumps(per)}\n")
+                  f"{ulps} | {plan_cols} | {json.dumps(per)}\n")
         if baseline is not None:
             def near(new, old, shape=shape, act=act):
                 u = bf16_ulps(new, old)
@@ -1105,7 +1636,8 @@ def main() -> int:
                            f"baseline {base:.4f} ms, bound {times['bound_ms']:.4f} ms\n")
     note(f"instance_norm_act: {len(recorder.k1)} (shape, dtype, act) over the driven paths, "
          f"{off_main} of them off the main path; worst {worst_ulps:.1f} bf16 ulps vs plain "
-         f"(tolerance 3)")
+         f"(tolerance 3) over the bf16 ones, {worst_f32:.2e} abs (tolerance 1e-5) over the "
+         f"float32 ones")
     report.insert(0, dict(
         name="instance_norm_act", route="cuda", kernels_per_call=1,
         source="jarvis_hybridnet_torch/kernels/csrc/instance_norm_act.cu",
@@ -1114,6 +1646,7 @@ def main() -> int:
     if base_log is not None:
         base_log.close()
 
+    phase("cascade card vs CPU")
     # the whole cascade on the card against the same cascade on the CPU (the
     # plain versions, which the CPU tests hold to the JAX package), float32,
     # at the small size of tests/test_torch_predictor3d.py, in the
@@ -1142,6 +1675,7 @@ def main() -> int:
                 or not torch.equal(got["valid"], ref["valid"])):
             fail(f"the {mode} cascade on the card disagrees with the CPU cascade")
 
+    phase("K1 spot checks")
     # f32 spot check of K1 at the largest V2V shape (the f32 path's tolerance),
     # and shapes off the main path: a sample that does not start on 16 bytes
     # (no bulk copies), a ragged tail, a single row, a cluster of one
@@ -1164,7 +1698,10 @@ def main() -> int:
             if ulps > 3.0:
                 fail(f"instance_norm_act bf16 check {shape}")
 
-    # every kernel's launches on each path (one step; the driver: two batches)
+    phase("end")
+    report.extend(train_entries)
+    # every kernel's launches on each path (one step; the driver: two batches;
+    # training: the whole run)
     for r in report:
         wrapper, paths = r["name"].split("[")[0], path_counts
         if wrapper == "resize_normalize":  # K4's float32 input instantiation

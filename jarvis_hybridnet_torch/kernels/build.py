@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("instance_norm_act", "repro_quarter_gather", "repro_grid_gather",
-           "soft_argmax", "resize_normalize")
+           "soft_argmax", "resize_normalize", "instance_norm_act_backward", "hybridnet_loss")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]

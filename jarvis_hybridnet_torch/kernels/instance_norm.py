@@ -44,12 +44,10 @@ def instance_norm_act_plain(x: torch.Tensor, act: str = "none",
     As the JAX reference, the normalized value is rounded to x's dtype
     before the activation, ``add_relu`` rounds the sum before the ReLU, and
     SiLU is y * (1 / (1 + exp(-y))) rounded after each op, as XLA evaluates
-    ``jax.nn.silu`` in bfloat16.
+    ``jax.nn.silu`` in bfloat16. Differentiable through autograd.
     """
-    xf = x.float()
-    mean = xf.mean(dim=1, keepdim=True)
-    var = (xf - mean).square().mean(dim=1, keepdim=True)
-    y = ((xf - mean) * torch.rsqrt(var + EPS)).to(x.dtype)
+    mean, rstd = _statistics(x)
+    y = ((x.float() - mean) * rstd).to(x.dtype)
     if act == "silu":
         return y * (1.0 / (1.0 + torch.exp(-y)))
     if act == "relu":
@@ -57,6 +55,15 @@ def instance_norm_act_plain(x: torch.Tensor, act: str = "none",
     if act == "add_relu":
         return F.relu(y + skip)
     return y
+
+
+def _statistics(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 mean and 1 / sqrt(var + eps) of x (N, S, C) over S, (N, 1, C),
+    two passes, as the JAX reference (``models/layers.py:22``)."""
+    xf = x.float()
+    mean = xf.mean(dim=1, keepdim=True)
+    var = (xf - mean).square().mean(dim=1, keepdim=True)
+    return mean, torch.rsqrt(var + EPS)
 
 
 def _round_up(a: int, b: int) -> int:
@@ -234,3 +241,103 @@ def _fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.bind("instance_norm_act", "instance_norm_act",
                       [p, p, p] + [i] * 13 + [ctypes.c_float, i, i, p])
+
+
+# K6: the backward of K1 (csrc/instance_norm_act_backward.cu)
+BWD_THREADS = 256
+_BWD_BLOCKS = 2 * _SMS  # blocks per launch the chunking aims at
+
+
+def instance_norm_act_backward_plain(x: torch.Tensor, dy: torch.Tensor, out: torch.Tensor,
+                                     act: str = "none"):
+    """Plain PyTorch version of K6: (dx, dskip) of ``instance_norm_act(x, act,
+    skip)`` with output ``out`` and incoming gradient ``dy``, all (N, S, C);
+    dskip is None unless act is add_relu.
+
+    With xhat = (x - mean) * rstd and g = dy * act', per (n, c):
+    dx = rstd * (g - mean_S(g) - xhat * mean_S(g * xhat)) and dskip = g.
+    act' is the mask out > 0 for relu and add_relu, and SiLU's derivative
+    at the normalized value rounded to x's dtype (the value the forward
+    passed to SiLU). float32 arithmetic; dx and dskip in x's dtype.
+    """
+    mean, rstd = _statistics(x)
+    xhat = (x.float() - mean) * rstd
+    g = dy.float()
+    if act == "silu":
+        v = xhat.to(x.dtype).float()
+        s = torch.sigmoid(v)
+        g = g * (s * (1.0 + v * (1.0 - s)))
+    elif act in ("relu", "add_relu"):
+        g = torch.where(out > 0, g, torch.zeros_like(g))
+    mg = g.mean(dim=1, keepdim=True)
+    mgx = (g * xhat).mean(dim=1, keepdim=True)
+    dx = (rstd * (g - mg - xhat * mgx)).to(x.dtype)
+    return dx, (g.to(x.dtype) if act == "add_relu" else None)
+
+
+def backward_plan(n: int, s: int, c: int, threads: int = BWD_THREADS) -> tuple[int, int]:
+    """(rows per chunk, chunks per sample) of K6's grid: about ``_BWD_BLOCKS``
+    blocks in all, each chunk at least one step of the block's row lanes."""
+    lanes = max(1, threads // c)
+    want = max(1, min(s, -(-_BWD_BLOCKS // n)))
+    chunk = max(lanes, -(-s // want))
+    return chunk, -(-s // chunk)
+
+
+def instance_norm_act_backward(x: torch.Tensor, dy: torch.Tensor, out: torch.Tensor,
+                               act: str = "none"):
+    """(dx, dskip) of K1 (see :func:`instance_norm_act_backward_plain`). A
+    CPU tensor runs the plain version; a CUDA tensor launches K6 (three
+    kernels on the current stream)."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if build.on_cpu(x, dy, out):
+        return instance_norm_act_backward_plain(x, dy, out, act)
+    for t, name in ((x, "x"), (dy, "dy"), (out, "out")):
+        build.require(t, name, (x.dtype,) if t is not x else _DTYPES, ndim=3)
+        if t.shape != x.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(x.shape)}")
+    n, s, c = x.shape
+    chunk, nchunk = backward_plan(n, s, c)
+    dx = torch.empty_like(x)
+    dskip = torch.empty_like(x) if act == "add_relu" else None
+    scratch = torch.empty(4 * n * nchunk * c + 2 * n * c, dtype=torch.float32, device=x.device)
+    err = _bwd_fn()(build.ptr(x), build.ptr(dy), build.ptr(out), build.ptr(dx),
+                    build.ptr(dskip), build.ptr(scratch), n, s, c, chunk, nchunk, BWD_THREADS,
+                    EPS, ACTS[act], _DTYPES[x.dtype], build.stream())
+    build.check(err, "instance_norm_act_backward")
+    instance_norm_act_backward.launches += 1
+    return dx, dskip
+
+
+instance_norm_act_backward.launches = 0
+
+
+@functools.cache
+def _bwd_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build.bind("instance_norm_act_backward", "instance_norm_act_backward",
+                      [p] * 6 + [i] * 6 + [ctypes.c_float, i, i, p])
+
+
+class InstanceNormAct(torch.autograd.Function):
+    """K1 with K6 as its backward: ``InstanceNormAct.apply(x, skip, act)``.
+    Both go through their wrappers (``k1`` and ``k6`` below), so a CPU
+    tensor runs the plain versions and a CUDA tensor the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, skip, act):
+        out = InstanceNormAct.k1(x, act, skip)
+        ctx.act = act
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, out = ctx.saved_tensors
+        dx, dskip = InstanceNormAct.k6(x, dy.contiguous(), out, ctx.act)
+        return dx, dskip, None
+
+
+InstanceNormAct.k1 = staticmethod(instance_norm_act)
+InstanceNormAct.k6 = staticmethod(instance_norm_act_backward)

@@ -8,7 +8,10 @@ parameter exists, so reference state dicts load strictly); stages >= 4 feed
 the expand conv straight into the depthwise conv with no norm or
 activation; the squeeze-and-excitation block; the non-standard scaling
 table; and the FPN wrapper's truncation before the last stride-2 block,
-tapping the three maps that precede each downsampling block.
+tapping the three maps that precede each downsampling block. In training
+mode a block with an identity skip applies the JAX package's per-sample
+drop-connect at rate 0.2 * index / blocks (efficientnet.py:185-186, 224),
+drawn from its ``generator``; it is inert in ``eval()``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from dataclasses import dataclass
 
 from torch import nn
 
-from .layers import conv, instance_norm, sigmoid, silu
+from .layers import conv, drop_connect, instance_norm, sigmoid, silu
 
 # kernel, repeats, in, out, expand, stride, se_ratio (EfficientNet-B0)
 _BASE_STAGES = [
@@ -32,6 +35,7 @@ _BASE_STAGES = [
 ]
 _SCALING = {0: (0.5, 0.5), 1: (1.0, 1.0), 2: (1.0, 1.1), 3: (1.1, 1.2)}
 _PADDING = {1: 0, 3: 1, 5: 2}
+DROP_CONNECT_RATE = 0.2
 
 
 def round_filters(filters: float, width: float, divisor: int = 8) -> int:
@@ -95,9 +99,12 @@ def truncate_and_tap(blocks: list[BlockSpec]) -> tuple[list[BlockSpec], list[int
 class MBConvBlock(nn.Module):
     """Mobile inverted residual block (reference efficientnet.py:22-123)."""
 
-    def __init__(self, spec: BlockSpec):
+    generator = None
+
+    def __init__(self, spec: BlockSpec, drop_rate: float = 0.0):
         super().__init__()
         self.spec = spec
+        self.drop_rate = drop_rate
         cin, oup, k = spec.in_filters, spec.in_filters * spec.expand, spec.kernel
         pad = _PADDING[k]
         if spec.expand != 1:
@@ -125,6 +132,8 @@ class MBConvBlock(nn.Module):
         x = sigmoid(se) * x
         x = instance_norm(conv(self._project_conv, x))
         if spec.id_skip and spec.stride == 1 and spec.in_filters == spec.out_filters:
+            if self.training and self.drop_rate:
+                x = drop_connect(x, self.drop_rate, self.generator)
             x = x + inputs
         return x
 
@@ -133,7 +142,8 @@ class _Model(nn.Module):
     def __init__(self, stem: int, blocks: list[BlockSpec]):
         super().__init__()
         self._conv_stem = nn.Conv2d(3, stem, 3, 2, 1, bias=False)
-        self._blocks = nn.ModuleList(MBConvBlock(s) for s in blocks)
+        self._blocks = nn.ModuleList(
+            MBConvBlock(s, DROP_CONNECT_RATE * i / len(blocks)) for i, s in enumerate(blocks))
 
 
 class EfficientNetFeatures(nn.Module):

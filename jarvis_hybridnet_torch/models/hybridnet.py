@@ -6,6 +6,10 @@ quarter_fused through K2, exact / half / half_fused through K5), divided by
 255, refined by V2V (with the fused up-front conv for the modes that give
 the half grid, half_fused and quarter_fused), and decoded by softplus +
 soft-argmax (K3) into world mm and confidences.
+
+:meth:`HybridNetBackbone.train_outputs` is the training forward of the
+3D_only mode: the frozen 2D net and the gather run without a graph, V2V
+with one; the loss (K7, ``kernels/hybridnet_loss``) takes V2V's output.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 from torch import nn
 
 from ..kernels import soft_argmax
+from ..kernels.hybridnet_loss import hybridnet_mse_loss  # noqa: F401  (the JAX module's name)
 from ..kernels.repro_gather import padded_width
 from .efficienttrack import EfficientTrackBackbone
 from .repro import REPRO_MODES, reproject_rows
@@ -80,3 +85,21 @@ class HybridNetBackbone(nn.Module):
         hs = int(round(hs2 ** 0.5))
         heatmaps = rows.reshape(B, C, hs, hs, J).permute(0, 1, 4, 2, 3).float()
         return volume, heatmaps, points, conf
+
+    def train_outputs(self, imgs, center_hm, center3d, P, K, D):
+        """Training forward: (V2V output (B, g, g, g, J) float32, with its
+        graph when grad is enabled; points3D (B, J, 3) mm by K3 from its
+        detached copy, for the mm-accuracy). The 2D net must be frozen
+        (3D_only): gradients through the reprojection gather are not ported
+        (ROADMAP.md B9)."""
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.effTrack.parameters()):
+            raise NotImplementedError(
+                "training the 2D net needs the reprojection gather's backward, which is "
+                "not ported yet (ROADMAP.md B9); freeze it (3D_only)")
+        center3d = center3d.to(torch.int32).contiguous()
+        with torch.no_grad():
+            rows = self.heatmap_rows(imgs)
+        out = self.v2v_output(rows, center_hm, center3d, P, K, D).float().contiguous()
+        points, _ = soft_argmax(out.detach(), center3d, float(self.grid_spacing),
+                                float(self.roi_cube_size))
+        return out, points

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import instance_norm_act
+from ..kernels import InstanceNormAct, instance_norm_act
 
 _CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)
 
@@ -27,15 +27,51 @@ _CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)
 def instance_norm(x: torch.Tensor, act: str = "none",
                   skip: torch.Tensor | None = None) -> torch.Tensor:
     """InstanceNorm over the spatial dims of (N, C, *spatial), then ``act``
-    (none / silu / relu / add_relu = relu(IN(x) + skip)), through K1."""
+    (none / silu / relu / add_relu = relu(IN(x) + skip)), through K1. When
+    grad is enabled and an input requires it, through ``InstanceNormAct``
+    (K1 forward, K6 backward); else one K1 call and no graph."""
     n, c = x.shape[0], x.shape[1]
     perm = (0, *range(2, x.dim()), 1)
     inv = (0, x.dim() - 1, *range(1, x.dim() - 1))
     xl = x.permute(perm).contiguous()
-    sl = None if skip is None else skip.permute(perm).contiguous()
-    y = instance_norm_act(xl.reshape(n, -1, c), act,
-                          None if sl is None else sl.reshape(n, -1, c))
+    sl = None if skip is None else skip.permute(perm).contiguous().reshape(n, -1, c)
+    if torch.is_grad_enabled() and (x.requires_grad or (skip is not None and skip.requires_grad)):
+        y = InstanceNormAct.apply(xl.reshape(n, -1, c), sl, act)
+    else:
+        y = instance_norm_act(xl.reshape(n, -1, c), act, sl)
     return y.reshape(xl.shape).permute(inv)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)``: keep each element with probability 1 - rate
+    and scale it by 1 / (1 - rate). The keep mask is drawn from
+    ``generator`` (uniform < 1 - rate) unless ``mask`` is given."""
+    keep = 1.0 - rate
+    if mask is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def drop_connect(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+                 uniform: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-sample stochastic depth, as ``models/layers.py::drop_connect`` of
+    the JAX package: x / keep * floor(keep + u), u ~ U[0, 1) per sample, drawn
+    from ``generator`` unless ``uniform`` (N,) is given."""
+    keep = 1.0 - rate
+    if uniform is None:
+        uniform = torch.rand(x.shape[0], generator=generator, device=x.device)
+    binary = torch.floor(keep + uniform.to(x.dtype)).reshape(-1, *(1,) * (x.dim() - 1))
+    return x / keep * binary
+
+
+def set_generator(module: nn.Module, generator: torch.Generator | None) -> nn.Module:
+    """Give every dropout and drop-connect site under ``module`` the
+    generator its masks are drawn from in training mode."""
+    for m in module.modules():
+        if hasattr(type(m), "generator"):
+            m.generator = generator
+    return module
 
 
 def conv(m: nn.Module, x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,9 @@ Module and parameter names are those of the reference torch V2VNet
 ``front_layers.{0: Basic3DBlock, 1: Res3DBlock}``, ``encoder_decoder.*`` and
 ``output_layer``; a Basic3DBlock's conv is ``block.0`` and a Res3DBlock's
 convs are ``res_branch.0`` and ``res_branch.3``. InstanceNorm + ReLU (and
-the residual add) run through K1; dropout is inert at inference.
+the residual add) run through K1 (K6 for the gradient). Every block ends in
+the JAX package's ``Dropout(0.2)`` (v2v.py:94, 114, 126), drawn from the
+block's ``generator`` in training mode and inert in ``eval()``.
 """
 
 from __future__ import annotations
@@ -14,12 +16,24 @@ import torch
 from torch import nn
 
 from ..ops.fused_upfront import fused_up_conv3d, prepare_fused_weights
-from .layers import conv, instance_norm
+from .layers import conv, dropout, instance_norm
+
+DROPOUT = 0.2
 
 
-class Basic3DBlock(nn.Module):
-    """conv -> IN -> ReLU. With ``fused_up`` the input is the half-res
-    volume and the conv is the exact fused up2 + stride-2 conv."""
+class _Dropped(nn.Module):
+    """A block whose output goes through ``Dropout(DROPOUT)`` in training
+    mode, with masks from ``generator`` (set by ``layers.set_generator``)."""
+
+    generator = None
+
+    def drop(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, DROPOUT, self.generator) if self.training else x
+
+
+class Basic3DBlock(_Dropped):
+    """conv -> IN -> ReLU -> dropout. With ``fused_up`` the input is the
+    half-res volume and the conv is the exact fused up2 + stride-2 conv."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
                  fused_up: bool = False):
@@ -30,10 +44,16 @@ class Basic3DBlock(nn.Module):
         self._fused = None  # (key, interior, corrections), built on first use
 
     def _fused_weights(self):
+        """The transformed kernels. With grad enabled they are computed from
+        the live weight in every call, so the weight gets their gradient;
+        under ``no_grad`` they are cached until the weight changes."""
         w = self.block[0].weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            return prepare_fused_weights(w, w.dtype)
         key = (w.data_ptr(), w._version, w.dtype, w.device)
         if self._fused is None or self._fused[0] != key:
-            self._fused = (key, *prepare_fused_weights(w, w.dtype))
+            with torch.no_grad():
+                self._fused = (key, *prepare_fused_weights(w, w.dtype))
         return self._fused[1], self._fused[2]
 
     def forward(self, x):
@@ -42,11 +62,11 @@ class Basic3DBlock(nn.Module):
             x = fused_up_conv3d(x, interior, corr, self.block[0].bias)
         else:
             x = conv(self.block[0], x)
-        return instance_norm(x, "relu")
+        return self.drop(instance_norm(x, "relu"))
 
 
-class Res3DBlock(nn.Module):
-    """relu(IN(conv2(relu(IN(conv1(x))))) + x)."""
+class Res3DBlock(_Dropped):
+    """relu(IN(conv2(relu(IN(conv1(x))))) + x) -> dropout."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -57,19 +77,19 @@ class Res3DBlock(nn.Module):
 
     def forward(self, x):
         res = instance_norm(conv(self.res_branch["0"], x), "relu")
-        return instance_norm(conv(self.res_branch["3"], res), "add_relu",
-                             skip=x)
+        return self.drop(instance_norm(conv(self.res_branch["3"], res), "add_relu",
+                                       skip=x))
 
 
-class Upsample3DBlock(nn.Module):
-    """ConvTranspose3d(k2, s2) -> IN -> ReLU."""
+class Upsample3DBlock(_Dropped):
+    """ConvTranspose3d(k2, s2) -> IN -> ReLU -> dropout."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.block = nn.ModuleList([nn.ConvTranspose3d(cin, cout, 2, 2)])
 
     def forward(self, x):
-        return instance_norm(conv(self.block[0], x), "relu")
+        return self.drop(instance_norm(conv(self.block[0], x), "relu"))
 
 
 class _EncoderDecoder(nn.Module):

@@ -1,4 +1,4 @@
-"""JAX parameter trees -> the port's state dicts.
+"""JAX parameter trees <-> the port's state dicts.
 
 The port's modules carry the reference torch parameter names, the names
 ``jarvis_hybridnet_tpu/models/weights_io.py`` emits for the reference
@@ -13,7 +13,8 @@ The port's modules carry the reference torch parameter names, the names
 
 Every one of them is the same axis reversal of the last two axes in front
 of the spatial ones. Dead reference parameters the JAX tree does not hold
-(``final_conv2``, the stage < 4 ``_expand_conv``) come out as zeros.
+(``final_conv2``, the stage < 4 ``_expand_conv``) come out as zeros, and
+:func:`params_to_jax` leaves them out again.
 """
 
 from __future__ import annotations
@@ -121,3 +122,78 @@ def params_from_jax(tree: dict, model_size: str) -> dict:
     else:
         sd = efficienttrack_params_from_jax(tree, model_size)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def _unkernel(w) -> np.ndarray:
+    """Torch layout (B, A, *k) -> the JAX kernel (*k, A, B)."""
+    w = _numpy(w)
+    r = w.ndim
+    return np.ascontiguousarray(w.transpose(*range(2, r), 1, 0))
+
+
+def _numpy(v) -> np.ndarray:
+    return np.ascontiguousarray(v.detach().cpu().float().numpy() if hasattr(v, "detach")
+                                else np.asarray(v, np.float32))
+
+
+def efficienttrack_params_to_jax(sd: dict, model_size: str, prefix: str = "") -> dict:
+    """The JAX EfficientTrack tree of a state dict (reference names)."""
+    spec = MODEL_SIZES[model_size]
+    _, full = build_block_plan(spec.compound_coef)
+    blocks, _ = truncate_and_tap(full)
+    w = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    bb = {"_conv_stem": {"kernel": _unkernel(w["backbone_net.model._conv_stem.weight"])}}
+    for i, b in enumerate(blocks):
+        src, dst = f"backbone_net.model._blocks.{i}.", {}
+        dst["_depthwise_conv"] = {"kernel": _unkernel(w[src + "_depthwise_conv.weight"])}
+        if b.expand != 1 and b.stage_idx >= 4:
+            dst["_expand_conv"] = {"kernel": _unkernel(w[src + "_expand_conv.weight"])}
+        for se in ("_se_reduce", "_se_expand"):
+            dst[se] = {"kernel": _unkernel(w[src + se + ".weight"]),
+                       "bias": _numpy(w[src + se + ".bias"])}
+        dst["_project_conv"] = {"kernel": _unkernel(w[src + "_project_conv.weight"])}
+        bb[f"_blocks_{i}"] = dst
+    tree = {"backbone_net": bb}
+    for i in range(spec.fpn_cell_repeats):
+        src, cell = f"bifpn.{i}.", {}
+        for name in _FUSION:
+            cell[name] = {"w": _numpy(w[src + name])}
+        for name in _SEPARABLE:
+            cell[name] = {
+                "depthwise_conv": {"kernel": _unkernel(w[f"{src}{name}.depthwise_conv.weight"])},
+                "pointwise_conv": {"kernel": _unkernel(w[f"{src}{name}.pointwise_conv.weight"]),
+                                   "bias": _numpy(w[f"{src}{name}.pointwise_conv.bias"])}}
+        if i == 0:
+            for name in _DOWN_CHANNEL:
+                cell[name] = {"conv": {"kernel": _unkernel(w[f"{src}{name}.0.weight"]),
+                                       "bias": _numpy(w[f"{src}{name}.0.bias"])}}
+        tree[f"bifpn_{i}"] = cell
+    tree["first_conv"] = {
+        "depthwise_conv": {"kernel": _unkernel(w["first_conv.depthwise_conv.weight"])},
+        "pointwise_conv": {"kernel": _unkernel(w["first_conv.pointwise_conv.weight"]),
+                           "bias": _numpy(w["first_conv.pointwise_conv.bias"])}}
+    tree["deconv1"] = {"kernel": _unkernel(w["deconv1.weight"])}
+    tree["final_conv1"] = {"kernel": _unkernel(w["final_conv1.weight"])}
+    tree["weights_cat"] = _numpy(w["weights_cat"])
+    return tree
+
+
+def v2v_params_to_jax(sd: dict, prefix: str = "") -> dict:
+    tree: dict = {}
+    for path, name in _V2V_MAP.items():
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node["kernel"] = _unkernel(sd[prefix + name + ".weight"])
+        node["bias"] = _numpy(sd[prefix + name + ".bias"])
+    return tree
+
+
+def params_to_jax(sd: dict, model_size: str) -> dict:
+    """The inverse of :func:`params_from_jax`: the JAX parameter tree (numpy
+    float32 leaves) of a HybridNet state dict (``effTrack.*`` and
+    ``v2vNet.*``) or of an EfficientTrack one."""
+    if any(k.startswith("v2vNet.") for k in sd):
+        return {"effTrack": efficienttrack_params_to_jax(sd, model_size, prefix="effTrack."),
+                "v2vNet": v2v_params_to_jax(sd, prefix="v2vNet.")}
+    return efficienttrack_params_to_jax(sd, model_size)

@@ -1,13 +1,14 @@
-"""ctypes bindings for the native video decoder (libjarvis_video.so).
+"""ctypes bindings for the native host libraries: the video decoder
+(libjarvis_video.so) and the JPEG decode + crop of the 3D training dataset
+(libjarvis_host.so).
 
-A copy of the video part of ``jarvis_hybridnet_tpu/native/__init__.py``;
-the port builds its own library from the source beside this file, on
-demand, with the bundled Makefile (g++, the libav libraries and pthreads).
-When the toolchain or a library is unavailable, ``load_video()`` returns
-None and the readers decode with cv2 instead: host decode is the JAX
-package's choice of reader, not a device path. The JAX package's JPEG
-pipeline (``jarvis_host.cpp``) has its only caller in training and is not
-copied.
+A copy of the video part and of ``available`` / ``decode_crop_batch`` of
+``jarvis_hybridnet_tpu/native/__init__.py`` (:142, :380); the port builds
+its own libraries from the sources beside this file, on demand, with the
+bundled Makefile (g++, the libav libraries or libjpeg, and pthreads). When
+the toolchain or a library is unavailable, ``load_video()`` / ``load()``
+return None and the callers decode with cv2 instead: host decode is the
+JAX package's choice of reader, not a device path.
 """
 
 from __future__ import annotations
@@ -19,20 +20,71 @@ import subprocess
 import numpy as np
 
 _DIR = os.path.dirname(__file__)
+_LIB_PATH = os.path.join(_DIR, "libjarvis_host.so")
 _VIDEO_LIB_PATH = os.path.join(_DIR, "libjarvis_video.so")
+_lib = None
+_tried = False
 _video_lib = None
 _video_tried = False
 
 
-def _build() -> bool:
+def _build(target: str) -> bool:
     try:
         subprocess.run(
-            ["make", "-C", _DIR, "-s", "libjarvis_video.so"], check=True,
+            ["make", "-C", _DIR, "-s", target], check=True,
             capture_output=True, timeout=120,
         )
         return True
     except Exception:
         return False
+
+
+def load():
+    """Load (building if necessary) the JPEG decode + crop library; None
+    when g++ or libjpeg is unavailable (the dataset then decodes with cv2)."""
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    _tried = True
+    if not _build("libjarvis_host.so") and not os.path.isfile(_LIB_PATH):
+        return None
+    try:
+        lib = ctypes.CDLL(_LIB_PATH)
+    except OSError:
+        return None
+    lib.jh_decode_crop_batch.restype = ctypes.c_int
+    lib.jh_decode_crop_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+    ]
+    _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return load() is not None
+
+
+def decode_crop_batch(paths: list[str], centers: np.ndarray, bbox: int,
+                      width: int, height: int,
+                      num_threads: int | None = None) -> np.ndarray | None:
+    """Threaded decode + centered crop -> (n, bbox, bbox, 3) uint8.
+    centers: (n, 2) int32 (x, y), clamped inside the frame like the
+    reference's crop logic."""
+    lib = load()
+    if lib is None:
+        return None
+    if num_threads is None:
+        num_threads = min(len(paths), os.cpu_count() or 1)
+    centers = np.ascontiguousarray(centers, np.int32)
+    out = np.empty((len(paths), bbox, bbox, 3), np.uint8)
+    ok = lib.jh_decode_crop_batch(
+        _c_paths(paths), len(paths),
+        centers.ctypes.data_as(ctypes.c_void_p), bbox,
+        out.ctypes.data_as(ctypes.c_void_p), width, height, num_threads,
+    )
+    return out if ok == len(paths) else None
 
 
 def load_video():
@@ -46,7 +98,7 @@ def load_video():
     # always invoke make: it is a no-op when the .so is newer than the
     # source, and rebuilds a stale library after a .cpp edit (checking
     # only os.path.isfile would silently keep loading the old binary)
-    if not _build() and not os.path.isfile(_VIDEO_LIB_PATH):
+    if not _build("libjarvis_video.so") and not os.path.isfile(_VIDEO_LIB_PATH):
         return None
     try:
         lib = ctypes.CDLL(_VIDEO_LIB_PATH)

@@ -13,8 +13,11 @@ axis, with taps (-1, 0, +1):
 The 3D correction expands over every non-empty subset of axes: the delta
 pattern on the subset's axes, the interior transform on the others, applied
 to the boundary slice (2D convs for faces, 1D for edges, a matmul for
-corners). The transformed kernels depend only on the weights, so
-:func:`prepare_fused_weights` computes them once. Plain cuDNN convolutions.
+corners). The transformed kernels depend only on the weights: inference
+computes them once (``models/v2v.Basic3DBlock`` caches them under
+``no_grad``), training in every step, through autograd, so the weight gets
+its gradient as the JAX package's ``jax.grad`` through ``fused_up_conv3d``
+gives it. Plain cuDNN convolutions.
 """
 
 from __future__ import annotations
@@ -59,9 +62,10 @@ def prepare_fused_weights(weight: torch.Tensor, dtype: torch.dtype):
 
     weight: torch Conv3d layout (Cout, Cin, 3, 3, 3). Returns the interior
     kernel (Cout, Cin, 3, 3, 3) and one kernel per correction, in torch conv
-    layouts (a (Cin, Cout) matrix for corners), cast to ``dtype``.
+    layouts (a (Cin, Cout) matrix for corners), cast to ``dtype``;
+    differentiable in ``weight``.
     """
-    w = weight.detach().float().permute(2, 3, 4, 1, 0)  # DHWIO, as in JAX
+    w = weight.float().permute(2, 3, 4, 1, 0)  # DHWIO, as in JAX
     interior = _transform_interior(w, (0, 1, 2)).permute(4, 3, 0, 1, 2)
     corr = []
     for axes, faces in _corrections():

@@ -8,7 +8,11 @@ with identical output layout: writes
 x,y,confidence when KEYPOINT_NAMES matches; NaN rows for undetected frames).
 Frames are decoded ahead by the reader and processed in ``FRAME_BATCH``
 batches, one batch in flight on the device while the previous one's rows
-are written (:func:`stream_rows`).
+are written (:func:`stream_rows`). Each batch goes to the device through a
+pinned staging pair on a side stream (``utils/transfer.HostToDevice``): the
+copy of batch k + 1 overlaps the device's work on batch k. The helper copies
+a batch into its staging buffer before it returns, so the reader's ring
+buffer goes back to the reader as soon as the batch's work is dispatched.
 
 The CSV writers and :func:`stream_rows` are shared with the 3D driver and
 need neither yaml, cv2 nor tqdm; the drivers import those where they read
@@ -21,12 +25,11 @@ import csv
 import os
 import time
 
-import numpy as np
-import torch
 
 from ..config.project_manager import ProjectManager
 from ..utils import clp
 from ..utils.param_classes import Predict2DParams
+from ..utils.transfer import HostToDevice
 from .loaders import make_predictor2d
 from .video_io import open_single_video_reader
 
@@ -41,45 +44,47 @@ def check_params(params) -> None:
                          "(ROADMAP.md A.12)")
 
 
-def to_device(frames: np.ndarray, device) -> torch.Tensor:
-    """A reader's ring buffer as a tensor on ``device``. The copy from the
-    reader's (pageable) memory is synchronous: the buffer may be recycled
-    as soon as this returns."""
-    return torch.from_numpy(frames).to(device)
-
-
-def stream_rows(cfg, reader, steps, csv_path: str, per_joint, progress=None) -> None:
+def stream_rows(cfg, steps, csv_path: str, per_joint, progress=None) -> None:
     """Write each batch's rows to ``csv_path``, keeping a one-deep pending
-    slot: ``steps`` yields ``(outputs, n, ring_buffer)`` and dispatches the
-    device work of batch k + 1 before batch k's rows are written here, so
-    writing and recycling overlap the device call in flight. A ring buffer
-    goes back to the reader once its rows are written. ``per_joint`` names
-    the CSV columns of a joint (``x, y, confidence`` or ``x, y, z,
-    confidence``); ``progress(n)`` is called after each batch."""
+    slot: ``steps`` yields ``(outputs, n)`` and dispatches the device work
+    of batch k + 1 before batch k's rows are written here, so writing
+    overlaps the device call in flight. ``per_joint`` names the CSV columns
+    of a joint (``x, y, confidence`` or ``x, y, z, confidence``);
+    ``progress(n)`` is called after each batch."""
     num_joints = int(cfg.KEYPOINTDETECT.NUM_JOINTS)
     with open(csv_path, "w", newline="") as csvfile:
         writer = csv.writer(csvfile, delimiter=",", quotechar='"',
                             quoting=csv.QUOTE_MINIMAL)
         if len(cfg.KEYPOINT_NAMES) == num_joints:
             _write_header(writer, cfg, per_joint=per_joint)
-        pending = None  # (outputs, n, ring buffer)
+        pending = None  # (outputs, n)
         for item in steps:
             if pending is not None:
                 _drain(writer, pending, num_joints, len(per_joint) == 4, progress)
-                reader.recycle(pending[2])
             pending = item
         if pending is not None:
             _drain(writer, pending, num_joints, len(per_joint) == 4, progress)
-            reader.recycle(pending[2])
 
 
 def _drain(writer, pending, num_joints, with_z, progress):
-    (points, conf, valid), n, _ = pending
+    (points, conf, valid), n = pending
     points, conf, valid = (a.cpu().numpy() for a in (points, conf, valid))
     for t in range(n):
         _write_row(writer, points[t], conf[t], valid[t], num_joints, with_z=with_z)
     if progress is not None:
         progress(n)
+
+
+def _fused_steps(predictor, reader):
+    """``(outputs, n)`` per batch of ``reader``: the frames copied to the
+    predictor's device, the predictor dispatched, then the ring buffer back
+    to the reader (the device copy reads the staging buffer; on the CPU the
+    predictor has run)."""
+    upload = HostToDevice(predictor.device)
+    for frames, n in reader:
+        out = predictor(upload(frames))
+        reader.recycle(frames)
+        yield out, n
 
 
 def progress_callback(params, total):
@@ -150,11 +155,10 @@ def predict2D(params: Predict2DParams, device="cuda") -> str | None:
         if predictor is None:
             predictor = make_predictor2d(cfg, params.weights_center_detect,
                                          params.weights_keypoint_detect, device=device)
-        steps = ((predictor(to_device(frames, predictor.device)), n, frames)
-                 for frames, n in reader)
+        steps = _fused_steps(predictor, reader)
         update, close = progress_callback(params, reader.number_frames)
         try:
-            stream_rows(cfg, reader, steps, os.path.join(params.output_dir, csv_name),
+            stream_rows(cfg, steps, os.path.join(params.output_dir, csv_name),
                         ("x", "y", "confidence"), update)
         finally:
             close()

@@ -23,14 +23,15 @@ from ..config.project_manager import ProjectManager
 from ..utils import clp
 from ..utils.calibration import CameraRig, load_camera_rigs
 from ..utils.param_classes import Predict3DParams
+from ..utils.transfer import HostToDevice
 from .loaders import make_predictor3d, make_predictor3d_twophase
 from .predict2d import (
+    _fused_steps,
     _write_info,
     check_params,
     output_dir,
     progress_callback,
     stream_rows,
-    to_device,
 )
 from .video_io import get_video_paths, open_multi_camera_reader
 
@@ -54,11 +55,11 @@ def stream_predict3d(cfg, predictor, reader, out_dir: str, progress=None) -> str
     of ``reader`` goes to the device and through ``predictor``; rows go to
     ``out_dir/data3D.csv``. ``reader`` has the interface of
     ``video_io.MultiCameraReader`` (iteration, ``recycle``); the caller
-    releases it. Returns the CSV's path."""
-    steps = ((predictor(to_device(frames, predictor.device)), n, frames)
-             for frames, n in reader)
+    releases it. The copy to the device overlaps the previous batch's work
+    (``utils/transfer.HostToDevice``). Returns the CSV's path."""
+    steps = _fused_steps(predictor, reader)
     path = os.path.join(out_dir, "data3D.csv")
-    stream_rows(cfg, reader, steps, path, PER_JOINT, progress)
+    stream_rows(cfg, steps, path, PER_JOINT, progress)
     return path
 
 
@@ -72,14 +73,16 @@ def stream_predict3d_twophase(cfg, phases, reader, device, out_dir: str,
     phase_a, phase_b, crop_fn = phases
 
     def steps():
+        upload_low, upload_crops = HostToDevice(device), HostToDevice(device)
         for full, low, n in reader:
-            cx, cy, c3d, valid = phase_a(to_device(low, device))
+            cx, cy, c3d, valid = phase_a(upload_low(low))
             crops = crop_fn(full, cx.cpu().numpy(), cy.cpu().numpy())
-            pts, conf = phase_b(to_device(crops, device), cx, cy, c3d)
-            yield (pts, conf, valid), n, full
+            reader.recycle(full)
+            pts, conf = phase_b(upload_crops(crops), cx, cy, c3d)
+            yield (pts, conf, valid), n
 
     path = os.path.join(out_dir, "data3D.csv")
-    stream_rows(cfg, reader, steps(), path, PER_JOINT, progress)
+    stream_rows(cfg, steps(), path, PER_JOINT, progress)
     return path
 
 

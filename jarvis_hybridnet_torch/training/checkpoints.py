@@ -1,5 +1,15 @@
-"""Reference-compatible weight resolution (port of the loading half of
-``jarvis_hybridnet_tpu/training/checkpoints.py:86-241``).
+"""Checkpoints and reference-compatible weight resolution (port of
+``jarvis_hybridnet_tpu/training/checkpoints.py``).
+
+Writing (``checkpoints.py:30-84``): ``.ckpt`` files hold the JAX package's
+parameter tree (``models/weights.params_to_jax``) in flax's msgpack format
+(``utils/ckpt_io.write_ckpt``), so its ``load_checkpoint`` reads what the
+port trains; ``.pth`` files hold the state dict under the reference torch
+names, as the JAX package's ``save_torch_checkpoint`` writes them. A train
+state holds the params in the JAX tree, the epoch, and the optimizer state in
+the port's own layout (torch's ``Optimizer.state_dict()`` and the step
+count), in the same msgpack file: a resume from a train state written by the
+JAX package is not supported.
 
 A weight spec is resolved as the reference resolves it
 (jarvis/efficienttrack/efficienttrack.py:90-183, train_interface.py:22-50):
@@ -16,8 +26,7 @@ A weight spec is resolved as the reference resolves it
 
 Weights come back as state dicts under the reference torch names, which the
 port's modules carry, overlaid on ``init_state`` (a missing key keeps its
-initial value: the reference's ``strict=False`` load). Saving checkpoints
-belongs to training, which the port does not have yet.
+initial value: the reference's ``strict=False`` load).
 """
 
 from __future__ import annotations
@@ -26,12 +35,78 @@ import os
 
 import torch
 
-from ..models.weights import params_from_jax
+import numpy as np
+
+from ..models.weights import params_from_jax, params_to_jax
 from ..utils import clp
-from ..utils.ckpt_io import read_ckpt
+from ..utils.ckpt_io import read_ckpt, write_ckpt
 
 # the head of an EfficientTrack: its shapes follow the joint count
 _HEAD = ("deconv1.weight", "final_conv1.weight", "final_conv2.weight")
+
+
+def save_checkpoint(state: dict, path: str, model_size: str) -> None:
+    """Write a state dict as a ``.ckpt`` in the JAX package's tree."""
+    write_ckpt(path, params_to_jax(state, model_size))
+
+
+def load_checkpoint(path: str) -> dict:
+    """The raw tree of a ``.ckpt`` (numpy leaves)."""
+    return read_ckpt(path)
+
+
+def _to_tree(obj):
+    """A torch optimizer state dict as msgpack-able nested dicts: tensors to
+    numpy, tuples to lists, int keys to strings."""
+    if isinstance(obj, dict):
+        return {str(k): _to_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_tree(v) for v in obj]
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    return obj
+
+
+def _from_optimizer_tree(tree: dict) -> dict:
+    """The inverse of :func:`_to_tree` for ``Optimizer.state_dict()``."""
+    def value(v):
+        return torch.from_numpy(np.asarray(v)) if isinstance(v, np.ndarray) else v
+
+    state = {int(k): {name: value(v) for name, v in entry.items()}
+             for k, entry in tree["state"].items()}
+    groups = [{k: (tuple(v) if k == "betas" else v) for k, v in g.items()}
+              for g in tree["param_groups"]]
+    return {"state": state, "param_groups": groups}
+
+
+def save_train_state(path: str, state: dict, opt_state: dict, epoch: int,
+                     model_size: str) -> None:
+    """Full training state for a mid-run resume: params (the JAX tree), the
+    optimizer state (``{"optimizer": Optimizer.state_dict(), "step": int}``,
+    the port's layout) and the epoch."""
+    write_ckpt(path, {
+        "params": params_to_jax(state, model_size),
+        "opt_state": {"optimizer": _to_tree(opt_state["optimizer"]),
+                      "step": int(opt_state["step"])},
+        "epoch": int(epoch),
+    })
+
+
+def load_train_state(path: str, model_size: str):
+    """(state dict, optimizer state as :func:`save_train_state` takes it,
+    epoch) of a train state the port wrote."""
+    tree = read_ckpt(path)
+    opt = tree["opt_state"]
+    opt_state = {"optimizer": _from_optimizer_tree(opt["optimizer"]), "step": int(opt["step"])}
+    return params_from_jax(tree["params"], model_size), opt_state, int(tree["epoch"])
+
+
+def save_torch_checkpoint(state: dict, path: str) -> None:
+    """Write a state dict as a reference-loadable ``.pth`` (float32 CPU
+    tensors under the reference names)."""
+    tensors = {k: v.detach().cpu().float().contiguous() for k, v in state.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(tensors, path)
 
 
 def _latest_run_file(search_path: str, final_names: list[str]) -> str | None:
@@ -48,6 +123,15 @@ def _latest_run_file(search_path: str, final_names: list[str]) -> str | None:
             if os.path.isfile(p):
                 return p
     return None
+
+
+def get_latest_train_state(cfg, module: str) -> str | None:
+    """Newest run's resumable ``train_state.ckpt`` (periodic epoch saves and
+    the preemption path both write it)."""
+    search = os.path.join(
+        cfg.PARENT_DIR, "projects", cfg.PROJECT_NAME, "models", module
+    )
+    return _latest_run_file(search, ["train_state.ckpt"])
 
 
 def get_latest_weights(cfg, module: str) -> str | None:

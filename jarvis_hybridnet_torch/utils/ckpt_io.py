@@ -1,4 +1,5 @@
-"""Reader for flax ``.ckpt`` files with no msgpack or flax dependency.
+"""Reader and writer of flax ``.ckpt`` files with no msgpack or flax
+dependency.
 
 The JAX package writes checkpoints with ``flax.serialization.to_bytes``
 (``jarvis_hybridnet_tpu/training/checkpoints.py:36``): a msgpack map of maps
@@ -15,6 +16,11 @@ msgpack that flax writes:
 
 Leaves come back as writable numpy arrays; ``bfloat16`` leaves, which numpy
 cannot hold, come back as ``torch.bfloat16`` tensors.
+
+:func:`write_ckpt` writes the same subset the other way (maps with string
+keys, ints, floats, strings, bytes, lists, and numpy arrays or CPU tensors
+as ext type 1 ndarrays), as ``flax.serialization.to_bytes`` writes a state
+dict: the JAX package's ``load_checkpoint`` reads it.
 """
 
 from __future__ import annotations
@@ -151,3 +157,91 @@ def read_ckpt(path: str) -> dict:
     """Nested dict of the parameter tree stored in a flax ``.ckpt`` file."""
     with open(path, "rb") as f:
         return _unchunk(unpackb(f.read()))
+
+
+def _pack_len(out: bytearray, n: int, small: tuple[int, int] | None, codes: tuple[int, ...]):
+    """A length header: ``small`` = (base, limit) of the fix form, then the
+    8 / 16 / 32-bit forms (a code of 0 means the form does not exist)."""
+    if small is not None and n < small[1]:
+        out.append(small[0] | n)
+    elif codes[0] and n < 1 << 8:
+        out += struct.pack(">BB", codes[0], n)
+    elif n < 1 << 16:
+        out += struct.pack(">BH", codes[1], n)
+    else:
+        out += struct.pack(">BI", codes[2], n)
+
+
+def _ndarray_payload(a) -> bytes:
+    if hasattr(a, "detach"):  # a torch tensor
+        import torch
+
+        t = a.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return packb([list(t.shape), "bfloat16", t.view(torch.uint16).numpy().tobytes("C")])
+        a = t.numpy()
+    a = np.asarray(a)
+    return packb([list(a.shape), a.dtype.name, a.tobytes("C")])
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        if 0 <= obj < 0x80:
+            out.append(obj)
+        elif -32 <= obj < 0:
+            out.append(obj & 0xFF)
+        elif obj >= 0:
+            out += struct.pack(">BQ", 0xCF, obj)
+        else:
+            out += struct.pack(">Bq", 0xD3, obj)
+    elif isinstance(obj, float):
+        out += struct.pack(">Bd", 0xCB, obj)
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        _pack_len(out, len(b), (0xA0, 32), (0xD9, 0xDA, 0xDB))
+        out += b
+    elif isinstance(obj, (bytes, bytearray)):
+        _pack_len(out, len(obj), None, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), (0x80, 16), (0, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), (0x90, 16), (0, 0xDC, 0xDD))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, np.ndarray) or hasattr(obj, "detach"):
+        payload = _ndarray_payload(obj)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(payload) in fixext:
+            out.append(fixext[len(payload)])
+        else:
+            _pack_len(out, len(payload), None, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", _EXT_NDARRAY)
+        out += payload
+    elif isinstance(obj, np.generic):
+        _pack(np.asarray(obj), out)
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} to a .ckpt")
+
+
+def packb(obj: Any) -> bytes:
+    """Encode one object as msgpack (the subset :func:`unpackb` reads)."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
+def write_ckpt(path: str, tree: dict) -> None:
+    """Write a nested dict of arrays as a flax ``.ckpt`` file."""
+    import os
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(packb(tree))

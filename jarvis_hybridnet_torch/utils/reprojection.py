@@ -11,6 +11,7 @@ TF32 is off by default in PyTorch; nothing here turns it on).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -71,3 +72,37 @@ def triangulate(points2d: torch.Tensor, weights: torch.Tensor,
     q, r = torch.linalg.qr(A[..., :3])
     rhs = (q.transpose(1, 2) @ -A[..., 3:4])
     return torch.linalg.solve_triangular(r, rhs, upper=True)[..., 0]
+
+
+def triangulate_dlt_numpy(
+    points2d: np.ndarray,  # (2, C) distorted pixels
+    cams_to_use: list[int],
+    cameras,  # list of calibration.Camera
+) -> np.ndarray:
+    """Host-side exact-undistortion DLT used to build GT 3D keypoints.
+
+    Matches the dataset-side ReprojectionTool.reconstructPoint
+    (jarvis/dataset/utils.py:60-99): cv2.undistortPoints (iterative, exact)
+    followed by unweighted SVD DLT. Returns [0,0,0] when fewer than two
+    cameras see the point, like the reference.
+    """
+    import cv2
+
+    if len(cams_to_use) <= 1:
+        return np.array([0.0, 0.0, 0.0])
+    rows = []
+    for i, cam_idx in enumerate(cams_to_use):
+        cam = cameras[cam_idx]
+        pt = np.asarray(points2d[:, cam_idx], dtype=np.float64).reshape(1, 1, 2)
+        und = cv2.undistortPoints(
+            pt, cam.intrinsic.T, cam.distortion
+        ).squeeze()
+        u = und[0] * cam.intrinsic[0, 0] + cam.intrinsic[2, 0]
+        v = und[1] * cam.intrinsic[1, 1] + cam.intrinsic[2, 1]
+        P = cam.camera_matrix  # (3, 4)
+        rows.append(np.array([u, v]).reshape(2, 1) @ P[2].reshape(1, 4) - P[0:2])
+    A = np.concatenate(rows, axis=0)
+    _, _, vh = np.linalg.svd(A)
+    X = vh.T[:, -1]
+    X = X / X[-1]
+    return X[:3]

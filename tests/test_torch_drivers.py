@@ -28,6 +28,7 @@ from jarvis_hybridnet_torch import native as port_native
 from jarvis_hybridnet_torch.prediction.predict2d import predict2D
 from jarvis_hybridnet_torch.prediction.predict3d import predict3D
 from jarvis_hybridnet_torch.testing import synthetic_rig
+from jarvis_hybridnet_torch.testing import write_calibration as _write_calibration
 from jarvis_hybridnet_torch.utils.param_classes import Predict2DParams, Predict3DParams
 from jarvis_hybridnet_tpu.prediction.predict2d import predict2D as jax_predict2D
 from jarvis_hybridnet_tpu.prediction.predict3d import predict3D as jax_predict3D
@@ -42,18 +43,6 @@ cv2 = pytest.importorskip("cv2")
 TRAINED = pathlib.Path(__file__).resolve().parents[1] / "trained" / "MonkeyHand"
 CAMS, H, W, FRAMES = 4, 256, 320, 4
 JOINTS = [f"Joint_{j}" for j in range(23)]
-
-
-def _write_calibration(path, P, K, D):
-    """An OpenCV FileStorage calibration: the transposed intrinsics, the
-    distortion, and R, T recovered from P = [R; T] @ K_t."""
-    rt = P.astype(np.float64) @ np.linalg.inv(K.astype(np.float64))
-    fs = cv2.FileStorage(str(path), cv2.FILE_STORAGE_WRITE)
-    fs.write("intrinsicMatrix", K.astype(np.float64))
-    fs.write("distortionCoefficients", D.reshape(1, 5).astype(np.float64))
-    fs.write("R", rt[:3])
-    fs.write("T", rt[3].reshape(3, 1))
-    fs.release()
 
 
 @pytest.fixture(scope="module")
