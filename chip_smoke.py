@@ -28,8 +28,10 @@ after it, V2V's weights changed and the written ``.ckpt`` / ``.pth``
 reload; the step's framesets/s, ms and device busy share; one small step
 on the card against the same step on the CPU (float32, TF32 off, dropout
 off, the CPU's ReLU masks set to the card's; a TF32 step as the control
-the comparison must refuse); K6 and K7 against their plain versions at the
-training step's shapes. It then checks every kernel against its plain
+the comparison must refuse); K6 (at the training step's keys, every act
+at V2V's largest float32 shape and one bf16 key) and K7 against their
+plain versions, each called twice and required bit-equal. It then checks
+every kernel against its plain
 PyTorch version on the card: K1, K2 and K4 at every shape a driven path
 gave them, K3 and K5 at the main path's, and times kernel, plain version
 and library call. A kernel's ``ms`` is device time: a
@@ -42,12 +44,13 @@ no CUDA device is present. Per-shape details go to
 ``chiprun_out/chip_smoke.txt``.
 
 With ``--baseline-csrc DIR``, DIR holds an earlier version of the kernel
-sources with the C interfaces of ``BASELINE_SIGNATURES`` (K1, K2, the
-one-kernel K3 and K5 with unpadded rows); it builds them too and times them
-beside the current kernels at the same shapes, in the order baseline,
-current, current, baseline, into ``chiprun_out/chip_smoke_baseline.txt``;
-K5's volumes and indices must equal the baseline's bit for bit in every
-mode at G = 72 and 44, and K2's volume too.
+sources with the C interfaces of ``BASELINE_SIGNATURES`` (K1 without the
+statistics output, the three-launch K6, the two-launch K7); it builds them
+too and times them beside the current kernels at the same shapes, in the
+order baseline, current, current, baseline, into
+``chiprun_out/chip_smoke_baseline.txt``. K1's outputs must equal the
+baseline's bit for bit at every recorded key; the baseline's K6 and K7 are
+held to the plain versions (their sums run in another order).
 """
 
 from __future__ import annotations
@@ -197,27 +200,31 @@ def profile_steps(predictor, frames, out_dir, note) -> None:
              f"top kernel {rows[0][2][:60]} {rows[0][0] / 2e3:.3f} ms per step")
 
 
-# The C interfaces of the earlier designs that --baseline-csrc builds: K1
-# as the current one takes it (launch plan), K2 and K5 with contiguous
-# (unpadded) rows, K5 with a block per tile of BASELINE_K5_TILE's edges,
-# K3 as the current one takes it (launch plan).
+# The C interfaces of the earlier designs that --baseline-csrc builds (those
+# of bedfb2c): K1 without the statistics output, K6 in three launches over
+# row chunks, K7 with a second launch that sums the partials. eps is a
+# float, the names in _BASELINE_POINTERS pointers, the rest ints.
+_BASELINE_POINTERS = {"x", "skip", "out", "dy", "y", "dx", "dskip", "scratch", "kp_vox",
+                      "kp_world", "vol", "part", "loss", "valid", "dloss", "dout", "stream"}
 BASELINE_SIGNATURES = {
     "instance_norm_act": "x, skip, out, N, S, C, V, cluster, threads, span, resident, "
                          "ring_rows, q, data_off, ring_off, smem, eps, act, dtype, stream",
-    "repro_quarter_gather": "rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, hs, "
-                            "g4, tile, step, dtype, stream",
-    "soft_argmax": "vol, center3d, points, conf, heat, B, g, J, cluster, threads, span, run, "
-                   "smem, aligned, spacing, cube, dtype, stream",
-    "repro_grid_gather": "rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, hs, n2, "
-                         "tile, step, mode, dtype, stream",
+    "instance_norm_act_backward": "x, dy, y, dx, dskip, scratch, N, S, C, chunk, nchunk, "
+                                  "threads, eps, act, dtype, stream",
+    "hybridnet_loss_forward": "out, kp_vox, kp_world, vol, part, loss, valid, B, g, J, "
+                              "threads, per_block, nblk, stream",
+    "hybridnet_loss_backward": "out, kp_vox, kp_world, valid, dloss, dout, B, g, J, threads, "
+                               "per_block, nblk, stream",
 }
-BASELINE_K5_TILE = {"exact": 4, "half": 6, "half_fused": 6}
 
 
 class Baseline:
-    """K1, K2, K3 and K5 of an earlier design, built from the sources in
-    ``csrc`` (each against that directory's own headers). K2 and K5 take
-    contiguous rows, J apart."""
+    """K1, K6 and K7 of an earlier design, built from the sources in ``csrc``
+    (each against that directory's own headers), with that design's grids."""
+
+    SOURCES = {"instance_norm_act": ("instance_norm_act",),
+               "instance_norm_act_backward": ("instance_norm_act_backward",),
+               "hybridnet_loss": ("hybridnet_loss_forward", "hybridnet_loss_backward")}
 
     def __init__(self, csrc: str):
         from jarvis_hybridnet_torch.kernels import build
@@ -226,7 +233,7 @@ class Baseline:
         out_dir = os.path.join(csrc, "build")
         os.makedirs(out_dir, exist_ok=True)
         jobs = {}
-        for name in BASELINE_SIGNATURES:
+        for name in self.SOURCES:
             lib = os.path.join(out_dir, f"lib{name}.so")
             cmd = [build._nvcc(), *build._flags(name), "-o", lib, os.path.join(csrc, f"{name}.cu")]
             jobs[name] = lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -236,13 +243,13 @@ class Baseline:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 fail(f"nvcc failed for the baseline {name}.cu:\n{log}")
-            fns[name] = getattr(ctypes.CDLL(lib), name)
-            fns[name].restype = ctypes.c_int
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fns["instance_norm_act"].argtypes = [p] * 3 + [i] * 13 + [f, i, i, p]
-        fns["repro_quarter_gather"].argtypes = [p] * 8 + [i] * 6 + [f, i, p]
-        fns["soft_argmax"].argtypes = [p] * 5 + [i] * 9 + [f, f, i, p]
-        fns["repro_grid_gather"].argtypes = [p] * 8 + [i] * 6 + [f, i, i, p]
+            for sym in self.SOURCES[name]:
+                fns[sym] = getattr(ctypes.CDLL(lib), sym)
+                fns[sym].restype = ctypes.c_int
+                fns[sym].argtypes = [
+                    ctypes.c_float if a == "eps" else
+                    ctypes.c_void_p if a in _BASELINE_POINTERS else ctypes.c_int
+                    for a in BASELINE_SIGNATURES[sym].split(", ")]
         self.fns = fns
 
     def instance_norm_act(self, x, act, skip):
@@ -260,57 +267,56 @@ class Baseline:
             plan.smem, EPS, ACTS[act], int(x.dtype == torch.bfloat16), b.stream()), "baseline K1")
         return out
 
-    def repro_quarter_gather(self, rows, center3d, center_hm, P, K, D, g4, step):
+    def instance_norm_act_backward(self, x, dy, out, act):
+        """Its grid: chunks of rows, about 264 blocks, each chunk at least
+        one step of 256 threads' row lanes."""
         import torch
 
-        from jarvis_hybridnet_torch.kernels.repro_gather import TILE
+        from jarvis_hybridnet_torch.kernels.instance_norm import ACTS, EPS
 
-        B, C, hs2, J = rows.shape
-        out = torch.empty((B, 2 * g4, 2 * g4, 2 * g4, J), dtype=torch.float32, device=rows.device)
+        n, s, c = x.shape
+        chunk = max(max(1, 256 // c), -(-s // max(1, min(s, -(-264 // n)))))
+        nchunk = -(-s // chunk)
+        dx = torch.empty_like(x)
+        dskip = torch.empty_like(x) if act == "add_relu" else None
+        scratch = torch.empty(4 * n * nchunk * c + 2 * n * c, dtype=torch.float32,
+                              device=x.device)
         b = self.build
-        b.check(self.fns["repro_quarter_gather"](
-            *(b.ptr(t) for t in (rows, center3d, center_hm, P, K, D, out)), b.ptr(None),
-            B, C, J, math.isqrt(hs2), g4, TILE, step, int(rows.dtype == torch.bfloat16),
-            b.stream()), "baseline K2")
-        return out
+        b.check(self.fns["instance_norm_act_backward"](
+            *(b.ptr(t) for t in (x, dy, out, dx, dskip, scratch)), n, s, c, chunk, nchunk, 256,
+            EPS, ACTS[act], int(x.dtype == torch.bfloat16), b.stream()), "baseline K6")
+        return dx, dskip
 
-    def soft_argmax(self, vol, center3d, spacing, cube):
+    @staticmethod
+    def _loss_grid(g, J):
+        per_block = max(1, -(-g ** 3 // 264))
+        return 256 // J * J, per_block, -(-g ** 3 // per_block)
+
+    def hybridnet_loss_fwd(self, out, kp_vox, kp_world):
         import torch
 
-        from jarvis_hybridnet_torch.kernels.soft_argmax import launch_plan
-
-        B, g, J = vol.shape[0], vol.shape[1], vol.shape[-1]
-        plan = launch_plan(B, g, J, vol.element_size())
-        dev = vol.device
-        points = torch.empty((B, J, 3), dtype=torch.float32, device=dev)
-        conf = torch.empty((B, J), dtype=torch.float32, device=dev)
-        aligned = vol.data_ptr() % 16 == 0 and (g ** 3 * J * vol.element_size()) % 16 == 0
+        B, g, J = out.shape[0], out.shape[1], out.shape[-1]
+        threads, per_block, nblk = self._loss_grid(g, J)
+        dev = out.device
+        part = torch.empty(B * nblk * J * 2, dtype=torch.float32, device=dev)
+        loss = torch.empty((), dtype=torch.float32, device=dev)
+        valid = torch.empty((B, J), dtype=torch.float32, device=dev)
         b = self.build
-        b.check(self.fns["soft_argmax"](
-            *(b.ptr(t) for t in (vol, center3d, points, conf)), None, B, g, J, plan.cluster,
-            plan.threads, plan.span, plan.run, plan.smem, int(aligned), spacing, cube,
-            int(vol.dtype == torch.bfloat16), b.stream()), "baseline K3")
-        return points, conf
+        b.check(self.fns["hybridnet_loss_forward"](
+            *(b.ptr(t) for t in (out, kp_vox, kp_world, None, part, loss, valid)), B, g, J,
+            threads, per_block, nblk, b.stream()), "baseline K7 forward")
+        return loss, valid
 
-    def repro_grid_gather(self, rows, center3d, center_hm, P, K, D, grid_size, spacing, mode,
-                          return_indices=False):
+    def hybridnet_loss_bwd(self, out, kp_vox, kp_world, valid, dloss):
         import torch
 
-        from jarvis_hybridnet_torch.kernels.repro_grid_gather import MODES
-
-        B, C, hs2, J = rows.shape
-        n = grid_size // 2 if mode == "half_fused" else grid_size
-        dev = rows.device
-        out = torch.empty((B, n, n, n, J), dtype=torch.float32, device=dev)
-        n_idx = grid_size ** 3 if mode == "exact" else (grid_size // 2) ** 3
-        idx = (torch.empty((B, C, n_idx), dtype=torch.int32, device=dev)
-               if return_indices else None)
+        B, g, J = out.shape[0], out.shape[1], out.shape[-1]
+        dout = torch.empty_like(out)
         b = self.build
-        b.check(self.fns["repro_grid_gather"](
-            *(b.ptr(t) for t in (rows, center3d, center_hm, P, K, D, out, idx)), B, C, J,
-            math.isqrt(hs2), grid_size // 2, BASELINE_K5_TILE[mode], float(spacing) * 2.0,
-            MODES[mode], int(rows.dtype == torch.bfloat16), b.stream()), "baseline K5")
-        return (out, idx) if return_indices else out
+        b.check(self.fns["hybridnet_loss_backward"](
+            *(b.ptr(t) for t in (out, kp_vox, kp_world, valid, dloss.reshape(1), dout)), B, g,
+            J, *self._loss_grid(g, J), b.stream()), "baseline K7 backward")
+        return dout
 
 
 def against_baseline(current, baseline, check) -> tuple[float, float]:
@@ -340,13 +346,10 @@ def rows_touched(idx, hs2: int) -> int:
                for c in range(idx.shape[1]))
 
 
-def check_k5(kernels, rows, c3d, center_hm, cams, grid_size, spacing, mode_launches, baseline,
-             base_log, note):
+def check_k5(kernels, rows, c3d, center_hm, cams, grid_size, spacing, mode_launches, note):
     """K5 in each mode against its plain version: indices equal and volumes
     within 1e-5 relative at the production grid and at G = 44 (a partial
-    tile at the top edge in every mode), then timed at the production grid;
-    with a baseline, volumes and indices bit-equal to the earlier design's
-    at both grids and both timed in turns."""
+    tile at the top edge in every mode), then timed at the production grid."""
     import importlib
 
     import torch
@@ -354,9 +357,7 @@ def check_k5(kernels, rows, c3d, center_hm, cams, grid_size, spacing, mode_launc
     k5 = importlib.import_module("jarvis_hybridnet_torch.kernels.repro_grid_gather")
     out = []
     J, hs2 = rows.shape[-1], rows.shape[2]
-    rows_c = rows.contiguous() if baseline is not None else None  # the earlier layout
     for mode in OTHER_MODES:
-        base_ms = {}
         for G, sp in ((44, 3.0), (grid_size, spacing)):
             a = (rows, c3d, center_hm, *cams, G, sp, mode)
             k_vol, k_idx = kernels.repro_grid_gather(*a, return_indices=True)
@@ -372,24 +373,6 @@ def check_k5(kernels, rows, c3d, center_hm, cams, grid_size, spacing, mode_launc
                  f"blocks per SM")
             if rel > 1e-5:
                 fail(f"repro_grid_gather {mode} volume differs by {rel} relative (tol 1e-5)")
-            if baseline is not None:
-                b_args = (rows_c, *a[1:])
-                b_vol, b_idx = baseline.repro_grid_gather(*b_args, return_indices=True)
-                if not (torch.equal(k_vol, b_vol) and torch.equal(k_idx, b_idx)):
-                    fail(f"repro_grid_gather {mode} G={G}: differs from the baseline design "
-                         f"(volume {float((k_vol - b_vol).abs().max())}, indices at "
-                         f"{int((k_idx != b_idx).sum())} places)")
-                del b_vol, b_idx
-
-                def same(new, old):
-                    if not torch.equal(new, old):
-                        fail(f"repro_grid_gather {mode}: the baseline design's volume differs")
-                cur, base_ms[G] = against_baseline(
-                    lambda: kernels.repro_grid_gather(*a),
-                    lambda: baseline.repro_grid_gather(*b_args), same)
-                base_log.write(f"K5 repro_grid_gather {mode} {tuple(rows.shape)} G={G}: current "
-                               f"{cur:.4f} ms, baseline {base_ms[G]:.4f} ms "
-                               f"({base_ms[G] / cur:.2f}x); volumes and indices equal\n")
         nbytes = rows_touched(p_idx, hs2) * J * rows.element_size() + k_vol.numel() * 4
         a = (rows, c3d, center_hm, *cams, grid_size, spacing, mode)
         entry = dict(
@@ -403,8 +386,6 @@ def check_k5(kernels, rows, c3d, center_hm, cams, grid_size, spacing, mode_launc
             wall_ms=cuda_ms(lambda: kernels.repro_grid_gather(*a)),
             plain_ms=cuda_ms(lambda: kernels.repro_grid_gather_plain(*a), iters=3, warmup=1),
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
-        if baseline is not None:
-            entry["baseline_ms"] = base_ms[grid_size]
         out.append(entry)
         del k_vol, p_vol, k_idx, p_idx
     return out
@@ -422,11 +403,11 @@ def ptxas_lines(name: str) -> list[str]:
     return [ln.strip() for ln in log.read_text().splitlines() if any(k in ln for k in keep)]
 
 
-def check_k3(kernels, vout, c3d, spacing, cube, launches, baseline, base_log, note):
+def check_k3(kernels, vout, c3d, spacing, cube, launches, note):
     """K3 against its plain version (points and confidences with the fast
     softplus of the predict path and with the accurate one of the volume
     output, and the double-softplus volume), timed with and without the
-    volume output, and beside the baseline's design."""
+    volume output."""
     from jarvis_hybridnet_torch.kernels.soft_argmax import launch_plan, max_active_clusters
 
     args = (vout, c3d, spacing, cube)
@@ -455,14 +436,6 @@ def check_k3(kernels, vout, c3d, spacing, cube, launches, baseline, base_log, no
         volume_ms=graph_ms(lambda: kernels.soft_argmax(*args, return_volume=True)),
         volume_bound_ms=(in_bytes + kv.numel() * 4) / HBM_BYTES_PER_S * 1e3,
         volume_ulps=ulps)
-    if baseline is not None:
-        def near(new, old):
-            if (new[0] - old[0]).abs().max() > 1e-3 or (new[1] - old[1]).abs().max() > 1e-6:
-                fail("soft_argmax: the baseline design differs")
-        cur, base = against_baseline(lambda: kernels.soft_argmax(*args),
-                                     lambda: baseline.soft_argmax(*args), near)
-        base_log.write(f"K3 soft_argmax {tuple(vout.shape)}: current {cur:.4f} ms, baseline "
-                       f"{base:.4f} ms, bound {entry['bound_ms']:.4f} ms\n")
     return entry
 
 
@@ -542,9 +515,9 @@ class ShapeRecorder:
                 _, per = table.setdefault(key, (args, {}))
             per[path] = per.get(path, 0) + 1
 
-        def rec_k1(x, act="none", skip=None):
+        def rec_k1(x, act="none", skip=None, return_stats=False):
             count(self.k1, (tuple(x.shape), x.dtype, act))
-            return k1(x, act, skip)
+            return k1(x, act, skip, return_stats)
 
         def rec_k2(rows, center3d, center_hm, P, K, D, g4, step, return_indices=False):
             count(self.k2, (tuple(rows.shape), rows.dtype, g4, step),
@@ -556,9 +529,9 @@ class ShapeRecorder:
                   (x, height, width, mean, std, dtype))
             return k4(x, height, width, mean, std, dtype)
 
-        def rec_k6(x, dy, out, act="none"):
+        def rec_k6(x, dy, out, act="none", stats=None):
             count(self.k6, (tuple(x.shape), x.dtype, act))
-            return k6(x, dy, out, act)
+            return k6(x, dy, out, act, stats)
 
         layers.instance_norm_act = rec_k1
         repro.repro_quarter_gather = rec_k2
@@ -888,7 +861,187 @@ def k6_library(x, dy, act, skip):
     return lambda: torch.autograd.grad(y, inputs, grad, retain_graph=True)
 
 
-def training_phase(kernels, ckpt, recorder, smi, note):
+# K6 keys checked beside the training run's: every act at V2V's largest
+# float32 shape, and a bf16 one (a batch of 8 at that shape, SiLU)
+K6_EXTRA_KEYS = (tuple(((1, 46656, 46), "float32", a) for a in ("none", "silu", "relu", "add_relu"))
+                 + (((8, 46656, 46), "bfloat16", "silu"),))
+
+
+def k6_inputs(shape, dtype, act, seed=11):
+    """Seeded x, skip (add_relu), dy on the card, K1's output and stats."""
+    import torch
+
+    from jarvis_hybridnet_torch import kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dtype)
+    skip = torch.randn(shape, device=dev, generator=g).to(dtype) if act == "add_relu" else None
+    dy = torch.randn(shape, device=dev, generator=g).to(dtype)
+    out, stats = kernels.instance_norm_act(x, act, skip, return_stats=True)
+    return x, skip, dy, out, stats
+
+
+def check_k6(kernels, keys, launches, baseline, base_log, note):
+    """K6 at every (shape, dtype, act) the training run gave it and at
+    ``K6_EXTRA_KEYS``, from K1's output and statistics: K1's statistics
+    within 1e-6 relative of the plain ones; for relu, the sign of the
+    normalized value (K6's mask) equal to out > 0 bit for bit; dx within
+    1e-5 of max|dx| of the plain version, dskip equal; two calls bit-equal.
+    Each key timed (device, wall, plain, autograd's backward, bound); the
+    kernels line sums the training step's calls. With a baseline, its K6 at
+    the step's keys, held to the plain version and timed in turns."""
+    import torch
+
+    from jarvis_hybridnet_torch.kernels.instance_norm import backward_launch_plan, stats_plain
+
+    k6 = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
+    if baseline is not None:
+        k6["baseline_ms"] = 0.0
+    todo = {k: per for k, per in keys.items()}
+    for shape, name, act in K6_EXTRA_KEYS:
+        todo.setdefault((shape, getattr(torch, name), act), {})
+    for (shape, dtype, act), per in sorted(todo.items(), key=lambda kv: str(kv[0])):
+        x, skip, dy, out, stats = k6_inputs(shape, dtype, act)
+        ref = stats_plain(x)
+        srel = max(float((stats[..., i] - ref[..., i]).abs().max() / ref[..., i].abs().max())
+                   for i in (0, 1))
+        if srel > 1e-6:
+            fail(f"instance_norm_act {shape} {dtype} {act}: stats {srel} relative from plain")
+        same_out = torch.equal(out, kernels.instance_norm_act(x, act, skip))
+        mask = ""
+        if act == "relu":
+            v = ((x.float() - stats[:, None, :, 0]) * stats[:, None, :, 1]).to(dtype)
+            if not torch.equal(v > 0, out > 0):
+                fail(f"instance_norm_act_backward {shape} {dtype} relu: the sign of the "
+                     f"normalized value differs from out > 0 at {int(((v > 0) != (out > 0)).sum())}"
+                     f" elements")
+            mask = ", relu mask from x equal to out > 0"
+        kd, ks = kernels.instance_norm_act_backward(x, dy, out, act, stats)
+        kd2, ks2 = kernels.instance_norm_act_backward(x, dy, out, act, stats)
+        pd, ps = kernels.instance_norm_act_backward_plain(x, dy, out, act, stats)
+        err = float((kd - pd).abs().max())
+        rel = err / max(float(pd.abs().max()), 1e-30)
+        if dtype == torch.bfloat16:
+            # both round the float32 dx to bf16: where the two float32 values
+            # (sums in other orders) straddle a rounding boundary they land
+            # one bf16 ulp apart, so each element may differ by one ulp of
+            # its own magnitude beyond the float32 bound
+            ulp = torch.exp2(torch.floor(torch.log2(pd.float().abs().clamp_min(1e-30))) - 7)
+            rel = float(((kd.float() - pd.float()).abs() - ulp).clamp_min(0).max()
+                        / pd.float().abs().max())
+        serr = 0.0 if ks is None else float((ks - ps).abs().max())
+        twice = torch.equal(kd, kd2) and (ks is None or torch.equal(ks, ks2))
+        plan = backward_launch_plan(*shape, dtype, act)
+        note(f"instance_norm_act_backward {shape} {dtype} {act} (calls per path "
+             f"{json.dumps(per)}): dx {err:.2e} abs, {rel:.2e} of max|dx| (tol 1e-5"
+             f"{'; bf16: beyond one ulp of each element' if dtype == torch.bfloat16 else ''}), "
+             f"dskip "
+             f"{serr:.2e} (tol 0), two calls {'bit-equal' if twice else 'DIFFER'}; K1 stats "
+             f"{srel:.2e} relative (tol 1e-6), output with stats "
+             f"{'equal' if same_out else 'DIFFERS'}{mask}; parts {plan.parts}, cluster "
+             f"{plan.cluster}, blocks {plan.blocks}, span {plan.span}, resident {plan.resident}")
+        if rel > 1e-5 or serr > 0 or not twice or not same_out:
+            fail(f"instance_norm_act_backward {shape} {act} differs: dx {rel}, dskip {serr}, "
+                 f"two calls equal {twice}, K1's output with stats equal {same_out}")
+        k6["max_abs_err"] = max(k6["max_abs_err"], err)
+        # the function reads x and dy (and, for add_relu, y) and writes dx
+        # (and dskip); relu's mask is the sign of xhat, which x gives
+        nbytes = x.numel() * x.element_size() * (3 if act != "add_relu" else 5)
+        times = dict(
+            ms=graph_ms(lambda: kernels.instance_norm_act_backward(x, dy, out, act, stats)),
+            wall_ms=cuda_ms(lambda: kernels.instance_norm_act_backward(x, dy, out, act, stats)),
+            plain_ms=cuda_ms(lambda: kernels.instance_norm_act_backward_plain(x, dy, out, act,
+                                                                              stats)),
+            library_ms=cuda_ms(k6_library(x, dy, act, skip)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        count = per.get("training_step", 0)
+        if baseline is not None and count:
+            def near(new, old):
+                if float((old[0] - pd).abs().max()) > 1e-5 * float(pd.abs().max()):
+                    fail(f"instance_norm_act_backward {shape} {act}: the baseline design "
+                         f"differs from the plain version")
+            cur, times["baseline_ms"] = against_baseline(
+                lambda: kernels.instance_norm_act_backward(x, dy, out, act, stats),
+                lambda: baseline.instance_norm_act_backward(x, dy, out, act), near)
+            base_log.write(f"K6 instance_norm_act_backward {shape} {act} x{count}: current "
+                           f"{cur:.4f} ms, baseline {times['baseline_ms']:.4f} ms, bound "
+                           f"{times['bound_ms']:.4f} ms\n")
+        note(f"  x{count} per step: device {times['ms']:.4f} ms, wall {times['wall_ms']:.4f}, "
+             f"library (autograd's backward of F.instance_norm + act) "
+             f"{times['library_ms']:.4f}, plain {times['plain_ms']:.4f}, bound "
+             f"{times['bound_ms']:.4f}"
+             + (f", baseline {times['baseline_ms']:.4f}" if "baseline_ms" in times else ""))
+        for k, v in times.items():
+            k6[k] += v * count
+        del x, skip, dy, out, stats, kd, ks, kd2, ks2, pd, ps
+    return dict(name="instance_norm_act_backward", route="cuda", kernels_per_call=1,
+                source="jarvis_hybridnet_torch/kernels/csrc/instance_norm_act_backward.cu",
+                replaces="tools/fused_norm_bench.py:58", launches=launches, bound_by="bytes",
+                per="training step", **k6)
+
+
+def check_k7(kernels, out, kv, kw, counts, baseline, base_log, note):
+    """K7 at the training step's volume against its plain version: the loss
+    and the gradient within 1e-5 relative, the double-softplus volume within
+    1e-6, valid equal; two calls of each bit-equal; timed, and beside the
+    baseline's design in turns."""
+    import torch
+
+    from jarvis_hybridnet_torch.kernels.hybridnet_loss import loss_plan
+
+    kl, kvalid, kvol = kernels.hybridnet_loss_fwd(out, kv, kw, True)
+    kl2, kvalid2, _ = kernels.hybridnet_loss_fwd(out, kv, kw)
+    pl, pvalid, pvol = kernels.hybridnet_loss_fwd_plain(out, kv, kw, True)
+    dl = torch.ones((), device=out.device)
+    kg = kernels.hybridnet_loss_bwd(out, kv, kw, kvalid, dl)
+    kg2 = kernels.hybridnet_loss_bwd(out, kv, kw, kvalid, dl)
+    pg = kernels.hybridnet_loss_bwd_plain(out, kv, kw, pvalid, dl)
+    lrel = abs(float(kl) - float(pl)) / max(abs(float(pl)), 1e-30)
+    grel = float((kg - pg).abs().max()) / max(float(pg.abs().max()), 1e-30)
+    vrel = float((kvol - pvol).abs().max()) / max(float(pvol.abs().max()), 1e-30)
+    same_valid = torch.equal(kvalid, pvalid)
+    twice = torch.equal(kl, kl2) and torch.equal(kvalid, kvalid2) and torch.equal(kg, kg2)
+    note(f"hybridnet_loss {tuple(out.shape)}: loss {float(kl):.6f} vs plain {float(pl):.6f} "
+         f"({lrel:.2e} relative, tol 1e-5), valid joints {int(kvalid.sum())}/"
+         f"{kvalid.numel()} {'equal' if same_valid else 'DIFFER'}, gradient {grel:.2e} of "
+         f"max (tol 1e-5), double-softplus volume {vrel:.2e} of max (tol 1e-6), two calls "
+         f"{'bit-equal' if twice else 'DIFFER'}; "
+         f"{loss_plan(out.shape[0], out.shape[1], out.shape[-1])}")
+    if lrel > 1e-5 or grel > 1e-5 or vrel > 1e-6 or not same_valid or not twice:
+        fail("hybridnet_loss differs from its plain version, or between two calls")
+    o_bytes = out.numel() * 4
+    entries = []
+    for name, call, plain, base, nbytes, err in (
+            ("hybridnet_loss_fwd", lambda: kernels.hybridnet_loss_fwd(out, kv, kw),
+             lambda: kernels.hybridnet_loss_fwd_plain(out, kv, kw),
+             baseline and (lambda: baseline.hybridnet_loss_fwd(out, kv, kw)), o_bytes,
+             float((kl - pl).abs())),
+            ("hybridnet_loss_bwd", lambda: kernels.hybridnet_loss_bwd(out, kv, kw, kvalid, dl),
+             lambda: kernels.hybridnet_loss_bwd_plain(out, kv, kw, kvalid, dl),
+             baseline and (lambda: baseline.hybridnet_loss_bwd(out, kv, kw, kvalid, dl)),
+             2 * o_bytes, float((kg - pg).abs().max()))):
+        e = kernel_entry(name, "hybridnet_loss.cu",
+                         "jarvis_hybridnet_tpu/training/trainer3d.py:171", counts[name], err,
+                         call, plain, nbytes / HBM_BYTES_PER_S * 1e3, per="training step")
+        if base is not None:
+            def near(new, old, fwd=name.endswith("fwd")):
+                ok = (abs(float(old[0]) - float(pl)) <= 1e-5 * abs(float(pl))
+                      and torch.equal(old[1], pvalid) if fwd
+                      else float((old - pg).abs().max()) <= 1e-5 * float(pg.abs().max()))
+                if not ok:
+                    fail(f"{name}: the baseline design differs from the plain version")
+            cur, e["baseline_ms"] = against_baseline(call, base, near)
+            base_log.write(f"K7 {name} {tuple(out.shape)}: current {cur:.4f} ms, baseline "
+                           f"{e['baseline_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms\n")
+        note(f"{name}: device {e['ms']:.4f} ms, wall {e['wall_ms']:.4f}, plain "
+             f"{e['plain_ms']:.4f}, bound {e['bound_ms']:.4f} (no single library call)"
+             + (f", baseline {e['baseline_ms']:.4f}" if base is not None else ""))
+        entries.append(e)
+    return entries
+
+
+def training_phase(kernels, ckpt, recorder, smi, baseline, base_log, note):
     """``train_hybridnet`` in 3D_only on the card, from the committed
     checkpoints, on a synthetic COCO-style dataset written to a temporary
     directory (12 cameras of 1280x1024 JPEG frames on the synthetic rig, 23
@@ -1016,97 +1169,16 @@ def training_phase(kernels, ckpt, recorder, smi, note):
 
         note(f"training phase: {time.perf_counter() - t_phase:.1f} s so far")
         # K6 and K7 at the training step's calls of them, against their plain versions
-        per_step = {}
         path_launches(lambda: trainer.train_step(b, opt, 1e-6), kernels, TRAINING_KERNELS,
                       "training_step", recorder)
-        for key, per in recorder.k6.items():
-            per_step[key] = per.get("training_step", 0)
-        entries = []
-        k6 = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                  max_abs_err=0.0)
-        dev = torch.device("cuda")
-        for (shape, dtype, act), per in sorted(recorder.k6.items(), key=lambda kv: str(kv[0])):
-            g = torch.Generator(device=dev).manual_seed(11)
-            x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dtype)
-            skip = torch.randn(shape, device=dev, generator=g).to(dtype) if act == "add_relu" \
-                else None
-            out = kernels.instance_norm_act(x, act, skip)
-            dy = torch.randn(shape, device=dev, generator=g).to(dtype)
-            kd, ks = kernels.instance_norm_act_backward(x, dy, out, act)
-            pd, ps = kernels.instance_norm_act_backward_plain(x, dy, out, act)
-            err = float((kd - pd).abs().max())
-            rel = err / max(float(pd.abs().max()), 1e-30)
-            serr = 0.0 if ks is None else float((ks - ps).abs().max())
-            note(f"instance_norm_act_backward {shape} {dtype} {act} (calls per path "
-                 f"{json.dumps(per)}): dx {err:.2e} abs, {rel:.2e} of max|dx| (tol 1e-5), "
-                 f"dskip {serr:.2e} (tol 0)")
-            if rel > 1e-5 or serr > 0:
-                fail(f"instance_norm_act_backward {shape} {act} differs: dx {rel}, dskip {serr}")
-            k6["max_abs_err"] = max(k6["max_abs_err"], err)
-            count = per_step[(shape, dtype, act)]
-            if not count:
-                continue
-            # the function reads x and dy (and, for add_relu, y or the skip:
-            # the mask needs one of them) and writes dx (and dskip); relu's
-            # mask is xhat > 0, which x gives
-            tensors = 3 if act != "add_relu" else 5
-            nbytes = x.numel() * x.element_size() * tensors
-            times = dict(
-                ms=graph_ms(lambda: kernels.instance_norm_act_backward(x, dy, out, act)),
-                wall_ms=cuda_ms(lambda: kernels.instance_norm_act_backward(x, dy, out, act)),
-                plain_ms=cuda_ms(lambda: kernels.instance_norm_act_backward_plain(x, dy, out,
-                                                                                  act)),
-                library_ms=cuda_ms(k6_library(x, dy, act, skip)),
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
-            note(f"  timed x{count} per step: device {times['ms']:.4f} ms, wall "
-                 f"{times['wall_ms']:.4f}, plain {times['plain_ms']:.4f}, library (autograd's "
-                 f"backward of F.instance_norm + act) {times['library_ms']:.4f}, bound "
-                 f"{times['bound_ms']:.4f}")
-            for k, v in times.items():
-                k6[k] += v * count
-        entries.append(dict(
-            name="instance_norm_act_backward", route="cuda", kernels_per_call=3,
-            source="jarvis_hybridnet_torch/kernels/csrc/instance_norm_act_backward.cu",
-            replaces="tools/fused_norm_bench.py:58", launches=counts["instance_norm_act_backward"],
-            bound_by="bytes", per="training step", **k6))
-
+        entries = [check_k6(kernels, recorder.k6, counts["instance_norm_act_backward"], baseline,
+                            base_log, note)]
         with torch.no_grad():
             out, _ = model.train_outputs(trainer.prepare(b), b["center_hm"], b["center3d"],
                                          b["camera_matrices"], b["intrinsics"],
                                          b["distortions"])
         kv, kw = b["kp_vox"].float().contiguous(), b["keypoints3D"].float().contiguous()
-        kl, kvalid, kvol = kernels.hybridnet_loss_fwd(out, kv, kw, True)
-        pl, pvalid, pvol = kernels.hybridnet_loss_fwd_plain(out, kv, kw, True)
-        dl = torch.ones((), device=dev)
-        kg = kernels.hybridnet_loss_bwd(out, kv, kw, kvalid, dl)
-        pg = kernels.hybridnet_loss_bwd_plain(out, kv, kw, pvalid, dl)
-        lrel = abs(float(kl) - float(pl)) / max(abs(float(pl)), 1e-30)
-        grel = float((kg - pg).abs().max()) / max(float(pg.abs().max()), 1e-30)
-        vrel = float((kvol - pvol).abs().max()) / max(float(pvol.abs().max()), 1e-30)
-        same_valid = torch.equal(kvalid, pvalid)
-        note(f"hybridnet_loss {tuple(out.shape)}: loss {float(kl):.6f} vs plain {float(pl):.6f} "
-             f"({lrel:.2e} relative, tol 1e-5), valid joints {int(kvalid.sum())}/"
-             f"{kvalid.numel()} {'equal' if same_valid else 'DIFFER'}, gradient {grel:.2e} of "
-             f"max (tol 1e-5), double-softplus volume {vrel:.2e} of max (tol 1e-6)")
-        if lrel > 1e-5 or grel > 1e-5 or vrel > 1e-6 or not same_valid:
-            fail("hybridnet_loss differs from its plain version")
-        o_bytes = out.numel() * 4
-        for name, call, plain, nbytes, launches in (
-                ("hybridnet_loss_fwd", lambda: kernels.hybridnet_loss_fwd(out, kv, kw),
-                 lambda: kernels.hybridnet_loss_fwd_plain(out, kv, kw), o_bytes,
-                 counts["hybridnet_loss_fwd"]),
-                ("hybridnet_loss_bwd", lambda: kernels.hybridnet_loss_bwd(out, kv, kw, kvalid, dl),
-                 lambda: kernels.hybridnet_loss_bwd_plain(out, kv, kw, kvalid, dl), 2 * o_bytes,
-                 counts["hybridnet_loss_bwd"])):
-            e = kernel_entry(name, "hybridnet_loss.cu",
-                             "jarvis_hybridnet_tpu/training/trainer3d.py:171", launches,
-                             float((kl - pl).abs()) if name.endswith("fwd")
-                             else float((kg - pg).abs().max()), call, plain,
-                             nbytes / HBM_BYTES_PER_S * 1e3, per="training step")
-            e["kernels_per_call"] = 2 if name.endswith("fwd") else 1
-            note(f"{name}: device {e['ms']:.4f} ms, wall {e['wall_ms']:.4f}, plain "
-                 f"{e['plain_ms']:.4f}, bound {e['bound_ms']:.4f} (no single library call)")
-            entries.append(e)
+        entries += check_k7(kernels, out, kv, kw, counts, baseline, base_log, note)
     os.environ.pop("JARVIS_PARENT_DIR", None)
     return counts, entries
 
@@ -1142,10 +1214,10 @@ def training_step_on(cfg, batch, ckpt, device, lr, tf32=False, like=None) -> dic
     k1 = InstanceNormAct.k1
     calls, flips = [], []
 
-    def relu_k1(x, act="none", skip=None):
-        out = k1(x, act, skip)
+    def relu_k1(x, act="none", skip=None, return_stats=False):
+        out, stats = k1(x, act, skip, return_stats=True)
         if act not in ("relu", "add_relu"):
-            return out
+            return (out, stats) if return_stats else out
         pre = k1(x, "none", None) + (0 if skip is None else skip)
         if like is not None:
             _, ref, ref_pre = like[len(calls)]
@@ -1156,7 +1228,7 @@ def training_step_on(cfg, batch, ckpt, device, lr, tf32=False, like=None) -> dic
             out = torch.where(want, torch.where(out > 0, out, ref.to(out.device)),
                               torch.zeros_like(out))
         calls.append((act, out.cpu(), pre.cpu()))
-        return out
+        return (out, stats) if return_stats else out
 
     flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -1291,7 +1363,7 @@ def training_card_vs_cpu(ckpt, note) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-csrc", metavar="DIR",
-                    help="time K1, K2, K3 and K5 built from DIR beside the current ones")
+                    help="time K1, K6 and K7 built from DIR beside the current ones")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -1335,9 +1407,11 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     note(f"build: {time.perf_counter() - t0:.1f} s for {len(build.SOURCES)} kernels")
-    log.write("ptxas for repro_grid_gather.cu (K5):\n")
-    for line in ptxas_lines("repro_grid_gather"):
-        log.write(f"  {line}\n")
+    for name, label in (("repro_grid_gather", "K5"), ("instance_norm_act_backward", "K6"),
+                        ("hybridnet_loss", "K7")):
+        log.write(f"ptxas for {name}.cu ({label}):\n")
+        for line in ptxas_lines(name):
+            log.write(f"  {line}\n")
     baseline = Baseline(os.path.abspath(args.baseline_csrc)) if args.baseline_csrc else None
     base_log = open(os.path.join(out_dir, "chip_smoke_baseline.txt"), "w") if baseline else None
 
@@ -1449,7 +1523,8 @@ def main() -> int:
     # 12. training: train_hybridnet in 3D_only from the committed checkpoints,
     # K6 and K7 against their plain versions, one step card vs CPU
     phase("training")
-    path_counts["training"], train_entries = training_phase(kernels, ckpt, recorder, smi, note)
+    path_counts["training"], train_entries = training_phase(kernels, ckpt, recorder, smi,
+                                                            baseline, base_log, note)
     phase("training step card vs CPU")
     training_card_vs_cpu(ckpt, note)
 
@@ -1536,36 +1611,34 @@ def main() -> int:
             wall_ms=cuda_ms(lambda: kernels.repro_quarter_gather(*k2_args)),
             plain_ms=cuda_ms(lambda: kernels.repro_quarter_gather_plain(*k2_args), iters=5),
             bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None))
-        if baseline is not None:
-            def same(new, old):
-                if not torch.equal(new, old):
-                    fail("repro_quarter_gather: the baseline design's volume differs")
-            b_args = (rows.contiguous(), *k2_args[1:])  # the earlier layout
-            cur, base = against_baseline(lambda: kernels.repro_quarter_gather(*k2_args),
-                                         lambda: baseline.repro_quarter_gather(*b_args), same)
-            base_log.write(f"K2 repro_quarter_gather {tuple(rows.shape)} g4={g4}: current "
-                           f"{cur:.4f} ms, baseline {base:.4f} ms, bound "
-                           f"{k2_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; volumes equal\n")
 
         report.extend(check_k5(kernels, rows, c3d, center_hm.contiguous(), cams,
                                hybrid.grid_size, float(hybrid.grid_spacing), mode_launches,
-                               baseline, base_log, note))
+                               note))
 
         vout = hybrid.v2v_output(rows, center_hm, c3d, *cams).contiguous()
         report.append(check_k3(kernels, vout, c3d, float(hybrid.grid_spacing),
-                               float(hybrid.roi_cube_size), launches["soft_argmax"], baseline,
-                               base_log, note))
+                               float(hybrid.roi_cube_size), launches["soft_argmax"], note))
 
     phase("K1 checks")
     # K1: every (shape, dtype, act) a driven path gave it, checked against
-    # the plain version; the main path's shapes are timed too, and the line
-    # reports the sum over one main-path step's launches
-    from jarvis_hybridnet_torch.kernels.instance_norm import launch_plan, max_active_clusters
+    # the plain version, its statistics output against the plain statistics
+    # and, with a baseline, bit-equal to the baseline design's output; the
+    # main path's shapes are timed too, and the line reports the sum over
+    # one main-path step's launches
+    from jarvis_hybridnet_torch.kernels.instance_norm import (
+        launch_plan,
+        max_active_clusters,
+        stats_plain,
+    )
 
     acts = {"none": lambda y, s: y, "silu": lambda y, s: F.silu(y),
             "relu": lambda y, s: F.relu(y), "add_relu": lambda y, s: F.relu(y + s)}
     k1 = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
-    worst_ulps = worst_f32 = 0.0
+    if baseline is not None:
+        k1["baseline_ms"] = 0.0
+    worst_ulps = worst_f32 = worst_stats = 0.0
+    k1_pair = [0.0]  # the current design's step time, timed in turns with the baseline
     log.write("K1 instance_norm_act per shape: shape dtype act count ms wall_ms plain_ms "
               "library_ms bound_ms error (bf16 ulps; float32 abs) | cluster threads span "
               "resident ring_rows smem max_active_clusters | calls per path (count: calls on "
@@ -1580,6 +1653,16 @@ def main() -> int:
         skip = torch.randn(shape, device=dev, generator=g).to(dtype) if act == "add_relu" else None
         ko = kernels.instance_norm_act(x, act, skip)
         po = kernels.instance_norm_act_plain(x, act, skip)
+        so, stats = kernels.instance_norm_act(x, act, skip, return_stats=True)
+        ref = stats_plain(x)
+        srel = max(float((stats[..., i] - ref[..., i]).abs().max()
+                         / ref[..., i].abs().max().clamp_min(1e-30)) for i in (0, 1))
+        worst_stats = max(worst_stats, srel)
+        if srel > 1e-6 or not torch.equal(so, ko):
+            fail(f"instance_norm_act {shape} {dtype} {act}: stats {srel} relative from the "
+                 f"plain ones (tolerance 1e-6), output with stats equal: {torch.equal(so, ko)}")
+        if baseline is not None and not torch.equal(ko, baseline.instance_norm_act(x, act, skip)):
+            fail(f"instance_norm_act {shape} {dtype} {act}: differs from the baseline design")
         err = float((ko.float() - po.float()).abs().max())
         if dtype == torch.float32:
             # the float32 path's bound, as in the f32 spot checks below
@@ -1624,20 +1707,25 @@ def main() -> int:
                   f"{times['plain_ms']:.4f} {times['library_ms']:.4f} {times['bound_ms']:.4f} "
                   f"{ulps} | {plan_cols} | {json.dumps(per)}\n")
         if baseline is not None:
-            def near(new, old, shape=shape, act=act):
-                u = bf16_ulps(new, old)
-                if u > 3.0:
-                    fail(f"instance_norm_act {shape} {act}: the baseline design differs by "
-                         f"{u} bf16 ulps")
+            def same(new, old, shape=shape, act=act):
+                if not torch.equal(new, old):
+                    fail(f"instance_norm_act {shape} {act}: differs from the baseline design")
             cur, base = against_baseline(
                 lambda: kernels.instance_norm_act(x, act, skip),
-                lambda: baseline.instance_norm_act(x, act, skip), near)
+                lambda: baseline.instance_norm_act(x, act, skip), same)
+            k1["baseline_ms"] += base * count
+            k1_pair[0] += cur * count
             base_log.write(f"K1 instance_norm_act {shape} {act} x{count}: current {cur:.4f} ms, "
                            f"baseline {base:.4f} ms, bound {times['bound_ms']:.4f} ms\n")
     note(f"instance_norm_act: {len(recorder.k1)} (shape, dtype, act) over the driven paths, "
          f"{off_main} of them off the main path; worst {worst_ulps:.1f} bf16 ulps vs plain "
          f"(tolerance 3) over the bf16 ones, {worst_f32:.2e} abs (tolerance 1e-5) over the "
-         f"float32 ones")
+         f"float32 ones; statistics output within {worst_stats:.2e} relative of the plain "
+         f"statistics (tolerance 1e-6)"
+         + ("" if baseline is None else
+            f"; outputs bit-equal to the baseline design's at every key; main-path step "
+            f"{k1_pair[0]:.4f} ms against the baseline's {k1['baseline_ms']:.4f} ms, timed in "
+            f"turns ({k1_pair[0] / k1['baseline_ms']:.4f}x)"))
     report.insert(0, dict(
         name="instance_norm_act", route="cuda", kernels_per_call=1,
         source="jarvis_hybridnet_torch/kernels/csrc/instance_norm_act.cu",

@@ -3,13 +3,13 @@
 Every wrapper runs its plain PyTorch version on CPU tensors and launches its
 CUDA kernel on CUDA tensors (raising if it cannot); there is no fallback.
 Each wrapper counts the calls that launch its CUDA source in
-``<wrapper>.launches``. Every call of K1-K5 launches one ``__global__``
-kernel:
+``<wrapper>.launches``. Every call launches one ``__global__`` kernel:
 
 - instance_norm_act (K1) launches with ``cudaLaunchKernelEx`` and a thread
   block cluster per sample: its CTAs bring their rows into shared memory
   with bulk TMA copies and merge their statistics through distributed
-  shared memory, so it needs ``sm_90a`` and the cluster launch API;
+  shared memory, so it needs ``sm_90a`` and the cluster launch API; it can
+  return the statistics it used, for the backward;
 - repro_quarter_gather (K2, quarter_fused) computes a tile of the quarter
   grid with a one-voxel halo in shared memory (index, gather, upsample) and
   writes the half grid from it;
@@ -18,11 +18,12 @@ kernel:
 - soft_argmax (K3) runs a thread block cluster per frameset whose CTAs merge
   their sums through distributed shared memory;
 - resize_normalize (K4) resizes and normalizes the uint8 or float32 frames;
-- instance_norm_act_backward (K6), K1's gradient, runs three kernels per
-  call (statistics, sums, the gradient), each a grid of row chunks;
+- instance_norm_act_backward (K6), K1's gradient from K1's statistics, is
+  a cooperative grid of co-resident thread block clusters that holds its
+  spans of rows in shared memory across one grid-wide barrier;
 - hybridnet_loss_fwd / hybridnet_loss_bwd (K7), the 3D training loss with
-  its Gaussian target built on the fly, run two kernels (partials, then one
-  block that sums them) and one.
+  its Gaussian target built on the fly: the forward's last block to finish
+  sums every block's partials.
 
 ``InstanceNormAct`` (K1 forward, K6 backward) and ``hybridnet_loss`` (K7)
 are the autograd Functions the training step goes through.

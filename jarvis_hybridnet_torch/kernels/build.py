@@ -31,10 +31,12 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # reference does; the sources use __f*_rn intrinsics and this flag keeps
 # nvcc from contracting anything else into an FMA. soft_argmax flushes
 # denormals, which drops the scaling around its exp2 / log2 operations.
-# ptxas reports K5's registers and spills into its build log.
+# ptxas reports K5's, K6's and K7's registers and spills into their build logs.
 _EXTRA_FLAGS = {"repro_quarter_gather": ["--fmad=false"],
                 "repro_grid_gather": ["--fmad=false", "-Xptxas=-v"],
-                "soft_argmax": ["-ftz=true"]}
+                "soft_argmax": ["-ftz=true"],
+                "instance_norm_act_backward": ["-Xptxas=-v"],
+                "hybridnet_loss": ["-Xptxas=-v"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -151,6 +153,25 @@ def require(t, name: str, dtypes, ndim: int | None = None) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+_words: dict = {}
+
+
+def sync_words(device, name: str):
+    """Two int32 words on ``device`` for the kernel ``name`` (a grid
+    barrier's or a ticket's counter), zeroed once, at the kernel's first
+    call; the kernel leaves them ready for its next call. They are made
+    outside CUDA graph capture, so a captured call finds them."""
+    import torch
+
+    key = (name, str(device))
+    words = _words.get(key)
+    if words is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: call it once before capturing it in a CUDA graph")
+        words = _words[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return words
 
 
 def on_cpu(*tensors) -> bool:

@@ -35,11 +35,15 @@
 //   4. Normalize and apply the epilogue, rounding to the working type where
 //      the JAX code rounds (after the norm, after the residual add, per op
 //      inside SiLU).
+// Optionally (the training step's forward) rank 0 of each cluster writes the
+// (mean, rstd) the epilogue used, float32 (N, C, 2): K6, the backward,
+// starts from them and recomputes nothing.
 // Needs sm_90 (clusters, distributed shared memory, bulk TMA, mbarriers) and
 // the cluster launch API (cudaLaunchKernelEx).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -64,49 +68,6 @@ struct alignas(sizeof(T) * V) Vec {
 template <typename T, int V>
 __host__ __device__ constexpr int unroll() {
   return sizeof(T) * V >= 16 ? 1 : 16 / (sizeof(T) * V) > 4 ? 4 : 16 / (sizeof(T) * V);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spins until the phase with this parity completes; a copy that never
-// lands traps (an error at the next synchronize) instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (long long spins = 0; !done; ++spins) {
-    if (spins == (1ll << 26)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// 1-D bulk copy global -> this CTA's shared memory, completing on bar.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // Rows [lo, hi) of rank's span, the same arithmetic as the launch plan.
@@ -275,9 +236,9 @@ struct Ring {
 // resident rows and of the ring in dynamic shared memory.
 template <typename T, int V>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-    in_fused(const T* __restrict__ x, const T* __restrict__ skip, T* __restrict__ out, int S,
-             int C, int span, int resident, int ring_rows, int q, int data_off, int ring_off,
-             float eps, int act) {
+    in_fused(const T* __restrict__ x, const T* __restrict__ skip, T* __restrict__ out,
+             float* __restrict__ stats, int S, int C, int span, int resident, int ring_rows,
+             int q, int data_off, int ring_off, float eps, int act) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
@@ -394,6 +355,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
     st_mean[c] = mean;
     st_rstd[c] = 1.f / sqrtf(m2 / (float)S + eps);
+    if (stats != nullptr && rank == 0) {
+      stats[((size_t)blockIdx.y * C + c) * 2] = mean;
+      stats[((size_t)blockIdx.y * C + c) * 2 + 1] = st_rstd[c];
+    }
   }
   cluster.sync();  // no rank's partials are read after this; st_* are visible
 
@@ -443,7 +408,7 @@ static cudaError_t prepare(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, i
 
 struct Args {
   const void *x, *skip;
-  void* out;
+  void *out, *stats;
   int N, S, C, cluster, threads, span, resident, ring_rows, q, data_off, ring_off, smem;
   float eps;
   int act;
@@ -455,9 +420,9 @@ static int launch(const Args& a, cudaStream_t st) {
   cudaLaunchAttribute attr;
   cudaError_t e = prepare<T, V>(&cfg, &attr, a.cluster, a.threads, a.N, a.smem, st);
   if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchKernelEx(&cfg, in_fused<T, V>, (const T*)a.x, (const T*)a.skip, (T*)a.out, a.S,
-                         a.C, a.span, a.resident, a.ring_rows, a.q, a.data_off, a.ring_off, a.eps,
-                         a.act);
+  e = cudaLaunchKernelEx(&cfg, in_fused<T, V>, (const T*)a.x, (const T*)a.skip, (T*)a.out,
+                         (float*)a.stats, a.S, a.C, a.span, a.resident, a.ring_rows, a.q,
+                         a.data_off, a.ring_off, a.eps, a.act);
   if (e != cudaSuccess) return (int)e;
   return launch_status();
 }
@@ -493,15 +458,16 @@ static int max_clusters(int cluster, int threads, int smem, int* n) {
   } while (0)
 
 // x, skip, out: (N, S, C) contiguous, 16-byte aligned; skip may be null
-// unless act is add_relu. The plan (V, cluster, threads, span, resident,
+// unless act is add_relu. stats: float32 (N, C, 2), (mean, rstd) per
+// channel, or null. The plan (V, cluster, threads, span, resident,
 // ring_rows, q, data_off, ring_off, smem) comes from
 // kernels/instance_norm.py::launch_plan.
-extern "C" int instance_norm_act(const void* x, const void* skip, void* out, int N, int S, int C,
-                                 int V, int cluster, int threads, int span, int resident,
-                                 int ring_rows, int q, int data_off, int ring_off, int smem,
-                                 float eps, int act, int dtype, void* stream) {
-  const Args a{x,         skip, out,      N,        S,    C,   cluster, threads, span, resident,
-               ring_rows, q,    data_off, ring_off, smem, eps, act};
+extern "C" int instance_norm_act(const void* x, const void* skip, void* out, void* stats, int N,
+                                 int S, int C, int V, int cluster, int threads, int span,
+                                 int resident, int ring_rows, int q, int data_off, int ring_off,
+                                 int smem, float eps, int act, int dtype, void* stream) {
+  const Args a{x,    skip,      out, stats,    N,        S,        C,    cluster, threads,
+               span, resident, ring_rows, q, data_off, ring_off, smem, eps,     act};
   const cudaStream_t st = (cudaStream_t)stream;
 #define LAUNCH(T, V) launch<T, V>(a, st)
   DISPATCH(dtype, V, LAUNCH);

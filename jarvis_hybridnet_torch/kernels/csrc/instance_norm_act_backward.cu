@@ -10,101 +10,79 @@
 //
 // Per (n, c), with xhat = (x - mean) * rstd and g = dy * act'(.):
 //   dx = rstd * (g - mean_S(g) - xhat * mean_S(g * xhat)),  dskip = g.
-// act' is 1 (none), the mask y > 0 of the forward output y (relu, add_relu:
-// y = relu(IN(x) + skip)), or silu'(v) = s * (1 + v * (1 - s)), s = 1 / (1 +
-// exp(-v)), at v = IN(x) rounded to the working type as the forward rounds
-// it. The statistics are recomputed from x (one more read of x), so K1 keeps
-// its C interface and its launch plan.
+// mean and rstd are the forward's own (K1's stats output), so xhat is the
+// forward's value bit for bit. act' is 1 (none); for relu the mask v > 0 of
+// v = xhat rounded to the working type, which is the forward's y > 0
+// (chip_smoke.py holds the two equal); for add_relu the mask y > 0 of the
+// forward output y = relu(v + skip); for silu silu'(v) = s * (1 + v * (1 -
+// s)), s = 1 / (1 + exp(-v)).
 //
-// Bound on the H100: bytes. The least traffic is one read of x, dy and y
-// (none of them for every act) and one write of dx (and dskip). A sample of
-// V2V's largest shape (36^3 rows of 46 float32 channels, 8.6 MB a tensor)
-// does not fit in a cluster's shared memory, so the kernel runs three
-// passes, each a grid of (chunks, N) blocks, the later ones mostly from the
-// 50 MB L2:
-//   1. k6_stats: per chunk of rows, the mean and then the sum of squared
-//      deviations from it (two passes over the chunk, never E[x^2] -
-//      mean^2), written as partials.
-//   2. k6_sums: every block merges all chunks' partials of its sample in
-//      chunk order (Chan et al.), so all blocks hold the same mean and rstd;
-//      then it sums g and g * xhat over its chunk into partials. The blocks
-//      of chunk 0 write the statistics for pass 3.
-//   3. k6_apply: sums the g partials in chunk order and writes dx (and
-//      dskip), element by element.
-// Threads are laid out (row lanes x channels): one step of a block reads
-// whole rows, neighbouring threads on neighbouring channels; lanes are
-// reduced in lane order, so the result does not depend on scheduling.
+// Bound on the H100: bytes. The least traffic is one read of x and dy (and
+// y for add_relu) and one write of dx (and dskip).
+//
+// Design: one launch, a persistent grid of co-resident blocks (about two per
+// SM; a cooperative launch, so the runtime refuses a grid that cannot be
+// co-resident). Each sample's rows are cut into `parts` contiguous spans,
+// one per block (the launch plan, kernels/instance_norm.py::backward_plan):
+//   1. Each block bulk-copies (TMA, in stages on mbarriers) the first
+//      `res` rows of its span of x, dy (and y) into shared memory, 16-byte
+//      copies over the flat element index; at V2V's largest training shape
+//      every row of every tensor is read from HBM once and held. Threads
+//      are laid out over groups of q rows, q * C elements, a whole number
+//      W of 16-byte vectors: thread w of a lane always holds the same V
+//      channels, (w * V + k) mod C, so its sums of g and g * xhat stay in
+//      registers; lanes are reduced in lane order.
+//   2. The partials are merged once per (n, c), in a fixed order: each rank
+//      writes its sums into rank 0 of its thread block cluster (distributed
+//      shared memory), rank 0 sums them in rank order, writes the cluster's
+//      sums and arrives at one grid-wide barrier (one arrival a cluster);
+//      once it completes every block sums the clusters' sums of its sample
+//      in cluster order. Two calls are bit-equal whatever the scheduling.
+//   3. Each block writes dx (and dskip) of its span from the rows it holds
+//      (rows past `res`, where a span does not fit, are read again).
+// Where the grid holds fewer blocks than samples (many small samples) a
+// block walks whole samples, one after another, and needs no barrier. The
+// grid barrier's word is left as found but for one bit, so a call captured
+// in a CUDA graph replays. Needs sm_90 (clusters, distributed shared
+// memory, bulk TMA, mbarriers) and cudaLaunchKernelEx.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "tma.cuh"
+
+namespace cg = cooperative_groups;
 
 #define ACT_NONE 0
 #define ACT_SILU 1
 #define ACT_RELU 2
 #define ACT_ADD_RELU 3
 
-struct Layout {
-  int tpr;    // threads per row: min(C, blockDim)
-  int lanes;  // rows in flight
-  int lane;
-  int c0;
-  __device__ Layout(int C) {
-    tpr = min(C, (int)blockDim.x);
-    lanes = blockDim.x / tpr;
-    lane = threadIdx.x / tpr;
-    c0 = threadIdx.x % tpr;
-  }
+constexpr int kMaxThreads = 512;
+constexpr int kStages = 4;         // bulk copies that bring in a span's rows
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may use
+constexpr int kUnroll = 2;         // groups a thread loads before it uses them
+
+// The launch plan (kernels/instance_norm.py::BackwardPlan), in its order.
+struct Plan {
+  int N, S, C;
+  int W;         // 16-byte vectors (V elements) in a group of q rows
+  int q;         // rows in a group
+  int parts;     // spans per sample; 1: a block walks whole samples
+  int cluster;   // CTAs per cluster (divides parts)
+  int span;      // rows per span, a multiple of q
+  int res;       // rows of a span held in shared memory, a multiple of q
+  int st_rows;   // rows per bulk-copy stage, a multiple of q
+  int red_off, part_off, tot_off, data_off;  // byte offsets in shared memory
 };
 
-// Sum of lanes * C per-lane values in shared memory, lane by lane, into red[c].
-__device__ __forceinline__ void reduce_lanes(const float* lane_sum, float* red, int lanes, int C) {
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float s = 0.f;
-    for (int l = 0; l < lanes; ++l) s += lane_sum[l * C + c];
-    red[c] = s;
-  }
-}
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T v[V];
+};
 
-template <typename T>
-__global__ void k6_stats(const T* __restrict__ x, float* __restrict__ part, int S, int C,
-                         int chunk, int nchunk) {
-  extern __shared__ float sh[];
-  const Layout L(C);
-  float* lane_sum = sh;                   // lanes * C
-  float* mean = sh + L.lanes * C;         // C
-  const int k = blockIdx.x, n = blockIdx.y;
-  const int r0 = k * chunk, r1 = min(S, r0 + chunk);
-  const float cnt = (float)(r1 - r0);
-  const T* xs = x + (size_t)n * S * C;
-  if (L.lane < L.lanes) {
-    for (int c = L.c0; c < C; c += L.tpr) {
-      float acc = 0.f;
-      for (int r = r0 + L.lane; r < r1; r += L.lanes) acc += to_f(xs[(size_t)r * C + c]);
-      lane_sum[L.lane * C + c] = acc;
-    }
-  }
-  __syncthreads();
-  reduce_lanes(lane_sum, mean, L.lanes, C);
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) mean[c] /= cnt;
-  __syncthreads();
-  if (L.lane < L.lanes) {
-    for (int c = L.c0; c < C; c += L.tpr) {
-      const float m = mean[c];
-      float acc = 0.f;
-      for (int r = r0 + L.lane; r < r1; r += L.lanes) {
-        const float d = to_f(xs[(size_t)r * C + c]) - m;
-        acc += d * d;
-      }
-      lane_sum[L.lane * C + c] = acc;
-    }
-  }
-  __syncthreads();
-  float* out = part + ((size_t)n * nchunk + k) * C * 2;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float s = 0.f;
-    for (int l = 0; l < L.lanes; ++l) s += lane_sum[l * C + c];
-    out[2 * c] = mean[c];
-    out[2 * c + 1] = s;
-  }
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> load(const T* p) {
+  return *reinterpret_cast<const Vec<T, V>*>(p);
 }
 
 // g = dy * act'(.) at one element.
@@ -115,155 +93,356 @@ __device__ __forceinline__ float grad_in(float dy, float xhat, float y, int act)
     const float s = 1.f / (1.f + expf(-v));
     return dy * (s * (1.f + v * (1.f - s)));
   }
-  if (act == ACT_RELU || act == ACT_ADD_RELU) return y > 0.f ? dy : 0.f;
+  if (act == ACT_RELU) return round_to<T>(xhat) > 0.f ? dy : 0.f;
+  if (act == ACT_ADD_RELU) return y > 0.f ? dy : 0.f;
   return dy;
 }
 
-template <typename T>
-__global__ void k6_sums(const T* __restrict__ x, const T* __restrict__ dy,
-                        const T* __restrict__ y, const float* __restrict__ part,
-                        float* __restrict__ gpart, float* __restrict__ stats, int S, int C,
-                        int chunk, int nchunk, float eps, int act) {
-  extern __shared__ float sh[];
-  const Layout L(C);
-  float* lane_g = sh;                       // lanes * C
-  float* lane_gx = sh + L.lanes * C;        // lanes * C
-  float* mean = sh + 2 * L.lanes * C;       // C
-  float* rstd = mean + C;                   // C
-  const int k = blockIdx.x, n = blockIdx.y;
-  // the sample's statistics: chunks merged in chunk order (Chan et al.)
-  const float* p = part + (size_t)n * nchunk * C * 2;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float na = 0.f, m = 0.f, m2 = 0.f;
-    for (int j = 0; j < nchunk; ++j) {
-      const float nb = (float)(min(S, (j + 1) * chunk) - j * chunk);
-      const float mb = p[((size_t)j * C + c) * 2], qb = p[((size_t)j * C + c) * 2 + 1];
-      const float nab = na + nb;
-      const float delta = mb - m;
-      m = m + delta * (nb / nab);
-      m2 = m2 + qb + delta * delta * (na * nb / nab);
-      na = nab;
-    }
-    mean[c] = m;
-    rstd[c] = rsqrtf(m2 / (float)S + eps);
-    if (k == 0) {
-      stats[((size_t)n * C + c) * 2] = m;
-      stats[((size_t)n * C + c) * 2 + 1] = rstd[c];
-    }
-  }
-  __syncthreads();
-  const int r0 = k * chunk, r1 = min(S, r0 + chunk);
-  const size_t base = (size_t)n * S * C;
-  if (L.lane < L.lanes) {
-    for (int c = L.c0; c < C; c += L.tpr) {
-      const float m = mean[c], rs = rstd[c];
-      float sg = 0.f, sgx = 0.f;
-      for (int r = r0 + L.lane; r < r1; r += L.lanes) {
-        const size_t i = base + (size_t)r * C + c;
-        const float xhat = (to_f(x[i]) - m) * rs;
-        const float g = grad_in<T>(to_f(dy[i]), xhat, y ? to_f(y[i]) : 0.f, act);
-        sg += g;
-        sgx += g * xhat;
+__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The grid barrier on the word *bar (0 before the first call). Each of the
+// `arrivals` arriving blocks adds 1 with release semantics, one of them
+// (the leader) 2^31 - (arrivals - 1): bit 31 flips when the last one
+// arrives, and the low bits are back at 0, ready for the next call. Any
+// block waits by reading the word once before the barrier can complete
+// (`before`) and then until bit 31 differs from it. A wait that never ends
+// traps. Thread 0 calls these.
+__device__ __forceinline__ void barrier_arrive(uint32_t* bar, uint32_t arrivals, bool leader) {
+  const uint32_t inc = leader ? 0x80000000u - (arrivals - 1) : 1u;
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(bar), "r"(inc) : "memory");
+}
+
+__device__ __forceinline__ void barrier_wait(const uint32_t* bar, uint32_t before) {
+  for (long long spins = 0; ((ld_acquire(bar) ^ before) & 0x80000000u) == 0; ++spins)
+    if (spins == (1ll << 24)) __trap();
+}
+
+// One thread's share of a span: groups lane, lane + lanes, ... of q rows;
+// in each, the V elements at w * V (channels ch[k]).
+template <typename T, int V>
+struct Lane {
+  int lane, lanes, ge, off;  // off = w * V
+  bool on;
+  float m[V], rs[V];  // the channels' mean and rstd
+
+  // sums of g and g * xhat over groups [g0, g1) of the rows at x, dy, y
+  __device__ __forceinline__ void sums(const T* x, const T* dy, const T* y, int g0, int g1,
+                                       int act, float* sg, float* sgx) const {
+    if (!on) return;
+    int gi = g0 + lane;
+    for (; gi + (kUnroll - 1) * lanes < g1; gi += kUnroll * lanes) {
+      Vec<T, V> a[kUnroll], d[kUnroll], b[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const size_t i = (size_t)(gi + u * lanes) * ge + off;
+        a[u] = load<T, V>(x + i);
+        d[u] = load<T, V>(dy + i);
+        if (act == ACT_ADD_RELU) b[u] = load<T, V>(y + i);
       }
-      lane_g[L.lane * C + c] = sg;
-      lane_gx[L.lane * C + c] = sgx;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) add(a[u], d[u], b[u], act, sg, sgx);
+    }
+    for (; gi < g1; gi += lanes) {
+      const size_t i = (size_t)gi * ge + off;
+      Vec<T, V> b;
+      if (act == ACT_ADD_RELU) b = load<T, V>(y + i);
+      add(load<T, V>(x + i), load<T, V>(dy + i), b, act, sg, sgx);
     }
   }
-  __syncthreads();
-  float* out = gpart + ((size_t)n * nchunk + k) * C * 2;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float a = 0.f, b = 0.f;
-    for (int l = 0; l < L.lanes; ++l) {
-      a += lane_g[l * C + c];
-      b += lane_gx[l * C + c];
+
+  __device__ __forceinline__ void add(const Vec<T, V>& a, const Vec<T, V>& d,
+                                      const Vec<T, V>& b, int act, float* sg, float* sgx) const {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float xh = (to_f(a.v[k]) - m[k]) * rs[k];
+      const float g = grad_in<T>(to_f(d.v[k]), xh, act == ACT_ADD_RELU ? to_f(b.v[k]) : 0.f, act);
+      sg[k] += g;
+      sgx[k] += g * xh;
     }
-    out[2 * c] = a;
-    out[2 * c + 1] = b;
+  }
+
+  // dx (and dskip) of groups [g0, g1): rows read at x, dy, y, written at
+  // dx, ds (global), with the means of g (mg) and g * xhat (mgx)
+  __device__ __forceinline__ void apply(const T* x, const T* dy, const T* y, T* dx, T* ds,
+                                        int g0, int g1, int act, const float* mg,
+                                        const float* mgx) const {
+    if (!on) return;
+    int gi = g0 + lane;
+    for (; gi + (kUnroll - 1) * lanes < g1; gi += kUnroll * lanes) {
+      Vec<T, V> a[kUnroll], d[kUnroll], b[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const size_t i = (size_t)(gi + u * lanes) * ge + off;
+        a[u] = load<T, V>(x + i);
+        d[u] = load<T, V>(dy + i);
+        if (act == ACT_ADD_RELU) b[u] = load<T, V>(y + i);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        put(a[u], d[u], b[u], dx, ds, (size_t)(gi + u * lanes) * ge + off, act, mg, mgx);
+    }
+    for (; gi < g1; gi += lanes) {
+      const size_t i = (size_t)gi * ge + off;
+      Vec<T, V> b;
+      if (act == ACT_ADD_RELU) b = load<T, V>(y + i);
+      put(load<T, V>(x + i), load<T, V>(dy + i), b, dx, ds, i, act, mg, mgx);
+    }
+  }
+
+  __device__ __forceinline__ void put(const Vec<T, V>& a, const Vec<T, V>& d,
+                                      const Vec<T, V>& b, T* dx, T* ds, size_t i, int act,
+                                      const float* mg, const float* mgx) const {
+    Vec<T, V> o, s;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float xh = (to_f(a.v[k]) - m[k]) * rs[k];
+      const float g = grad_in<T>(to_f(d.v[k]), xh, act == ACT_ADD_RELU ? to_f(b.v[k]) : 0.f, act);
+      o.v[k] = from_f<T>(rs[k] * (g - mg[k] - xh * mgx[k]));
+      s.v[k] = from_f<T>(g);
+    }
+    *reinterpret_cast<Vec<T, V>*>(dx + i) = o;
+    if (ds != nullptr) *reinterpret_cast<Vec<T, V>*>(ds + i) = s;
+  }
+};
+
+// grid: gridDim.x blocks in clusters of p.cluster; block b takes items b,
+// b + gridDim.x, ... of the N * parts (sample, span) items (parts > 1: one
+// item a block, gridDim.x = N * parts). clsum: N * (parts / cluster) * 2 *
+// C floats of cluster sums; bar: the grid barrier's word.
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxThreads)
+    k6_backward(const T* __restrict__ x, const T* __restrict__ dy, const T* __restrict__ y,
+                const float* __restrict__ stats, T* __restrict__ dx, T* __restrict__ dskip,
+                float* __restrict__ clsum, uint32_t* __restrict__ bar, const Plan p, int act) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);                 // kStages
+  float* red = reinterpret_cast<float*>(smem + p.red_off);            // 2 * lanes * ge
+  // the block's sums (2 * C); in rank 0 of a cluster every rank's, rank r's
+  // at r * 2 * C, written there by rank r
+  float* part = reinterpret_cast<float*>(smem + p.part_off);
+  float* tot = reinterpret_cast<float*>(smem + p.tot_off);            // 2 * C
+  float* tmp = tot + 2 * p.C;  // max(2 * C, blockDim.x): the ordered sums' slices
+  T* data = reinterpret_cast<T*>(smem + p.data_off);                  // x, dy, y: res * C each
+  const int C = p.C, S = p.S;
+  const int ge = p.W * V;  // elements in a group
+  const int lanes = (int)blockDim.x / p.W;
+  Lane<T, V> me;
+  me.lane = (int)threadIdx.x / p.W;
+  me.lanes = lanes;
+  me.ge = ge;
+  me.off = ((int)threadIdx.x % p.W) * V;
+  me.on = me.lane < lanes;
+  int ch[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) ch[k] = (me.off + k) % C;
+  const size_t region = (size_t)p.res * C;  // elements of one tensor's resident rows
+  const T* yy = act == ACT_ADD_RELU ? y : nullptr;
+  const int ntens = yy != nullptr ? 3 : 2;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(&mbar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  uint32_t phase = 0;  // the parity each stage's mbarrier waits for next
+  const int items = p.N * p.parts;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int n = item / p.parts, sp = item % p.parts;
+    const int lo = min(S, sp * p.span), hi = min(S, (sp + 1) * p.span);
+    const int res = min(p.res, hi - lo);  // rows are whole groups: see the plan
+    const size_t base = ((size_t)n * S + lo) * C;
+    // the barrier word before this block's cluster can arrive
+    const uint32_t before = threadIdx.x == 0 && p.parts > 1 ? ld_acquire(bar) : 0u;
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < kStages; ++k) {
+        const int a = min(res, k * p.st_rows), b = min(res, (k + 1) * p.st_rows);
+        if (b <= a) break;
+        const uint32_t bytes = (uint32_t)(b - a) * C * sizeof(T);
+        mbar_expect_tx(&mbar[k], bytes * ntens);
+        bulk_load(data + (size_t)a * C, x + base + (size_t)a * C, bytes, &mbar[k]);
+        bulk_load(data + region + (size_t)a * C, dy + base + (size_t)a * C, bytes, &mbar[k]);
+        if (yy != nullptr)
+          bulk_load(data + 2 * region + (size_t)a * C, yy + base + (size_t)a * C, bytes, &mbar[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      me.m[k] = stats[((size_t)n * C + ch[k]) * 2];
+      me.rs[k] = stats[((size_t)n * C + ch[k]) * 2 + 1];
+    }
+
+    // 1. sums of g and g * xhat over the span: the resident rows stage by
+    // stage, then the rest from global memory
+    float sg[V], sgx[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) sg[k] = sgx[k] = 0.f;
+    const int ng = (hi - lo) / p.q, resg = res / p.q, stg = p.st_rows / p.q;
+    for (int k = 0; k < kStages; ++k) {
+      const int a = min(resg, k * stg), b = min(resg, (k + 1) * stg);
+      if (b <= a) break;
+      mbar_wait(&mbar[k], (phase >> k) & 1u);
+      phase ^= 1u << k;
+      me.sums(data, data + region, data + 2 * region, a, b, act, sg, sgx);
+    }
+    me.sums(x + base, dy + base, yy == nullptr ? nullptr : yy + base, resg, ng, act, sg, sgx);
+    if (me.on) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        red[me.lane * ge + me.off + k] = sg[k];
+        red[(lanes + me.lane) * ge + me.off + k] = sgx[k];
+      }
+    }
+    __syncthreads();
+    // per channel: the lanes in order, and in each the q rows of its group
+    // (red[which][lane * q + row][c]), into this block's slot of part in
+    // rank 0 of its cluster
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = p.parts > 1 && p.cluster > 1 ? (int)cluster.block_rank() : 0;
+    ordered_sums<false>(
+        red, 2 * C, lanes * p.q, C, [&](int o) { return (o / C) * lanes * ge + o % C; }, tmp,
+        rank == 0 ? part : cluster.map_shared_rank(part, 0) + rank * 2 * C);
+
+    // 2. the sample's sums: the cluster's in rank order (rank 0 writes them
+    // and alone arrives at the grid barrier), then, after every block has
+    // seen the barrier complete, the clusters' in cluster order
+    const float* sums = part;
+    if (p.parts > 1) {
+      const int ncl = p.parts / p.cluster;
+      if (p.cluster > 1) cluster.sync();  // every rank's sums are in rank 0
+      if (rank == 0) {
+        float* mine = clsum + ((size_t)n * ncl + sp / p.cluster) * 2 * C;
+        for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) {
+          float s = 0.f;
+          for (int r = 0; r < p.cluster; ++r) s += part[r * 2 * C + i];
+          mine[i] = s;
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) barrier_arrive(bar, gridDim.x / p.cluster, blockIdx.x == 0);
+      }
+      if (threadIdx.x == 0) barrier_wait(bar, before);
+      __syncthreads();
+      const float* all = clsum + (size_t)n * ncl * 2 * C;
+      ordered_sums<true>(all, 2 * C, ncl, 2 * C, [](int o) { return o; }, tmp, tot);
+      sums = tot;
+    }
+
+    // 3. dx (and dskip) of the span
+    float mg[V], mgx[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      mg[k] = sums[ch[k]] / (float)S;
+      mgx[k] = sums[C + ch[k]] / (float)S;
+    }
+    T* ds = dskip == nullptr ? nullptr : dskip + base;
+    me.apply(data, data + region, data + 2 * region, dx + base, ds, 0, resg, act, mg, mgx);
+    me.apply(x + base, dy + base, yy == nullptr ? nullptr : yy + base, dx + base, ds, resg, ng,
+             act, mg, mgx);
+    __syncthreads();  // the next item's copies overwrite the rows and sums
   }
 }
 
-template <typename T>
-__global__ void k6_apply(const T* __restrict__ x, const T* __restrict__ dy,
-                         const T* __restrict__ y, const float* __restrict__ gpart,
-                         const float* __restrict__ stats, T* __restrict__ dx,
-                         T* __restrict__ dskip, int S, int C, int chunk, int nchunk, int act) {
-  extern __shared__ float sh[];
-  const Layout L(C);
-  float* mean = sh;
-  float* rstd = sh + C;
-  float* mg = sh + 2 * C;
-  float* mgx = sh + 3 * C;
-  const int k = blockIdx.x, n = blockIdx.y;
-  const float* p = gpart + (size_t)n * nchunk * C * 2;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float a = 0.f, b = 0.f;
-    for (int j = 0; j < nchunk; ++j) {
-      a += p[((size_t)j * C + c) * 2];
-      b += p[((size_t)j * C + c) * 2 + 1];
-    }
-    mg[c] = a / (float)S;
-    mgx[c] = b / (float)S;
-    mean[c] = stats[((size_t)n * C + c) * 2];
-    rstd[c] = stats[((size_t)n * C + c) * 2 + 1];
+template <typename T, int V>
+static cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int blocks,
+                             int cluster, int threads, int smem, cudaStream_t st) {
+  static bool ready = false;  // function attributes, set once per instantiation
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k6_backward<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e != cudaSuccess) return e;
+    ready = true;
   }
-  __syncthreads();
-  if (L.lane >= L.lanes) return;
-  const int r0 = k * chunk, r1 = min(S, r0 + chunk);
-  const size_t base = (size_t)n * S * C;
-  for (int c = L.c0; c < C; c += L.tpr) {
-    const float m = mean[c], rs = rstd[c], a = mg[c], b = mgx[c];
-    for (int r = r0 + L.lane; r < r1; r += L.lanes) {
-      const size_t i = base + (size_t)r * C + c;
-      const float xhat = (to_f(x[i]) - m) * rs;
-      const float g = grad_in<T>(to_f(dy[i]), xhat, y ? to_f(y[i]) : 0.f, act);
-      dx[i] = from_f<T>(rs * (g - a - xhat * b));
-      if (dskip) dskip[i] = from_f<T>(g);
-    }
-  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(blocks, 1, 1);
+  cfg->blockDim = dim3(threads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = cluster > 1 ? 2 : 1;  // a plain cooperative grid without clusters
+  return cudaSuccess;
 }
 
-template <typename T>
-static int launch(const void* x, const void* dy, const void* y, void* dx, void* dskip,
-                  float* scratch, int N, int S, int C, int chunk, int nchunk, int threads,
-                  float eps, int act, cudaStream_t st) {
-  const int tpr = C < threads ? C : threads;
-  const int lanes = threads / tpr;
-  float* part = scratch;
-  float* gpart = part + (size_t)N * nchunk * C * 2;
-  float* stats = gpart + (size_t)N * nchunk * C * 2;
-  const dim3 grid(nchunk, N);
-  const T* xt = (const T*)x;
-  const T* dyt = (const T*)dy;
-  const T* yt = (act == ACT_RELU || act == ACT_ADD_RELU) ? (const T*)y : nullptr;
-  k6_stats<T><<<grid, threads, (lanes + 1) * C * sizeof(float), st>>>(xt, part, S, C, chunk,
-                                                                      nchunk);
-  int err = launch_status();
-  if (err) return err;
-  k6_sums<T><<<grid, threads, (2 * lanes + 2) * C * sizeof(float), st>>>(
-      xt, dyt, yt, part, gpart, stats, S, C, chunk, nchunk, eps, act);
-  err = launch_status();
-  if (err) return err;
-  k6_apply<T><<<grid, threads, 4 * C * sizeof(float), st>>>(
-      xt, dyt, yt, gpart, stats, (T*)dx, (T*)dskip, S, C, chunk, nchunk, act);
+template <typename T, int V>
+static int launch(const void* x, const void* dy, const void* y, const void* stats, void* dx,
+                  void* dskip, void* clsum, void* bar, const Plan& p, int blocks, int threads,
+                  int smem, int act, cudaStream_t st) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+  cudaError_t e = configure<T, V>(&cfg, attr, blocks, p.cluster, threads, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, k6_backward<T, V>, (const T*)x, (const T*)dy, (const T*)y,
+                         (const float*)stats, (T*)dx, (T*)dskip, (float*)clsum, (uint32_t*)bar,
+                         p, act);
+  if (e != cudaSuccess) return (int)e;
   return launch_status();
 }
 
-// x, dy, y, dx (and dskip for add_relu): (N, S, C) contiguous, of dtype;
-// y, the forward output, is read for relu and add_relu only. scratch holds
-// 4 * N * nchunk * C + 2 * N * C floats. Chunks of `chunk` rows, nchunk of
-// them per sample, blocks of `threads` threads. Three launches on `stream`.
+template <typename T, int V>
+static int max_clusters(int cluster, int threads, int smem, int* n) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+  const cudaError_t e = configure<T, V>(&cfg, attr, cluster, cluster, threads, smem, 0);
+  if (e != cudaSuccess) return (int)e;
+  cfg.attrs = attr + 1;  // the occupancy query takes the cluster attribute alone
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(n, k6_backward<T, V>, &cfg);
+}
+
+// V elements per vector: 16 bytes, or 1 where a sample does not start on
+// 16 bytes; every other combination is refused.
+#define DISPATCH(dtype, V, CALL)                                         \
+  do {                                                                   \
+    if ((dtype) == DTYPE_BF16) {                                         \
+      if ((V) == 8) return CALL(__nv_bfloat16, 8);                       \
+      if ((V) == 1) return CALL(__nv_bfloat16, 1);                       \
+    } else if ((dtype) == DTYPE_F32) {                                   \
+      if ((V) == 4) return CALL(float, 4);                               \
+      if ((V) == 1) return CALL(float, 1);                               \
+    }                                                                    \
+    return (int)cudaErrorInvalidValue;                                   \
+  } while (0)
+
+// x, dy, y, dx (and dskip for add_relu): (N, S, C) contiguous, 16-byte
+// aligned, of dtype; y, the forward output, is read for add_relu only.
+// stats: K1's float32 (N, C, 2) (mean, rstd). clsum: the cluster sums,
+// N * (parts / cluster) * 2 * C floats (unused when parts is 1). bar: the
+// barrier's word, zero before the first call, its low 31 bits left at zero
+// by every call. The plan
+// (kernels/instance_norm.py::backward_plan) gives V, the grid of `blocks`,
+// `threads`, the Plan fields and `smem`. One launch on `stream`.
 extern "C" int instance_norm_act_backward(const void* x, const void* dy, const void* y,
-                                          void* dx, void* dskip, void* scratch, int N, int S,
-                                          int C, int chunk, int nchunk, int threads, float eps,
+                                          const void* stats, void* dx, void* dskip, void* clsum,
+                                          void* bar, int N, int S, int C, int V, int W, int q,
+                                          int parts, int cluster, int span, int res,
+                                          int st_rows, int blocks, int threads, int red_off,
+                                          int part_off, int tot_off, int data_off, int smem,
                                           int act, int dtype, void* stream) {
+  const Plan p{N, S, C, W, q, parts, cluster, span, res, st_rows,
+               red_off, part_off, tot_off, data_off};
   const cudaStream_t st = (cudaStream_t)stream;
-  if ((size_t)(2 * (threads / (C < threads ? C : threads)) + 2) * C * sizeof(float) > 48 * 1024)
+  if (threads > kMaxThreads || smem > kSmemMax || W > threads ||
+      (parts > 1 && (parts % cluster != 0 || blocks != N * parts)))
     return (int)cudaErrorInvalidValue;
-  if (dtype == DTYPE_F32)
-    return launch<float>(x, dy, y, dx, dskip, (float*)scratch, N, S, C, chunk, nchunk, threads,
-                         eps, act, st);
-  if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(x, dy, y, dx, dskip, (float*)scratch, N, S, C, chunk, nchunk,
-                                 threads, eps, act, st);
-  return (int)cudaErrorInvalidValue;
+#define LAUNCH(T, VV) \
+  launch<T, VV>(x, dy, y, stats, dx, dskip, clsum, bar, p, blocks, threads, smem, act, st)
+  DISPATCH(dtype, V, LAUNCH);
+#undef LAUNCH
+}
+
+// How many clusters of this plan the card holds at once (0: none).
+extern "C" int instance_norm_act_backward_max_clusters(int V, int cluster, int threads, int smem,
+                                                       int dtype, int* n) {
+#define QUERY(T, VV) max_clusters<T, VV>(cluster, threads, smem, n)
+  DISPATCH(dtype, V, QUERY);
+#undef QUERY
 }

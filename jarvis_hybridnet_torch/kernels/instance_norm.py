@@ -180,20 +180,30 @@ def launch_plan(n: int, s: int, c: int, itemsize: int) -> Plan:
     return wide if per_sm < 3 and _SMEM_PER_SM // (wide.smem + 1024) == per_sm else plan
 
 
-def instance_norm_act(x: torch.Tensor, act: str = "none",
-                      skip: torch.Tensor | None = None) -> torch.Tensor:
+def stats_plain(x: torch.Tensor) -> torch.Tensor:
+    """float32 (N, C, 2): the (mean, rstd) of x (N, S, C) over S, as
+    ``instance_norm_act(..., return_stats=True)`` returns them."""
+    mean, rstd = _statistics(x)
+    return torch.stack((mean[:, 0], rstd[:, 0]), dim=-1)
+
+
+def instance_norm_act(x: torch.Tensor, act: str = "none", skip: torch.Tensor | None = None,
+                      return_stats: bool = False):
     """InstanceNorm of x (N, S, C) over S, then ``act``.
 
     ``act`` is one of none / silu / relu / add_relu; add_relu returns
     relu(IN(x) + skip). A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel (one ``__global__`` launch).
+    launches the kernel (one ``__global__`` launch). With ``return_stats``
+    it returns (out, stats): stats float32 (N, C, 2), the (mean, rstd) the
+    normalization used, which the backward (K6) starts from.
     """
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if (act == "add_relu") != (skip is not None):
         raise ValueError("skip is given exactly when act == 'add_relu'")
     if build.on_cpu(x, skip):
-        return instance_norm_act_plain(x, act, skip)
+        out = instance_norm_act_plain(x, act, skip)
+        return (out, stats_plain(x)) if return_stats else out
     build.require(x, "x", _DTYPES, ndim=3)
     if skip is not None:
         build.require(skip, "skip", (x.dtype,), ndim=3)
@@ -206,12 +216,15 @@ def instance_norm_act(x: torch.Tensor, act: str = "none",
     plan = launch_plan(n, s, c, x.element_size())
     _check_schedulable(plan, _DTYPES[x.dtype])
     out = torch.empty_like(x)
-    err = _fn()(build.ptr(x), build.ptr(skip), build.ptr(out), n, s, c, plan.vec, plan.cluster,
-                plan.threads, plan.span, plan.resident, plan.ring_rows, plan.q, plan.data_off,
-                plan.ring_off, plan.smem, EPS, ACTS[act], _DTYPES[x.dtype], build.stream())
+    stats = (torch.empty((n, c, 2), dtype=torch.float32, device=x.device) if return_stats
+             else None)
+    err = _fn()(build.ptr(x), build.ptr(skip), build.ptr(out), build.ptr(stats), n, s, c,
+                plan.vec, plan.cluster, plan.threads, plan.span, plan.resident, plan.ring_rows,
+                plan.q, plan.data_off, plan.ring_off, plan.smem, EPS, ACTS[act],
+                _DTYPES[x.dtype], build.stream())
     build.check(err, "instance_norm_act")
     instance_norm_act.launches += 1
-    return out
+    return (out, stats) if return_stats else out
 
 
 instance_norm_act.launches = 0
@@ -240,16 +253,20 @@ def _check_schedulable(plan: Plan, dtype_code: int) -> None:
 def _fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.bind("instance_norm_act", "instance_norm_act",
-                      [p, p, p] + [i] * 13 + [ctypes.c_float, i, i, p])
+                      [p] * 4 + [i] * 13 + [ctypes.c_float, i, i, p])
 
 
 # K6: the backward of K1 (csrc/instance_norm_act_backward.cu)
-BWD_THREADS = 256
-_BWD_BLOCKS = 2 * _SMS  # blocks per launch the chunking aims at
+BWD_STAGES = 4  # bulk copies that bring in a span's rows
+BWD_MAX_THREADS = 512
+_BWD_AUX = 128  # the mbarriers sit below this byte offset
+_BWD_BLOCKS = 2 * _SMS  # co-resident blocks the plan assumes: two per SM
+_BWD_CLUSTERS = (8, 4, 2)
+_MIN_PART_BYTES = 32 * 1024  # a sample is not cut into spans of fewer bytes of x
 
 
 def instance_norm_act_backward_plain(x: torch.Tensor, dy: torch.Tensor, out: torch.Tensor,
-                                     act: str = "none"):
+                                     act: str = "none", stats: torch.Tensor | None = None):
     """Plain PyTorch version of K6: (dx, dskip) of ``instance_norm_act(x, act,
     skip)`` with output ``out`` and incoming gradient ``dy``, all (N, S, C);
     dskip is None unless act is add_relu.
@@ -258,9 +275,14 @@ def instance_norm_act_backward_plain(x: torch.Tensor, dy: torch.Tensor, out: tor
     dx = rstd * (g - mean_S(g) - xhat * mean_S(g * xhat)) and dskip = g.
     act' is the mask out > 0 for relu and add_relu, and SiLU's derivative
     at the normalized value rounded to x's dtype (the value the forward
-    passed to SiLU). float32 arithmetic; dx and dskip in x's dtype.
+    passed to SiLU). mean and rstd are ``stats`` (N, C, 2), the forward's,
+    where given, else computed from x. float32 arithmetic; dx and dskip in
+    x's dtype.
     """
-    mean, rstd = _statistics(x)
+    if stats is None:
+        mean, rstd = _statistics(x)
+    else:
+        mean, rstd = stats[:, None, :, 0], stats[:, None, :, 1]
     xhat = (x.float() - mean) * rstd
     g = dy.float()
     if act == "silu":
@@ -275,36 +297,155 @@ def instance_norm_act_backward_plain(x: torch.Tensor, dy: torch.Tensor, out: tor
     return dx, (g.to(x.dtype) if act == "add_relu" else None)
 
 
-def backward_plan(n: int, s: int, c: int, threads: int = BWD_THREADS) -> tuple[int, int]:
-    """(rows per chunk, chunks per sample) of K6's grid: about ``_BWD_BLOCKS``
-    blocks in all, each chunk at least one step of the block's row lanes."""
-    lanes = max(1, threads // c)
-    want = max(1, min(s, -(-_BWD_BLOCKS // n)))
-    chunk = max(lanes, -(-s // want))
-    return chunk, -(-s // chunk)
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How K6 covers an (N, S, C) tensor.
+
+    Each sample's rows are cut into ``parts`` spans of ``span`` rows
+    (clipped to S; a multiple of ``q``), one per block of a grid of
+    ``blocks`` = N * parts co-resident blocks in clusters of ``cluster``;
+    with ``parts`` 1 the grid has ``blocks`` <= N and a block walks samples
+    b, b + blocks, ... A thread loads ``vec`` elements (16 bytes, or 1 where
+    a sample does not start on 16 bytes); a group of ``q`` rows is ``w``
+    such vectors. The first ``resident`` rows of a span of each of the
+    ``tensors`` inputs (x, dy, and y for add_relu) are bulk-copied into
+    shared memory at ``data_off`` in ``BWD_STAGES`` stages of ``stage_rows``;
+    the others are read twice. ``red_off``, ``part_off``, ``tot_off``: the
+    lanes' sums, the cluster's blocks' sums (in rank 0) and the sample's
+    sums (then the ordered sums' scratch); ``smem``: bytes of dynamic
+    shared memory per block."""
+
+    vec: int
+    w: int
+    q: int
+    parts: int
+    cluster: int
+    span: int
+    resident: int
+    stage_rows: int
+    blocks: int
+    threads: int
+    tensors: int
+    red_off: int
+    part_off: int
+    tot_off: int
+    data_off: int
+    smem: int
+
+    def spans(self, n: int, s: int) -> list[tuple[int, int, int]]:
+        """The (sample, first row, end row) of every item, in item order."""
+        return [(k // self.parts, min(s, (k % self.parts) * self.span),
+                 min(s, (k % self.parts + 1) * self.span)) for k in range(n * self.parts)]
+
+    def items(self, block: int, n: int) -> list[int]:
+        """The items one block takes, in order."""
+        return list(range(block, n * self.parts, self.blocks))
+
+
+def backward_plan(n: int, s: int, c: int, itemsize: int, act: str,
+                  capacity: int = _BWD_BLOCKS) -> BackwardPlan:
+    """K6's launch plan for an (n, s, c) tensor of ``itemsize`` bytes.
+
+    ``capacity`` is the co-resident blocks the grid may use (the wrapper
+    gives the card's, from the occupancy query). A sample is cut into as
+    many spans as the capacity gives it, in whole clusters, and no span
+    holds fewer than ``_MIN_PART_BYTES`` of x; a sample that would get one
+    span is a block's alone. The shared-memory arithmetic is the source's.
+    """
+    tensors = 3 if act == "add_relu" else 2
+    row = c * itemsize
+    aligned = (s * row) % 16 == 0
+    vec = 16 // itemsize if aligned else 1
+    ge = math.lcm(c, vec)  # elements in a group of q rows
+    q, w = ge // c, ge // vec
+    threads = 256 if w <= 256 else BWD_MAX_THREADS
+    if w > threads:
+        raise ValueError(f"instance_norm_act_backward: C = {c} needs {w} vectors a group, "
+                         f"more than {threads} threads")
+    lanes = threads // w
+    want = min(capacity // n, -(-s * row // _MIN_PART_BYTES), -(-s // q))
+    cluster = next((cs for cs in _BWD_CLUSTERS if want >= cs), 1)
+    parts = want // cluster * cluster
+    if parts >= 2:
+        blocks = n * parts
+    else:
+        parts, cluster, blocks = 1, 1, min(n, capacity)
+    red_off = _BWD_AUX
+    part_off = red_off + 2 * lanes * ge * 4
+    tot_off = part_off + cluster * 2 * c * 4  # every rank's sums, in rank 0
+    data_off = _round_up(tot_off + (2 * c + max(threads, 2 * c)) * 4, 128)
+    span = _round_up(-(-s // parts), q)
+    room = (_TWO_PER_SM - data_off) // (tensors * row) // q * q
+    resident = min(span, room) if aligned else 0
+    stage_rows = _round_up(-(-resident // BWD_STAGES), q)
+    return BackwardPlan(vec, w, q, parts, cluster, span, resident, stage_rows, blocks, threads,
+                        tensors, red_off, part_off, tot_off, data_off,
+                        data_off + tensors * resident * row)
+
+
+@functools.lru_cache(maxsize=None)
+def backward_launch_plan(n: int, s: int, c: int, dtype: torch.dtype, act: str) -> BackwardPlan:
+    """K6's plan at the card's capacity: the grid shrinks until the
+    occupancy query holds all of its clusters at once."""
+    capacity = _BWD_BLOCKS
+    while True:
+        plan = backward_plan(n, s, c, dtype.itemsize, act, capacity)
+        fit = backward_max_clusters(plan, dtype) * plan.cluster
+        if plan.blocks <= fit:
+            return plan
+        if fit < 1:
+            raise RuntimeError(f"instance_norm_act_backward: the card cannot schedule {plan}")
+        capacity = min(capacity - 1, fit)
+
+
+def backward_max_clusters(plan: BackwardPlan, dtype: torch.dtype) -> int:
+    """Clusters of ``plan`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = build.bind("instance_norm_act_backward", "instance_norm_act_backward_max_clusters",
+                    [i] * 5 + [p])
+    build.check(fn(plan.vec, plan.cluster, plan.threads, plan.smem, _DTYPES[dtype],
+                   ctypes.byref(n)), "instance_norm_act_backward_max_clusters")
+    return n.value
 
 
 def instance_norm_act_backward(x: torch.Tensor, dy: torch.Tensor, out: torch.Tensor,
-                               act: str = "none"):
+                               act: str = "none", stats: torch.Tensor | None = None):
     """(dx, dskip) of K1 (see :func:`instance_norm_act_backward_plain`). A
-    CPU tensor runs the plain version; a CUDA tensor launches K6 (three
-    kernels on the current stream)."""
+    CPU tensor runs the plain version; a CUDA tensor launches K6 (one
+    ``__global__`` launch, a cooperative grid), which needs ``stats``, the
+    forward's (``instance_norm_act(..., return_stats=True)``): relu's mask
+    is the sign of the normalized value, which equals out > 0 only with
+    the forward's own statistics."""
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
-    if build.on_cpu(x, dy, out):
-        return instance_norm_act_backward_plain(x, dy, out, act)
+    if build.on_cpu(x, dy, out, stats):
+        return instance_norm_act_backward_plain(x, dy, out, act, stats)
     for t, name in ((x, "x"), (dy, "dy"), (out, "out")):
         build.require(t, name, (x.dtype,) if t is not x else _DTYPES, ndim=3)
         if t.shape != x.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(x.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"instance_norm_act_backward: {name} must be 16-byte aligned")
     n, s, c = x.shape
-    chunk, nchunk = backward_plan(n, s, c)
+    if stats is None:
+        raise ValueError("instance_norm_act_backward: a CUDA call needs the forward's stats")
+    build.require(stats, "stats", (torch.float32,), ndim=3)
+    if stats.shape != (n, c, 2):
+        raise ValueError(f"stats shape {tuple(stats.shape)} != {(n, c, 2)}")
+    plan = backward_launch_plan(n, s, c, x.dtype, act)
     dx = torch.empty_like(x)
     dskip = torch.empty_like(x) if act == "add_relu" else None
-    scratch = torch.empty(4 * n * nchunk * c + 2 * n * c, dtype=torch.float32, device=x.device)
-    err = _bwd_fn()(build.ptr(x), build.ptr(dy), build.ptr(out), build.ptr(dx),
-                    build.ptr(dskip), build.ptr(scratch), n, s, c, chunk, nchunk, BWD_THREADS,
-                    EPS, ACTS[act], _DTYPES[x.dtype], build.stream())
+    clusters = plan.parts // plan.cluster if plan.parts > 1 else 0
+    clsum = torch.empty(max(1, n * clusters * 2 * c), dtype=torch.float32, device=x.device)
+    bar = build.sync_words(x.device, "instance_norm_act_backward")
+    err = _bwd_fn()(build.ptr(x), build.ptr(dy), build.ptr(out), build.ptr(stats),
+                    build.ptr(dx), build.ptr(dskip), build.ptr(clsum), build.ptr(bar), n, s, c,
+                    plan.vec, plan.w, plan.q, plan.parts, plan.cluster, plan.span,
+                    plan.resident, plan.stage_rows, plan.blocks, plan.threads, plan.red_off,
+                    plan.part_off, plan.tot_off, plan.data_off, plan.smem, ACTS[act],
+                    _DTYPES[x.dtype], build.stream())
     build.check(err, "instance_norm_act_backward")
     instance_norm_act_backward.launches += 1
     return dx, dskip
@@ -317,25 +458,26 @@ instance_norm_act_backward.launches = 0
 def _bwd_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.bind("instance_norm_act_backward", "instance_norm_act_backward",
-                      [p] * 6 + [i] * 6 + [ctypes.c_float, i, i, p])
+                      [p] * 8 + [i] * 20 + [p])
 
 
 class InstanceNormAct(torch.autograd.Function):
     """K1 with K6 as its backward: ``InstanceNormAct.apply(x, skip, act)``.
-    Both go through their wrappers (``k1`` and ``k6`` below), so a CPU
-    tensor runs the plain versions and a CUDA tensor the kernels."""
+    The forward keeps K1's statistics for the backward. Both go through their
+    wrappers (``k1`` and ``k6`` below), so a CPU tensor runs the plain
+    versions and a CUDA tensor the kernels."""
 
     @staticmethod
     def forward(ctx, x, skip, act):
-        out = InstanceNormAct.k1(x, act, skip)
+        out, stats = InstanceNormAct.k1(x, act, skip, return_stats=True)
         ctx.act = act
-        ctx.save_for_backward(x, out)
+        ctx.save_for_backward(x, out, stats)
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        x, out = ctx.saved_tensors
-        dx, dskip = InstanceNormAct.k6(x, dy.contiguous(), out, ctx.act)
+        x, out, stats = ctx.saved_tensors
+        dx, dskip = InstanceNormAct.k6(x, dy.contiguous(), out, ctx.act, stats)
         return dx, dskip, None
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Launch-plan sweep of the K1, K2, K3 and K5 kernels on one CUDA card.
+"""Launch-plan sweep of the K1, K2, K3, K5 and K6 kernels on one CUDA card.
 
-    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5,k5probe]
+    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5,k5probe,k6,k6probe,k7probe]
 
 K1 instance_norm_act: for V2V's and the 2D networks' largest main-path
 shapes (bf16), times the kernel under every cluster size (1, 2, 4, 8, 16),
@@ -24,7 +24,18 @@ that ``launch_plan`` picks. ``k3probe`` splits K3's time at its launch plan:
 it builds variants of ``csrc/soft_argmax.cu`` made by textual substitution
 (no tiles: launch, reductions and cluster barriers; loads only; the loop
 without loads or copies; the loop without softplus; without ``-ftz``) and
-times each beside the kernel itself.
+times each beside the kernel itself. K6 instance_norm_act_backward
+(``k6``): times float32 grids of 16-128 blocks (``backward_plan`` at a
+smaller capacity) beside its launch plan's at the training step's four
+keys; ``k6probe`` splits its time at its launch plan by variants of
+``csrc/instance_norm_act_backward.cu`` cut off after each step (the
+ranks' sums in rank 0, the grid barrier, the sample's sums; no dx; the
+loads and sums alone; the bulk loads alone; an empty kernel), without the
+cooperative attribute and without the barrier wait. ``k7probe`` times
+K7's forward and backward at the training step's (1, 36, 36, 36, 23) under
+variants of ``csrc/hybridnet_loss.cu``: the precise expf / log1pf /
+division, no tables, the backward's loads and stores alone, no target, no
+softplus.
 
 Times are device times of CUDA-graph replays (``chip_smoke.graph_ms``);
 every configuration is also checked against the plain version (bf16 ulps
@@ -90,10 +101,11 @@ def sweep_k1(say, dev) -> None:
 
             def run(plan=plan):
                 out = torch.empty_like(x)
-                build.check(fn(build.ptr(x), build.ptr(skip), build.ptr(out), n, s, c, plan.vec,
-                               plan.cluster, plan.threads, plan.span, plan.resident,
-                               plan.ring_rows, plan.q, plan.data_off, plan.ring_off, plan.smem,
-                               k1.EPS, k1.ACTS[act], 1, build.stream()), "instance_norm_act")
+                build.check(fn(build.ptr(x), build.ptr(skip), build.ptr(out), build.ptr(None),
+                               n, s, c, plan.vec, plan.cluster, plan.threads, plan.span,
+                               plan.resident, plan.ring_rows, plan.q, plan.data_off,
+                               plan.ring_off, plan.smem, k1.EPS, k1.ACTS[act], 1,
+                               build.stream()), "instance_norm_act")
                 return out
 
             ulps = chip_smoke.bf16_ulps(run(), ref)
@@ -378,6 +390,236 @@ def sweep_k3probe(say, dev) -> None:
         say(f"  {name:15s}: {chip_smoke.graph_ms(call):.4f} ms")
 
 
+def build_variants(source: str, probes: dict, tag: str, flags: list[str]) -> dict:
+    """Each probe's variant of ``csrc/<source>.cu`` (its textual
+    substitutions applied, each of which must match once), built at once:
+    {name: loaded library}."""
+    import ctypes
+
+    from jarvis_hybridnet_torch.kernels import build
+
+    src = (build.CSRC / f"{source}.cu").read_text()
+    out_dir = build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for i, (name, subs) in enumerate(probes.items()):
+        text = src
+        for a, b in subs:
+            if text.count(a) != 1:
+                raise SystemExit(f"kernel_sweep: probe {name!r} no longer applies to the source")
+            text = text.replace(a, b)
+        cu, lib = out_dir / f"{tag}{i}.cu", out_dir / f"lib{tag}{i}.so"
+        cu.write_text(text)
+        jobs[name] = lib, subprocess.Popen(
+            [build._nvcc(), *flags, f"-I{build.CSRC}", "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"kernel_sweep: nvcc failed for probe {name!r}:\n{log}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def sweep_k6(say, dev) -> None:
+    """K6 (float32) at the training step's keys under grids of fewer blocks
+    than its plan's (``backward_plan`` at a smaller capacity), each checked
+    against the plain version and timed beside the plan's."""
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch import kernels
+    from jarvis_hybridnet_torch.kernels import build
+    from jarvis_hybridnet_torch.kernels import instance_norm as k1
+
+    fn = k1._bwd_fn()
+    bar = build.sync_words(dev, "instance_norm_act_backward")
+    for shape, act in K6_PROBE_KEYS[:4]:
+        n, s, c = shape
+        x, skip, dy, out, stats = chip_smoke.k6_inputs(shape, torch.float32, act)
+        ref, _ = kernels.instance_norm_act_backward_plain(x, dy, out, act, stats)
+        chosen = k1.backward_launch_plan(n, s, c, torch.float32, act)
+        say(f"K6 {shape} float32 {act}: launch plan {chosen}")
+        for capacity in (16, 32, 64, 128, chosen.blocks):
+            plan = k1.backward_plan(n, s, c, 4, act, capacity)
+            if k1.backward_max_clusters(plan, torch.float32) * plan.cluster < plan.blocks:
+                continue
+            dx = torch.empty_like(x)
+            ds = torch.empty_like(x) if act == "add_relu" else None
+            clsum = torch.empty(max(1, n * plan.parts * 2 * c), device=dev)
+
+            def call(plan=plan, dx=dx, ds=ds, clsum=clsum):
+                b = build.ptr
+                build.check(fn(b(x), b(dy), b(out), b(stats), b(dx), b(ds), b(clsum), b(bar),
+                               n, s, c, plan.vec, plan.w, plan.q, plan.parts, plan.cluster,
+                               plan.span, plan.resident, plan.stage_rows, plan.blocks,
+                               plan.threads, plan.red_off, plan.part_off, plan.tot_off,
+                               plan.data_off, plan.smem, k1.ACTS[act], 0, build.stream()),
+                            "K6 sweep")
+            call()
+            err = float((dx - ref).abs().max() / ref.abs().max())
+            say(f"  blocks {plan.blocks:4d} (clusters of {plan.cluster}, span {plan.span:5d}, "
+                f"resident {plan.resident:5d}): {chip_smoke.graph_ms(call):.4f} ms, dx {err:.1e} "
+                f"of max from the plain version")
+
+
+_K6_BODY = "  const int items = p.N * p.parts;\n"
+_K6_BARRIER = "      if (threadIdx.x == 0) barrier_wait(bar, before);\n"
+_K6_APPLY = "    float mg[V], mgx[V];\n"
+_K6_SUMS = ("    me.sums(x + base, dy + base, yy == nullptr ? nullptr : yy + base, resg, ng, act, "
+            "sg, sgx);\n")
+_K6_STAGE_SUMS = "      me.sums(data, data + region, data + 2 * region, a, b, act, sg, sgx);\n"
+_K6_KEEP = ("    if (me.on && sg[0] + sgx[0] == 1.2345f) dx[base] = from_f<T>(0.f);\n"
+            "    continue;\n")
+_K6_PART = "      if (p.cluster > 1) cluster.sync();  // every rank's sums are in rank 0\n"
+_K6_CLUSTER = _K6_BARRIER + "      __syncthreads();\n"
+_K6_TOT = "      sums = tot;\n"
+
+
+def _k6_stop(at: str, value: str) -> list:
+    """Stop the item right after ``at``, keeping what came before live."""
+    return [(at, at + f"    if ({value} == 1.2345f) dx[base] = from_f<T>(0.f);\n    continue;\n")]
+
+
+K6_PROBES = {
+    "kernel": [],
+    "to the blocks' sums in rank 0": _k6_stop(_K6_PART, "part[0]"),
+    "to the grid barrier": _k6_stop(_K6_CLUSTER, "part[0]"),
+    "to the sample's sums": _k6_stop(_K6_TOT, "tot[0]"),
+    "not cooperative (the cluster attribute alone)": [
+        ("  attr[0].val.cooperative = 1;", "  attr[0].val.cooperative = 0;")],
+    "no grid barrier (wrong sums)": [(_K6_BARRIER, "")],
+    "no phase 3 (dx not written)": [(_K6_APPLY, "    continue;\n" + _K6_APPLY)],
+    "phase 1 alone (loads and sums)": [(_K6_SUMS, _K6_SUMS + _K6_KEEP)],
+    "bulk loads alone": [(_K6_SUMS, _K6_SUMS + _K6_KEEP), (_K6_STAGE_SUMS, "")],
+    "an empty kernel (launch and block start)": [(_K6_BODY, _K6_BODY + "  return;\n")],
+}
+K6_PROBE_KEYS = [((1, 46656, 46), "relu"), ((1, 46656, 46), "add_relu"), ((1, 5832, 92), "relu"),
+                 ((1, 5832, 92), "add_relu"), ((96, 16, 56), "silu")]
+
+
+def sweep_k6probe(say, dev) -> None:
+    """K6's float32 time at its launch plan split by source variants, at the
+    training step's keys and one many-sample key (no barrier)."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch.kernels import build
+    from jarvis_hybridnet_torch.kernels import instance_norm as k1
+
+    libs = build_variants("instance_norm_act_backward", K6_PROBES, "k6probe",
+                          build._flags("instance_norm_act_backward"))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for shape, act in K6_PROBE_KEYS:
+        x, skip, dy, out, stats = chip_smoke.k6_inputs(shape, torch.float32, act)
+        n, s, c = shape
+        plan = k1.backward_launch_plan(n, s, c, torch.float32, act)
+        dx, ds = torch.empty_like(x), torch.empty_like(x) if act == "add_relu" else None
+        clsum = torch.empty(max(1, n * plan.parts * 2 * c), device=dev)
+        bar = torch.zeros(2, dtype=torch.int32, device=dev)
+        nbytes = x.numel() * 4 * (5 if act == "add_relu" else 3)
+        say(f"K6 probe {shape} float32 {act}: bound "
+            f"{nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3:.4f} ms; {plan}")
+        for name, lib in libs.items():
+            fn = lib.instance_norm_act_backward
+            fn.argtypes, fn.restype = [p] * 8 + [i] * 20 + [p], ctypes.c_int
+
+            def call(fn=fn):
+                b = build.ptr
+                build.check(fn(b(x), b(dy), b(out), b(stats), b(dx), b(ds), b(clsum), b(bar),
+                               n, s, c, plan.vec, plan.w, plan.q, plan.parts, plan.cluster,
+                               plan.span, plan.resident, plan.stage_rows, plan.blocks,
+                               plan.threads, plan.red_off, plan.part_off, plan.tot_off,
+                               plan.data_off, plan.smem, k1.ACTS[act], 0, build.stream()),
+                            "K6 probe")
+            say(f"  {name:46s}: {chip_smoke.graph_ms(call):.4f} ms")
+
+
+K7_PROBES = {
+    "kernel": [],
+    "precise functions (expf, log1pf, division)": [
+        ("  return fmaxf(v, 0.f) + __logf(1.f + e);", "  return fmaxf(v, 0.f) + log1pf(e);"),
+        ("  return v >= 0.f ? __fdividef(1.f, 1.f + e) : __fdividef(e, 1.f + e);",
+         "  return v >= 0.f ? 1.f / (1.f + e) : e / (1.f + e);"),
+        ("#include \"common.cuh\"\n", "#include \"common.cuh\"\n#define __expf expf\n")],
+    "no tables (left unset)": [
+        ("    for (; ar < 3 * g; ar += step) {", "    for (; ar < 0; ar += step) {")],
+    "backward: loads and stores alone": [
+        ("      d.v[k] = scale[k] == 0.f ? 0.f\n"
+         "                               : scale[k] * (sp2 - t[k]) * sigmoid(sp1, e1) * "
+         "sigmoid(v, e0);",
+         "      d.v[k] = v;")],
+    "no target (t = 0)": [
+        ("      t[k] = lab[j] == 0.f ? 0.f : 255.f * __expf(-0.5f * d2);",
+         "      t[k] = 0.f * d2;")],
+    "no softplus (sp2 = out)": [
+        ("      const float sp1 = softplus(v, __expf(-fabsf(v)));\n"
+         "      const float sp2 = softplus(sp1, __expf(-sp1));",
+         "      const float sp2 = v;"),
+        ("      const float e0 = __expf(-fabsf(v));\n"
+         "      const float sp1 = softplus(v, e0);\n"
+         "      const float e1 = __expf(-sp1);  // sp1 > 0\n"
+         "      const float sp2 = softplus(sp1, e1);",
+         "      const float e0 = 0.f, sp1 = v, e1 = 0.f, sp2 = v;")],
+}
+
+
+def sweep_k7probe(say, dev) -> None:
+    """K7's forward and backward time at the training step's shape split by
+    source variants."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch.kernels import build
+
+    k7 = importlib.import_module("jarvis_hybridnet_torch.kernels.hybridnet_loss")
+    libs = build_variants("hybridnet_loss", K7_PROBES, "k7probe", build._flags("hybridnet_loss"))
+    B, g, J = 1, 36, 23
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = torch.randn((B, g, g, g, J), device=dev, generator=gen) * 3
+    kv = torch.rand((B, J, 3), device=dev, generator=gen) * (g - 4) + 2
+    kw = torch.randn((B, J, 3), device=dev, generator=gen)
+    plan = k7.loss_plan(B, g, J)
+    args = (B, g, J, plan.vec, plan.w, plan.groups, plan.parts, plan.per_part, plan.threads,
+            plan.tab_off, plan.red_off, plan.fin_off, plan.smem)
+    part = torch.empty(B * plan.parts * 2 * J, device=dev)
+    ticket = torch.zeros(2, dtype=torch.int32, device=dev)
+    loss, valid = torch.empty((), device=dev), torch.ones((B, J), device=dev)
+    dl, dout = torch.ones(1, device=dev), torch.empty_like(out)
+    ref, ref_valid, ref_vol = k7.hybridnet_loss_fwd_plain(out, kv, kw, return_volume=True)
+    ref_grad = k7.hybridnet_loss_bwd_plain(out, kv, kw, ref_valid, dl)
+    vol = torch.empty_like(out)
+    say(f"K7 probe {tuple(out.shape)}: {plan}")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, lib in libs.items():
+        fwd, bwd = lib.hybridnet_loss_forward, lib.hybridnet_loss_backward
+        fwd.argtypes, bwd.argtypes = [p] * 8 + [i] * 13 + [p], [p] * 6 + [i] * 13 + [p]
+        fwd.restype = bwd.restype = ctypes.c_int
+        b = build.ptr
+
+        def f(fwd=fwd):
+            build.check(fwd(b(out), b(kv), b(kw), None, b(part), b(ticket), b(loss), b(valid),
+                            *args, build.stream()), "K7 probe forward")
+
+        def g_(bwd=bwd):
+            build.check(bwd(b(out), b(kv), b(kw), b(valid), b(dl), b(dout), *args,
+                            build.stream()), "K7 probe backward")
+        build.check(fwd(b(out), b(kv), b(kw), b(vol), b(part), b(ticket), b(loss), b(valid),
+                        *args, build.stream()), "K7 probe forward")
+        g_()
+        rel = abs(float(loss) - float(ref)) / abs(float(ref))
+        vrel = float((vol - ref_vol).abs().max() / ref_vol.abs().max())
+        grel = float((dout - ref_grad).abs().max() / ref_grad.abs().max())
+        say(f"  {name:46s}: forward {chip_smoke.graph_ms(f):.4f} ms, backward "
+            f"{chip_smoke.graph_ms(g_):.4f} ms; from the plain version: loss {rel:.2e}, "
+            f"volume {vrel:.2e}, gradient {grel:.2e} relative")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="k1,k2,k3,k5",
@@ -411,6 +653,12 @@ def main() -> int:
             sweep_k3probe(say, dev)
         if "k5probe" in only:
             sweep_k5probe(say, dev)
+        if "k6" in only:
+            sweep_k6(say, dev)
+        if "k6probe" in only:
+            sweep_k6probe(say, dev)
+        if "k7probe" in only:
+            sweep_k7probe(say, dev)
     return 0
 
 
