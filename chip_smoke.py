@@ -5,7 +5,7 @@
 
     python3 chip_smoke.py --baseline-csrc DIR
 
-Builds the seven CUDA kernel sources from ``jarvis_hybridnet_torch/kernels/csrc``,
+Builds the ten CUDA kernel sources from ``jarvis_hybridnet_torch/kernels/csrc``,
 loads the committed MonkeyHand checkpoints through the port's own reader,
 and drives ``make_predictor3d`` at the production configuration (bf16,
 quarter_fused, 12 cameras of 1280x1024 on the synthetic rig, 23 joints,
@@ -17,31 +17,37 @@ camera, the two-phase cascade (``make_predictor3d_twophase``: low-resolution
 frames reduced 4x, host crops, phase B) and the streaming loop of the
 ``predict3D`` driver writing ``data3D.csv`` from a reader of seeded
 batches, each path with the launch counts set to 0 before one step and read
-after it; the arguments of K1, K2 and K4 are recorded over each path's
-step. Last, the training phase: ``train_hybridnet`` in 3D_only from the
-committed HybridNet checkpoint, for two epochs on a synthetic COCO-style
-dataset it writes to a temporary directory (12 cameras of 1280x1024 JPEG
-frames, 23 keypoints, 4 train and 2 val framesets; float32, quarter_fused,
-G = 72), with the launch counts set to 0 before the run and read after it
-and the arguments of K1, K2 and K6 recorded; the 2D net must be bit-equal
-after it, V2V's weights changed and the written ``.ckpt`` / ``.pth``
-reload; the step's framesets/s, ms and device busy share; one small step
-on the card against the same step on the CPU (float32, TF32 off, dropout
-off, the CPU's ReLU masks set to the card's; a TF32 step as the control
-the comparison must refuse); K6 (at the training step's keys, every act
-at V2V's largest float32 shape and one bf16 key) and K7 against their
-plain versions, each called twice and required bit-equal. It then checks
-every kernel against its plain
-PyTorch version on the card: K1, K2 and K4 at every shape a driven path
-gave them, K3 and K5 at the main path's, and times kernel, plain version
-and library call. A kernel's ``ms`` is device time: a
-CUDA graph of ``GRAPH_CALLS`` captured calls is replayed, so host launch
-gaps do not count; ``wall_ms`` is the event time of calls launched one by
-one from Python. Prints the card, the predict3D rates, one
-``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
-Exits non-zero on any failure, or when
-no CUDA device is present. Per-shape details go to
-``chiprun_out/chip_smoke.txt``.
+after it; the arguments of K1, K2, K4 and K10 are recorded over each path's
+step. Then the training phases, on a synthetic COCO-style dataset written to
+a temporary directory (12 cameras of 1280x1024 JPEG frames, 23 keypoints
+with each image's bounding box, 4 train and 2 val framesets: 48 and 24
+images), at the default ``TPU`` section (color augmentation on the device,
+K9): ``train_hybridnet`` in 3D_only from the committed HybridNet checkpoint
+(float32, quarter_fused, G = 72), then ``train_efficienttrack`` for
+CenterDetect and KeypointDetect from theirs (256^2, batch 4, float32), two
+epochs each, each run with the launch counts set to 0 before it and read
+after it and the arguments of K1, K2, K6, K8, K9 and K10 recorded; the 3D
+run leaves the 2D net bit-equal and changes V2V's weights, the 2D runs
+change their nets' weights, and every written ``.ckpt`` / ``.pth``
+reloads equal to the trained state; each step's rate (framesets/s or
+images/s), ms and device busy share; one small step of each kind on the
+card against the same step on the CPU (float32, TF32 off, dropout and
+drop-connect off; the 3D one with the CPU's ReLU masks set to the card's;
+a TF32 step as each gate's control, which it must refuse); K6 (at every
+key of the 3D and 2D steps, every act at V2V's largest float32 shape and
+one bf16 key), K7, K8, K9 (the noise at the config's upper bound) and K10
+against their plain versions, each called twice and required bit-equal.
+It then checks every kernel against its plain PyTorch version on the card:
+K1, K2 and K4 at every shape a driven path gave them, K3 and K5 at the main
+path's, and times kernel, plain version and library call. A kernel's
+``ms`` is device time: a CUDA graph of ``GRAPH_CALLS`` captured calls is
+replayed, so host launch gaps do not count; ``wall_ms`` is the event time
+of calls launched one by one from Python. Prints the card, the predict3D
+rates, one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+line. Exits non-zero on any failure, or when no CUDA device is present.
+Per-shape details go to ``chiprun_out/chip_smoke.txt``; the training
+steps' device time by kernel to ``chip_smoke_train_profile.txt`` and
+``chip_smoke_train2d_profile.txt``.
 
 With ``--baseline-csrc DIR``, DIR holds an earlier version of the kernel
 sources with the C interfaces of ``BASELINE_SIGNATURES`` (K1 without the
@@ -331,9 +337,10 @@ def against_baseline(current, baseline, check) -> tuple[float, float]:
 # the kernels of the quarter_fused main path, and of the paths of the other
 # repro modes (K5 in place of K2)
 MAIN_PATH_KERNELS = ("instance_norm_act", "repro_quarter_gather", "soft_argmax",
-                     "resize_normalize")
+                     "resize_normalize", "argmax2d")
 OTHER_MODES = ("exact", "half_fused", "half")
-MODE_PATH_KERNELS = ("instance_norm_act", "repro_grid_gather", "soft_argmax", "resize_normalize")
+MODE_PATH_KERNELS = ("instance_norm_act", "repro_grid_gather", "soft_argmax", "resize_normalize",
+                     "argmax2d")
 
 
 def rows_touched(idx, hs2: int) -> int:
@@ -483,25 +490,35 @@ def rate(step, count: int, note, label: str, unit: str) -> float:
 
 
 class ShapeRecorder:
-    """What K1, K2, K4 and K6 are called with on each driven path: the
-    (shape, dtype, act) of every K1 and K6 call, the (rows shape, rows
-    dtype, g4, step) of every K2 call and the (input shape, input dtype,
-    height, width, output dtype) of every K4 call, each with its calls per
-    path; K2 and K4 keep their first call's arguments. It wraps the names by
-    which the models and the predictors call the wrappers, and the training
-    step's autograd Function's own (``InstanceNormAct.k1``, ``.k6``)."""
+    """What K1, K2, K4, K6, K8, K9 and K10 are called with on each driven
+    path: the (shape, dtype, act) of every K1 and K6 call, the (rows shape,
+    rows dtype, g4, step) of every K2 call, the (input shape, input dtype,
+    height, width, output dtype) of every K4 call, the heads' shapes,
+    strides, input size and sigma of every K8 forward, the images' shape,
+    record, border and blur of every K9 call and the heatmaps' shape, dtype
+    and strides of every K10 call, each with its calls per path; K2, K4, K8,
+    K9 and K10 keep their first call's arguments (K8's heads detached). It
+    wraps the names by which the models, the predictors and the trainers
+    call the wrappers, and the training steps' autograd Functions' own
+    (``InstanceNormAct.k1``, ``.k6``, ``Heatmap2DLoss.fwd``)."""
 
     def __init__(self):
         self.k1: dict = {}  # key -> {path: calls}
         self.k2: dict = {}  # key -> (arguments, {path: calls})
         self.k4: dict = {}  # key -> (arguments, {path: calls})
         self.k6: dict = {}  # key -> {path: calls}
+        self.k8: dict = {}  # key -> (arguments, {path: calls})
+        self.k9: dict = {}  # key -> (arguments, {path: calls})
+        self.k10: dict = {}  # key -> (arguments, {path: calls})
 
     @contextlib.contextmanager
     def on(self, path: str):
         from jarvis_hybridnet_torch.kernels import instance_norm
+        from jarvis_hybridnet_torch.kernels.heatmap2d_loss import Heatmap2DLoss
         from jarvis_hybridnet_torch.models import layers, repro
+        from jarvis_hybridnet_torch.ops import augment
         from jarvis_hybridnet_torch.prediction import predictor2d, predictor3d
+        from jarvis_hybridnet_torch.training import trainer2d
 
         k1, k4 = layers.instance_norm_act, predictor3d.resize_normalize
         k2 = repro.repro_quarter_gather
@@ -533,10 +550,33 @@ class ShapeRecorder:
             count(self.k6, (tuple(x.shape), x.dtype, act))
             return k6(x, dy, out, act, stats)
 
+        k8, k9, k10 = Heatmap2DLoss.fwd, augment.color_aug, predictor3d.argmax_2d
+
+        def rec_k8(out4, out2, kps, input_size, sigma_base):
+            count(self.k8, (tuple(out4.shape), out4.stride(), tuple(out2.shape), out2.stride(),
+                            input_size, sigma_base),
+                  (out4.detach(), out2.detach(), kps, input_size, sigma_base))
+            return k8(out4, out2, kps, input_size, sigma_base)
+
+        def rec_k9(imgs, params, mean, std, minv=None, radius=0, noise=True):
+            count(self.k9, (tuple(imgs.shape), params is not None, minv is not None, radius,
+                            noise), (imgs, params, mean, std, minv, radius, noise))
+            return k9(imgs, params, mean, std, minv, radius, noise)
+
+        def rec_k10(hm):
+            count(self.k10, (tuple(hm.shape), hm.dtype, hm.stride()), (hm,))
+            return k10(hm)
+
+        k10_sites = (predictor2d, predictor3d, trainer2d)
+
         layers.instance_norm_act = rec_k1
         repro.repro_quarter_gather = rec_k2
         fn.k1, fn.k6 = staticmethod(rec_k1), staticmethod(rec_k6)
         predictor2d.resize_normalize = predictor3d.resize_normalize = rec_k4
+        Heatmap2DLoss.fwd = staticmethod(rec_k8)
+        augment.color_aug = rec_k9
+        for m in k10_sites:
+            m.argmax_2d = rec_k10
         try:
             yield
         finally:
@@ -544,20 +584,27 @@ class ShapeRecorder:
             repro.repro_quarter_gather = k2
             fn.k1, fn.k6 = staticmethod(k1), staticmethod(k6)
             predictor2d.resize_normalize = predictor3d.resize_normalize = k4
+            Heatmap2DLoss.fwd = staticmethod(k8)
+            augment.color_aug = k9
+            for m in k10_sites:
+                m.argmax_2d = k10
 
     def calls(self, name: str, path: str) -> int:
         table = {"instance_norm_act": self.k1, "instance_norm_act_backward": self.k6,
                  "repro_quarter_gather": {k: per for k, (_, per) in self.k2.items()},
-                 "resize_normalize": {k: per for k, (_, per) in self.k4.items()}}[name]
+                 "resize_normalize": {k: per for k, (_, per) in self.k4.items()},
+                 "heatmap2d_loss_fwd": {k: per for k, (_, per) in self.k8.items()},
+                 "color_aug": {k: per for k, (_, per) in self.k9.items()},
+                 "argmax2d": {k: per for k, (_, per) in self.k10.items()}}[name]
         return sum(per.get(path, 0) for per in table.values())
 
 
 def path_launches(run, kernels, names, path, recorder):
     """Launch counts of one call of ``run`` (counts set to 0 just before,
     read just after); fails unless every kernel of ``names`` launched, and
-    unless ``recorder``, which records the arguments of K1, K2, K4 and K6
-    over the call under ``path``, saw as many calls of each as were
-    counted."""
+    unless ``recorder``, which records the arguments of K1, K2, K4, K6, K8,
+    K9 and K10 over the call under ``path``, saw as many calls of each as
+    were counted."""
     import torch
 
     torch.cuda.synchronize()
@@ -570,7 +617,7 @@ def path_launches(run, kernels, names, path, recorder):
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the {path} path")
     for name in ("instance_norm_act", "repro_quarter_gather", "resize_normalize",
-                 "instance_norm_act_backward"):
+                 "instance_norm_act_backward", "heatmap2d_loss_fwd", "color_aug", "argmax2d"):
         if recorder.calls(name, path) != counts[name]:
             fail(f"recorded {recorder.calls(name, path)} calls of {name} on the {path} path, "
                  f"counted {counts[name]} launches")
@@ -590,7 +637,8 @@ def predict2d_phase(kernels, cfg, ckpt, frames, recorder, note):
                             dtype="bfloat16", device="cuda")
     pred(imgs[0])
     out, counts = path_launches(lambda: pred(imgs[0]), kernels,
-                                ("instance_norm_act", "resize_normalize"), "predict2d", recorder)
+                                ("instance_norm_act", "resize_normalize", "argmax2d"), "predict2d",
+                                recorder)
     points, conf, valid = out
     if not (torch.isfinite(points).all() and torch.isfinite(conf).all()):
         fail("non-finite outputs on the predict2D path")
@@ -823,23 +871,31 @@ def driver_phase(kernels, cfg, predictor, frames, out_dir, recorder, note):
 TRAIN_EPOCHS = 2
 TRAIN_SPLITS = (("train", 4), ("val", 2))
 TRAINING_KERNELS = ("instance_norm_act", "repro_quarter_gather", "soft_argmax",
-                    "instance_norm_act_backward", "hybridnet_loss_fwd", "hybridnet_loss_bwd")
+                    "instance_norm_act_backward", "hybridnet_loss_fwd", "hybridnet_loss_bwd",
+                    "color_aug")
+TRAIN2D_KERNELS = ("instance_norm_act", "instance_norm_act_backward", "heatmap2d_loss_fwd",
+                   "heatmap2d_loss_bwd", "color_aug", "argmax2d")
+NETS_2D = ("CenterDetect", "KeypointDetect")
 
 
 def training_project(parent: str, dataset: str, epochs: int, bbox: int, cube: int,
                      spacing: int, joints: int, workers: int = 4) -> None:
-    """The synthetic project ``Train`` whose ``train_hybridnet`` run the
-    training phase drives: MonkeyHand's networks, 3D_only in float32,
-    quarter_fused, host color augmentation (``TPU.DEVICE_AUG`` false)."""
+    """The synthetic project ``Train`` whose ``train_hybridnet`` and
+    ``train_efficienttrack`` runs the training phases drive: MonkeyHand's
+    networks (256^2 CenterDetect input, ``bbox``^2 crops), batch 4 for the
+    2D nets and 1 for HybridNet (3D_only, quarter_fused), float32, the
+    default color augmentation on the device (``TPU.DEVICE_AUG``)."""
     from jarvis_hybridnet_torch.testing import write_project
 
     write_project(parent, "Train", {
-        "DATASET": {"DATASET_3D": dataset},
+        "DATASET": {"DATASET_2D": dataset, "DATASET_3D": dataset},
+        "CENTERDETECT": {"MODEL_SIZE": "small", "IMAGE_SIZE": 256, "BATCH_SIZE": 4,
+                         "NUM_EPOCHS": epochs},
         "KEYPOINTDETECT": {"MODEL_SIZE": "small", "NUM_JOINTS": joints,
-                           "BOUNDING_BOX_SIZE": bbox},
+                           "BOUNDING_BOX_SIZE": bbox, "BATCH_SIZE": 4, "NUM_EPOCHS": epochs},
         "HYBRIDNET": {"ROI_CUBE_SIZE": cube, "GRID_SPACING": spacing, "BATCH_SIZE": 1,
                       "NUM_EPOCHS": epochs},
-        "TPU": {"DEVICE_AUG": False, "REPRO_MODE": "quarter_fused", "TRAIN_DTYPE": "float32"},
+        "TPU": {"REPRO_MODE": "quarter_fused", "TRAIN_DTYPE": "float32"},
         "DATALOADER_NUM_WORKERS": workers,
     })
 
@@ -882,20 +938,23 @@ def k6_inputs(shape, dtype, act, seed=11):
     return x, skip, dy, out, stats
 
 
-def check_k6(kernels, keys, launches, baseline, base_log, note):
+def check_k6(kernels, keys, launches, baseline, base_log, note, step_paths=()):
     """K6 at every (shape, dtype, act) the training run gave it and at
     ``K6_EXTRA_KEYS``, from K1's output and statistics: K1's statistics
     within 1e-6 relative of the plain ones; for relu, the sign of the
     normalized value (K6's mask) equal to out > 0 bit for bit; dx within
     1e-5 of max|dx| of the plain version, dskip equal; two calls bit-equal.
     Each key timed (device, wall, plain, autograd's backward, bound); the
-    kernels line sums the training step's calls. With a baseline, its K6 at
-    the step's keys, held to the plain version and timed in turns."""
+    kernels line sums the 3D training step's calls, and under ``per_step``
+    each of ``step_paths``' (the 2D steps). With a baseline, its K6 at the
+    step's keys, held to the plain version and timed in turns."""
     import torch
 
     from jarvis_hybridnet_torch.kernels.instance_norm import backward_launch_plan, stats_plain
 
     k6 = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
+    per_step = {p: dict(calls=0, ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                        library_ms=0.0) for p in step_paths}
     if baseline is not None:
         k6["baseline_ms"] = 0.0
     todo = {k: per for k, per in keys.items()}
@@ -974,11 +1033,15 @@ def check_k6(kernels, keys, launches, baseline, base_log, note):
              + (f", baseline {times['baseline_ms']:.4f}" if "baseline_ms" in times else ""))
         for k, v in times.items():
             k6[k] += v * count
+        for p, acc in per_step.items():
+            acc["calls"] += per.get(p, 0)
+            for k in ("ms", "wall_ms", "plain_ms", "bound_ms", "library_ms"):
+                acc[k] += times[k] * per.get(p, 0)
         del x, skip, dy, out, stats, kd, ks, kd2, ks2, pd, ps
     return dict(name="instance_norm_act_backward", route="cuda", kernels_per_call=1,
                 source="jarvis_hybridnet_torch/kernels/csrc/instance_norm_act_backward.cu",
                 replaces="tools/fused_norm_bench.py:58", launches=launches, bound_by="bytes",
-                per="training step", **k6)
+                per="training step", per_step=per_step, **k6)
 
 
 def check_k7(kernels, out, kv, kw, counts, baseline, base_log, note):
@@ -1041,146 +1104,163 @@ def check_k7(kernels, out, kv, kw, counts, baseline, base_log, note):
     return entries
 
 
-def training_phase(kernels, ckpt, recorder, smi, baseline, base_log, note):
-    """``train_hybridnet`` in 3D_only on the card, from the committed
-    checkpoints, on a synthetic COCO-style dataset written to a temporary
-    directory (12 cameras of 1280x1024 JPEG frames on the synthetic rig, 23
-    seeded keypoints spanning under 144 mm, 4 train and 2 val framesets),
-    for TRAIN_EPOCHS epochs; the launches of the run; the 2D net bitwise
-    frozen, V2V (front conv included) updated, ``.ckpt`` and ``.pth``
-    written and reloaded; then the step's framesets/s, ms and busy share;
-    one step on the card against the same step on the CPU; K6 at every
-    (shape, dtype, act) the run gave it and K7 at its shape against their
-    plain versions. Returns (launch counts of the run, kernels line
-    entries)."""
+def step_rate(step, batch: int, out_path: str, title: str, note, label: str,
+              unit: str = "images/s") -> dict:
+    """A training step's rate with its batch on the card: 1 / the median of 8
+    timed steps after 2 warm-up, times ``batch`` (``unit``); the device's
+    busy share over two profiled steps (``torch.profiler``, device activity
+    only), whose device time by kernel is appended to ``out_path``."""
     import statistics
-    import tempfile
 
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from jarvis_hybridnet_torch.models.weights import params_from_jax
+    for _ in range(2):
+        step()
+    times = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    dev_us = sum(r[0] for r in rows)
+    with open(out_path, "a") as f:
+        f.write(f"{title}: two steps, wall {wall_us:.0f} us, device {dev_us:.0f} us\n")
+        for us, count, key in rows[:30]:
+            f.write(f"{us:12.0f} us {count:6d}x  {key[:110]}\n")
+    rate_ = batch * 1e3 / step_ms
+    note(f"{label}: {rate_:.2f} {unit}, {step_ms:.2f} ms a step (median of 8 after 2 "
+         f"warm-up: {', '.join(f'{t:.2f}' for t in times)}); device busy "
+         f"{dev_us / wall_us:.3f} of two profiled steps ({dev_us / 1e3:.2f} ms of device time "
+         f"in {wall_us / 1e3:.2f} ms)")
+    return dict(images_s=rate_, step_ms=step_ms, busy=dev_us / wall_us,
+                device_ms=dev_us / 2e3)
+
+
+def training_data(parent: str, note) -> None:
+    """The synthetic COCO-style dataset and project of the training phases
+    under ``parent`` (12 cameras of 1280x1024 JPEG frames on the synthetic
+    rig, 23 seeded keypoints spanning under 144 mm, each frame with its
+    bounding box and 2D keypoints; 4 train and 2 val framesets: 48 and 24
+    images for the 2D nets), and ``JARVIS_PARENT_DIR`` set to it."""
     from jarvis_hybridnet_torch.testing import synthetic_rig, write_dataset3d
+
+    t0 = time.perf_counter()
+    dataset = write_dataset3d(os.path.join(parent, "datasets", "Synth"),
+                              synthetic_rig(CAMS, W, H), W, H, 23, splits=TRAIN_SPLITS,
+                              extent_mm=100.0, seed=5)
+    training_project(parent, dataset, TRAIN_EPOCHS, 256, 144, 2, 23)
+    note(f"training: synthetic dataset of {sum(n for _, n in TRAIN_SPLITS)} framesets "
+         f"x {CAMS} cameras of {W}x{H} JPEG written in {time.perf_counter() - t0:.2f} s")
+    os.environ["JARVIS_PARENT_DIR"] = parent
+
+
+def training_phase(kernels, ckpt, recorder, smi, baseline, base_log, note):
+    """``train_hybridnet`` in 3D_only on the card, from the committed
+    checkpoints, on the dataset of :func:`training_data`, for TRAIN_EPOCHS
+    epochs, with the default device color augmentation (K9); the launches of
+    the run; the 2D net bitwise frozen, V2V (front conv included) updated,
+    ``.ckpt`` and ``.pth`` written and reloaded; then the step's
+    framesets/s, ms and busy share, its K6 calls recorded; K7 at its shape
+    against its plain version. Returns (launch counts of the run, kernels
+    line entries)."""
+    import torch
+
+    from jarvis_hybridnet_torch.dataset.loader import _collate
+    from jarvis_hybridnet_torch.models.weights import params_from_jax
     from jarvis_hybridnet_torch.training import checkpoints
     from jarvis_hybridnet_torch.training.train_interface import train_hybridnet
-    from jarvis_hybridnet_torch.training.trainer3d import BATCH_KEYS
+    from jarvis_hybridnet_torch.training.trainer3d import host_batch
     from jarvis_hybridnet_torch.utils.ckpt_io import read_ckpt
 
     t_phase = time.perf_counter()
+    parent = os.environ["JARVIS_PARENT_DIR"]
     start = {k: v.clone() for k, v in params_from_jax(read_ckpt(ckpt["HybridNet"]),
                                                       "small").items()}
-    with tempfile.TemporaryDirectory() as parent:
-        t0 = time.perf_counter()
-        dataset = write_dataset3d(os.path.join(parent, "datasets", "Synth"),
-                                  synthetic_rig(CAMS, W, H), W, H, 23, splits=TRAIN_SPLITS,
-                                  extent_mm=100.0, seed=5)
-        training_project(parent, dataset, TRAIN_EPOCHS, 256, 144, 2, 23)
-        note(f"training: synthetic dataset of {sum(n for _, n in TRAIN_SPLITS)} framesets "
-             f"x {CAMS} cameras of {W}x{H} JPEG written in {time.perf_counter() - t0:.2f} s")
-        os.environ["JARVIS_PARENT_DIR"] = parent
-        res = {}
-        t0 = time.perf_counter()
-        ok, counts = path_launches(
-            lambda: train_hybridnet("Train", TRAIN_EPOCHS, None, ckpt["HybridNet"],
-                                    mode="3D_only", run_name="Run", device="cuda",
-                                    results=res),
-            kernels, TRAINING_KERNELS, "training", recorder)
-        run_s = time.perf_counter() - t0
-        if not ok:
-            fail("train_hybridnet did not finish")
-        trainer, hist = res["trainer"], res["history"]
-        n_steps = TRAIN_EPOCHS * TRAIN_SPLITS[0][1]
-        note(f"training: train_hybridnet 3D_only, {TRAIN_EPOCHS} epochs of "
-             f"{TRAIN_SPLITS[0][1]} steps (batch 1) and {TRAIN_SPLITS[1][1]} val framesets, "
-             f"{run_s:.2f} s (data loading, JPEG decode and checkpoints included: "
-             f"{n_steps / run_s:.2f} framesets/s); history {json.dumps(hist)}; launches "
-             f"{json.dumps(counts)}")
-        losses = hist["train_loss"] + hist["val_loss"]
-        if not all(math.isfinite(v) for v in losses):
-            fail(f"non-finite training loss: {losses}")
-        state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
-        moved_2d = [k for k in state if k.startswith("effTrack.") and
-                    not torch.equal(state[k], start[k].to(state[k].dtype))]
-        v2v_w = [k for k in state if k.startswith("v2vNet.") and k.endswith(".weight")]
-        still = [k for k in v2v_w if torch.equal(state[k], start[k])]
-        front = "v2vNet.front_layers.0.block.0.weight"
-        note(f"training: 2D net {'bit-equal' if not moved_2d else 'CHANGED'} after training "
-             f"({sum(k.startswith('effTrack.') for k in state)} tensors); V2V weights changed: "
-             f"{len(v2v_w) - len(still)} of {len(v2v_w)} (front conv "
-             f"{'changed' if front not in still else 'UNCHANGED'}, max |delta| "
-             f"{float((state[front] - start[front]).abs().max()):.3e})")
-        if moved_2d or still:
-            fail(f"the 2D net moved ({moved_2d[:3]}) or V2V weights did not ({still[:3]})")
-        run_dir = os.path.join(parent, "projects", "Train", "models", "HybridNet", "Run")
-        final = os.path.join(run_dir, "HybridNet-small_final")
-        back = params_from_jax(read_ckpt(final + ".ckpt"), "small")
-        pth = checkpoints.load_torch_state_dict(final + ".pth")
-        same_ckpt = set(back) <= set(state) and all(torch.equal(back[k], state[k])
-                                                     for k in back)
-        same_pth = set(pth) == set(state) and all(torch.equal(pth[k], state[k]) for k in pth)
-        note(f"training: {os.path.basename(final)}.ckpt ({len(back)} tensors) and .pth "
-             f"({len(pth)}) reload in the port equal to the trained state: "
-             f"{same_ckpt and same_pth}")
-        if not (same_ckpt and same_pth):
-            fail("the written checkpoints do not reload to the trained state")
+    res = {}
+    t0 = time.perf_counter()
+    ok, counts = path_launches(
+        lambda: train_hybridnet("Train", TRAIN_EPOCHS, None, ckpt["HybridNet"],
+                                mode="3D_only", run_name="Run", device="cuda",
+                                results=res),
+        kernels, TRAINING_KERNELS, "training", recorder)
+    run_s = time.perf_counter() - t0
+    if not ok:
+        fail("train_hybridnet did not finish")
+    trainer, hist = res["trainer"], res["history"]
+    n_steps = TRAIN_EPOCHS * TRAIN_SPLITS[0][1]
+    note(f"training: train_hybridnet 3D_only, {TRAIN_EPOCHS} epochs of "
+         f"{TRAIN_SPLITS[0][1]} steps (batch 1) and {TRAIN_SPLITS[1][1]} val framesets, "
+         f"{run_s:.2f} s (data loading, JPEG decode and checkpoints included: "
+         f"{n_steps / run_s:.2f} framesets/s); history {json.dumps(hist)}; launches "
+         f"{json.dumps(counts)}")
+    losses = hist["train_loss"] + hist["val_loss"]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite training loss: {losses}")
+    state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    moved_2d = [k for k in state if k.startswith("effTrack.") and
+                not torch.equal(state[k], start[k].to(state[k].dtype))]
+    v2v_w = [k for k in state if k.startswith("v2vNet.") and k.endswith(".weight")]
+    still = [k for k in v2v_w if torch.equal(state[k], start[k])]
+    front = "v2vNet.front_layers.0.block.0.weight"
+    note(f"training: 2D net {'bit-equal' if not moved_2d else 'CHANGED'} after training "
+         f"({sum(k.startswith('effTrack.') for k in state)} tensors); V2V weights changed: "
+         f"{len(v2v_w) - len(still)} of {len(v2v_w)} (front conv "
+         f"{'changed' if front not in still else 'UNCHANGED'}, max |delta| "
+         f"{float((state[front] - start[front]).abs().max()):.3e})")
+    if moved_2d or still:
+        fail(f"the 2D net moved ({moved_2d[:3]}) or V2V weights did not ({still[:3]})")
+    run_dir = os.path.join(parent, "projects", "Train", "models", "HybridNet", "Run")
+    final = os.path.join(run_dir, "HybridNet-small_final")
+    back = params_from_jax(read_ckpt(final + ".ckpt"), "small")
+    pth = checkpoints.load_torch_state_dict(final + ".pth")
+    same_ckpt = set(back) <= set(state) and all(torch.equal(back[k], state[k])
+                                                 for k in back)
+    same_pth = set(pth) == set(state) and all(torch.equal(pth[k], state[k]) for k in pth)
+    note(f"training: {os.path.basename(final)}.ckpt ({len(back)} tensors) and .pth "
+         f"({len(pth)}) reload in the port equal to the trained state: "
+         f"{same_ckpt and same_pth}")
+    if not (same_ckpt and same_pth):
+        fail("the written checkpoints do not reload to the trained state")
 
-        note(f"training phase: {time.perf_counter() - t_phase:.1f} s so far")
-        # the step alone: one batch of the run's data, on the card
-        from jarvis_hybridnet_torch.dataset.dataset3d import Dataset3D
-        from jarvis_hybridnet_torch.utils.transfer import HostToDevice
+    note(f"training phase: {time.perf_counter() - t_phase:.1f} s so far")
+    # the step alone: one batch of the run's data, on the card
+    from jarvis_hybridnet_torch.dataset.dataset3d import Dataset3D
+    from jarvis_hybridnet_torch.utils.transfer import HostToDevice
 
-        ds = Dataset3D(trainer.cfg, set="train", device_targets=True)
-        batch = {k: np.stack([np.asarray(ds[i][k]) for i in range(1)]) for k in BATCH_KEYS}
-        b = HostToDevice("cuda")(batch)
-        opt, model = trainer.optimizer, trainer.model
-        model.train()
-        for _ in range(2):
-            trainer.train_step(b, opt, 1e-6)
-        times = []
-        for _ in range(8):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trainer.train_step(b, opt, 1e-6)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        step_ms = statistics.median(times)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(2):
-                trainer.train_step(b, opt, 1e-6)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-        note(f"training step (batch 1 frameset of {CAMS} crops of 256^2, G = 72, 3D_only, "
-             f"float32, AdamW; batch on the card): {1e3 / step_ms:.2f} framesets/s, "
-             f"{step_ms:.2f} ms a step (median of 8 after 2 warm-up: "
-             f"{', '.join(f'{t:.2f}' for t in times)}); device busy "
-             f"{dev_us / wall_us:.3f} of two profiled steps ({dev_us / 1e3:.2f} ms of device "
-             f"time in {wall_us / 1e3:.2f} ms); card: {smi}")
-        with open(os.path.join(REPO, "chiprun_out", "chip_smoke_train_profile.txt"), "w") as f:
-            rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                           if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
-            f.write(f"two training steps, wall {wall_us:.0f} us, device {dev_us:.0f} us\n")
-            for us, count, key in rows[:40]:
-                f.write(f"{us:12.0f} us {count:6d}x  {key[:110]}\n")
+    ds = Dataset3D(trainer.cfg, set="train", device_targets=True, device_aug=True)
+    b = HostToDevice("cuda")(host_batch(_collate([ds[0]])))
+    opt, model = trainer.optimizer, trainer.model
+    model.train()
+    prof_path = os.path.join(REPO, "chiprun_out", "chip_smoke_train_profile.txt")
+    open(prof_path, "w").close()
+    step_rate(lambda: trainer.train_step(b, opt, 1e-6), 1, prof_path, "HybridNet", note,
+              f"training step (batch 1 frameset of {CAMS} crops of 256^2, G = 72, 3D_only, "
+              f"float32, AdamW, device color augmentation; batch on the card; card: {smi})",
+              unit="framesets/s")
 
-        note(f"training phase: {time.perf_counter() - t_phase:.1f} s so far")
-        # K6 and K7 at the training step's calls of them, against their plain versions
-        path_launches(lambda: trainer.train_step(b, opt, 1e-6), kernels, TRAINING_KERNELS,
-                      "training_step", recorder)
-        entries = [check_k6(kernels, recorder.k6, counts["instance_norm_act_backward"], baseline,
-                            base_log, note)]
-        with torch.no_grad():
-            out, _ = model.train_outputs(trainer.prepare(b), b["center_hm"], b["center3d"],
-                                         b["camera_matrices"], b["intrinsics"],
-                                         b["distortions"])
-        kv, kw = b["kp_vox"].float().contiguous(), b["keypoints3D"].float().contiguous()
-        entries += check_k7(kernels, out, kv, kw, counts, baseline, base_log, note)
-    os.environ.pop("JARVIS_PARENT_DIR", None)
-    return counts, entries
+    note(f"training phase: {time.perf_counter() - t_phase:.1f} s so far")
+    # the step's calls of K6 (checked with the 2D steps' later) and K7
+    # against its plain version
+    path_launches(lambda: trainer.train_step(b, opt, 1e-6), kernels, TRAINING_KERNELS,
+                  "training_step", recorder)
+    with torch.no_grad():
+        out, _ = model.train_outputs(trainer.prepare(b), b["center_hm"], b["center3d"],
+                                     b["camera_matrices"], b["intrinsics"],
+                                     b["distortions"])
+    kv, kw = b["kp_vox"].float().contiguous(), b["keypoints3D"].float().contiguous()
+    return counts, check_k7(kernels, out, kv, kw, counts, baseline, base_log, note)
 
 
 GRAD_TOL = 1e-3  # card vs CPU training step, ReLU masks matched: per element of the tensor's max
@@ -1360,6 +1440,358 @@ def training_card_vs_cpu(ckpt, note) -> None:
         fail("the card-vs-CPU training gate does not tell a TF32 step from a float32 one")
 
 
+def train2d_phase(kernels, ckpt, recorder, smi, note):
+    """``train_efficienttrack`` on the card for CenterDetect, then
+    KeypointDetect, from the committed checkpoints, on the dataset of
+    :func:`training_data` (48 train and 24 val images of 1280x1024: 256^2
+    CenterDetect input, 256^2 crops, 23 joints), batch 4, float32, for
+    TRAIN_EPOCHS epochs at the default ``TPU`` section (device color
+    augmentation on): each run with the launch counts set to 0 before it and
+    read after it (K1, K6, K8, K9, K10 and their arguments recorded), the
+    loss finite, the weights changed, ``.ckpt`` and ``.pth`` reloaded equal
+    to the trained state. Then each net's step alone with a batch of 4 train
+    samples on the card: images/s, busy share, device time by kernel into
+    ``chiprun_out/chip_smoke_train2d_profile.txt``, and one counted step
+    (calls per step). Returns ({net: launch counts of its run}, {net: its
+    step's numbers and launch counts})."""
+    import torch
+
+    from jarvis_hybridnet_torch.dataset.dataset2d import Dataset2D
+    from jarvis_hybridnet_torch.dataset.loader import _collate
+    from jarvis_hybridnet_torch.models.weights import params_from_jax
+    from jarvis_hybridnet_torch.training import checkpoints
+    from jarvis_hybridnet_torch.training.train_interface import train_efficienttrack
+    from jarvis_hybridnet_torch.training.trainer2d import host_batch
+    from jarvis_hybridnet_torch.utils.ckpt_io import read_ckpt
+    from jarvis_hybridnet_torch.utils.transfer import HostToDevice
+
+    parent = os.environ["JARVIS_PARENT_DIR"]
+    prof_path = os.path.join(REPO, "chiprun_out", "chip_smoke_train2d_profile.txt")
+    open(prof_path, "w").close()
+    runs, steps = {}, {}
+    for net in NETS_2D:
+        start = params_from_jax(read_ckpt(ckpt[net]), "small")
+        res = {}
+        t0 = time.perf_counter()
+        ok, counts = path_launches(
+            lambda: train_efficienttrack(net, "Train", TRAIN_EPOCHS, ckpt[net], run_name="Run",
+                                         device="cuda", results=res),
+            kernels, TRAIN2D_KERNELS, f"train2d_{net}", recorder)
+        run_s = time.perf_counter() - t0
+        if not ok:
+            fail(f"train_efficienttrack {net} did not finish")
+        runs[net] = counts
+        trainer, hist = res["trainer"], res["history"]
+        n_train = len(Dataset2D(trainer.main_cfg, set="train", mode=net))
+        losses = hist["train_loss"] + hist["val_loss"]
+        note(f"training 2D {net}: train_efficienttrack, {TRAIN_EPOCHS} epochs of "
+             f"{n_train // 4} steps (batch 4 of {n_train} images) and a val pass each, "
+             f"{run_s:.2f} s (data loading, decode, checkpoints included); history "
+             f"{json.dumps(hist)}; launches {json.dumps(counts)}")
+        if not all(math.isfinite(v) for v in losses + hist["train_acc"]):
+            fail(f"non-finite 2D training loss or accuracy: {hist}")
+        state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+        live = [n for n, p in trainer.model.named_parameters() if p.grad is not None]
+        moved = [k for k in live if not torch.equal(state[k], start[k])]
+        head = ("deconv1.weight", "final_conv1.weight")
+        final = os.path.join(parent, "projects", "Train", "models", net, "Run",
+                             "EfficientTrack-small_final")
+        back = params_from_jax(read_ckpt(final + ".ckpt"), "small")
+        pth = checkpoints.load_torch_state_dict(final + ".pth")
+        same = (set(back) == set(state) == set(pth)
+                and all(torch.equal(back[k], state[k]) and torch.equal(pth[k], state[k])
+                        for k in state))
+        note(f"training 2D {net}: trained weights changed: {len(moved)} of {len(live)} "
+             f"(heads {'changed' if all(h in moved for h in head) else 'UNCHANGED'}); "
+             f"{os.path.basename(final)}.ckpt and .pth ({len(state)} tensors) reload equal "
+             f"to the trained state: {same}")
+        if len(moved) < 0.9 * len(live) or not all(h in moved for h in head) or not same:
+            fail(f"the {net} run did not train its weights or its checkpoints do not reload")
+
+        ds = Dataset2D(trainer.main_cfg, set="train", mode=net, device_targets=True,
+                       device_aug=True)
+        arrays, _ = host_batch(_collate([ds[i] for i in range(4)]))
+        b = HostToDevice("cuda")(arrays)
+        opt = trainer.optimizer
+        trainer.model.train()
+        steps[net] = step_rate(
+            lambda: trainer.train_step(b, opt, 1e-6), 4, prof_path, net, note,
+            f"training 2D step {net} (batch 4 of 256^2, "
+            f"{23 if net == 'KeypointDetect' else 1} joint(s), float32, AdamW, device color "
+            f"augmentation; batch on the card; card: {smi})")
+        _, steps[net]["counts"] = path_launches(
+            lambda: trainer.train_step(b, opt, 1e-6), kernels, TRAIN2D_KERNELS,
+            f"train2d_step_{net}", recorder)
+        note(f"training 2D step {net}: launches in one step "
+             f"{json.dumps(steps[net]['counts'])}")
+    return runs, steps
+
+
+def _grad_gap(a: dict, b: dict) -> dict:
+    """How far gradients ``a`` lie from ``b``: ``elem``, the largest
+    |difference| over its tensor's largest |element|, over the convolutions'
+    tensors (the conv biases ahead of an InstanceNorm and the tensors below
+    1e-6 of the largest weight gradient left out: zero but for round-off);
+    ``ahead``, the largest |difference| of those over the largest weight
+    gradient; ``fused``, the largest |difference| of the fusion weights'
+    gradients (the BiFPN's ``*_w*`` and ``weights_cat``: each a sum over a
+    whole feature map, where round-off cancels least) over the largest of
+    them; ``top``, the five largest per-tensor gaps."""
+    import re
+
+    wmax = max(float(v.abs().max()) for k, v in b.items() if k.endswith("weight"))
+    fusion = [k for k in b if re.search(r"_w\d$", k) or k == "weights_cat"]
+    fmax = max(float(b[k].abs().max()) for k in fusion)
+    elem, ahead, fused, gaps = 0.0, 0.0, 0.0, []
+    for k, ref in b.items():
+        diff = float((a[k] - ref).abs().max())
+        gaps.append((diff / max(float(ref.abs().max()), 1e-30), k))
+        if k in fusion:
+            fused = max(fused, diff / fmax)
+        elif (k.endswith("pointwise_conv.bias") or re.search(r"\.\d\.bias$", k)
+                or float(ref.abs().max()) < 1e-6 * wmax):
+            ahead = max(ahead, diff / wmax)
+        else:
+            elem = max(elem, gaps[-1][0])
+    top = ", ".join(f"{k} {g:.2e}" for g, k in sorted(gaps, reverse=True)[:5])
+    return dict(elem=elem, ahead=ahead, fused=fused, top=top, fusion=len(fusion))
+
+
+def train2d_card_vs_cpu(ckpt, note) -> None:
+    """One KeypointDetect train step on the card against the same step on the
+    CPU, float32, TF32 off, drop-connect off (``eval()``), batch 1 of 128^2
+    with its color record (blur, the noise at the config's upper bound,
+    contrast, gains, a rotated ``minv``: K9's plain version draws the same
+    noise), from the committed checkpoint: the loss within 1e-4 relative,
+    every convolution's gradient element within GRAD_TOL of its tensor's
+    largest, the fusion weights' within GRAD_TOL of the largest fusion-weight
+    gradient, the conv biases ahead of an InstanceNorm within 1e-4 of the
+    largest weight gradient (``_grad_gap``). The control is the card's step
+    with TF32 allowed: the gate must refuse it."""
+    import numpy as np
+    import torch
+
+    from jarvis_hybridnet_torch.config.project_manager import ProjectManager
+    from jarvis_hybridnet_torch.training.trainer2d import EfficientTrackTrainer, host_batch
+
+    pm = ProjectManager(os.environ["JARVIS_PARENT_DIR"])
+    pm.load("Train")
+    cfg = pm.get_cfg()
+    cfg.KEYPOINTDETECT.BOUNDING_BOX_SIZE = 128
+    rng = np.random.default_rng(9)
+    imgs = rng.integers(0, 256, (1, 128, 128, 3), dtype=np.uint8)
+    kps = np.zeros((1, 1, 69), np.float32)
+    kps[..., 0::3], kps[..., 1::3], kps[..., 2::3] = (rng.uniform(8, 120, (1, 1, 23)),
+                                                      rng.uniform(8, 120, (1, 1, 23)), 1.0)
+    a = 0.2
+    rec = {"blur_sigma": np.array([0.4], np.float32),
+           "noise_scale": np.array([cfg.AUGMENTATION.COLOR_MANIPULATION.GAUSSIAN_NOISE.SCALE[1]],
+                                   np.float32),
+           "noise_pc": np.ones(1, np.float32), "noise_seed": np.array([77], np.uint32),
+           "contrast": np.array([1.1], np.float32), "mul": np.array([0.9], np.float32),
+           "chan_mul": np.array([[1.05, 0.95, 1.0]], np.float32),
+           "minv": np.array([[[np.cos(a), -np.sin(a), 14.0], [np.sin(a), np.cos(a), -11.0]]],
+                            np.float32)}
+    arrays, _ = host_batch((imgs, kps, rec))
+
+    def step(device, tf32=False):
+        trainer = EfficientTrackTrainer("KeypointDetect", cfg, weights=ckpt["KeypointDetect"],
+                                        device=device, run_name=f"step2d_{device}")
+        model = trainer.model.eval()
+        flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            loss, _ = trainer.forward({k: torch.from_numpy(v).to(device)
+                                       for k, v in arrays.items()})
+            loss.backward()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        return float(loss.detach()), {n: p.grad.detach().cpu().clone()
+                                      for n, p in model.named_parameters()
+                                      if p.grad is not None}
+
+    (lc, gc), (lp, gp), (lt, gt) = step("cuda"), step("cpu"), step("cuda", tf32=True)
+    gap, control = _grad_gap(gc, gp), _grad_gap(gt, gp)
+    note(f"training 2D step, card vs CPU (KeypointDetect, batch 1 of 128^2, float32, TF32 "
+         f"off, eval, device color augmentation with noise): loss {lc:.6f} vs {lp:.6f}; the "
+         f"convolutions' gradients within {gap['elem']:.2e} of their tensor's max per element "
+         f"(tol {GRAD_TOL:g}); the {gap['fusion']} fusion weights' within {gap['fused']:.2e} of "
+         f"the largest fusion-weight gradient (tol {GRAD_TOL:g}); the biases ahead of an "
+         f"InstanceNorm within {gap['ahead']:.2e} of the largest weight gradient (tol 1e-4); "
+         f"largest per-tensor gaps (information): {gap['top']}")
+    note(f"training 2D step control, the card with TF32 allowed against the CPU: loss "
+         f"{lt:.6f}, the convolutions' gradients within {control['elem']:.2e} of their "
+         f"tensor's max (largest: {control['top']}): "
+         f"{'refused' if control['elem'] > GRAD_TOL else 'NOT refused'} by the gate")
+    if (abs(lc - lp) > 1e-4 * abs(lp) or gap["elem"] > GRAD_TOL or gap["fused"] > GRAD_TOL
+            or gap["ahead"] > 1e-4):
+        fail("the 2D training step on the card disagrees with the CPU step")
+    if control["elem"] <= GRAD_TOL:
+        fail("the card-vs-CPU 2D training gate does not tell a TF32 step from a float32 one")
+
+
+def check_k8(kernels, recorder, runs, note) -> list:
+    """K8 at every (heads, input size, sigma) a driven path gave it, against
+    its plain version: the loss within 1e-6 relative, both heads' gradients
+    within 1e-6 of their largest element, two calls of each bit-equal; each
+    key timed (forward and backward: device, wall, plain, bound). The
+    kernels line: each net's training key."""
+    import torch
+
+    entries = []
+    for key, (args, per) in recorder.k8.items():
+        out4, out2, kps, size, base = args
+        dl = torch.ones((), device=out4.device)
+        kl, km = kernels.heatmap2d_loss_fwd(*args)
+        kl2, km2 = kernels.heatmap2d_loss_fwd(*args)
+        pl, pm = kernels.heatmap2d_loss_fwd_plain(*args)
+        kg = kernels.heatmap2d_loss_bwd(*args, dl)
+        kg2 = kernels.heatmap2d_loss_bwd(*args, dl)
+        pg = kernels.heatmap2d_loss_bwd_plain(*args, dl)
+        lrel = abs(float(kl) - float(pl)) / max(abs(float(pl)), 1e-30)
+        grel = max(float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+                   for k, p in zip(kg, pg))
+        twice = (torch.equal(kl, kl2) and torch.equal(km, km2)
+                 and all(torch.equal(a, b) for a, b in zip(kg, kg2)))
+        fwd_bytes = (out4.numel() + out2.numel()) * 4
+        timing = {}
+        for name, call, plain, nbytes in (
+                ("fwd", lambda: kernels.heatmap2d_loss_fwd(*args),
+                 lambda: kernels.heatmap2d_loss_fwd_plain(*args), fwd_bytes),
+                ("bwd", lambda: kernels.heatmap2d_loss_bwd(*args, dl),
+                 lambda: kernels.heatmap2d_loss_bwd_plain(*args, dl), 2 * fwd_bytes)):
+            timing[name] = dict(ms=graph_ms(call), wall_ms=cuda_ms(call),
+                                plain_ms=cuda_ms(plain, iters=5),
+                                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        note(f"heatmap2d_loss out4 {key[0]} strides {key[1]}, out2 {key[2]}, input {size}, "
+             f"sigma base {base} (calls per path {json.dumps(per)}): loss {float(kl):.6f} vs "
+             f"plain {float(pl):.6f} ({lrel:.2e} relative, tol 1e-6), gradients {grel:.2e} of "
+             f"max (tol 1e-6), two calls {'bit-equal' if twice else 'DIFFER'}; forward device "
+             f"{timing['fwd']['ms']:.4f} ms, wall {timing['fwd']['wall_ms']:.4f}, plain "
+             f"{timing['fwd']['plain_ms']:.4f}, bound {timing['fwd']['bound_ms']:.4f}; backward "
+             f"device {timing['bwd']['ms']:.4f}, wall {timing['bwd']['wall_ms']:.4f}, plain "
+             f"{timing['bwd']['plain_ms']:.4f}, bound {timing['bwd']['bound_ms']:.4f}")
+        if lrel > 1e-6 or grel > 1e-6 or not twice:
+            fail("heatmap2d_loss differs from its plain version, or between two calls")
+        net = next((n for n in NETS_2D if f"train2d_{n}" in per), None)
+        if net is None:
+            continue
+        for name, err in (("fwd", abs(float(kl) - float(pl))),
+                          ("bwd", max(float((k - p).abs().max()) for k, p in zip(kg, pg)))):
+            wrapper = f"heatmap2d_loss_{name}"
+            entries.append(dict(
+                name=wrapper if net == "KeypointDetect" else f"{wrapper}[{net}]", route="cuda",
+                kernels_per_call=1, source="jarvis_hybridnet_torch/kernels/csrc/heatmap2d_loss.cu",
+                replaces="jarvis_hybridnet_tpu/training/trainer2d.py:31",
+                launches=runs[net][wrapper], max_abs_err=err, bound_by="bytes",
+                library_ms=None, per="train2d step", **timing[name]))
+    return entries
+
+
+def check_k9(kernels, recorder, cfg, runs, train_counts, note) -> list:
+    """K9 at every (images, record, border, blur) a driven path gave it,
+    against its plain version, with the record's ``noise_scale`` at the
+    config's upper bound on every image: the [0, 1] image (mean 0, std 1)
+    within 2e-6, the normalized one within 2e-6 / min(std), two calls
+    bit-equal; each key timed (device, wall, plain, bound: the uint8 read
+    and the float32 written). The kernels line: the 2D KeypointDetect train
+    key and the 3D train key."""
+    import torch
+
+    upper = float(cfg.AUGMENTATION.COLOR_MANIPULATION.GAUSSIAN_NOISE.SCALE[1])
+    entries = []
+    for key, (args, per) in recorder.k9.items():
+        imgs, params, mean, std, minv, radius, noise = args
+        if params is not None:
+            params = dict(params, noise_scale=torch.full_like(params["noise_scale"], upper))
+        unit = (imgs, params, (0.0,) * 3, (1.0,) * 3, minv, radius, noise)
+        full = (imgs, params, mean, std, minv, radius, noise)
+        errs = []
+        for a, tol in ((unit, 2e-6), (full, 2e-6 / min(std))):
+            k, k2, p = kernels.color_aug(*a), kernels.color_aug(*a), kernels.color_aug_plain(*a)
+            errs.append(float((k - p).abs().max()))
+            if errs[-1] > tol or not torch.equal(k, k2):
+                fail(f"color_aug {key} differs from its plain version by {errs[-1]} (tol "
+                     f"{tol:.2e}) or between two calls")
+        nbytes = imgs.numel() * (1 + 4)
+        t = dict(ms=graph_ms(lambda: kernels.color_aug(*full)),
+                 wall_ms=cuda_ms(lambda: kernels.color_aug(*full)),
+                 plain_ms=cuda_ms(lambda: kernels.color_aug_plain(*full), iters=5),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        note(f"color_aug {key[0]} record {key[1]} border {key[2]} radius {key[3]} (calls per "
+             f"path {json.dumps(per)}): [0, 1] image {errs[0]:.2e} from the plain version (tol "
+             f"2e-6), normalized {errs[1]:.2e} (tol {2e-6 / min(std):.2e}), noise at "
+             f"{upper:g} on every image, two calls bit-equal; device {t['ms']:.4f} ms, wall "
+             f"{t['wall_ms']:.4f}, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f}")
+        if not key[1]:
+            continue
+        if "train2d_KeypointDetect" in per:
+            name, launches = "color_aug", runs["KeypointDetect"]["color_aug"]
+        elif "training" in per:
+            name, launches = "color_aug[3d]", train_counts["color_aug"]
+        else:
+            continue
+        entries.append(dict(
+            name=name, route="cuda", kernels_per_call=1,
+            source="jarvis_hybridnet_torch/kernels/csrc/color_aug.cu",
+            replaces="jarvis_hybridnet_tpu/ops/augment.py:161", launches=launches,
+            max_abs_err=errs[1], bound_by="bytes", library_ms=None, input_shape=list(key[0]),
+            **t))
+    return entries
+
+
+def check_k10(kernels, recorder, path_counts, note) -> list:
+    """K10 at every (heatmaps shape, dtype, strides) a driven path gave it,
+    against its plain version: integers and maxima identical, two calls
+    bit-equal; each key timed (device, wall, plain, bound: the heatmaps read
+    once and 12 bytes written a channel) beside ``torch.max`` over the
+    flattened view (``library_ms``, the copy the layout needs included;
+    ``library_max_ms`` without it). The kernels line: the predict3D main
+    path's key, predict2D's keypoint key and the 2D KeypointDetect train
+    step's key."""
+    import torch
+
+    from jarvis_hybridnet_torch.kernels.argmax2d import argmax_2d_plain
+
+    entries, done = [], set()
+    for key, (args, per) in recorder.k10.items():
+        (hm,) = args
+        n, h, w, c = hm.shape
+        kx, km = kernels.argmax2d(hm)
+        kx2, km2 = kernels.argmax2d(hm)
+        px, pm = argmax_2d_plain(hm)
+        same = torch.equal(kx, px) and torch.equal(km, pm)
+        twice = torch.equal(kx, kx2) and torch.equal(km, km2)
+        flat = hm.permute(0, 3, 1, 2).reshape(n, c, h * w).contiguous()
+        t = dict(ms=graph_ms(lambda: kernels.argmax2d(hm)),
+                 wall_ms=cuda_ms(lambda: kernels.argmax2d(hm)),
+                 plain_ms=cuda_ms(lambda: argmax_2d_plain(hm), iters=5),
+                 library_ms=graph_ms(lambda: torch.max(hm.permute(0, 3, 1, 2).reshape(
+                     n, c, h * w), dim=-1)),
+                 library_max_ms=graph_ms(lambda: torch.max(flat, dim=-1)),
+                 bound_ms=(hm.numel() * hm.element_size() + n * c * 12) / HBM_BYTES_PER_S * 1e3)
+        note(f"argmax2d {key[0]} {key[1]} strides {key[2]} (calls per path {json.dumps(per)}): "
+             f"integers and maxima {'identical' if same else 'DIFFER'}, two calls "
+             f"{'bit-equal' if twice else 'DIFFER'}; device {t['ms']:.4f} ms, wall "
+             f"{t['wall_ms']:.4f}, plain {t['plain_ms']:.4f}, torch.max {t['library_ms']:.4f} "
+             f"(without the layout's copy {t['library_max_ms']:.4f}), bound "
+             f"{t['bound_ms']:.4f}")
+        if not (same and twice):
+            fail(f"argmax2d {key} differs from its plain version or between two calls")
+        for path, name in (("quarter_fused", "argmax2d"), ("predict2d", "argmax2d[predict2d]"),
+                           ("train2d_step_KeypointDetect", "argmax2d[train2d]")):
+            if path in per and name not in done and (path != "predict2d" or c > 1):
+                done.add(name)
+                entries.append(dict(
+                    name=name, route="cuda", kernels_per_call=1,
+                    source="jarvis_hybridnet_torch/kernels/csrc/argmax2d.cu",
+                    replaces="jarvis_hybridnet_tpu/ops/heatmap.py:15",
+                    launches=path_counts[path]["argmax2d"], max_abs_err=0.0, bound_by="bytes",
+                    input_shape=list(key[0]), input_dtype=str(key[1]).replace("torch.", ""),
+                    **t))
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-csrc", metavar="DIR",
@@ -1408,7 +1840,8 @@ def main() -> int:
     build.build_all()
     note(f"build: {time.perf_counter() - t0:.1f} s for {len(build.SOURCES)} kernels")
     for name, label in (("repro_grid_gather", "K5"), ("instance_norm_act_backward", "K6"),
-                        ("hybridnet_loss", "K7")):
+                        ("hybridnet_loss", "K7"), ("heatmap2d_loss", "K8"),
+                        ("color_aug", "K9")):
         log.write(f"ptxas for {name}.cu ({label}):\n")
         for line in ptxas_lines(name):
             log.write(f"  {line}\n")
@@ -1520,13 +1953,44 @@ def main() -> int:
     path_counts["driver"] = driver_phase(kernels, cfg, predictor, frames, out_dir, recorder,
                                          note)
 
-    # 12. training: train_hybridnet in 3D_only from the committed checkpoints,
-    # K6 and K7 against their plain versions, one step card vs CPU
-    phase("training")
-    path_counts["training"], train_entries = training_phase(kernels, ckpt, recorder, smi,
-                                                            baseline, base_log, note)
+    # 12. training on one synthetic dataset: train_hybridnet in 3D_only, then
+    # train_efficienttrack for both 2D nets, from the committed checkpoints,
+    # each net's step card vs CPU; K6 (every key of the 3D and 2D steps) and
+    # K7-K10 against their plain versions
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as parent:
+        phase("training")
+        training_data(parent, note)
+        path_counts["training"], train_entries = training_phase(kernels, ckpt, recorder, smi,
+                                                                baseline, base_log, note)
+        phase("training 2D")
+        runs2d, steps2d = train2d_phase(kernels, ckpt, recorder, smi, note)
+        for net in NETS_2D:
+            path_counts[f"train2d_{net}"] = runs2d[net]
+            path_counts[f"train2d_step_{net}"] = steps2d[net]["counts"]
+        phase("training 2D step card vs CPU")
+        train2d_card_vs_cpu(ckpt, note)
+        os.environ.pop("JARVIS_PARENT_DIR", None)
     phase("training step card vs CPU")
     training_card_vs_cpu(ckpt, note)
+    phase("K6 checks")
+    train_entries.insert(0, check_k6(kernels, recorder.k6,
+                                     path_counts["training"]["instance_norm_act_backward"],
+                                     baseline, base_log, note,
+                                     step_paths=[f"train2d_step_{n}" for n in NETS_2D]))
+    phase("K8, K9, K10 checks")
+    train_entries += check_k8(kernels, recorder, runs2d, note)
+    train_entries += check_k9(kernels, recorder, cfg, runs2d, path_counts["training"], note)
+    train_entries += check_k10(kernels, recorder, path_counts, note)
+    recorder.k8.clear()  # the heads and images they hold
+    recorder.k9.clear()
+    recorder.k10.clear()
+    for net in NETS_2D:
+        st = steps2d[net]
+        note(f"training 2D {net} step: {st['images_s']:.2f} images/s, {st['step_ms']:.2f} ms, "
+             f"device busy {st['busy']:.3f}, {st['device_ms']:.2f} ms of device time a step; "
+             f"card: {smi}")
 
     # 13. each kernel against its plain version at the main path's shapes.
     # ``launches`` counts wrapper calls; ``kernels_per_call`` is how many

@@ -10,9 +10,11 @@ center (±40% margin jitter on train), and renders 3D Gaussian GT volumes at
 
 Samples are dicts of numpy arrays ready for the batched HybridNet forward.
 The port's trainer asks for raw uint8 crops and voxel keypoints
-(``device_targets``) with the color augmentation on the host: on-device
-color augmentation (``device_aug`` on a train split with color
-manipulation enabled) is not ported yet and raises (ROADMAP.md B10).
+(``device_targets``). With ``device_aug`` on a train split whose color
+manipulation is enabled, the crops ship untouched and the sample carries
+``aug``, the per-camera color parameters of
+``ops/augment.sample_color_params`` drawn from ``augpipe.rng``; the train
+step applies them on the device (K9).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ class Dataset3D(BaseDataset):
         # the host color pipeline — the largest GIL-held sample-build
         # cost (34.2 ms = 33%, BASELINE.md host split) — and instead
         # carry a per-camera parameter record (ops/augment.
-        # sample_color_params); the pixel work runs in the jitted step.
+        # sample_color_params); the pixel work runs in the train step (K9).
         self.device_aug = device_aug
         super().__init__(cfg, cfg.DATASET.DATASET_3D, set, **kwargs)
 
@@ -186,10 +188,6 @@ class Dataset3D(BaseDataset):
         use_dev_aug = (self.device_targets and self.device_aug
                        and self.set_name == "train" and not self.analysisMode
                        and bool(cfg.AUGMENTATION.COLOR_MANIPULATION.ENABLED))
-        if use_dev_aug:
-            raise NotImplementedError(
-                "on-device color augmentation (TPU.DEVICE_AUG) is not ported yet "
-                "(ROADMAP.md B10); set TPU.DEVICE_AUG: false for host augmentation")
         raw_u8 = (self.device_targets and not self.analysisMode
                   and (use_dev_aug or self.set_name != "train"))
         if self.analysisMode:
@@ -278,6 +276,11 @@ class Dataset3D(BaseDataset):
             sample["imgs"] = imgs if raw_u8 else np.clip(
                 imgs * 255.0 + 0.5, 0, 255).astype(np.uint8)
             sample["kp_vox"] = kp_vox.astype(np.float32)
+            if use_dev_aug:
+                from ..ops.augment import sample_color_params
+
+                sample["aug"] = sample_color_params(
+                    cfg.AUGMENTATION.COLOR_MANIPULATION, self.augpipe.rng, C)
         else:
             g2 = int(cube / spacing / 2.0)
             sample["heatmap3d"] = gaussian_heatmaps_3d(kp_vox, kp3d, g2)

@@ -23,12 +23,30 @@ Each wrapper counts the calls that launch its CUDA source in
   spans of rows in shared memory across one grid-wide barrier;
 - hybridnet_loss_fwd / hybridnet_loss_bwd (K7), the 3D training loss with
   its Gaussian target built on the fly: the forward's last block to finish
-  sums every block's partials.
+  sums every block's partials;
+- heatmap2d_loss_fwd / heatmap2d_loss_bwd (K8), the 2D training loss with
+  its two Gaussian targets built on the fly, in the same pattern;
+- color_aug (K9) turns raw uint8 images into the normalized network input,
+  with the training-time color augmentation (a blur from a shared-memory
+  tile, Philox noise, contrast and gains, the warp-border re-zero) between;
+- argmax2d (K10) reduces each heatmap channel to its maximum and first
+  index.
 
-``InstanceNormAct`` (K1 forward, K6 backward) and ``hybridnet_loss`` (K7)
-are the autograd Functions the training step goes through.
+``InstanceNormAct`` (K1 forward, K6 backward), ``hybridnet_loss`` (K7) and
+``Heatmap2DLoss`` (K8, through ``heatmap2d_loss``) are the autograd
+Functions the training steps go through.
 """
 
+from .argmax2d import argmax2d, argmax_2d_plain
+from .color_aug import color_aug, color_aug_plain
+from .heatmap2d_loss import (
+    Heatmap2DLoss,
+    heatmap2d_loss,
+    heatmap2d_loss_bwd,
+    heatmap2d_loss_bwd_plain,
+    heatmap2d_loss_fwd,
+    heatmap2d_loss_fwd_plain,
+)
 from .hybridnet_loss import (
     hybridnet_loss,
     hybridnet_loss_bwd,
@@ -50,7 +68,7 @@ from .soft_argmax import soft_argmax, soft_argmax_plain
 
 WRAPPERS = (instance_norm_act, repro_quarter_gather, repro_grid_gather, soft_argmax,
             resize_normalize, instance_norm_act_backward, hybridnet_loss_fwd,
-            hybridnet_loss_bwd)
+            hybridnet_loss_bwd, heatmap2d_loss_fwd, heatmap2d_loss_bwd, color_aug, argmax2d)
 
 
 def reset_launch_counts() -> None:
@@ -63,7 +81,10 @@ def launch_counts() -> dict[str, int]:
 
 
 __all__ = [
-    "InstanceNormAct", "WRAPPERS", "hybridnet_loss", "hybridnet_loss_bwd",
+    "Heatmap2DLoss", "InstanceNormAct", "WRAPPERS", "argmax2d", "argmax_2d_plain", "color_aug",
+    "color_aug_plain",
+    "heatmap2d_loss", "heatmap2d_loss_bwd", "heatmap2d_loss_bwd_plain", "heatmap2d_loss_fwd",
+    "heatmap2d_loss_fwd_plain", "hybridnet_loss", "hybridnet_loss_bwd",
     "hybridnet_loss_bwd_plain", "hybridnet_loss_fwd", "hybridnet_loss_fwd_plain",
     "instance_norm_act", "instance_norm_act_backward", "instance_norm_act_backward_plain",
     "instance_norm_act_plain",

@@ -23,20 +23,24 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("instance_norm_act", "repro_quarter_gather", "repro_grid_gather",
-           "soft_argmax", "resize_normalize", "instance_norm_act_backward", "hybridnet_loss")
+           "soft_argmax", "resize_normalize", "instance_norm_act_backward", "hybridnet_loss",
+           "heatmap2d_loss", "color_aug", "argmax2d")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 # The repro index arithmetic must round after every operation, as the JAX
 # reference does; the sources use __f*_rn intrinsics and this flag keeps
 # nvcc from contracting anything else into an FMA. soft_argmax flushes
-# denormals, which drops the scaling around its exp2 / log2 operations.
-# ptxas reports K5's, K6's and K7's registers and spills into their build logs.
+# denormals, which drops the scaling around its exp2 / log2 operations. K8
+# and K9 round every product before its sum, as their plain versions do.
+# ptxas reports K5's-K9's registers and spills into their build logs.
 _EXTRA_FLAGS = {"repro_quarter_gather": ["--fmad=false"],
                 "repro_grid_gather": ["--fmad=false", "-Xptxas=-v"],
                 "soft_argmax": ["-ftz=true"],
                 "instance_norm_act_backward": ["-Xptxas=-v"],
-                "hybridnet_loss": ["-Xptxas=-v"]}
+                "hybridnet_loss": ["-Xptxas=-v"],
+                "heatmap2d_loss": ["--fmad=false", "-Xptxas=-v"],
+                "color_aug": ["--fmad=false", "-Xptxas=-v"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

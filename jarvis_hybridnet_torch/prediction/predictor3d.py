@@ -66,8 +66,8 @@ class Predict3D:
         cs = self.center_size
         inp = resize_normalize(imgs.reshape(T * C, H, W, 3), cs, cs, self.mean,
                                self.std, self.dtype)
-        hm = self.center_model.heatmap2(inp.permute(0, 3, 1, 2)).float()
-        xy, maxval = argmax_2d(hm.permute(0, 2, 3, 1))  # (T*C, 1, 2), (T*C, 1)
+        hm = self.center_model.heatmap2(inp.permute(0, 3, 1, 2))
+        xy, maxval = argmax_2d(hm.permute(0, 2, 3, 1))  # (T*C, 1, 2), (T*C, 1) float32
         return xy[:, 0].reshape(T, C, 2).float(), maxval[:, 0].reshape(T, C)
 
     @torch.no_grad()

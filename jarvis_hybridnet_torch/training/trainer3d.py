@@ -9,8 +9,11 @@ epochs and ``.ckpt`` + ``.pth`` at the end, ``resume_from`` a train state and
 a resumable save on preemption.
 
 A step on the card: the batch goes to the device through the pinned staging
-pair (``utils/transfer.HostToDevice``); the raw uint8 crops are divided by
-255 and normalized there; the frozen 2D net and the reprojection gather run
+pair (``utils/transfer.HostToDevice``); K9 turns the raw uint8 crops into
+the normalized input there, with the per-camera color augmentation of the
+batch's ``aug`` record on the train split when ``TPU.DEVICE_AUG`` is on (as
+the JAX trainer's ``prepare``, trainer3d.py:113-124; no border re-zero in
+3D); the frozen 2D net and the reprojection gather run
 without a graph; V2V runs with one, its InstanceNorms through K1 forward and
 K6 backward (``kernels.InstanceNormAct``); K7 (``kernels.hybridnet_loss``)
 builds the Gaussian target from ``kp_vox`` / ``keypoints3D`` and gives the
@@ -21,9 +24,8 @@ the JAX trainer does. Dropout and drop-connect draw from one
 every epoch, so a resumed run draws the masks the uninterrupted run drew.
 
 Not ported yet, and raising: the freeze modes other than ``3D_only``
-(ROADMAP.md B9), on-device color augmentation ``TPU.DEVICE_AUG`` with color
-manipulation enabled (B10), ``TPU.TRAIN_DTYPE`` bfloat16, and the Streamlit
-monitor (A.13). The loader always uses thread workers.
+(ROADMAP.md B9), ``TPU.TRAIN_DTYPE`` bfloat16, and the Streamlit monitor
+(A.13). The loader always uses thread workers.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 from ..models.hybridnet import HybridNetBackbone
 from ..models.layers import cast_convs, set_generator
 from ..kernels import hybridnet_loss
+from ..ops.augment import make_color_aug, record_arrays, record_of
 from ..utils import clp
 from ..utils.logger import AverageMeter, NetLogger
 from ..utils.transfer import HostToDevice
@@ -44,6 +47,16 @@ from . import checkpoints, optim
 
 BATCH_KEYS = ("imgs", "center_hm", "center3d", "kp_vox", "keypoints3D",
               "camera_matrices", "intrinsics", "distortions")
+
+
+def host_batch(b: dict) -> dict:
+    """The flat dict of host arrays a step uploads from a collated 3D batch:
+    ``BATCH_KEYS`` and, when the batch carries the color record ``aug``, its
+    leaves as ``aug.<key>`` (float32; the seeds int32)."""
+    out = {k: b[k] for k in BATCH_KEYS}
+    if "aug" in b:
+        out.update(record_arrays(b["aug"]))
+    return out
 
 
 def calculate_accuracy_mm(points3d: np.ndarray, gt: np.ndarray) -> float:
@@ -104,8 +117,7 @@ class HybridNetTrainer:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         set_generator(self.model, self.generator)
-        self.mean = torch.tensor(cfg.DATASET.MEAN, dtype=torch.float32, device=self.device)
-        self.std = torch.tensor(cfg.DATASET.STD, dtype=torch.float32, device=self.device)
+        self.color_aug = make_color_aug(cfg.AUGMENTATION, cfg.DATASET.MEAN, cfg.DATASET.STD)
 
     def set_training_mode(self, mode: str) -> None:
         """'all' | 'bifpn' | 'last_layers' | '3D_only' (reference:
@@ -117,8 +129,9 @@ class HybridNetTrainer:
                 and bool(self.cfg.AUGMENTATION.COLOR_MANIPULATION.ENABLED))
 
     def prepare(self, b: dict) -> torch.Tensor:
-        """Raw uint8 crops (B, C, S, S, 3) -> normalized float32, on the card."""
-        return (b["imgs"].float() / 255.0 - self.mean) / self.std
+        """Raw uint8 crops (B, C, S, S, 3) -> normalized float32 through K9,
+        color-augmented first where the batch carries the record."""
+        return self.color_aug(b["imgs"], record_of(b))
 
     def forward(self, b: dict):
         """(loss, points3D) of one batch already on the device."""
@@ -157,13 +170,9 @@ class HybridNetTrainer:
             raise NotImplementedError("the Streamlit monitor is not ported yet (ROADMAP.md A.13)")
         device_aug = (self._device_aug() and training_set.set_name == "train"
                       and not training_set.analysisMode)
-        if device_aug:
-            raise NotImplementedError(
-                "on-device color augmentation (TPU.DEVICE_AUG) is not ported yet "
-                "(ROADMAP.md B10); set TPU.DEVICE_AUG: false for host augmentation")
         training_set.device_targets = True
         validation_set.device_targets = True
-        training_set.device_aug = False
+        training_set.device_aug = device_aug
         maybe_preload(self.cfg, training_set, validation_set)
 
         workers = int(self.cfg.get("DATALOADER_NUM_WORKERS", 4))
@@ -211,7 +220,7 @@ class HybridNetTrainer:
         guard = PreemptionGuard()
 
         def to_device(b):
-            return upload({k: b[k] for k in BATCH_KEYS})
+            return upload(host_batch(b))
 
         # One-step-delayed metric readback (as the JAX trainer): step k + 1
         # is dispatched before step k's loss and points are read.

@@ -8,7 +8,10 @@ train and 2 val framesets) and a project on it (128^2 crops, a 48 mm cube at
 
 - ``Dataset3D`` sample by sample: the val split exactly, with and without
   ``device_targets``; the train split (crop and cube jitter, host color
-  augmentation) exactly with both packages' generators seeded alike;
+  augmentation, or the device-augmentation record) exactly with both
+  packages' generators seeded alike;
+- ``train_hybridnet`` at the default ``TPU`` section (device augmentation
+  on) on the CPU, its ``prepare`` against the JAX package's at no noise;
 - the port's ``.ckpt`` read by the JAX package's ``load_checkpoint(target=)``
   equals the params; its ``.pth`` equals the JAX package's
   ``save_torch_checkpoint`` key by key; a train state round-trips;
@@ -35,6 +38,7 @@ from jarvis_hybridnet_tpu.config.project_manager import ProjectManager as JaxPro
 from jarvis_hybridnet_tpu.dataset.dataset3d import Dataset3D as JaxDataset3D
 from jarvis_hybridnet_tpu.training import checkpoints as jax_checkpoints
 from jarvis_hybridnet_tpu.utils.rng import ThreadLocalGenerator as JaxThreadLocalGenerator
+from tests.test_torch_models import few_torch_threads  # noqa: F401
 
 pytest.importorskip("cv2")
 
@@ -101,10 +105,55 @@ def test_dataset3d_train_split_matches_jax_with_generators_seeded_alike(parent):
 
 
 def test_device_aug_raises(parent):
-    cfg, _ = _cfgs(parent)
-    ds = Dataset3D(cfg, set="train", device_targets=True, device_aug=True)
-    with pytest.raises(NotImplementedError, match="B10"):
-        ds[0]
+    """On-device color augmentation no longer raises: a train sample with
+    ``device_aug`` carries the raw uint8 crops and the per-camera color
+    record ``aug``, equal to the JAX package's with both datasets'
+    generators seeded alike."""
+    cfg, jcfg = _cfgs(parent)
+    port = Dataset3D(cfg, set="train", device_targets=True, device_aug=True)
+    ref = JaxDataset3D(jcfg, set="train", device_targets=True, device_aug=True)
+    port.rng, ref.rng = ThreadLocalGenerator(13), JaxThreadLocalGenerator(13)
+    port.augpipe.rng, ref.augpipe.rng = ThreadLocalGenerator(14), JaxThreadLocalGenerator(14)
+    for i in range(len(port)):
+        a, b = port[i], ref[i]
+        aug_a, aug_b = a.pop("aug"), b.pop("aug")
+        _same_sample(a, b)
+        _same_sample(aug_a, aug_b)
+        assert a["imgs"].dtype == np.uint8 and aug_a["chan_mul"].shape == (4, 3)
+
+
+@pytest.mark.usefixtures("few_torch_threads")
+def test_train_hybridnet_at_the_default_config(parent, tmp_path, monkeypatch):
+    """``TPU.DEVICE_AUG`` at its default (on, with color manipulation on):
+    ``train_hybridnet`` runs one epoch on the CPU, and the trainer's
+    ``prepare`` of a train batch (K9's plain version) equals the JAX
+    package's ``/255``, ``make_color_aug`` and normalize within 2e-6 / min
+    std at ``noise_scale`` 0."""
+    import jax.numpy as jnp
+
+    from jarvis_hybridnet_torch.dataset.loader import DataLoader
+    from jarvis_hybridnet_torch.training.train_interface import train_hybridnet
+    from jarvis_hybridnet_torch.training.trainer3d import host_batch
+    from jarvis_hybridnet_tpu.ops.augment import make_color_aug
+
+    write_project(str(tmp_path), "P", {**CONFIG, "TPU": {}, "DATALOADER_NUM_WORKERS": 2,
+                                       "DATASET": {"DATASET_3D": str(pathlib.Path(parent)
+                                                                     / "datasets" / "Synth")}})
+    monkeypatch.setenv("JARVIS_PARENT_DIR", str(tmp_path))
+    res = {}
+    assert train_hybridnet("P", 1, None, str(TRAINED / "HybridNet_final.ckpt"), device="cpu",
+                           run_name="Default", results=res)
+    trainer = res["trainer"]
+    assert trainer.cfg.TPU.DEVICE_AUG and np.isfinite(res["history"]["train_loss"]).all()
+    ds = Dataset3D(trainer.cfg, set="train", device_targets=True, device_aug=True)
+    b = next(iter(DataLoader(ds, batch_size=1, num_workers=0)))
+    b["aug"]["noise_scale"][:] = 0.0
+    got = trainer.prepare({k: torch.from_numpy(v) for k, v in host_batch(b).items()}).numpy()
+    x = make_color_aug(trainer.cfg.AUGMENTATION)(jnp.asarray(b["imgs"], jnp.float32) / 255.0,
+                                                 {k: jnp.asarray(v) for k, v in b["aug"].items()})
+    std = np.asarray(trainer.cfg.DATASET.STD, np.float32)
+    ref = (np.asarray(x) - np.asarray(trainer.cfg.DATASET.MEAN, np.float32)) / std
+    assert got.shape == ref.shape and np.abs(got - ref).max() <= 2e-6 / std.min()
 
 
 def _trained_state():

@@ -19,7 +19,8 @@ MonkeyHand HybridNet checkpoint.
   bitwise frozen and V2V updated; the loss halves over a short plateau-LR
   overfit (as ``tests/test_training.py:130`` asks of the JAX trainer); a
   resume from ``train_state.ckpt`` gives the uninterrupted run's parameters;
-  the modes and options that are not ported raise.
+  the modes and options that are not ported raise (on-device color
+  augmentation is ported and no longer among them).
 """
 
 import os
@@ -340,8 +341,9 @@ def test_unported_options_raise(parent, monkeypatch):
                                training_mode="all")
     with pytest.raises(NotImplementedError, match="B9"):
         trainer.train(ds, ds, 1)
-    cfg.TPU.DEVICE_AUG = True
-    train = Dataset3D(cfg, set="train")
     trainer = HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu", run_name="Raise")
-    with pytest.raises(NotImplementedError, match="B10"):
-        trainer.train(train, ds, 1)
+    with pytest.raises(NotImplementedError, match="A.13"):
+        trainer.train(ds, ds, 1, streamlitWidgets={})
+    cfg.TPU.TRAIN_DTYPE = "bfloat16"
+    with pytest.raises(NotImplementedError, match="float32 only"):
+        HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu", run_name="Raise")
