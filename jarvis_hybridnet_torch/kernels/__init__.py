@@ -25,12 +25,15 @@ Each wrapper counts the calls that launch its CUDA source in
   its Gaussian target built on the fly: the forward's last block to finish
   sums every block's partials;
 - heatmap2d_loss_fwd / heatmap2d_loss_bwd (K8), the 2D training loss with
-  its two Gaussian targets built on the fly, in the same pattern;
+  its two Gaussian targets built on the fly: a block per band of rows of one
+  image and scale, 16-byte loads with positions carried by adds; the
+  forward's last block sums the partials;
 - color_aug (K9) turns raw uint8 images into the normalized network input,
   with the training-time color augmentation (a blur from a shared-memory
   tile, Philox noise, contrast and gains, the warp-border re-zero) between;
 - argmax2d (K10) reduces each heatmap channel to its maximum and first
-  index.
+  index through 64-bit order keys, several CTAs a channel (or an image of
+  channels-last heads), merged by atomics and a last-CTA ticket.
 
 ``InstanceNormAct`` (K1 forward, K6 backward), ``hybridnet_loss`` (K7) and
 ``Heatmap2DLoss`` (K8, through ``heatmap2d_loss``) are the autograd

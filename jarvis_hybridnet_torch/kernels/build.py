@@ -33,14 +33,15 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # nvcc from contracting anything else into an FMA. soft_argmax flushes
 # denormals, which drops the scaling around its exp2 / log2 operations. K8
 # and K9 round every product before its sum, as their plain versions do.
-# ptxas reports K5's-K9's registers and spills into their build logs.
+# ptxas reports K5's-K10's registers and spills into their build logs.
 _EXTRA_FLAGS = {"repro_quarter_gather": ["--fmad=false"],
                 "repro_grid_gather": ["--fmad=false", "-Xptxas=-v"],
                 "soft_argmax": ["-ftz=true"],
                 "instance_norm_act_backward": ["-Xptxas=-v"],
                 "hybridnet_loss": ["-Xptxas=-v"],
                 "heatmap2d_loss": ["--fmad=false", "-Xptxas=-v"],
-                "color_aug": ["--fmad=false", "-Xptxas=-v"]}
+                "color_aug": ["--fmad=false", "-Xptxas=-v"],
+                "argmax2d": ["-Xptxas=-v"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -162,19 +163,20 @@ def require(t, name: str, dtypes, ndim: int | None = None) -> None:
 _words: dict = {}
 
 
-def sync_words(device, name: str):
-    """Two int32 words on ``device`` for the kernel ``name`` (a grid
-    barrier's or a ticket's counter), zeroed once, at the kernel's first
-    call; the kernel leaves them ready for its next call. They are made
-    outside CUDA graph capture, so a captured call finds them."""
+def sync_words(device, name: str, count: int = 2):
+    """``count`` int32 words on ``device`` for the kernel ``name`` (a grid
+    barrier's or a ticket's counter, K10's keys), zeroed once, at the
+    kernel's first call of that count; the kernel leaves them ready for its
+    next call. They are made outside CUDA graph capture, so a captured call
+    finds them."""
     import torch
 
-    key = (name, str(device))
+    key = (name, str(device), count)
     words = _words.get(key)
     if words is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"{name}: call it once before capturing it in a CUDA graph")
-        words = _words[key] = torch.zeros(2, dtype=torch.int32, device=device)
+        words = _words[key] = torch.zeros(count, dtype=torch.int32, device=device)
     return words
 
 

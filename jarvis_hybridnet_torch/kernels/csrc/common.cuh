@@ -1,7 +1,7 @@
 // Shared helpers for the port's kernels: element loads/stores as float for
 // the two working types (float32 = 0, bfloat16 = 1), the launch-error
-// return that every C entry point ends with, and block sums in a fixed
-// order (K6, K7).
+// return that every C entry point ends with, a last-block ticket (K8, K10) and
+// block sums in a fixed order (K6, K7).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,6 +29,15 @@ template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
 
 static inline int launch_status() { return (int)cudaGetLastError(); }
+
+// A ticket taken by one thread: atomically adds 1 and returns the old
+// value, with release semantics for the thread's earlier writes and acquire
+// semantics for what the holders of earlier tickets wrote (device scope).
+__device__ __forceinline__ unsigned int ticket_add(unsigned int* p) {
+  unsigned int old;
+  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;" : "=r"(old) : "l"(p) : "memory");
+  return old;
+}
 
 // out[o] for o < outs: the sum over t < terms of src[first(o) + t * stride],
 // in an order fixed whatever the scheduling: threads take (o, slice) pairs,

@@ -13,35 +13,47 @@
 //       inside the window, 0 outside; x0 = 3 sigma + 1
 //   mean_s = sum (out_s - t_s)^2 / numel_s;  loss = mean4 + mean2
 //   dL/dout_s = dL * (2 / numel_s) * (out_s - t_s)
-// The targets are never stored: each block computes every (b, j)'s centre,
-// window corner and flag in shared memory first. The heads are read in the
-// layout the network gives them, channels-last (J fastest) or contiguous
-// NCHW, through their strides; the gradients are written in the same layout.
-// Built with --fmad=false, so each target is computed with the roundings of
-// the plain version (kernels/heatmap2d_loss.py).
+// The targets are never stored. The heads are read in the layout the
+// network gives them, channels-last (J fastest) or contiguous NCHW; the
+// gradients are written in the same layout. Built with --fmad=false, so each
+// target is computed with the roundings of the plain version
+// (kernels/heatmap2d_loss.py).
 //
 // Bound on the H100: bytes (forward: the heads read once; backward: read once
 // and their gradients written once).
 //
-// Design: one launch each. The two heads are one index space (out4's
-// elements, then out2's), cut into equal runs, one per block. Forward: each
-// thread sums its elements' squares per scale in order, the block sums its
-// threads in a fixed tree, writes its two partials, and the last block to
-// take the ticket (left at 0 for the next call) sums the blocks' partials in
-// block order (ordered_sums): two calls give the same bits. Backward: the
-// same walk, elementwise.
+// Design: one launch each. A "plane" is an image of a channels-last head
+// (H rows of W * J floats) or one (image, joint) of an NCHW head (H rows of
+// W); each block takes a band of `rows` consecutive rows of one plane of one
+// scale (blocks [0, blocks4) scale 4, then scale 2), so scale, image and
+// band are uniform in a block and the band is one contiguous run. The block
+// first puts its image's window corners (ul_x, ul_y per joint; +inf for a
+// skipped keypoint, so no element is inside) in shared memory. A thread
+// takes 16-byte vectors of the run, kUnroll loads in flight, and carries
+// the (y, x, j) of its next element by adds (the step's quotient and
+// remainder are computed once), so no element pays a division. Forward:
+// each thread sums its squares in order, the block in a fixed shuffle
+// tree; the last block to take the ticket (an acquire-release atomic, left
+// at 0 for the next call) sums the blocks' partials of each scale in a fixed
+// order: two calls give the same bits. Backward: the same walk, 16-byte
+// stores.
 #include "common.cuh"
 
-constexpr int kThreads = 512;
+constexpr int kMaxThreads = 1024;
+constexpr int kUnroll = 4;
+#define kInf __int_as_float(0x7f800000)
 
 struct Head {
   const float* p;
   float* g;
-  int H, W, cl;        // cl: channels-last memory (J fastest), else NCHW
-  long long n;         // elements
-  float scale, off;    // out / S and 3 sigma + 1
-  float den;           // 2 sigma^2
-  int ksize;           // int(6 sigma + 3)
+  int H, W, cl;       // cl: channels-last memory (J fastest), else NCHW
+  int rows, bands;    // rows a band, bands a plane
+  int blocks;         // planes * bands
+  int vec;            // rows of whole 16-byte vectors, 16-byte aligned
+  long long n;        // elements
+  float scale, off;   // out / S and 3 sigma + 1
+  float den;          // 2 sigma^2
+  int ksize;          // int(6 sigma + 3)
 };
 
 struct Args {
@@ -50,48 +62,47 @@ struct Args {
   int B, J;
 };
 
-// per (b, j) of each scale: flag, ul_x, ul_y at tab[(s * 3 + k) * B * J + bj]
-__device__ __forceinline__ void corners(const Args& a, float* tab) {
-  const int pairs = a.B * a.J;
-  for (int i = threadIdx.x; i < 2 * pairs; i += blockDim.x) {
-    const int s = i / pairs, bj = i - s * pairs;
-    const Head& h = a.h[s];
+// A block's band: head s, image b, joints [j0, j0 + jr) along a row of
+// len = W * jr elements, rows [y0, y1), the run starting at `at`.
+struct Band {
+  int s, b, j0, jr, len, y0, y1;
+  long long at;
+};
+
+__device__ __forceinline__ Band band_of(const Args& a, int blk) {
+  Band d;
+  d.s = blk < a.h[0].blocks ? 0 : 1;
+  const Head& h = a.h[d.s];
+  const int local = blk - (d.s ? a.h[0].blocks : 0);
+  const int plane = local / h.bands, k = local - plane * h.bands;
+  d.jr = h.cl ? a.J : 1;
+  d.b = h.cl ? plane : plane / a.J;
+  d.j0 = h.cl ? 0 : plane - d.b * a.J;
+  d.len = h.W * d.jr;
+  d.y0 = k * h.rows;
+  d.y1 = min(h.H, d.y0 + h.rows);
+  d.at = ((long long)plane * h.H + d.y0) * d.len;
+  return d;
+}
+
+// The window corners of image d.b at scale d.s: ul[j] = (ul_x, ul_y), +inf
+// where the keypoint is skipped. Ends with the block synchronized.
+__device__ __forceinline__ void corners(const Args& a, const Band& d, float2* ul) {
+  const Head& h = a.h[d.s];
+  for (int j = threadIdx.x; j < a.J; j += blockDim.x) {
+    const int bj = d.b * a.J + j;
     const float kx = a.kps[bj * 2], ky = a.kps[bj * 2 + 1];
     const float cx = truncf(kx * h.scale), cy = truncf(ky * h.scale);
     const bool ok = !(kx == 0.f && ky == 0.f) && cx >= 0.f && cx < (float)h.W && cy >= 0.f &&
                     cy < (float)h.H;
-    tab[(s * 3 + 0) * pairs + bj] = ok ? 1.f : 0.f;
-    tab[(s * 3 + 1) * pairs + bj] = rintf(cx - h.off);
-    tab[(s * 3 + 2) * pairs + bj] = rintf(cy - h.off);
+    ul[j] = ok ? make_float2(rintf(cx - h.off), rintf(cy - h.off))
+               : make_float2(kInf, kInf);
   }
   __syncthreads();
 }
 
-// The target of element e of head s (e < 2^31: the wrapper checks), whose
-// value lies at offset e in both layouts (each is dense in the order walked).
-__device__ __forceinline__ float target(const Args& a, const float* tab, int s, int e) {
-  const Head& h = a.h[s];
-  const int J = a.J;
-  int b, j, y, x;
-  if (h.cl) {
-    j = e % J;
-    int r = e / J;
-    x = r % h.W;
-    r /= h.W;
-    y = r % h.H;
-    b = r / h.H;
-  } else {
-    x = e % h.W;
-    int r = e / h.W;
-    y = r % h.H;
-    r /= h.H;
-    j = r % J;
-    b = r / J;
-  }
-  const int pairs = a.B * J, bj = b * J + j;
-  if (tab[(s * 3 + 0) * pairs + bj] == 0.f) return 0.f;
-  const float kx = (float)x - tab[(s * 3 + 1) * pairs + bj];
-  const float ky = (float)y - tab[(s * 3 + 2) * pairs + bj];
+__device__ __forceinline__ float target(const Head& h, float2 ul, int x, int y) {
+  const float kx = (float)x - ul.x, ky = (float)y - ul.y;
   const float kw = (float)h.ksize;
   if (!(kx >= 0.f && kx < kw && ky >= 0.f && ky < kw)) return 0.f;
   const float dy = ky - h.off, dx = kx - h.off;
@@ -99,64 +110,148 @@ __device__ __forceinline__ float target(const Args& a, const float* tab, int s, 
   return 255.f * expf(-d2 / h.den);
 }
 
-// The run [first, end) of the joint index space of block `blk` of `blocks`.
-__device__ __forceinline__ void run(const Args& a, int blk, int blocks, long long* first,
-                                    long long* end) {
-  const long long total = a.h[0].n + a.h[1].n;
-  const long long per = (total + blocks - 1) / blocks;
-  *first = min(total, (long long)blk * per);
-  *end = min(total, *first + per);
+// The (y, x, j) of a band's element: j < jr, x < W, carried by adds.
+struct Pos {
+  int y, x, j;
+};
+
+__device__ __forceinline__ void step1(Pos& p, int jr, int W) {
+  if (++p.j == jr) {
+    p.j = 0;
+    if (++p.x == W) {
+      p.x = 0;
+      ++p.y;
+    }
+  }
 }
 
-// Block sum of v in a fixed tree; the result in thread 0. red: blockDim.x floats.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int k = blockDim.x / 2; k > 0; k >>= 1) {
-    if ((int)threadIdx.x < k) red[threadIdx.x] += red[threadIdx.x + k];
-    __syncthreads();
+// p advanced by a row offset of dr = dx * jr + dj (dr < len) and dy rows
+__device__ __forceinline__ void stepn(Pos& p, int dy, int dx, int dj, int jr, int W) {
+  p.j += dj;
+  p.x += dx;
+  p.y += dy;
+  if (p.j >= jr) {
+    p.j -= jr;
+    ++p.x;
   }
-  const float s = red[0];
+  if (p.x >= W) {
+    p.x -= W;
+    ++p.y;
+  }
+}
+
+// The walk of one block over its band, each thread's elements in
+// increasing order: fv(offset in the head, 4 values, 4 targets) for every
+// 16-byte vector where the rows are whole vectors, else fs(offset, value,
+// target) for every element.
+template <typename FV, typename FS>
+__device__ __forceinline__ void walk(const Args& a, const Band& d, const float2* ul, FV fv,
+                                     FS fs) {
+  const Head& h = a.h[d.s];
+  const int nt = blockDim.x, tid = threadIdx.x, jr = d.jr, W = h.W;
+  const int count = (d.y1 - d.y0) * d.len;
+  const float* src = h.p + d.at;
+  if (h.vec) {
+    // thread t: vectors t, t + nt, ...; its position moves 4 * nt a vector
+    const int nv = count / 4, r0 = 4 * tid, st = 4 * nt;
+    Pos p{d.y0 + r0 / d.len, (r0 % d.len) / jr, (r0 % d.len) % jr};
+    const int dy1 = st / d.len, dx1 = (st % d.len) / jr, dj1 = (st % d.len) % jr;
+    for (int q0 = tid; q0 < nv; q0 += kUnroll * nt) {
+      float4 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (q0 + u * nt < nv) v[u] = reinterpret_cast<const float4*>(src)[q0 + u * nt];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (q0 + u * nt < nv) {
+          Pos e = p;
+          float4 t;
+          t.x = target(h, ul[d.j0 + e.j], e.x, e.y);
+          step1(e, jr, W);
+          t.y = target(h, ul[d.j0 + e.j], e.x, e.y);
+          step1(e, jr, W);
+          t.z = target(h, ul[d.j0 + e.j], e.x, e.y);
+          step1(e, jr, W);
+          t.w = target(h, ul[d.j0 + e.j], e.x, e.y);
+          fv(d.at + 4LL * (q0 + u * nt), v[u], t);
+        }
+        stepn(p, dy1, dx1, dj1, jr, W);
+      }
+    }
+  } else {
+    Pos p{d.y0 + tid / d.len, (tid % d.len) / jr, (tid % d.len) % jr};
+    const int dy1 = nt / d.len, dx1 = (nt % d.len) / jr, dj1 = (nt % d.len) % jr;
+    for (int i = tid; i < count; i += nt) {
+      fs(d.at + i, src[i], target(h, ul[d.j0 + p.j], p.x, p.y));
+      stepn(p, dy1, dx1, dj1, jr, W);
+    }
+  }
+}
+
+// Block sum of v in a fixed tree; the result in thread 0. red: 32 floats.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x < 32) {
+    s = threadIdx.x < blockDim.x / 32 ? red[threadIdx.x] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  }
   return s;
 }
 
-// part: gridDim.x * 2 floats; ticket: one word, 0 before the first call and
+// part: one float a block; ticket: one word, 0 before the first call and
 // left so; loss: 1 float; means: 2 floats (mean4, mean2).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
     k8_forward(const Args a, float* __restrict__ part, unsigned int* __restrict__ ticket,
                float* __restrict__ loss, float* __restrict__ means) {
-  extern __shared__ __align__(16) float sm[];
-  float* tab = sm;                         // 6 * B * J
-  float* red = sm + 6 * a.B * a.J;         // blockDim.x
-  float* fin = red + blockDim.x;           // 2 + max(blockDim.x, 2) for ordered_sums
+  extern __shared__ __align__(16) float2 ul[];  // J
+  __shared__ float red[2][32];
   __shared__ bool last;
-  corners(a, tab);
-  long long first, end;
-  run(a, blockIdx.x, gridDim.x, &first, &end);
-  float sq[2] = {0.f, 0.f};
-  for (long long i = first + threadIdx.x; i < end; i += blockDim.x) {
-    const int s = i < a.h[0].n ? 0 : 1;
-    const int e = (int)(s == 0 ? i : i - a.h[0].n);
-    const float d = a.h[s].p[e] - target(a, tab, s, e);
-    sq[s] += d * d;
-  }
-  const float s4 = block_sum(sq[0], red);
-  const float s2 = block_sum(sq[1], red);
+  const Band d = band_of(a, blockIdx.x);
+  corners(a, d, ul);
+  float sq = 0.f;
+  walk(
+      a, d, ul,
+      [&](long long, float4 p, float4 t) {
+        const float e0 = p.x - t.x, e1 = p.y - t.y, e2 = p.z - t.z, e3 = p.w - t.w;
+        sq += e0 * e0;
+        sq += e1 * e1;
+        sq += e2 * e2;
+        sq += e3 * e3;
+      },
+      [&](long long, float p, float t) {
+        const float e = p - t;
+        sq += e * e;
+      });
+  const float s = block_sum(sq, red[0]);
   if (threadIdx.x == 0) {
-    part[blockIdx.x * 2] = s4;
-    part[blockIdx.x * 2 + 1] = s2;
-    __threadfence();  // this block's sums before its ticket
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    part[blockIdx.x] = s;
+    // this block's sum before its ticket (release), the others' after (acquire)
+    last = ticket_add(ticket) == gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
-  __threadfence();
-  if (threadIdx.x == 0) atomicExch(ticket, 0u);
-  // the last block: each scale's partials in block order
-  ordered_sums<true>(part, 2, gridDim.x, 2, [](int o) { return o; }, fin + 2, fin);
+  // the last block: thread t sums partials t, t + nt, ... of each scale in
+  // order, then the block in its fixed tree
+  const int b4 = a.h[0].blocks, nb = gridDim.x;
+  float s4 = 0.f, s2 = 0.f;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
+    const float v = __ldcg(part + i);
+    if (i < b4)
+      s4 += v;
+    else
+      s2 += v;
+  }
+  s4 = block_sum(s4, red[0]);
+  s2 = block_sum(s2, red[1]);
   if (threadIdx.x == 0) {
-    const float m4 = fin[0] / (float)a.h[0].n, m2 = fin[1] / (float)a.h[1].n;
+    atomicExch(ticket, 0u);
+    const float m4 = s4 / (float)a.h[0].n, m2 = s2 / (float)a.h[1].n;
     means[0] = m4;
     means[1] = m2;
     loss[0] = m4 + m2;
@@ -164,63 +259,80 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // dloss: 1 float on the card; writes a.h[s].g.
-__global__ void __launch_bounds__(kThreads)
-    k8_backward(const Args a, const float* __restrict__ dloss) {
-  extern __shared__ __align__(16) float sm[];
-  corners(a, sm);
-  long long first, end;
-  run(a, blockIdx.x, gridDim.x, &first, &end);
-  const float g = dloss[0];
-  const float c4 = g * (2.f / (float)a.h[0].n), c2 = g * (2.f / (float)a.h[1].n);
-  for (long long i = first + threadIdx.x; i < end; i += blockDim.x) {
-    const int s = i < a.h[0].n ? 0 : 1;
-    const int e = (int)(s == 0 ? i : i - a.h[0].n);
-    a.h[s].g[e] = (s == 0 ? c4 : c2) * (a.h[s].p[e] - target(a, sm, s, e));
-  }
+__global__ void __launch_bounds__(kMaxThreads) k8_backward(const Args a,
+                                                          const float* __restrict__ dloss) {
+  extern __shared__ __align__(16) float2 ul[];  // J
+  const Band d = band_of(a, blockIdx.x);
+  corners(a, d, ul);
+  const Head& h = a.h[d.s];
+  const float c = dloss[0] * (2.f / (float)h.n);
+  walk(
+      a, d, ul,
+      [&](long long at, float4 p, float4 t) {
+        reinterpret_cast<float4*>(h.g + at)[0] =
+            make_float4(c * (p.x - t.x), c * (p.y - t.y), c * (p.z - t.z), c * (p.w - t.w));
+      },
+      [&](long long at, float p, float t) { h.g[at] = c * (p - t); });
 }
 
-static Args make_args(const void* out4, const void* out2, void* d4, void* d2, const void* kps,
-                      int B, int J, int H4, int W4, int cl4, int H2, int W2, int cl2,
-                      float scale4, float off4, float den4, int ks4, float scale2, float off2,
-                      float den2, int ks2) {
-  Args a;
-  a.h[0] = Head{(const float*)out4, (float*)d4, H4, W4, cl4, (long long)B * J * H4 * W4,
-                scale4, off4, den4, ks4};
-  a.h[1] = Head{(const float*)out2, (float*)d2, H2, W2, cl2, (long long)B * J * H2 * W2,
-                scale2, off2, den2, ks2};
-  a.kps = (const float*)kps;
-  a.B = B;
-  a.J = J;
-  return a;
+static Head make_head(const void* p, void* g, int B, int J, int H, int W, int cl, int rows,
+                      float scale, float off, float den, int ks) {
+  Head h;
+  h.p = static_cast<const float*>(p);
+  h.g = static_cast<float*>(g);
+  h.H = H;
+  h.W = W;
+  h.cl = cl;
+  h.rows = rows;
+  h.bands = (H + rows - 1) / rows;
+  h.blocks = (cl ? B : B * J) * h.bands;
+  const int len = cl ? W * J : W;
+  h.vec = len % 4 == 0 && (uintptr_t)p % 16 == 0 && (g == nullptr || (uintptr_t)g % 16 == 0);
+  h.n = (long long)B * J * H * W;
+  h.scale = scale;
+  h.off = off;
+  h.den = den;
+  h.ksize = ks;
+  return h;
 }
 
-#define HEAD_ARGS                                                                          \
-  int B, int J, int H4, int W4, int cl4, int H2, int W2, int cl2, float scale4, float off4, \
-      float den4, int ks4, float scale2, float off2, float den2, int ks2, int blocks,       \
-      void *stream
-#define HEAD_PASS B, J, H4, W4, cl4, H2, W2, cl2, scale4, off4, den4, ks4, scale2, off2, den2, ks2
-
-extern "C" int heatmap2d_loss_smem_bytes(int B, int J) {
-  return (6 * B * J + kThreads + 2 + kThreads) * 4;
+static bool make_args(Args* a, const void* out4, const void* out2, void* d4, void* d2,
+                      const void* kps, int B, int J, int H4, int W4, int cl4, int rows4, int H2,
+                      int W2, int cl2, int rows2, float scale4, float off4, float den4, int ks4,
+                      float scale2, float off2, float den2, int ks2, int threads) {
+  if (B <= 0 || J <= 0 || rows4 <= 0 || rows2 <= 0 || threads <= 0 || threads % 32 ||
+      threads > kMaxThreads || (long long)B * J * (H4 * W4 + H2 * W2) >= (1LL << 31))
+    return false;
+  a->h[0] = make_head(out4, d4, B, J, H4, W4, cl4, rows4, scale4, off4, den4, ks4);
+  a->h[1] = make_head(out2, d2, B, J, H2, W2, cl2, rows2, scale2, off2, den2, ks2);
+  a->kps = static_cast<const float*>(kps);
+  a->B = B;
+  a->J = J;
+  return true;
 }
+
+#define HEAD_ARGS                                                                              \
+  int B, int J, int H4, int W4, int cl4, int rows4, int H2, int W2, int cl2, int rows2,        \
+      float scale4, float off4, float den4, int ks4, float scale2, float off2, float den2,      \
+      int ks2, int threads, void *stream
+#define HEAD_PASS                                                                              \
+  B, J, H4, W4, cl4, rows4, H2, W2, cl2, rows2, scale4, off4, den4, ks4, scale2, off2, den2, \
+      ks2, threads
 
 // out4, out2: the heads (float32, channels-last or contiguous NCHW as cl4 /
-// cl2 say); kps (B, J, 2) float32; part: blocks * 2 floats; ticket: one
-// word, 0 before the first call and left so; loss: 1 float; means: 2
-// floats. One launch of `blocks` blocks on `stream`.
+// cl2 say); kps (B, J, 2) float32; rows4 / rows2: rows a band (the plan of
+// kernels/heatmap2d_loss.py); part: one float a block; ticket: one word, 0
+// before the first call and left so; loss: 1 float; means: 2 floats. One
+// launch on `stream`.
 extern "C" int heatmap2d_loss_forward(const void* out4, const void* out2, const void* kps,
                                       void* part, void* ticket, void* loss, void* means,
                                       HEAD_ARGS) {
-  if (blocks <= 0) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(out4, out2, nullptr, nullptr, kps, HEAD_PASS);
-  const int smem = heatmap2d_loss_smem_bytes(B, J);
-  if (smem > 48 * 1024) {
-    cudaError_t e =
-        cudaFuncSetAttribute(k8_forward, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  k8_forward<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      a, (float*)part, (unsigned int*)ticket, (float*)loss, (float*)means);
+  Args a;
+  if (!make_args(&a, out4, out2, nullptr, nullptr, kps, HEAD_PASS))
+    return (int)cudaErrorInvalidValue;
+  k8_forward<<<a.h[0].blocks + a.h[1].blocks, threads, J * sizeof(float2),
+               (cudaStream_t)stream>>>(a, (float*)part, (unsigned int*)ticket, (float*)loss,
+                                       (float*)means);
   return launch_status();
 }
 
@@ -228,9 +340,9 @@ extern "C" int heatmap2d_loss_forward(const void* out4, const void* out2, const 
 // One launch on `stream`.
 extern "C" int heatmap2d_loss_backward(const void* out4, const void* out2, const void* kps,
                                        const void* dloss, void* d4, void* d2, HEAD_ARGS) {
-  if (blocks <= 0) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(out4, out2, d4, d2, kps, HEAD_PASS);
-  k8_backward<<<blocks, kThreads, 6 * B * J * 4, (cudaStream_t)stream>>>(a,
-                                                                         (const float*)dloss);
+  Args a;
+  if (!make_args(&a, out4, out2, d4, d2, kps, HEAD_PASS)) return (int)cudaErrorInvalidValue;
+  k8_backward<<<a.h[0].blocks + a.h[1].blocks, threads, J * sizeof(float2),
+                (cudaStream_t)stream>>>(a, (const float*)dloss);
   return launch_status();
 }

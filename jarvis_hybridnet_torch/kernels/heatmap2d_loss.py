@@ -11,6 +11,7 @@ built on the fly and never stored.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -18,8 +19,8 @@ import torch
 from ..ops.heatmap import gaussian_heatmaps_on_device, stamp
 from . import build
 
-_BLOCKS = 528  # blocks per launch at most: four per SM of an H100
-_PER_BLOCK = 2048  # elements a block takes at least
+_TARGET_BLOCKS = 528  # blocks a launch aims at: four per SM of an H100
+THREADS = 128  # kernel_sweep.py: 128 beat 256 and 512 at KeypointDetect's heads
 
 
 def sigmas(sigma_base: float, input_size: int) -> tuple[float, float]:
@@ -64,7 +65,50 @@ def _layout(t: torch.Tensor, name: str) -> int:
                      f"(strides {t.stride()})")
 
 
-def _args(out4, out2, kps, input_size, sigma_base):
+@dataclasses.dataclass(frozen=True)
+class Walk:
+    """K8's walk of one head (``csrc/heatmap2d_loss.cu``): ``planes`` planes
+    (an image of a channels-last head, an (image, joint) of an NCHW one) of
+    ``h`` rows of ``length`` elements (``w * jr``, ``jr`` joints a pixel), cut
+    into ``bands`` bands of ``rows`` rows, one block each."""
+
+    planes: int
+    h: int
+    w: int
+    jr: int
+    rows: int
+
+    @property
+    def length(self) -> int:
+        return self.w * self.jr
+
+    @property
+    def bands(self) -> int:
+        return -(-self.h // self.rows)
+
+    @property
+    def blocks(self) -> int:
+        return self.planes * self.bands
+
+
+@functools.cache
+def walk_plan(b: int, j: int, heads: tuple, threads: int = THREADS,
+              blocks: int = _TARGET_BLOCKS) -> tuple[Walk, Walk]:
+    """The walks of both heads, ``heads`` ((h, w, channels_last) of out4 and
+    out2): bands of whole rows of about the heads' elements / ``blocks``
+    (at least a 16-byte vector a thread), at most a plane."""
+    total = b * j * sum(h * w for h, w, _ in heads)
+    per = max(4 * threads, -(-total // blocks))
+    walks = []
+    for h, w, cl in heads:
+        jr = j if cl else 1
+        walks.append(Walk(b if cl else b * j, h, w, jr, min(h, max(1, per // (w * jr)))))
+    return tuple(walks)
+
+
+def _args(out4, out2, kps, input_size, sigma_base, threads=THREADS, blocks=_TARGET_BLOCKS):
+    """The C functions' head arguments and the launch's blocks (``threads``
+    and ``blocks`` other than the defaults: kernel_sweep.py's plans)."""
     B, J = out4.shape[:2]
     cl = [_layout(out4, "out4"), _layout(out2, "out2")]
     if out2.shape[:2] != (B, J):
@@ -72,15 +116,15 @@ def _args(out4, out2, kps, input_size, sigma_base):
     build.require(kps, "kps", (torch.float32,), ndim=3)
     if tuple(kps.shape) != (B, J, 2):
         raise ValueError(f"heatmap2d_loss: kps must be ({B}, {J}, 2), got {tuple(kps.shape)}")
-    total = out4.numel() + out2.numel()
-    if total >= 2 ** 31:
+    if out4.numel() + out2.numel() >= 2 ** 31:
         raise ValueError("heatmap2d_loss: heads of 2^31 elements or more")
     st = [stamp(input_size, o.shape[-1], s) for o, s in zip((out4, out2),
                                                          sigmas(sigma_base, input_size))]
-    blocks = max(1, min(_BLOCKS, -(-total // _PER_BLOCK)))
-    return (B, J, out4.shape[2], out4.shape[3], cl[0], out2.shape[2], out2.shape[3], cl[1],
+    w4, w2 = walk_plan(B, J, ((*out4.shape[2:], cl[0]), (*out2.shape[2:], cl[1])), threads,
+                       blocks)
+    return (B, J, *out4.shape[2:], cl[0], w4.rows, *out2.shape[2:], cl[1], w2.rows,
             st[0].scale, st[0].off, st[0].den, st[0].ksize, st[1].scale, st[1].off, st[1].den,
-            st[1].ksize, blocks, build.stream()), blocks
+            st[1].ksize, threads, build.stream()), w4.blocks + w2.blocks
 
 
 def heatmap2d_loss_fwd(out4: torch.Tensor, out2: torch.Tensor, kps: torch.Tensor,
@@ -93,7 +137,7 @@ def heatmap2d_loss_fwd(out4: torch.Tensor, out2: torch.Tensor, kps: torch.Tensor
         return heatmap2d_loss_fwd_plain(out4, out2, kps, input_size, sigma_base)
     args, blocks = _args(out4, out2, kps, input_size, sigma_base)
     dev = out4.device
-    part = torch.empty(blocks * 2, dtype=torch.float32, device=dev)
+    part = torch.empty(blocks, dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     means = torch.empty(2, dtype=torch.float32, device=dev)
     ticket = build.sync_words(dev, "heatmap2d_loss_fwd")
@@ -157,15 +201,17 @@ def heatmap2d_loss(out4: torch.Tensor, out2: torch.Tensor, kps: torch.Tensor,
     return Heatmap2DLoss.apply(out4, out2, kps, input_size, sigma_base)
 
 
+_i, _f = ctypes.c_int, ctypes.c_float
+_HEAD_ARGTYPES = [_i] * 10 + [_f, _f, _f, _i, _f, _f, _f, _i, _i, ctypes.c_void_p]
+
+
 @functools.cache
 def _fwd_fn():
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return build.bind("heatmap2d_loss", "heatmap2d_loss_forward",
-                      [p] * 7 + [i] * 8 + [f, f, f, i, f, f, f, i, i, p])
+    p = ctypes.c_void_p
+    return build.bind("heatmap2d_loss", "heatmap2d_loss_forward", [p] * 7 + _HEAD_ARGTYPES)
 
 
 @functools.cache
 def _bwd_fn():
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return build.bind("heatmap2d_loss", "heatmap2d_loss_backward",
-                      [p] * 6 + [i] * 8 + [f, f, f, i, f, f, f, i, i, p])
+    p = ctypes.c_void_p
+    return build.bind("heatmap2d_loss", "heatmap2d_loss_backward", [p] * 6 + _HEAD_ARGTYPES)

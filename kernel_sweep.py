@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Launch-plan sweep of the K1, K2, K3, K5 and K6 kernels on one CUDA card.
+"""Launch-plan sweep of the K1, K2, K3, K5, K6, K8 and K10 kernels on one CUDA card.
 
-    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5,k5probe,k6,k6probe,k7probe]
+    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5,k5probe,k6,k6probe,k7probe,k8,k10]
+    python3 kernel_sweep.py --only k8probe,k10probe --baseline-csrc DIR
 
 K1 instance_norm_act: for V2V's and the 2D networks' largest main-path
 shapes (bf16), times the kernel under every cluster size (1, 2, 4, 8, 16),
@@ -35,7 +36,14 @@ cooperative attribute and without the barrier wait. ``k7probe`` times
 K7's forward and backward at the training step's (1, 36, 36, 36, 23) under
 variants of ``csrc/hybridnet_loss.cu``: the precise expf / log1pf /
 division, no tables, the backward's loads and stores alone, no target, no
-softplus.
+softplus. K8 heatmap2d_loss (``k8``): forward and backward at both 2D nets'
+train-step heads under walks of 128-512 threads and 264-2112 target blocks;
+K10 argmax2d (``k10``): its keys under plans of 132-1056 CTAs of 128-512
+threads, beside ``torch.max``. ``k8probe``
+and ``k10probe`` split the time of the earlier designs in ``--baseline-csrc
+DIR`` (eb9b817's K8: a constant walk for the division chain, no target, a
+32-bit index, no last-block sum; its K10: no merge of the warps, no merge of
+the tiles).
 
 Times are device times of CUDA-graph replays (``chip_smoke.graph_ms``);
 every configuration is also checked against the plain version (bf16 ulps
@@ -390,15 +398,18 @@ def sweep_k3probe(say, dev) -> None:
         say(f"  {name:15s}: {chip_smoke.graph_ms(call):.4f} ms")
 
 
-def build_variants(source: str, probes: dict, tag: str, flags: list[str]) -> dict:
-    """Each probe's variant of ``csrc/<source>.cu`` (its textual
-    substitutions applied, each of which must match once), built at once:
-    {name: loaded library}."""
+def build_variants(source: str, probes: dict, tag: str, flags: list[str], csrc=None) -> dict:
+    """Each probe's variant of ``<csrc>/<source>.cu`` (the package's sources
+    by default; its textual substitutions applied, each of which must match
+    once), built at once against that directory's headers: {name: loaded
+    library}."""
     import ctypes
+    import pathlib
 
     from jarvis_hybridnet_torch.kernels import build
 
-    src = (build.CSRC / f"{source}.cu").read_text()
+    csrc = pathlib.Path(csrc or build.CSRC)
+    src = (csrc / f"{source}.cu").read_text()
     out_dir = build.BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
@@ -411,7 +422,7 @@ def build_variants(source: str, probes: dict, tag: str, flags: list[str]) -> dic
         cu, lib = out_dir / f"{tag}{i}.cu", out_dir / f"lib{tag}{i}.so"
         cu.write_text(text)
         jobs[name] = lib, subprocess.Popen(
-            [build._nvcc(), *flags, f"-I{build.CSRC}", "-o", str(lib), str(cu)],
+            [build._nvcc(), *flags, f"-I{csrc}", "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, (lib, proc) in jobs.items():
@@ -620,11 +631,244 @@ def sweep_k7probe(say, dev) -> None:
             f"volume {vrel:.2e}, gradient {grel:.2e} relative")
 
 
+# The K10 keys the driven paths give it: predict3D's CenterDetect heads,
+# predict2D's CenterDetect and KeypointDetect heads, the train steps' stride-2
+# heads (each a channels-last (N, C, H, W) tensor as (N, H, W, C))
+K10_KEYS = [((96, 1, 128, 128), "bfloat16"), ((8, 1, 128, 128), "float32"),
+            ((8, 23, 128, 128), "float32"), ((4, 23, 128, 128), "float32"),
+            ((4, 1, 128, 128), "float32")]
+
+
+def k10_heads(shape, dtype: str, dev):
+    """Seeded heads at ``shape`` (N, C, H, W), coarse values so that maxima
+    tie, as the callers pass them."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randint(0, 64, shape, device=dev, generator=g).to(getattr(torch, dtype))
+    return x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+def sweep_k10(say, dev) -> None:
+    """K10 at its keys under plans of about 132-1056 CTAs of 128-512
+    threads, each checked against the plain version, beside torch.max."""
+    import torch
+
+    import chip_smoke
+
+    k10 = importlib.import_module("jarvis_hybridnet_torch.kernels.argmax2d")
+    for shape, dtype in K10_KEYS:
+        hm = k10_heads(shape, dtype, dev)
+        n, h, w, c = hm.shape
+        ref = k10.argmax_2d_plain(hm)
+        flat = hm.permute(0, 3, 1, 2).reshape(n, c, h * w).contiguous()
+        bound = (hm.numel() * hm.element_size() + n * c * 12) / chip_smoke.HBM_BYTES_PER_S * 1e3
+        lib = chip_smoke.graph_ms(lambda: torch.max(flat, dim=-1))
+        copy = chip_smoke.graph_ms(
+            lambda: torch.max(hm.permute(0, 3, 1, 2).reshape(n, c, h * w), dim=-1))
+        say(f"K10 {tuple(hm.shape)} {dtype}: bound {bound:.4f} ms, torch.max {lib:.4f} ms (with "
+            f"the layout's copy {copy:.4f})")
+        default = k10.plan_of(hm)
+        plans = {k10.plan_of(hm, ctas=ct, threads=t)
+                 for ct in (132, 264, 528, 1056) for t in (128, 256, 512)}
+        for plan in sorted(plans, key=lambda q: (q.shares, q.threads)):
+            ok = chip_smoke.same_argmax(k10.launch(hm, plan), ref)
+            ms = chip_smoke.graph_ms(lambda plan=plan: k10.launch(hm, plan))
+            say(f"  shares {plan.shares:3d} threads {plan.threads:3d}: {ms:.4f} ms, "
+                f"{'identical' if ok else 'DIFFERS'}"
+                + (" <- plan_of" if plan == default else ""))
+
+
+def k8_inputs(j: int, dev):
+    """A 2D train step's K8 arguments at batch 4 of 256^2: channels-last
+    heads (4, j, 64, 64) and (4, j, 128, 128) of seeded noise in [0, 255),
+    keypoints in the image with one unlabeled, and the net's sigma base."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    heads = [(torch.rand((4, j, s, s), device=dev, generator=g) * 255).contiguous(
+        memory_format=torch.channels_last) for s in (64, 128)]
+    kps = torch.rand((4, j, 2), device=dev, generator=g) * 256
+    kps[0, 0] = 0.0
+    return (*heads, kps, 256, 1.5 if j > 1 else 1.0)
+
+
+def sweep_k8(say, dev) -> None:
+    """K8 forward and backward at both nets' train-step heads under walks of
+    about 264-2112 blocks of 128-512 threads, each checked against the plain
+    version (loss 1e-6 relative, gradients equal)."""
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch.kernels import build
+
+    k8 = importlib.import_module("jarvis_hybridnet_torch.kernels.heatmap2d_loss")
+    for j in (23, 1):
+        args = k8_inputs(j, dev)
+        out4, out2 = args[:2]
+        nbytes = (out4.numel() + out2.numel()) * 4
+        pl, _ = k8.heatmap2d_loss_fwd_plain(*args)
+        dl = torch.ones(1, device=dev)
+        pg = k8.heatmap2d_loss_bwd_plain(*args, dl)
+        say(f"K8 heads {tuple(out4.shape)} + {tuple(out2.shape)} float32: bound forward "
+            f"{nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3:.4f} ms, backward "
+            f"{2 * nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3:.4f} ms")
+        for threads in (128, 256, 512):
+            for blocks in (264, 528, 1056, 2112):
+                plan = dict(threads=threads, blocks=blocks)
+                nblk = k8._args(*args, **plan)[1]
+                part = torch.empty(nblk, device=dev)
+                loss, means = torch.empty((), device=dev), torch.empty(2, device=dev)
+                ticket = build.sync_words(dev, "heatmap2d_loss_fwd")
+                d4, d2 = torch.empty_like(out4), torch.empty_like(out2)
+                p = build.ptr
+
+                # the arguments end with the current stream: taken at each call
+                def fwd(plan=plan, part=part, loss=loss, means=means):
+                    build.check(k8._fwd_fn()(p(out4), p(out2), p(args[2]), p(part), p(ticket),
+                                             p(loss), p(means), *k8._args(*args, **plan)[0]),
+                                "K8 sweep forward")
+
+                def bwd(plan=plan, d4=d4, d2=d2):
+                    build.check(k8._bwd_fn()(p(out4), p(out2), p(args[2]), p(dl), p(d4), p(d2),
+                                             *k8._args(*args, **plan)[0]), "K8 sweep backward")
+                fwd()
+                bwd()
+                rel = abs(float(loss) - float(pl)) / abs(float(pl))
+                same = torch.equal(d4, pg[0]) and torch.equal(d2, pg[1])
+                say(f"  threads {threads:3d} target blocks {blocks:4d} ({nblk} blocks): forward "
+                    f"{chip_smoke.graph_ms(fwd):.4f} ms, backward {chip_smoke.graph_ms(bwd):.4f}"
+                    f" ms; loss {rel:.1e} relative, gradients {'equal' if same else 'DIFFER'}"
+                    + (" <- walk_plan" if (threads, blocks) == (k8.THREADS, k8._TARGET_BLOCKS)
+                       else ""))
+
+
+def _baseline_design(lib):
+    """chip_smoke.Baseline over one probe library of the earlier design."""
+    import ctypes
+
+    import chip_smoke
+    from jarvis_hybridnet_torch.kernels import build
+
+    b = object.__new__(chip_smoke.Baseline)
+    b.build, b.fns = build, {}
+    for syms in chip_smoke.Baseline.SOURCES.values():
+        for sym in syms:
+            if hasattr(lib, sym):
+                fn = getattr(lib, sym)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [
+                    ctypes.c_float if a in chip_smoke._BASELINE_FLOATS else
+                    ctypes.c_longlong if a in chip_smoke._BASELINE_LONGS else
+                    ctypes.c_void_p if a in chip_smoke._BASELINE_POINTERS else ctypes.c_int
+                    for a in chip_smoke.BASELINE_SIGNATURES[sym].split(", ")]
+                b.fns[sym] = fn
+    return b
+
+
+# Variants of eb9b817's K8 (csrc/heatmap2d_loss.cu, given by --baseline-csrc):
+# where its time goes
+_K8_DIVS = """  int b, j, y, x;
+  if (h.cl) {
+    j = e % J;
+    int r = e / J;
+    x = r % h.W;
+    r /= h.W;
+    y = r % h.H;
+    b = r / h.H;
+  } else {
+    x = e % h.W;
+    int r = e / h.W;
+    y = r % h.H;
+    r /= h.H;
+    j = r % J;
+    b = r / J;
+  }"""
+K8_PROBES = {
+    "kernel": [],
+    "constant walk (no divisions)": [
+        (_K8_DIVS, "  const int b = 0, j = e & 15, y = (e >> 4) & 63, x = (e >> 10) & 63;")],
+    "no target (t = 0)": [
+        ("    const float d = a.h[s].p[e] - target(a, tab, s, e);",
+         "    const float d = a.h[s].p[e];"),
+        ("    a.h[s].g[e] = (s == 0 ? c4 : c2) * (a.h[s].p[e] - target(a, sm, s, e));",
+         "    a.h[s].g[e] = (s == 0 ? c4 : c2) * a.h[s].p[e];")],
+    "32-bit element index": [
+        ("  for (long long i = first + threadIdx.x; i < end; i += blockDim.x) {\n"
+         "    const int s = i < a.h[0].n ? 0 : 1;\n    const int e = (int)(s == 0 ? i : i - "
+         "a.h[0].n);\n    const float d",
+         "  for (int i = first + threadIdx.x; i < end; i += blockDim.x) {\n"
+         "    const int s = i < a.h[0].n ? 0 : 1;\n    const int e = (int)(s == 0 ? i : i - "
+         "a.h[0].n);\n    const float d")],
+    # last: it leaves the forward's ticket counting, which the variants share
+    "forward: no last-block sum": [("  if (!last) return;", "  return;")],
+}
+# ... and of its K10 (csrc/argmax2d.cu)
+K10_PROBES = {
+    "kernel": [],
+    "single channel: no merge of the warps": [
+        ("    for (int w = 1; w < T_ / 32; ++w)", "    for (int w = 1; w < 1; ++w)")],
+    # last: it leaves the tiles' ticket counting, which the variants share
+    "channels-last: no merge of the tiles": [("  if (!last) return;", "  return;")],
+}
+
+
+def sweep_k8probe(say, dev, csrc) -> None:
+    """eb9b817's K8 at KeypointDetect's train-step heads, forward and
+    backward, under the variants of ``K8_PROBES`` (loss and gradients
+    against the plain version: the variants compute other functions)."""
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch.kernels import build
+
+    k8 = importlib.import_module("jarvis_hybridnet_torch.kernels.heatmap2d_loss")
+    libs = build_variants("heatmap2d_loss", K8_PROBES, "k8probe", build._flags("heatmap2d_loss"),
+                          csrc)
+    args = k8_inputs(23, dev)
+    pl, _ = k8.heatmap2d_loss_fwd_plain(*args)
+    dl = torch.ones((), device=dev)
+    pg = k8.heatmap2d_loss_bwd_plain(*args, dl)
+    say(f"K8 probe (eb9b817's design) {tuple(args[0].shape)} + {tuple(args[1].shape)}")
+    for name, lib in libs.items():
+        b = _baseline_design(lib)
+        loss, _ = b.heatmap2d_loss_fwd(*args)
+        d4, d2 = b.heatmap2d_loss_bwd(*args, dl)
+        rel = abs(float(loss) - float(pl)) / abs(float(pl))
+        grel = max(float((d - p).abs().max() / p.abs().max()) for d, p in zip((d4, d2), pg))
+        say(f"  {name:40s}: forward {chip_smoke.graph_ms(lambda: b.heatmap2d_loss_fwd(*args)):.4f}"
+            f" ms, backward {chip_smoke.graph_ms(lambda: b.heatmap2d_loss_bwd(*args, dl)):.4f}"
+            f" ms; loss {rel:.1e}, gradients {grel:.1e} relative")
+
+
+def sweep_k10probe(say, dev, csrc) -> None:
+    """eb9b817's K10 at its keys under the variants of ``K10_PROBES``."""
+    import chip_smoke
+    from jarvis_hybridnet_torch.kernels import build
+
+    k10 = importlib.import_module("jarvis_hybridnet_torch.kernels.argmax2d")
+    libs = build_variants("argmax2d", K10_PROBES, "k10probe", build._flags("argmax2d"), csrc)
+    heads = [(k10_heads(shape, dtype, dev), dtype) for shape, dtype in K10_KEYS]
+    for name, lib in libs.items():
+        b = _baseline_design(lib)
+        cells = []
+        for hm, dtype in heads:
+            ok = chip_smoke.same_argmax(b.argmax2d(hm), k10.argmax_2d_plain(hm))
+            ms = chip_smoke.graph_ms(lambda: b.argmax2d(hm))
+            cells.append(f"{tuple(hm.shape)} {dtype} {ms:.4f} ms{'' if ok else ' (differs)'}")
+        say(f"K10 probe (eb9b817's design) {name}: " + "; ".join(cells))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="k1,k2,k3,k5",
                     help="comma-separated kernels to sweep (default: all)")
-    only = set(ap.parse_args().only.split(","))
+    ap.add_argument("--baseline-csrc", metavar="DIR",
+                    help="the earlier design's csrc, for k8probe and k10probe")
+    opts = ap.parse_args()
+    only = set(opts.only.split(","))
+    if only & {"k8probe", "k10probe"} and not opts.baseline_csrc:
+        ap.error("k8probe and k10probe probe the design in --baseline-csrc DIR")
     import torch
 
     if not torch.cuda.is_available():
@@ -659,6 +903,14 @@ def main() -> int:
             sweep_k6probe(say, dev)
         if "k7probe" in only:
             sweep_k7probe(say, dev)
+        if "k8probe" in only:
+            sweep_k8probe(say, dev, opts.baseline_csrc)
+        if "k10probe" in only:
+            sweep_k10probe(say, dev, opts.baseline_csrc)
+        if "k8" in only:
+            sweep_k8(say, dev)
+        if "k10" in only:
+            sweep_k10(say, dev)
     return 0
 
 

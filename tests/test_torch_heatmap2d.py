@@ -164,30 +164,36 @@ def test_k10_plain_matches_jax_argmax(dtype):
 
 
 def test_k10_vector_loads_follow_the_layout():
-    """K10 reads 16 bytes at a time exactly where every channel's rows are
-    contiguous and 16-byte aligned: the single-channel CenterDetect heads
-    and contiguous NCHW maps, not the channels-last multi-channel ones."""
-    from jarvis_hybridnet_torch.kernels.argmax2d import vector_loads
+    """K10 reads 16 bytes at a time wherever its runs start on 16 bytes: the
+    single-channel CenterDetect heads and contiguous NCHW maps (a run per
+    channel plane) and the channels-last multi-channel heads (a run per
+    image), not planes that start off 16 bytes or strided views."""
+    from jarvis_hybridnet_torch.kernels.argmax2d import plan_of
 
     center = torch.zeros(96, 1, 128, 128, dtype=torch.bfloat16)
-    assert vector_loads(center.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1))
-    assert vector_loads(torch.zeros(8, 23, 128, 128).permute(0, 2, 3, 1))
+    assert plan_of(center.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)).vec
+    assert plan_of(torch.zeros(8, 23, 128, 128).permute(0, 2, 3, 1)).vec
     keypoint = torch.zeros(4, 23, 128, 128).contiguous(memory_format=torch.channels_last)
-    assert not vector_loads(keypoint.permute(0, 2, 3, 1))
-    assert not vector_loads(torch.zeros(2, 1, 12, 10).permute(0, 2, 3, 1))  # rows of 40 bytes
+    assert plan_of(keypoint.permute(0, 2, 3, 1)).vec
+    assert plan_of(torch.zeros(2, 1, 12, 10).permute(0, 2, 3, 1)).vec  # planes of 480 bytes
+    assert not plan_of(torch.zeros(2, 1, 5, 5).permute(0, 2, 3, 1)).vec  # of 100 bytes
+    assert not plan_of(torch.zeros(2, 1, 12, 20).permute(0, 2, 3, 1)[:, :, ::2]).vec
 
 
 @pytest.mark.parametrize("n,hw,c", [(4, 128 * 128, 23), (8, 128 * 128, 23), (2, 16 * 16, 3),
                                     (1, 7, 600)])
 def test_k10_tile_plan_covers_every_pixel(n, hw, c):
-    """The tiled launch (channels-last heads): blocks a whole number of lanes
-    of every channel, at most 1024 threads, tiles that cover each image's
-    pixels once, none empty."""
-    from jarvis_hybridnet_torch.kernels.argmax2d import channels_last, tile_plan
+    """The interleaved launch (channels-last heads): blocks of whole warps,
+    at most 1024 threads, shares of whole pixels that cover each image's
+    pixels once, none empty, each within its shared-memory stage."""
+    from jarvis_hybridnet_torch.kernels.argmax2d import _STAGE_BYTES, layout, plan_of
 
-    threads, tiles, per = tile_plan(n, hw, c)
-    assert threads % c == 0 and threads <= 1024
-    assert (tiles - 1) * per < hw <= tiles * per
     h = 16 if hw == 256 else 1
-    assert channels_last(torch.zeros(n, c, h, hw // h).contiguous(
-        memory_format=torch.channels_last).permute(0, 2, 3, 1)) == (c > 1)
+    hm = torch.zeros(n, c, h, hw // h).contiguous(memory_format=torch.channels_last)
+    hm = hm.permute(0, 2, 3, 1)
+    plan = plan_of(hm)
+    assert layout(tuple(hm.shape), hm.stride()) == ("interleaved" if c > 1 else "planar")
+    assert plan.interleaved and plan.runs == n and plan.cr == c
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    assert plan.per % c == 0 and plan.per * 4 <= max(_STAGE_BYTES, 4 * c)
+    assert (plan.shares - 1) * plan.per < hw * c <= plan.shares * plan.per
