@@ -37,8 +37,10 @@ a TF32 step as each gate's control, which it must refuse); K6 (at every
 key of the 3D and 2D steps, every act at V2V's largest float32 shape and
 one bf16 key), K7, K8, K9 (the noise at the config's upper bound) and K10
 against their plain versions, each called twice and required bit-equal
-(K8's gradients equal to the plain version's; K10 also under other plans
-and on hand-made edge batches in both dtypes and layouts).
+(K8's gradients equal to the plain version's; K9 also at the edge keys of
+``K9_EDGE_KEYS``: radii 0-12, odd sizes, unaligned bases, the border alone;
+K10 also under other plans and on hand-made edge batches in both dtypes
+and layouts).
 It then checks every kernel against its plain PyTorch version on the card:
 K1, K2 and K4 at every shape a driven path gave them, K3 and K5 at the main
 path's, and times kernel, plain version and library call. A kernel's
@@ -52,14 +54,12 @@ steps' device time by kernel to ``chip_smoke_train_profile.txt`` and
 ``chip_smoke_train2d_profile.txt``.
 
 With ``--baseline-csrc DIR``, DIR holds an earlier version of the kernel
-sources with the C interfaces of ``BASELINE_SIGNATURES`` (those of eb9b817:
-K8 over equal runs of one index space, K10 a block per (image, channel) and
-a tiled launch for channels-last heads); it builds them too and times them
-beside the current kernels at the same keys, in the order baseline,
-current, current, baseline, into ``chiprun_out/chip_smoke_baseline.txt``.
-K10's outputs must equal the baseline's at every recorded key and on the
-edge batches; the baseline's K8 is held to the plain version (its sums run
-in another order).
+sources whose ``color_aug.cu`` has the C interface of ``BASELINE_SIGNATURE``
+(that of b3d34a0: K9 over 32 x 32 tiles staged with their halo); it builds
+that K9 too and times it beside the current one at every recorded key, in
+the order baseline, current, current, baseline, into
+``chiprun_out/chip_smoke_baseline.txt``. K9's outputs must equal the
+baseline's bit for bit at every recorded key and every edge key.
 """
 
 from __future__ import annotations
@@ -67,6 +67,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import json
 import math
 import os
@@ -209,132 +210,56 @@ def profile_steps(predictor, frames, out_dir, note) -> None:
              f"top kernel {rows[0][2][:60]} {rows[0][0] / 2e3:.3f} ms per step")
 
 
-# The C interfaces of the earlier designs that --baseline-csrc builds (those
-# of eb9b817): K8 over equal runs of the joint index space, K10 a block per
-# (image, channel) plus a tiled launch for channels-last heads. The names in
-# _BASELINE_FLOATS are floats, in _BASELINE_LONGS 64-bit, in
-# _BASELINE_POINTERS pointers, the rest ints.
-_BASELINE_POINTERS = {"hm", "xy", "maxv", "part_v", "part_i", "ticket", "out4", "out2", "kps",
-                      "part", "loss", "means", "dloss", "d4", "d2", "stream"}
-_BASELINE_FLOATS = {"scale4", "off4", "den4", "scale2", "off2", "den2"}
-_BASELINE_LONGS = {"sn", "sy", "sx", "sc"}
-_K8_HEADS = ("B, J, H4, W4, cl4, H2, W2, cl2, scale4, off4, den4, ks4, scale2, off2, den2, ks2, "
-             "blocks, stream")
-BASELINE_SIGNATURES = {
-    "argmax2d": "hm, N, H, W, C, sn, sy, sx, sc, dtype, vec, xy, maxv, stream",
-    "argmax2d_tiles": "hm, N, H, W, C, sn, dtype, tiles, per, threads, part_v, part_i, ticket, "
-                      "xy, maxv, stream",
-    "heatmap2d_loss_forward": "out4, out2, kps, part, ticket, loss, means, " + _K8_HEADS,
-    "heatmap2d_loss_backward": "out4, out2, kps, dloss, d4, d2, " + _K8_HEADS,
-}
+# The C interface of the earlier K9 design that --baseline-csrc builds (that
+# of b3d34a0: a 32 x 32 tile with its halo staged as float32 in shared
+# memory): N, H, W, R and noise are ints, m0-s2 floats, the rest pointers.
+BASELINE_SIGNATURE = ("src, dst, N, H, W, R, noise, sigma, scale, pc, seed, contrast, mul, "
+                      "chan_mul, minv, m0, m1, m2, s0, s1, s2, stream")
 
 
-class Baseline:
-    """K8 and K10 of an earlier design, built from the sources in ``csrc``
-    (each against that directory's own headers), with that design's plans."""
+def bind_baseline(lib):
+    """``color_aug`` of a library built from the earlier K9 source, with the
+    argument types of ``BASELINE_SIGNATURE``."""
+    fn = lib.color_aug
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int if a in ("N", "H", "W", "R", "noise") else
+                   ctypes.c_float if a[1:].isdigit() else ctypes.c_void_p
+                   for a in BASELINE_SIGNATURE.split(", ")]
+    return fn
 
-    SOURCES = {"argmax2d": ("argmax2d", "argmax2d_tiles"),
-               "heatmap2d_loss": ("heatmap2d_loss_forward", "heatmap2d_loss_backward")}
 
-    def __init__(self, csrc: str):
-        from jarvis_hybridnet_torch.kernels import build
+def call_baseline(fn, imgs, params, mean, std, minv=None, radius=0, noise=True):
+    """As ``kernels.color_aug`` on the card (contiguous images), through the
+    earlier design's C interface ``fn``."""
+    import torch
 
-        self.build = build
-        out_dir = os.path.join(csrc, "build")
-        os.makedirs(out_dir, exist_ok=True)
-        jobs = {}
-        for name in self.SOURCES:
-            lib = os.path.join(out_dir, f"lib{name}.so")
-            cmd = [build._nvcc(), *build._flags(name), "-o", lib, os.path.join(csrc, f"{name}.cu")]
-            jobs[name] = lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                               stderr=subprocess.STDOUT, text=True)
-        fns = {}
-        for name, (lib, proc) in jobs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                fail(f"nvcc failed for the baseline {name}.cu:\n{log}")
-            for sym in self.SOURCES[name]:
-                fns[sym] = getattr(ctypes.CDLL(lib), sym)
-                fns[sym].restype = ctypes.c_int
-                fns[sym].argtypes = [
-                    ctypes.c_float if a in _BASELINE_FLOATS else
-                    ctypes.c_longlong if a in _BASELINE_LONGS else
-                    ctypes.c_void_p if a in _BASELINE_POINTERS else ctypes.c_int
-                    for a in BASELINE_SIGNATURES[sym].split(", ")]
-        self.fns = fns
+    from jarvis_hybridnet_torch.kernels import build
+    from jarvis_hybridnet_torch.kernels.color_aug import PARAM_KEYS
 
-    def argmax2d(self, hm):
-        """Its wrapper: a tiled launch (about 264 blocks, 512 // C lanes a
-        channel) for channels-last heads, else a block per (image, channel)
-        with 16-byte loads where every channel's rows are aligned."""
-        import torch
+    h, w = imgs.shape[-3], imgs.shape[-2]
+    out = torch.empty(imgs.shape, dtype=torch.float32, device=imgs.device)
+    leaves = [build.ptr(None if params is None else params[k]) for k in PARAM_KEYS]
+    build.check(fn(build.ptr(imgs), build.ptr(out), imgs.numel() // (h * w * 3), h, w,
+                   int(radius), int(bool(noise)), *leaves, build.ptr(minv),
+                   *(float(v) for v in mean), *(float(v) for v in std), build.stream()),
+                "baseline K9")
+    return out
 
-        N, H, W, C = hm.shape
-        sn, sy, sx, sc = hm.stride()
-        dtype = int(hm.dtype == torch.bfloat16)
-        xy = torch.empty((N, C, 2), dtype=torch.int32, device=hm.device)
-        maxv = torch.empty((N, C), dtype=torch.float32, device=hm.device)
-        b = self.build
-        if C > 1 and sc == 1 and sx == C and sy == W * C:
-            lanes = max(1, 512 // C)
-            tiles = max(1, min(-(-264 // N), -(-(H * W) // lanes)))
-            per = -(-(H * W) // tiles)
-            part_v = torch.empty(N * tiles * C, dtype=torch.float32, device=hm.device)
-            part_i = torch.empty(N * tiles * C, dtype=torch.int32, device=hm.device)
-            ticket = b.sync_words(hm.device, "argmax2d baseline")
-            err = self.fns["argmax2d_tiles"](
-                b.ptr(hm), N, H, W, C, sn, dtype, tiles, per, C * lanes, b.ptr(part_v),
-                b.ptr(part_i), b.ptr(ticket), b.ptr(xy), b.ptr(maxv), b.stream())
-        else:
-            v = 16 // hm.element_size()
-            vec = (sx == 1 and W % v == 0 and sy % v == 0 and sn % v == 0
-                   and (C == 1 or sc % v == 0) and hm.data_ptr() % 16 == 0)
-            err = self.fns["argmax2d"](b.ptr(hm), N, H, W, C, sn, sy, sx, sc, dtype, int(vec),
-                                       b.ptr(xy), b.ptr(maxv), b.stream())
-        b.check(err, "baseline K10")
-        return xy, maxv
 
-    @staticmethod
-    def _k8_args(out4, out2, kps, input_size, sigma_base):
-        """Its head arguments: about 2048 elements a block, at most 528
-        blocks."""
-        from jarvis_hybridnet_torch.kernels.heatmap2d_loss import sigmas
-        from jarvis_hybridnet_torch.ops.heatmap import stamp
+def build_baseline(csrc: str):
+    """K9 of an earlier design, built from ``<csrc>/color_aug.cu`` against
+    that directory's own headers: a function with ``color_aug``'s
+    arguments."""
+    from jarvis_hybridnet_torch.kernels import build
 
-        B, J = out4.shape[:2]
-        st = [stamp(input_size, o.shape[-1], s)
-              for o, s in zip((out4, out2), sigmas(sigma_base, input_size))]
-        blocks = max(1, min(528, -(-(out4.numel() + out2.numel()) // 2048)))
-        cl = [int(not o.is_contiguous()) for o in (out4, out2)]
-        return (B, J, *out4.shape[2:], cl[0], *out2.shape[2:], cl[1], st[0].scale, st[0].off,
-                st[0].den, st[0].ksize, st[1].scale, st[1].off, st[1].den, st[1].ksize,
-                blocks), blocks
-
-    def heatmap2d_loss_fwd(self, out4, out2, kps, input_size, sigma_base):
-        import torch
-
-        args, blocks = self._k8_args(out4, out2, kps, input_size, sigma_base)
-        dev = out4.device
-        part = torch.empty(blocks * 2, dtype=torch.float32, device=dev)
-        loss = torch.empty((), dtype=torch.float32, device=dev)
-        means = torch.empty(2, dtype=torch.float32, device=dev)
-        b = self.build
-        ticket = b.sync_words(dev, "heatmap2d_loss_fwd baseline")
-        b.check(self.fns["heatmap2d_loss_forward"](
-            *(b.ptr(t) for t in (out4, out2, kps, part, ticket, loss, means)), *args,
-            b.stream()), "baseline K8 forward")
-        return loss, means
-
-    def heatmap2d_loss_bwd(self, out4, out2, kps, input_size, sigma_base, dloss):
-        import torch
-
-        args, _ = self._k8_args(out4, out2, kps, input_size, sigma_base)
-        d4, d2 = torch.empty_like(out4), torch.empty_like(out2)
-        b = self.build
-        b.check(self.fns["heatmap2d_loss_backward"](
-            *(b.ptr(t) for t in (out4, out2, kps, dloss.float().reshape(1), d4, d2)), *args,
-            b.stream()), "baseline K8 backward")
-        return d4, d2
+    out_dir = os.path.join(csrc, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "libcolor_aug.so")
+    proc = subprocess.run([build._nvcc(), *build._flags("color_aug"), "-o", path,
+                           os.path.join(csrc, "color_aug.cu")], capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f"nvcc failed for the baseline color_aug.cu:\n{proc.stdout}{proc.stderr}")
+    return functools.partial(call_baseline, bind_baseline(ctypes.CDLL(path)))
 
 
 def against_baseline(current, baseline, check) -> tuple[float, float]:
@@ -1613,14 +1538,12 @@ def train2d_card_vs_cpu(ckpt, note) -> None:
         fail("the card-vs-CPU 2D training gate does not tell a TF32 step from a float32 one")
 
 
-def check_k8(kernels, recorder, runs, baseline, base_log, note) -> list:
+def check_k8(kernels, recorder, runs, note) -> list:
     """K8 at every (heads, input size, sigma) a driven path gave it, against
     its plain version: the loss within 1e-6 relative, both heads' gradients
     equal to the plain version's bit for bit, two calls of each bit-equal;
-    each key timed (forward and backward: device, wall, plain, bound) and,
-    with a baseline, the baseline's design held to the plain version (loss
-    1e-6 relative, gradients 1e-6 of their largest element) and timed in
-    turns with the current one. The kernels line: each net's training key."""
+    each key timed (forward and backward: device, wall, plain, bound). The
+    kernels line: each net's training key."""
     import torch
 
     from jarvis_hybridnet_torch.kernels.heatmap2d_loss import walk_plan
@@ -1666,27 +1589,6 @@ def check_k8(kernels, recorder, runs, baseline, base_log, note) -> list:
              f"walks {walks}")
         if lrel > 1e-6 or not gsame or not twice:
             fail("heatmap2d_loss differs from its plain version, or between two calls")
-        if baseline is not None:
-            def near_fwd(new, old):
-                if abs(float(old[0]) - float(pl)) > 1e-6 * abs(float(pl)):
-                    fail("heatmap2d_loss_fwd: the baseline design differs from the plain version")
-
-            def near_bwd(new, old):
-                if any(float((o - p).abs().max()) > 1e-6 * float(p.abs().max())
-                       for o, p in zip(old, pg)):
-                    fail("heatmap2d_loss_bwd: the baseline design differs from the plain version")
-            for name, cur_fn, base_fn, near in (
-                    ("fwd", lambda: kernels.heatmap2d_loss_fwd(*args),
-                     lambda: baseline.heatmap2d_loss_fwd(*args), near_fwd),
-                    ("bwd", lambda: kernels.heatmap2d_loss_bwd(*args, dl),
-                     lambda: baseline.heatmap2d_loss_bwd(*args, dl), near_bwd)):
-                cur, timing[name]["baseline_ms"] = against_baseline(cur_fn, base_fn, near)
-                base_log.write(f"K8 heatmap2d_loss_{name} out4 {key[0]} out2 {key[2]} "
-                               f"(calls per path {json.dumps(per)}): current {cur:.4f} ms, "
-                               f"baseline {timing[name]['baseline_ms']:.4f} ms, bound "
-                               f"{timing[name]['bound_ms']:.4f} ms\n")
-            note(f"  baseline design: forward {timing['fwd']['baseline_ms']:.4f} ms, backward "
-                 f"{timing['bwd']['baseline_ms']:.4f} ms (timed in turns with the current one)")
         net = next((n for n in NETS_2D if f"train2d_{n}" in per), None)
         if net is None:
             continue
@@ -1702,41 +1604,190 @@ def check_k8(kernels, recorder, runs, baseline, base_log, note) -> list:
     return entries
 
 
-def check_k9(kernels, recorder, cfg, runs, train_counts, note) -> list:
-    """K9 at every (images, record, border, blur) a driven path gave it,
-    against its plain version, with the record's ``noise_scale`` at the
-    config's upper bound on every image: the [0, 1] image (mean 0, std 1)
-    within 2e-6, the normalized one within 2e-6 / min(std), two calls
-    bit-equal; each key timed (device, wall, plain, bound: the uint8 read
-    and the float32 written). The kernels line: the 2D KeypointDetect train
-    key and the 3D train key."""
+# K9's edge keys: (label, lead, record, border, keyword arguments of k9_args)
+K9_EDGE_KEYS = (
+    ("radius 0 with a record", (2,), True, True, dict(h=64, w=64, radius=0)),
+    ("radius 1", (2,), True, True, dict(h=64, w=64, radius=1)),
+    ("radius 2", (2,), True, False, dict(h=64, w=64, radius=2)),
+    ("radius 5", (2,), True, True, dict(h=64, w=64, radius=5)),
+    ("radius 12", (2,), True, False, dict(h=64, w=64, radius=12)),
+    ("N = 1, 37 x 53", (1,), True, True, dict(h=37, w=53, radius=2)),
+    ("N = 1, 37 x 53, radius 12", (1,), True, False, dict(h=37, w=53, radius=12)),
+    ("W * 3 = 60, not a multiple of 16", (3,), True, True, dict(h=24, w=20, radius=2)),
+    ("H, W <= R", (2,), True, False, dict(h=3, w=2, radius=5)),
+    ("unaligned lead view (images 1-2 of 3)", (2,), True, True, dict(h=37, w=53, view=True)),
+    ("base 1 byte past a word, W % 4 == 0", (2,), True, False, dict(h=32, w=64, offset=1)),
+    ("base 1 byte past a word, no record", (2,), False, False, dict(h=32, w=64, offset=1)),
+    ("no record, 37 x 53 (bytes not a multiple of 4)", (1,), False, False, dict(h=37, w=53)),
+    ("border without a record", (2,), False, True, dict(h=64, w=64)),
+    ("noise_pc 0 / 1 mixed", (4,), True, False, dict(h=64, w=64, noise_pc=[0, 1, 0, 1])),
+    ("blur_sigma <= 1e-3 (the delta taps)", (2,), True, False,
+     dict(h=64, w=64, blur_sigma=[1e-3, 0.0])),
+    ("contrast 1", (2,), True, False, dict(h=64, w=64, contrast=1.0)),
+)
+
+
+def k9_args(lead, record, border, dev, h=256, w=256, radius=2, seed=0, offset=0, view=False,
+            **fixed):
+    """Seeded arguments of K9 as a train step gives them: uint8 images
+    ``lead + (h, w, 3)``, the default config's color record (or None) with
+    every image blurred (sigma in (0.05, 0.5)) and ``noise_scale`` at the
+    config's upper bound, a rotated and scaled ``minv`` whose source leaves
+    the frame (or None), the dataset's mean and std; ``fixed`` sets record
+    leaves (``noise_pc``, ``blur_sigma``, ``contrast``) to a value or one
+    per image. ``offset``: the images start that many bytes past an aligned
+    buffer's base; ``view``: they are images 1.. of one more (and the record
+    and ``minv`` views of theirs). Returns the positional arguments of
+    ``color_aug``."""
+    import numpy as np
     import torch
 
+    from jarvis_hybridnet_torch.config.defaults import get_default_cfg
+    from jarvis_hybridnet_torch.ops.augment import record_arrays, sample_color_params
+
+    cfg = get_default_cfg()
+    cm = cfg.AUGMENTATION.COLOR_MANIPULATION
+    rng = np.random.default_rng(seed)
+    full = ((lead[0] + 1,) + lead[1:]) if view else lead
+    n = math.prod(full)
+    pix = rng.integers(0, 256, full + (h, w, 3), dtype=np.uint8)
+    buf = torch.empty(pix.size + offset, dtype=torch.uint8, device=dev)
+    imgs = buf[offset:].view(full + (h, w, 3))
+    imgs.copy_(torch.from_numpy(pix))
+    params = minv = None
+    if record:
+        rec = sample_color_params(cm, rng, n)
+        rec["blur_sigma"] = rng.uniform(0.05, 0.5, n).astype(np.float32)
+        rec["noise_scale"][:] = float(cm.GAUSSIAN_NOISE.SCALE[1])
+        for k, v in fixed.items():
+            rec[k][:] = np.resize(np.asarray(v, rec[k].dtype), n)
+        params = {k[4:]: torch.from_numpy(v.reshape(full + v.shape[1:])).to(dev)
+                  for k, v in record_arrays(rec).items()}
+    if border:
+        m = np.zeros((n, 2, 3), np.float32)
+        for i, a in enumerate(rng.uniform(-0.6, 0.6, n)):
+            s, cx, cy = rng.uniform(0.8, 1.2), (w - 1) / 2, (h - 1) / 2
+            r = s * np.array([[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]])
+            m[i, :, :2] = r
+            m[i, :, 2] = np.array([cx, cy]) - r @ np.array([cx, cy]) + rng.uniform(-20, 20, 2)
+        minv = torch.from_numpy(m.reshape(full + (2, 3))).to(dev)
+    if view:
+        imgs = imgs[1:]
+        params = None if params is None else {k: v[1:] for k, v in params.items()}
+        minv = None if minv is None else minv[1:]
+    return (imgs, params, tuple(cfg.DATASET.MEAN), tuple(cfg.DATASET.STD), minv,
+            radius if record else 0, record)
+
+
+# The fewest SASS instructions that any input runs through each precise
+# function of K9's noise, beyond the same loads and stores
+# (``kernel_sweep.py --only k9ops``: nvcc 12.9, sm_90a, --fmad=false)
+K9_PRECISE_OPS = {"logf": 27, "sqrtf": 7, "cosf": 24, "sincosf": 27}
+# float32 instructions a second outside the tensor cores (H100 SXM data
+# sheet: 67 TFLOP/s, an FMA counted as two)
+FP32_OPS_PER_S = 67e12 / 2
+
+
+def k9_ops(args) -> dict:
+    """The instructions a pixel that K9's function needs at one call's
+    arguments, by term, whatever the kernel's own layout: per channel a
+    conversion and a division (3 fused operations after a reciprocal per
+    call) for /255 and a subtraction and a division for the normalize; with
+    a record the color (contrast's 3 where the image's contrast is not 1,
+    the two gains, the clamp's 2), the blur's 2R + 1 products and 2R sums a
+    pass, two passes, and the noise: Philox-4x32-10 (a counter and 10 rounds
+    of 2 wide products and 2 three-input XORs), 3 a word for the uniforms,
+    Box-Muller's products and precise functions (``K9_PRECISE_OPS``) and
+    the noise's product and sums, for noise_pc 1 (four words, three normals)
+    and 0 (two words, one normal), weighted by this call's images; the
+    border: a conversion, two affine rows of a product and two sums, 4
+    compares and 3 selects. Data-dependent shares are this call's."""
+    imgs, params, _, _, minv, radius, noise = args
+    pre = K9_PRECISE_OPS
+    ops = {"/255 and normalize": 3 * (1 + 3) + 3 * (1 + 3)}
+    if params is not None:
+        con = float((params["contrast"] != 1).float().mean())
+        ops["color"] = 3 * (3 * con + 2 + 2)
+        if radius > 0:
+            ops["blur"] = 3 * 2 * ((2 * radius + 1) + 2 * radius)
+        if noise:
+            pc = float((params["noise_pc"] != 0).float().mean())
+            pc1 = 4 * 3 + 7 + 2 * pre["logf"] + 2 * pre["sqrtf"] + pre["sincosf"] + pre["cosf"] + 3 * 2
+            pc0 = 2 * 3 + 3 + pre["logf"] + pre["sqrtf"] + pre["cosf"] + 1 + 3
+            ops["noise"] = 1 + 10 * 4 + pc * pc1 + (1 - pc) * pc0
+    if minv is not None:
+        ops["border"] = 1 + 2 * 3 + 4 + 3
+    return ops
+
+
+def check_k9(kernels, recorder, cfg, runs, train_counts, baseline, base_log, note) -> list:
+    """K9 at every (images, record, border, blur) a driven path gave it and at
+    the edge keys of ``K9_EDGE_KEYS``, against its plain version, with the
+    record's ``noise_scale`` at the config's upper bound on every image: the
+    [0, 1] image (mean 0, std 1) within 2e-6, the normalized one within 2e-6
+    / min(std), two calls bit-equal and, with a baseline, equal to the
+    baseline's bit for bit. Each recorded key is timed (device, wall, plain;
+    with a baseline in turns with it) beside its bound: the larger of the
+    bytes (the uint8 read and the float32 written) and the function's
+    operations (``k9_ops``) at the float32 rate. The kernels line: the 2D
+    KeypointDetect train key and the 3D train key."""
+    import importlib
+
+    import torch
+
+    k9 = importlib.import_module("jarvis_hybridnet_torch.kernels.color_aug")
     upper = float(cfg.AUGMENTATION.COLOR_MANIPULATION.GAUSSIAN_NOISE.SCALE[1])
-    entries = []
-    for key, (args, per) in recorder.k9.items():
-        imgs, params, mean, std, minv, radius, noise = args
-        if params is not None:
-            params = dict(params, noise_scale=torch.full_like(params["noise_scale"], upper))
-        unit = (imgs, params, (0.0,) * 3, (1.0,) * 3, minv, radius, noise)
-        full = (imgs, params, mean, std, minv, radius, noise)
+
+    def held(full, label):
+        """Both gates, two calls and the baseline; returns the gaps."""
+        std = full[3]
+        unit = full[:2] + ((0.0,) * 3, (1.0,) * 3) + full[4:]
         errs = []
         for a, tol in ((unit, 2e-6), (full, 2e-6 / min(std))):
             k, k2, p = kernels.color_aug(*a), kernels.color_aug(*a), kernels.color_aug_plain(*a)
             errs.append(float((k - p).abs().max()))
             if errs[-1] > tol or not torch.equal(k, k2):
-                fail(f"color_aug {key} differs from its plain version by {errs[-1]} (tol "
+                fail(f"color_aug {label} differs from its plain version by {errs[-1]} (tol "
                      f"{tol:.2e}) or between two calls")
-        nbytes = imgs.numel() * (1 + 4)
+            if baseline is not None and not torch.equal(k, baseline(*a)):
+                fail(f"color_aug {label} differs from the baseline design")
+        return errs
+
+    entries = []
+    for key, (args, per) in recorder.k9.items():
+        imgs, params, mean, std, minv, radius, noise = args
+        if params is not None:
+            params = dict(params, noise_scale=torch.full_like(params["noise_scale"], upper))
+        full = (imgs, params, mean, std, minv, radius, noise)
+        errs = held(full, str(key))
+        plan = k9.plan_of(full[0], full[1], full[4], full[5])
+        bytes_ms = imgs.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3
+        ops = k9_ops(full)
+        ops_ms = imgs.numel() // 3 * sum(ops.values()) / FP32_OPS_PER_S * 1e3
         t = dict(ms=graph_ms(lambda: kernels.color_aug(*full)),
                  wall_ms=cuda_ms(lambda: kernels.color_aug(*full)),
                  plain_ms=cuda_ms(lambda: kernels.color_aug_plain(*full), iters=5),
-                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+                 bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        base = ""
+        if baseline is not None:
+            cur, t["baseline_ms"] = against_baseline(
+                lambda: kernels.color_aug(*full), lambda: baseline(*full),
+                lambda new, old: None)
+            base = f", baseline {t['baseline_ms']:.4f} (in turns: current {cur:.4f})"
+            base_log.write(f"K9 color_aug {key[0]} record {key[1]} border {key[2]} radius "
+                           f"{key[3]} (calls per path {json.dumps(per)}): current {cur:.4f} ms, "
+                           f"baseline {t['baseline_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                           f"({t['bound_by']}); outputs equal\n")
         note(f"color_aug {key[0]} record {key[1]} border {key[2]} radius {key[3]} (calls per "
              f"path {json.dumps(per)}): [0, 1] image {errs[0]:.2e} from the plain version (tol "
              f"2e-6), normalized {errs[1]:.2e} (tol {2e-6 / min(std):.2e}), noise at "
-             f"{upper:g} on every image, two calls bit-equal; device {t['ms']:.4f} ms, wall "
-             f"{t['wall_ms']:.4f}, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f}")
+             f"{upper:g} on every image, two calls bit-equal"
+             + (", equal to the baseline" if baseline is not None else "")
+             + f"; device {t['ms']:.4f} ms, wall {t['wall_ms']:.4f}, plain {t['plain_ms']:.4f},"
+             f" bound {t['bound_ms']:.4f} ({t['bound_by']}: bytes {bytes_ms:.4f}, operations "
+             f"{ops_ms:.4f} at {sum(ops.values()):.1f} instructions a pixel: "
+             + ", ".join(f"{k} {v:.1f}" for k, v in ops.items()) + f"){base}; {plan}")
         if not key[1]:
             continue
         if "train2d_KeypointDetect" in per:
@@ -1749,8 +1800,17 @@ def check_k9(kernels, recorder, cfg, runs, train_counts, note) -> list:
             name=name, route="cuda", kernels_per_call=1,
             source="jarvis_hybridnet_torch/kernels/csrc/color_aug.cu",
             replaces="jarvis_hybridnet_tpu/ops/augment.py:161", launches=launches,
-            max_abs_err=errs[1], bound_by="bytes", library_ms=None, input_shape=list(key[0]),
-            **t))
+            max_abs_err=errs[1], library_ms=None, input_shape=list(key[0]), **t))
+    dev = torch.device("cuda")
+    for label, lead, record, border, kw in K9_EDGE_KEYS:
+        full = k9_args(lead, record, border, dev, **kw)
+        errs = held(full, f"edge key {label}")
+        note(f"color_aug edge key {label}: images {tuple(full[0].shape)} base "
+             f"{full[0].data_ptr() % 16} past 16 bytes, record {record}, border {border}, radius "
+             f"{full[5]}: [0, 1] image {errs[0]:.2e} from the plain version (tol 2e-6), "
+             f"normalized {errs[1]:.2e}, two calls bit-equal"
+             + (", equal to the baseline" if baseline is not None else "")
+             + f"; {k9.plan_of(full[0], full[1], full[4], full[5])}")
     return entries
 
 
@@ -1799,7 +1859,7 @@ def k10_edge_batch(dtype, layout: str, dev):
     return t.permute(0, 2, 3, 1)
 
 
-def check_k10(kernels, recorder, path_counts, baseline, base_log, note) -> list:
+def check_k10(kernels, recorder, path_counts, note) -> list:
     """K10 at every (heatmaps shape, dtype, strides) a driven path gave it,
     against its plain version: integers and maxima identical, two calls
     bit-equal, and the same under other plans that merge more shares
@@ -1807,8 +1867,7 @@ def check_k10(kernels, recorder, path_counts, baseline, base_log, note) -> list:
     key timed (device, wall, plain, bound: the heatmaps read once and 12
     bytes written a channel) beside ``torch.max`` over the flattened view
     (``library_ms``, the copy the layout needs included; ``library_max_ms``
-    without it) and, with a baseline, the baseline's design (its outputs
-    equal to the current one's, timed in turns). Then the hand-made edge
+    without it). Then the hand-made edge
     batches (``k10_edge_batch``) in both dtypes and layouts. The kernels
     line: the predict3D main path's key, predict2D's keypoint key and the 2D
     KeypointDetect train step's key."""
@@ -1851,24 +1910,12 @@ def check_k10(kernels, recorder, path_counts, baseline, base_log, note) -> list:
                      n, c, h * w), dim=-1)),
                  library_max_ms=graph_ms(lambda: torch.max(flat, dim=-1)),
                  bound_ms=(hm.numel() * hm.element_size() + n * c * 12) / HBM_BYTES_PER_S * 1e3)
-        base = ""
-        if baseline is not None:
-            def same(new, old, key=key):
-                if not same_argmax(new, old):
-                    fail(f"argmax2d {key}: differs from the baseline design")
-            cur, t["baseline_ms"] = against_baseline(lambda: kernels.argmax2d(hm),
-                                                     lambda: baseline.argmax2d(hm), same)
-            base = f", baseline {t['baseline_ms']:.4f} (in turns: current {cur:.4f})"
-            base_log.write(f"K10 argmax2d {key[0]} {key[1]} strides {key[2]} (calls per path "
-                           f"{json.dumps(per)}): current {cur:.4f} ms, baseline "
-                           f"{t['baseline_ms']:.4f} ms, torch.max {t['library_ms']:.4f} ms, "
-                           f"bound {t['bound_ms']:.4f} ms; outputs equal\n")
         note(f"argmax2d {key[0]} {key[1]} strides {key[2]} (calls per path {json.dumps(per)}): "
              f"integers and maxima identical, two calls bit-equal, {n_other} other plans "
              f"identical; "
              f"device {t['ms']:.4f} ms, wall {t['wall_ms']:.4f}, plain {t['plain_ms']:.4f}, "
              f"torch.max {t['library_ms']:.4f} (without the layout's copy "
-             f"{t['library_max_ms']:.4f}), bound {t['bound_ms']:.4f}{base}; {plan}")
+             f"{t['library_max_ms']:.4f}), bound {t['bound_ms']:.4f}; {plan}")
         for path, name in (("quarter_fused", "argmax2d"), ("predict2d", "argmax2d[predict2d]"),
                            ("train2d_step_KeypointDetect", "argmax2d[train2d]")):
             if path in per and name not in done and (path != "predict2d" or c > 1):
@@ -1885,21 +1932,16 @@ def check_k10(kernels, recorder, path_counts, baseline, base_log, note) -> list:
         for layout in ("channels_last", "contiguous", "single"):
             hm = k10_edge_batch(dtype, layout, dev)
             plan, n_other = held(hm, f"edge batch {tuple(hm.shape)} {dtype} {layout}")
-            if baseline is not None and not same_argmax(kernels.argmax2d(hm),
-                                                        baseline.argmax2d(hm)):
-                fail(f"argmax2d edge batch {dtype} {layout}: differs from the baseline design")
             note(f"argmax2d edge batch {tuple(hm.shape)} {dtype} {layout} strides "
                  f"{hm.stride()}: identical to the plain version (maxima bit for bit, NaN "
-                 f"where NaN), two calls and {n_other} other plans too"
-                 + (", and to the baseline design" if baseline is not None else "")
-                 + f"; {plan}")
+                 f"where NaN), two calls and {n_other} other plans too; {plan}")
     return entries
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-csrc", metavar="DIR",
-                    help="time K8 and K10 built from DIR beside the current ones")
+                    help="time K9 built from DIR beside the current one")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -1949,7 +1991,7 @@ def main() -> int:
         log.write(f"ptxas for {name}.cu ({label}):\n")
         for line in ptxas_lines(name):
             log.write(f"  {line}\n")
-    baseline = Baseline(os.path.abspath(args.baseline_csrc)) if args.baseline_csrc else None
+    baseline = build_baseline(os.path.abspath(args.baseline_csrc)) if args.baseline_csrc else None
     base_log = open(os.path.join(out_dir, "chip_smoke_baseline.txt"), "w") if baseline else None
 
     phase("load")
@@ -2083,9 +2125,10 @@ def main() -> int:
                                      path_counts["training"]["instance_norm_act_backward"],
                                      note, step_paths=[f"train2d_step_{n}" for n in NETS_2D]))
     phase("K8, K9, K10 checks")
-    train_entries += check_k8(kernels, recorder, runs2d, baseline, base_log, note)
-    train_entries += check_k9(kernels, recorder, cfg, runs2d, path_counts["training"], note)
-    train_entries += check_k10(kernels, recorder, path_counts, baseline, base_log, note)
+    train_entries += check_k8(kernels, recorder, runs2d, note)
+    train_entries += check_k9(kernels, recorder, cfg, runs2d, path_counts["training"], baseline,
+                              base_log, note)
+    train_entries += check_k10(kernels, recorder, path_counts, note)
     if base_log is not None:
         base_log.close()
     recorder.k8.clear()  # the heads and images they hold

@@ -29,8 +29,10 @@ Each wrapper counts the calls that launch its CUDA source in
   image and scale, 16-byte loads with positions carried by adds; the
   forward's last block sums the partials;
 - color_aug (K9) turns raw uint8 images into the normalized network input,
-  with the training-time color augmentation (a blur from a shared-memory
-  tile, Philox noise, contrast and gains, the warp-border re-zero) between;
+  with the training-time color augmentation (a blur over bands of whole
+  rows staged once in shared memory, Philox noise, contrast and gains, the
+  warp-border re-zero) between; without a record or a border, a flat walk
+  of 4 bytes to a float4 a thread;
 - argmax2d (K10) reduces each heatmap channel to its maximum and first
   index through 64-bit order keys, several CTAs a channel (or an image of
   channels-last heads), merged by atomics and a last-CTA ticket.

@@ -13,6 +13,7 @@ integers in the kernel and in :func:`noise_field`).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -94,8 +95,13 @@ def blur_taps(sigma: torch.Tensor, radius: int) -> torch.Tensor:
 
 
 def _reflect101(n: int, radius: int, device) -> torch.Tensor:
+    """The indices -radius .. n + radius - 1 reflected into [0, n) as
+    BORDER_REFLECT_101 (and ``jnp.pad``'s "reflect") reflects them, as many
+    times as a radius beyond the edge needs."""
     i = torch.arange(-radius, n + radius, device=device)
-    i = torch.where(i < 0, -i, i)
+    if n == 1:
+        return torch.zeros_like(i)
+    i = torch.remainder(i, 2 * (n - 1))
     return torch.where(i >= n, 2 * (n - 1) - i, i)
 
 
@@ -164,6 +170,86 @@ def color_aug_plain(imgs: torch.Tensor, params: dict | None, mean, std,
     return ((x - mean_t) / std_t).reshape(imgs.shape)
 
 
+# The kernel's constants (csrc/color_aug.cu: kMaxThreads, kPad, kMaxFast)
+# and the card's shared memory a block may take
+MAX_THREADS = 512
+PAD = 4
+MAX_FAST = 4
+SMEM_LIMIT = 227 * 1024
+# The plan's defaults (kernel_sweep.py --only k9): threads a CTA, the
+# tallest band that still gives TARGET_BLOCKS CTAs, the flat walk's most
+# CTAs (4 a SM; grid-stride beyond)
+THREADS = 256
+BAND_ROWS = (16, 8, 4, 2, 1)
+TARGET_BLOCKS = 264
+FLAT_BLOCKS = 528
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """K9's launch (``csrc/color_aug.cu``). ``rows`` 0: ``k9_flat``, /255 and
+    normalize alone over the batch's bytes in units of 4 (``blocks`` CTAs of
+    ``threads``, grid-stride); else ``k9_bands``, a CTA per band of ``rows``
+    rows of one image (``blocks`` = N * bands). ``vec``: the runs' bytes are
+    read as 4-byte words (a word-aligned base and, for bands, W % 4 == 0);
+    ``smem``: the band's shared memory in bytes."""
+
+    rows: int
+    blocks: int
+    threads: int
+    vec: bool
+    smem: int
+
+
+def band_floats(w: int, radius: int, rows: int) -> int:
+    """The shared floats of a band (``band_floats`` in the source): the taps
+    rounded up to 4, the staged rows (rows + 2R of 3 W4 floats, W4 = W
+    rounded up to 4) and the three planar column-blurred channels (rows of
+    W4 + 2 PAD floats for radii up to MAX_FAST, else W4)."""
+    if radius == 0:
+        return 0
+    w4 = -(-w // 4) * 4
+    pad = PAD if radius <= MAX_FAST else 0
+    return ((2 * radius + 1 + 3) & ~3) + (rows + 2 * radius) * 3 * w4 + 3 * rows * (w4 + 2 * pad)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(n: int, h: int, w: int, radius: int, flat: bool, aligned: bool,
+                rows: int | None = None, threads: int = THREADS,
+                flat_blocks: int = FLAT_BLOCKS) -> Plan:
+    """The plan for N images (h, w, 3): ``flat`` for /255 and normalize alone
+    (no record, no border); ``aligned`` when the images' base is 4-byte
+    aligned. A band is ``rows`` rows (by default the tallest of BAND_ROWS
+    that gives TARGET_BLOCKS CTAs: halo rows staged again cost less than
+    idle SMs), fewer where the blur's staged rows would not fit
+    SMEM_LIMIT; raises where even one row does not."""
+    if threads % 32 or not 32 <= threads <= MAX_THREADS:
+        raise ValueError(f"color_aug: {threads} threads a CTA")
+    if flat:
+        units = -(-(n * h * w * 3) // 4)
+        return Plan(0, max(1, min(flat_blocks, -(-units // threads))), threads, aligned, 0)
+    if rows is None:
+        rows = next((r for r in BAND_ROWS if n * -(-h // r) >= TARGET_BLOCKS), 1)
+    rows = max(1, min(rows, h))
+    while rows > 1 and band_floats(w, radius, rows) * 4 > SMEM_LIMIT:
+        rows -= 1
+    smem = band_floats(w, radius, rows) * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"color_aug: a band of one row of width {w} at radius {radius} needs "
+                         f"{smem} bytes of shared memory, more than {SMEM_LIMIT}")
+    return Plan(rows, n * -(-h // rows), threads, aligned and w % 4 == 0, smem)
+
+
+def plan_of(imgs: torch.Tensor, params: dict | None, minv: torch.Tensor | None = None,
+            radius: int = 0, **kw) -> Plan:
+    """The wrapper's plan for a call (``kw``: ``launch_plan``'s rows,
+    threads and flat_blocks)."""
+    h, w = imgs.shape[-3], imgs.shape[-2]
+    return launch_plan(imgs.numel() // (h * w * 3), h, w,
+                       int(radius) if params is not None else 0,
+                       params is None and minv is None, imgs.data_ptr() % 4 == 0, **kw)
+
+
 def color_aug(imgs: torch.Tensor, params: dict | None, mean, std,
               minv: torch.Tensor | None = None, radius: int = 0,
               noise: bool = True) -> torch.Tensor:
@@ -177,8 +263,6 @@ def color_aug(imgs: torch.Tensor, params: dict | None, mean, std,
     build.require(imgs, "imgs", (torch.uint8,))
     if imgs.dim() < 3 or imgs.shape[-1] != 3:
         raise ValueError(f"color_aug: expected (..., H, W, 3) images, got {tuple(imgs.shape)}")
-    h, w = imgs.shape[-3], imgs.shape[-2]
-    n = imgs.numel() // (h * w * 3)
     lead = tuple(imgs.shape[:-3])
     if params is not None:
         for k in PARAM_KEYS:
@@ -194,12 +278,7 @@ def color_aug(imgs: torch.Tensor, params: dict | None, mean, std,
         if tuple(minv.shape) != lead + (2, 3):
             raise ValueError(f"color_aug: minv has shape {tuple(minv.shape)}, expected "
                              f"{lead + (2, 3)}")
-    out = torch.empty(imgs.shape, dtype=torch.float32, device=imgs.device)
-    ptrs = [build.ptr(t) for t in leaves] if params is not None else [build.ptr(None)] * 7
-    m, s = (float(v) for v in mean), (float(v) for v in std)
-    err = _fn()(build.ptr(imgs), build.ptr(out), n, h, w, int(radius), int(bool(noise)), *ptrs,
-                build.ptr(minv), *m, *s, build.stream())
-    build.check(err, "color_aug")
+    out = launch(imgs, params, mean, std, minv, radius, noise, plan_of(imgs, params, minv, radius))
     color_aug.launches += 1
     return out
 
@@ -207,7 +286,36 @@ def color_aug(imgs: torch.Tensor, params: dict | None, mean, std,
 color_aug.launches = 0
 
 
+def launch(imgs: torch.Tensor, params: dict | None, mean, std, minv, radius: int, noise: bool,
+           plan: Plan, fn=None) -> torch.Tensor:
+    """One launch of K9 under ``plan`` on checked arguments; counts no
+    launch (``color_aug`` does; kernel_sweep.py times other plans, and
+    variants of the source through ``fn``, their ``color_aug`` bound by
+    :func:`bind`)."""
+    h, w = imgs.shape[-3], imgs.shape[-2]
+    if not all(2.0 ** -20 <= abs(float(v)) <= 2.0 ** 20 for v in std):
+        raise ValueError(f"color_aug: std {tuple(std)} outside [2^-20, 2^20]")
+    out = torch.empty(imgs.shape, dtype=torch.float32, device=imgs.device)
+    leaves = [None] * 7 if params is None else [params[k] for k in PARAM_KEYS]
+    err = (fn or _fn())(
+        build.ptr(imgs), build.ptr(out), imgs.numel() // (h * w * 3), h, w,
+        int(radius) if params is not None else 0, int(bool(noise) and params is not None),
+        *(build.ptr(t) for t in leaves), build.ptr(minv), *(float(v) for v in mean),
+        *(float(v) for v in std), plan.rows, plan.blocks, plan.threads, int(plan.vec),
+        build.stream())
+    build.check(err, "color_aug")
+    return out
+
+
+def bind(lib: ctypes.CDLL):
+    """The C entry point ``color_aug`` of a library built from the source."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.color_aug
+    fn.argtypes = [p, p, i, i, i, i, i] + [p] * 8 + [f] * 6 + [i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.cache
 def _fn():
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return build.bind("color_aug", "color_aug", [p, p, i, i, i, i, i] + [p] * 8 + [f] * 6 + [p])
+    return bind(build.library("color_aug"))

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Launch-plan sweep of the K1, K2, K3, K5, K6, K8 and K10 kernels on one CUDA card.
+"""Launch-plan sweep of the K1, K2, K3, K5, K6, K8, K9 and K10 kernels on one CUDA card.
 
-    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5,k5probe,k6,k6probe,k7probe,k8,k10]
-    python3 kernel_sweep.py --only k8probe,k10probe --baseline-csrc DIR
+    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5,k5probe,k6,k6probe,k7probe,k8,k9,k9ops,k10]
+    python3 kernel_sweep.py --only k9,k9ops,k9probe --baseline-csrc DIR
 
 K1 instance_norm_act: for V2V's and the 2D networks' largest main-path
 shapes (bf16), times the kernel under every cluster size (1, 2, 4, 8, 16),
@@ -39,11 +39,16 @@ division, no tables, the backward's loads and stores alone, no target, no
 softplus. K8 heatmap2d_loss (``k8``): forward and backward at both 2D nets'
 train-step heads under walks of 128-512 threads and 264-2112 target blocks;
 K10 argmax2d (``k10``): its keys under plans of 132-1056 CTAs of 128-512
-threads, beside ``torch.max``. ``k8probe``
-and ``k10probe`` split the time of the earlier designs in ``--baseline-csrc
-DIR`` (eb9b817's K8: a constant walk for the division chain, no target, a
-32-bit index, no last-block sum; its K10: no merge of the warps, no merge of
-the tiles).
+threads, beside ``torch.max``. K9 color_aug (``k9``): its four training
+keys under bands of 1-16 rows, the no-record keys also under flat walks
+of 264 CTAs to one unit a thread; ``k9ops`` counts the fewest SASS
+instructions of each precise function in K9's noise (the constants of
+``chip_smoke.k9_ops``' bound); ``k9probe`` splits
+the time of the earlier design in ``--baseline-csrc DIR`` (b3d34a0's K9:
+returns after the launch, the taps, the tile load and the column pass; no
+row pass, no Philox, no Box-Muller, no noise, no border, no stores) and of
+the current one (returns after the launch, the staging and the column
+pass; no blur passes, no Philox, no Box-Muller, no noise, no stores).
 
 Times are device times of CUDA-graph replays (``chip_smoke.graph_ms``);
 every configuration is also checked against the plain version (bf16 ulps
@@ -56,9 +61,13 @@ Output goes to stdout and
 from __future__ import annotations
 
 import argparse
+import functools
+import heapq
 import importlib
 import itertools
+import json
 import os
+import re
 import subprocess
 import sys
 
@@ -743,120 +752,255 @@ def sweep_k8(say, dev) -> None:
                        else ""))
 
 
-def _baseline_design(lib):
-    """chip_smoke.Baseline over one probe library of the earlier design."""
-    import ctypes
+# K9's keys on the training paths at 256^2 (the blur's radius 2 of the
+# default config): (lead, record, border)
+K9_KEYS = (((1, 12), True, False), ((1, 12), False, False), ((4,), True, True),
+           ((4,), False, False))
 
-    import chip_smoke
-    from jarvis_hybridnet_torch.kernels import build
-
-    b = object.__new__(chip_smoke.Baseline)
-    b.build, b.fns = build, {}
-    for syms in chip_smoke.Baseline.SOURCES.values():
-        for sym in syms:
-            if hasattr(lib, sym):
-                fn = getattr(lib, sym)
-                fn.restype = ctypes.c_int
-                fn.argtypes = [
-                    ctypes.c_float if a in chip_smoke._BASELINE_FLOATS else
-                    ctypes.c_longlong if a in chip_smoke._BASELINE_LONGS else
-                    ctypes.c_void_p if a in chip_smoke._BASELINE_POINTERS else ctypes.c_int
-                    for a in chip_smoke.BASELINE_SIGNATURES[sym].split(", ")]
-                b.fns[sym] = fn
-    return b
-
-
-# Variants of eb9b817's K8 (csrc/heatmap2d_loss.cu, given by --baseline-csrc):
-# where its time goes
-_K8_DIVS = """  int b, j, y, x;
-  if (h.cl) {
-    j = e % J;
-    int r = e / J;
-    x = r % h.W;
-    r /= h.W;
-    y = r % h.H;
-    b = r / h.H;
-  } else {
-    x = e % h.W;
-    int r = e / h.W;
-    y = r % h.H;
-    r /= h.H;
-    j = r % J;
-    b = r / J;
-  }"""
-K8_PROBES = {
+# Variants of b3d34a0's K9 (csrc/color_aug.cu, given by --baseline-csrc;
+# they go when a later design replaces that baseline): where its time goes. "stop after ..." returns (H > 0 always holds) at the
+# end of a step; "no ..." removes one step and keeps the rest.
+_K9_STOP = "  if (H > 0) return;\n"
+_K9_BM = ("      const float r01 = sqrtf(-2.f * logf(uniform(wd.x)));\n"
+          "      const float t01 = kTwoPi * uniform(wd.y);\n"
+          "      const float n0 = r01 * cosf(t01);")
+_K9_BM2 = ("        const float r2 = sqrtf(-2.f * logf(uniform(wd.z)));\n"
+           "        nz[1] = r01 * sinf(t01);\n"
+           "        nz[2] = r2 * cosf(kTwoPi * uniform(wd.w));")
+_K9_ROW = ("        float acc = taps[0] * cols[(r * HW + tx) * 3 + ch];\n"
+           "        for (int k = 1; k < K; ++k) acc = acc + taps[k] * cols[(r * HW + tx + k) * 3"
+           " + ch];\n"
+           "        v[ch] = acc;")
+K9_PROBES = {
     "kernel": [],
-    "constant walk (no divisions)": [
-        (_K8_DIVS, "  const int b = 0, j = e & 15, y = (e >> 4) & 63, x = (e >> 10) & 63;")],
-    "no target (t = 0)": [
-        ("    const float d = a.h[s].p[e] - target(a, tab, s, e);",
-         "    const float d = a.h[s].p[e];"),
-        ("    a.h[s].g[e] = (s == 0 ? c4 : c2) * (a.h[s].p[e] - target(a, sm, s, e));",
-         "    a.h[s].g[e] = (s == 0 ? c4 : c2) * a.h[s].p[e];")],
-    "32-bit element index": [
-        ("  for (long long i = first + threadIdx.x; i < end; i += blockDim.x) {\n"
-         "    const int s = i < a.h[0].n ? 0 : 1;\n    const int e = (int)(s == 0 ? i : i - "
-         "a.h[0].n);\n    const float d",
-         "  for (int i = first + threadIdx.x; i < end; i += blockDim.x) {\n"
-         "    const int s = i < a.h[0].n ? 0 : 1;\n    const int e = (int)(s == 0 ? i : i - "
-         "a.h[0].n);\n    const float d")],
-    # last: it leaves the forward's ticket counting, which the variants share
-    "forward: no last-block sum": [("  if (!last) return;", "  return;")],
-}
-# ... and of its K10 (csrc/argmax2d.cu)
-K10_PROBES = {
-    "kernel": [],
-    "single channel: no merge of the warps": [
-        ("    for (int w = 1; w < T_ / 32; ++w)", "    for (int w = 1; w < 1; ++w)")],
-    # last: it leaves the tiles' ticket counting, which the variants share
-    "channels-last: no merge of the tiles": [("  if (!last) return;", "  return;")],
+    "stop at the start (launch)": [
+        ("  const int n = blockIdx.z;\n", "  const int n = blockIdx.z;\n" + _K9_STOP)],
+    "stop after the taps": [
+        ("  // the tile and its halo, reflected", "  __syncthreads();\n" + _K9_STOP
+         + "  // the tile and its halo, reflected")],
+    "stop after the tile load": [
+        ("  __syncthreads();\n  // rows first", "  __syncthreads();\n" + _K9_STOP
+         + "  // rows first")],
+    "stop after the column pass": [
+        ("  }\n  const int x = x0 + tx;", "  }\n" + _K9_STOP + "  const int x = x0 + tx;")],
+    "no row pass (its first column)": [(_K9_ROW, "        v[ch] = cols[(r * HW + tx) * 3 + ch];")],
+    "no Philox (a hash of the counter)": [
+        ("      const uint4 wd = philox((uint32_t)(y * W + x), seed);",
+         "      const uint32_t h = (uint32_t)(y * W + x) * 2654435761u ^ seed;\n"
+         "      const uint4 wd = make_uint4(h, h * 3u, h * 5u, h * 7u);")],
+    "no Box-Muller (uniforms)": [
+        (_K9_BM, "      const float r01 = uniform(wd.x);\n      const float t01 = uniform(wd.y);\n"
+                 "      const float n0 = r01 * t01;"),
+        (_K9_BM2, "        const float r2 = uniform(wd.z);\n        nz[1] = r01 - t01;\n"
+                  "        nz[2] = r2 * uniform(wd.w);")],
+    "no noise": [("    if (noise && params) {", "    if (false) {")],
+    "no border": [
+        ("      inside = sx >= 0.f && sx <= (float)W - 1.f && sy >= 0.f && sy <= (float)H - 1.f;",
+         "      inside = true;")],
+    "no stores (one in a million)": [
+        ("      o[ch] = (t - mean[ch]) / stdv[ch];",
+         "      const float q = (t - mean[ch]) / stdv[ch];\n      if (q == 1234.5f) o[ch] = q;")],
 }
 
 
-def sweep_k8probe(say, dev, csrc) -> None:
-    """eb9b817's K8 at KeypointDetect's train-step heads, forward and
-    backward, under the variants of ``K8_PROBES`` (loss and gradients
-    against the plain version: the variants compute other functions)."""
-    import torch
+# ... and of the current design (csrc/color_aug.cu): the same steps
+_K9_STAGED = "    __syncthreads();\n    if constexpr (RT > 0) {\n#pragma unroll"
+_K9_STOP_STAGED = (_K9_STAGED, _K9_STAGED.replace("\n", "\n" + _K9_STOP, 1))
+K9_NEW_PROBES = {
+    "kernel": [],
+    "stop at the start (launch)": [
+        ("tid = threadIdx.x;\n  const Normalize nm(norm);",
+         "tid = threadIdx.x;\n" + _K9_STOP + "  const Normalize nm(norm);")],
+    "stop after the staging": [_K9_STOP_STAGED],
+    "  ... without the record's loads": [
+        _K9_STOP_STAGED, ("  const Record im = load_record<BORDER>(p, n, rec);",
+                          "  const Record im = load_record<BORDER>(p, n, false);")],
+    "  ... with constant taps": [_K9_STOP_STAGED,
+                                 ("      taps[t] = tap;", "      taps[t] = 0.2f;")],
+    "  ... without the image's loads": [
+        _K9_STOP_STAGED,
+        ("        const uint32_t u = __ldg(reinterpret_cast<const uint32_t*>(img + (size_t)gy"
+         " * 3 * W) + w.c);", "        const uint32_t u = (uint32_t)(gy * 2654435761u + w.c);")],
+    "stop after the column pass": [
+        ("  for (Walk w(G); w.r < nr; w.next(G)) {\n    const int y = y0 + w.r, x0 = 4 * w.c;",
+         _K9_STOP + "  for (Walk w(G); w.r < nr; w.next(G)) {\n    const int y = y0 + w.r, x0 = 4 * w.c;")],
+    "no blur passes (the run reads constants)": [
+        ("  if constexpr (RT != 0) {\n    // the taps",
+         "  if constexpr (RT == 99) {\n    // the taps"),
+        ("    } else if constexpr (RT > 0) {\n      // the row pass",
+         "    } else if constexpr (RT > 0) {\n      for (int j = 0; j < 12; ++j) v[j] = 0.5f;\n"
+         "    } else if constexpr (RT == 98) {\n      // the row pass")],
+    "no Philox (a hash of the counter)": [
+        ("      const uint4 wd = philox((uint32_t)(y * W + x), im.key);",
+         "      const uint32_t h = (uint32_t)(y * W + x) * 2654435761u ^ im.key[0];\n"
+         "      const uint4 wd = make_uint4(h, h * 3u, h * 5u, h * 7u);")],
+    "no Box-Muller (uniforms)": [
+        ("      const float r01 = sqrtf(-2.f * logf(uniform(wd.x)));",
+         "      const float r01 = uniform(wd.x);"),
+        ("        sincosf(t01, &s, &c);", "        s = t01, c = t01 * 0.5f;"),
+        ("        n2 = sqrtf(-2.f * logf(uniform(wd.z))) * cosf(kTwoPi * uniform(wd.w));",
+         "        n2 = uniform(wd.z) * uniform(wd.w);"),
+        ("        n0 = n1 = n2 = r01 * cosf(t01);", "        n0 = n1 = n2 = r01 * t01;")],
+    "no noise": [("  const bool nz = noise != 0, border", "  const bool nz = false, border")],
+    "no stores (one in a million)": [
+        (f"    o4[{i}] = make_float4(v[{4 * i}], v[{4 * i + 1}], v[{4 * i + 2}], v[{4 * i + 3}]);",
+         f"    if (v[{4 * i}] == 1234.5f) o4[{i}] = make_float4(v[{4 * i}], v[{4 * i + 1}], "
+         f"v[{4 * i + 2}], v[{4 * i + 3}]);") for i in range(3)],
+}
 
+
+def sweep_k9probe(say, dev, csrc) -> None:
+    """K9 at its four training keys (``K9_KEYS``) under the variants
+    of ``K9_PROBES`` (b3d34a0's design, in ``csrc``) and of
+    ``K9_NEW_PROBES`` (the current one, at its plan), each timed; a
+    variant's distance from the plain version is information (most
+    compute other functions)."""
     import chip_smoke
+    from jarvis_hybridnet_torch import kernels
     from jarvis_hybridnet_torch.kernels import build
 
-    k8 = importlib.import_module("jarvis_hybridnet_torch.kernels.heatmap2d_loss")
-    libs = build_variants("heatmap2d_loss", K8_PROBES, "k8probe", build._flags("heatmap2d_loss"),
-                          csrc)
-    args = k8_inputs(23, dev)
-    pl, _ = k8.heatmap2d_loss_fwd_plain(*args)
-    dl = torch.ones((), device=dev)
-    pg = k8.heatmap2d_loss_bwd_plain(*args, dl)
-    say(f"K8 probe (eb9b817's design) {tuple(args[0].shape)} + {tuple(args[1].shape)}")
-    for name, lib in libs.items():
-        b = _baseline_design(lib)
-        loss, _ = b.heatmap2d_loss_fwd(*args)
-        d4, d2 = b.heatmap2d_loss_bwd(*args, dl)
-        rel = abs(float(loss) - float(pl)) / abs(float(pl))
-        grel = max(float((d - p).abs().max() / p.abs().max()) for d, p in zip((d4, d2), pg))
-        say(f"  {name:40s}: forward {chip_smoke.graph_ms(lambda: b.heatmap2d_loss_fwd(*args)):.4f}"
-            f" ms, backward {chip_smoke.graph_ms(lambda: b.heatmap2d_loss_bwd(*args, dl)):.4f}"
-            f" ms; loss {rel:.1e}, gradients {grel:.1e} relative")
+    k9 = importlib.import_module("jarvis_hybridnet_torch.kernels.color_aug")
+    keys = [(key, chip_smoke.k9_args(*key, dev)) for key in K9_KEYS]
+    plain = [kernels.color_aug_plain(*a) for _, a in keys]
+    for design, probes, src in (("b3d34a0's design", K9_PROBES, csrc),
+                                ("current design", K9_NEW_PROBES, None)):
+        libs = build_variants("color_aug", probes, "k9probe" if src else "k9newprobe",
+                              build._flags("color_aug"), src)
+        for name, lib in libs.items():
+            if src:
+                call = functools.partial(chip_smoke.call_baseline, chip_smoke.bind_baseline(lib))
+            else:
+                fn = k9.bind(lib)
+
+                def call(*a, fn=fn):
+                    return k9.launch(*a, k9.plan_of(a[0], a[1], a[4], a[5]), fn=fn)
+            cells = []
+            for ((lead, record, border), a), p in zip(keys, plain):
+                err = float((call(*a) - p).abs().max())
+                ms = chip_smoke.graph_ms(lambda a=a: call(*a))
+                cells.append(f"{lead}{' record' if record else ''}{' border' if border else ''} "
+                             f"{ms:.4f} ms (err {err:.1e})")
+            say(f"K9 probe ({design}) {name:42s}: " + "; ".join(cells))
 
 
-def sweep_k10probe(say, dev, csrc) -> None:
-    """eb9b817's K10 at its keys under the variants of ``K10_PROBES``."""
+def sweep_k9(say, dev) -> None:
+    """K9 at its four training keys (``K9_KEYS``) under bands of 1-16 rows in
+    CTAs of 128, 256 and 512 threads, the no-record keys also under flat
+    walks of 264 CTAs to one unit a thread, each held to the plain version
+    (2e-6 / min(std)) and timed beside the wrapper's plan."""
     import chip_smoke
-    from jarvis_hybridnet_torch.kernels import build
+    from jarvis_hybridnet_torch import kernels
 
-    k10 = importlib.import_module("jarvis_hybridnet_torch.kernels.argmax2d")
-    libs = build_variants("argmax2d", K10_PROBES, "k10probe", build._flags("argmax2d"), csrc)
-    heads = [(k10_heads(shape, dtype, dev), dtype) for shape, dtype in K10_KEYS]
-    for name, lib in libs.items():
-        b = _baseline_design(lib)
+    k9 = importlib.import_module("jarvis_hybridnet_torch.kernels.color_aug")
+    for key in K9_KEYS:
+        a = chip_smoke.k9_args(*key, dev)
+        imgs, params, mean, std, minv, radius, noise = a
+        n, (h, w) = imgs.numel() // (imgs.shape[-3] * imgs.shape[-2] * 3), imgs.shape[-3:-1]
+        aligned = imgs.data_ptr() % 4 == 0
+        plain = kernels.color_aug_plain(*a)
+        base = k9.plan_of(imgs, params, minv, radius)
+        plans = [k9.launch_plan(n, h, w, radius, False, aligned, rows=r, threads=t)
+                 for r in (1, 2, 4, 8, 16) for t in (128, 256, 512)]
+        if base.rows == 0:
+            plans += [k9.launch_plan(n, h, w, 0, True, aligned, flat_blocks=b, threads=t)
+                      for b in (264, 528, 1056, 2112, 1 << 20) for t in (128, 256, 512)]
         cells = []
-        for hm, dtype in heads:
-            ok = chip_smoke.same_argmax(b.argmax2d(hm), k10.argmax_2d_plain(hm))
-            ms = chip_smoke.graph_ms(lambda: b.argmax2d(hm))
-            cells.append(f"{tuple(hm.shape)} {dtype} {ms:.4f} ms{'' if ok else ' (differs)'}")
-        say(f"K10 probe (eb9b817's design) {name}: " + "; ".join(cells))
+        for plan in dict.fromkeys(plans):
+            err = float((k9.launch(*a, plan) - plain).abs().max())
+            ms = chip_smoke.graph_ms(lambda plan=plan: k9.launch(*a, plan))
+            cells.append(f"rows {plan.rows} blocks {plan.blocks} threads {plan.threads} smem "
+                         f"{plan.smem}: {ms:.4f} ms"
+                         f"{' (differs %.1e)' % err if err > 2e-6 / min(std) else ''}"
+                         f"{' <- plan' if plan == base else ''}")
+        say(f"K9 {key[0]} record {key[1]} border {key[2]}: " + "; ".join(cells))
+
+
+# Each precise function of K9's noise between the same load and two stores
+# (no index arithmetic, which the compiler lays out differently in each)
+K9_OPS_SOURCE = r"""
+#define OP(name, body)                                                     \
+  extern "C" __global__ void op_##name(const float* x, float* y) {         \
+    const float v = *x;                                                    \
+    float a = v, b = v;                                                    \
+    body;                                                                  \
+    y[0] = a;                                                              \
+    y[1] = b;                                                              \
+  }
+OP(none, )
+OP(logf, a = logf(v))
+OP(sqrtf, a = sqrtf(v))
+OP(cosf, a = cosf(v))
+OP(sincosf, sincosf(v, &a, &b))
+"""
+# SASS opcodes of control flow: not counted as the function's instructions
+_CONTROL = {"BRA", "BRX", "JMP", "BSSY", "BSYNC", "BREAK", "NOP", "EXIT", "RET", "CALL",
+            "WARPSYNC", "BMOV", "YIELD"}
+_SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*)")
+
+
+def fewest_instructions(sass: str) -> int:
+    """The fewest instructions other than control flow that any path runs
+    through one function of ``cuobjdump -sass`` from its first instruction
+    to an EXIT: a shortest path over its branches (a predicated branch or
+    EXIT may go either way), a CALL costing its callee's fewest to a RET."""
+    ins = [(int(m.group(1), 16), bool(m.group(2)), m.group(3).split(".")[0], m.group(4))
+           for m in map(_SASS_LINE.match, sass.splitlines()) if m]
+    at = {addr: i for i, (addr, *_) in enumerate(ins)}
+
+    def target(arg: str) -> int:
+        return at[int(re.search(r"0x([0-9a-f]+)", arg).group(1), 16)]
+
+    @functools.cache
+    def fewest(start: int, end: str) -> int:
+        dist, heap = {start: 0}, [(0, start)]
+        while heap:
+            d, i = heapq.heappop(heap)
+            if d > dist[i]:
+                continue
+            _, pred, op, arg = ins[i]
+            if op == end:
+                return d
+            w = 0 if op in _CONTROL else 1
+            if op == "CALL":
+                nxt, w = [i + 1], fewest(target(arg), "RET")
+            elif op in ("BRA", "JMP"):
+                nxt = [target(arg)] + ([i + 1] if pred else [])
+            else:
+                nxt = [i + 1]
+            for j in nxt:
+                if j < len(ins) and d + w < dist.get(j, 1 << 30):
+                    dist[j] = d + w
+                    heapq.heappush(heap, (d + w, j))
+        raise ValueError(f"no path to {end}")
+
+    return fewest(0, "EXIT")
+
+
+def sweep_k9ops(say) -> None:
+    """The fewest SASS instructions that any input runs through each precise
+    function of K9's noise (``logf``, ``sqrtf``, ``cosf``, ``sincosf``),
+    built as color_aug.cu is (``--fmad=false``, sm_90a): each microkernel's
+    fewest (``fewest_instructions``) less that of the same load and stores
+    alone; the listings go to ``chiprun_out/k9_ops_sass.txt``. These are
+    ``chip_smoke.K9_PRECISE_OPS``."""
+    from jarvis_hybridnet_torch.kernels import build
+
+    out_dir = build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu, cubin = out_dir / "k9ops.cu", out_dir / "k9ops.cubin"
+    cu.write_text(K9_OPS_SOURCE)
+    flags = [f for f in build._flags("color_aug")
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")]
+    subprocess.run([build._nvcc(), *flags, "-cubin", "-o", str(cubin), str(cu)], check=True)
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True,
+                          check=True).stdout
+    with open(os.path.join(REPO, "chiprun_out", "k9_ops_sass.txt"), "w") as f:
+        f.write(sass)
+    fewest = {chunk.split(None, 1)[0][3:]: fewest_instructions(chunk)
+              for chunk in sass.split("Function : ")[1:]}
+    say("K9 precise functions, fewest SASS instructions beyond the load and stores: "
+        + json.dumps({k: v - fewest["none"] for k, v in fewest.items() if k != "none"}))
 
 
 def main() -> int:
@@ -864,11 +1008,11 @@ def main() -> int:
     ap.add_argument("--only", default="k1,k2,k3,k5",
                     help="comma-separated kernels to sweep (default: all)")
     ap.add_argument("--baseline-csrc", metavar="DIR",
-                    help="the earlier design's csrc, for k8probe and k10probe")
+                    help="the earlier design's csrc, for k9probe")
     opts = ap.parse_args()
     only = set(opts.only.split(","))
-    if only & {"k8probe", "k10probe"} and not opts.baseline_csrc:
-        ap.error("k8probe and k10probe probe the design in --baseline-csrc DIR")
+    if "k9probe" in only and not opts.baseline_csrc:
+        ap.error("k9probe probes the design in --baseline-csrc DIR")
     import torch
 
     if not torch.cuda.is_available():
@@ -903,10 +1047,12 @@ def main() -> int:
             sweep_k6probe(say, dev)
         if "k7probe" in only:
             sweep_k7probe(say, dev)
-        if "k8probe" in only:
-            sweep_k8probe(say, dev, opts.baseline_csrc)
-        if "k10probe" in only:
-            sweep_k10probe(say, dev, opts.baseline_csrc)
+        if "k9probe" in only:
+            sweep_k9probe(say, dev, opts.baseline_csrc)
+        if "k9" in only:
+            sweep_k9(say, dev)
+        if "k9ops" in only:
+            sweep_k9ops(say)
         if "k8" in only:
             sweep_k8(say, dev)
         if "k10" in only:
