@@ -5,7 +5,7 @@
 
     python3 chip_smoke.py --baseline-csrc DIR
 
-Builds the ten CUDA kernel sources from ``jarvis_hybridnet_torch/kernels/csrc``,
+Builds the eleven CUDA kernel sources from ``jarvis_hybridnet_torch/kernels/csrc``,
 loads the committed MonkeyHand checkpoints through the port's own reader,
 and drives ``make_predictor3d`` at the production configuration (bf16,
 quarter_fused, 12 cameras of 1280x1024 on the synthetic rig, 23 joints,
@@ -23,24 +23,35 @@ a temporary directory (12 cameras of 1280x1024 JPEG frames, 23 keypoints
 with each image's bounding box, 4 train and 2 val framesets: 48 and 24
 images), at the default ``TPU`` section (color augmentation on the device,
 K9): ``train_hybridnet`` in 3D_only from the committed HybridNet checkpoint
-(float32, quarter_fused, G = 72), then ``train_efficienttrack`` for
+(float32, quarter_fused, G = 72), then in ``all`` with ``finetune`` (the
+CLI's ``jarvis train hybridNet --mode all``: the 2D net trains too, its
+gradient crossing the gather's backward, K11), one step each in ``bifpn``
+and ``last_layers`` and one ``all`` step in each of the exact, half_fused
+and half repro modes (K12), then ``train_efficienttrack`` for
 CenterDetect and KeypointDetect from theirs (256^2, batch 4, float32), two
 epochs each, each run with the launch counts set to 0 before it and read
-after it and the arguments of K1, K2, K6, K8, K9 and K10 recorded; the 3D
-run leaves the 2D net bit-equal and changes V2V's weights, the 2D runs
+after it and the arguments of K1, K2, K6, K8, K9 and K10 recorded; the
+3D_only run leaves the 2D net bit-equal, calls K2 without a graph and
+launches no K11, the ``all`` run changes the 2D net and launches K11 once
+a training step, the ``bifpn`` / ``last_layers`` steps leave exactly their
+frozen tensors bit-equal, every 3D run changes V2V's weights, the 2D runs
 change their nets' weights, and every written ``.ckpt`` / ``.pth``
 reloads equal to the trained state; each step's rate (framesets/s or
-images/s), ms and device busy share; one small step of each kind on the
-card against the same step on the CPU (float32, TF32 off, dropout and
-drop-connect off; the 3D one with the CPU's ReLU masks set to the card's;
-a TF32 step as each gate's control, which it must refuse); K6 (at every
-key of the 3D and 2D steps, every act at V2V's largest float32 shape and
-one bf16 key), K7, K8, K9 (the noise at the config's upper bound) and K10
-against their plain versions, each called twice and required bit-equal
+images/s), ms and device busy share; one small step of each kind (3D_only,
+all, 2D) on the card against the same step on the CPU (float32, TF32 off,
+dropout and drop-connect off; the 3D ones with the CPU's ReLU masks set to
+the card's; a TF32 step as each gate's control, which it must refuse); K6
+(at every key of the 3D and 2D steps, every act at V2V's largest float32
+shape and one bf16 key), K7, K8, K9 (the noise at the config's upper bound)
+and K10 against their plain versions, each called twice and required
+bit-equal
 (K8's gradients equal to the plain version's; K9 also at the edge keys of
 ``K9_EDGE_KEYS``: radii 0-12, odd sizes, unaligned bases, the border alone;
 K10 also under other plans and on hand-made edge batches in both dtypes
-and layouts).
+and layouts); K11 and K12 (each mode) at the ``all`` step's rows and at
+edge keys (B = 2, C = 1, J = 1 and 23 with rows S = J and 24 apart, every
+point clamped to one pixel, an odd gather grid) against their plain
+versions in float64, within twice the float32 plain version's own error.
 It then checks every kernel against its plain PyTorch version on the card:
 K1, K2 and K4 at every shape a driven path gave them, K3 and K5 at the main
 path's, and times kernel, plain version and library call. A kernel's
@@ -50,8 +61,8 @@ of calls launched one by one from Python. Prints the card, the predict3D
 rates, one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero on any failure, or when no CUDA device is present.
 Per-shape details go to ``chiprun_out/chip_smoke.txt``; the training
-steps' device time by kernel to ``chip_smoke_train_profile.txt`` and
-``chip_smoke_train2d_profile.txt``.
+steps' device time by kernel to ``chip_smoke_train_profile.txt`` (3D_only),
+``chip_smoke_train_all_profile.txt`` and ``chip_smoke_train2d_profile.txt``.
 
 With ``--baseline-csrc DIR``, DIR holds an earlier version of the kernel
 sources whose ``color_aug.cu`` has the C interface of ``BASELINE_SIGNATURE``
@@ -335,6 +346,188 @@ def check_k5(kernels, rows, c3d, center_hm, cams, grid_size, spacing, mode_launc
     return out
 
 
+def backward_inputs(B, C, J, S, hs, seed=0, clamp=False):
+    """Seeded float32 heatmap rows (B, C, hs^2, J), the J-view of a buffer
+    whose rows are S apart, cube centers, crop centers around the centers'
+    projections into the synthetic rig (4000 px off them with ``clamp``: every
+    point of every camera then clamps to one corner pixel) and the cameras,
+    on the card."""
+    import torch
+
+    from jarvis_hybridnet_torch.testing import synthetic_rig
+    from jarvis_hybridnet_torch.utils.reprojection import project_points
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = (torch.rand((B, C, hs * hs, S), device=dev, generator=g) * 255)[..., :J]
+    rig = synthetic_rig(C, W, H)
+    P, K, D = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+               for a in (rig.camera_matrices, rig.intrinsics, rig.distortions))
+    c3d = torch.randint(-30, 30, (B, 3), device=dev, generator=g, dtype=torch.int32)
+    chm = project_points(c3d.float(), P, K, D).round().int()
+    chm = chm + (4000 if clamp else torch.randint(-60, 60, chm.shape, device=dev, generator=g,
+                                                  dtype=torch.int32))
+    cams = [a.expand(B, *a.shape).contiguous() for a in (P, K, D)]
+    return rows, c3d, chm.to(torch.int32).contiguous(), cams
+
+
+# the edge keys of K11 and K12: (label, B, C, J, S, hs, clamp); each also at
+# an odd gather grid (K11: g4 = 9; K12: G = 38, 19 half-grid points an axis)
+BACKWARD_EDGE_KEYS = (("B = 2", 2, 12, 23, 24, 130, False), ("C = 1", 1, 1, 23, 24, 130, False),
+                      ("J = 1, S = 1", 1, 12, 1, 1, 130, False),
+                      ("J = 1, S = 24", 1, 12, 1, 24, 130, False),
+                      ("J = 23, S = 23", 1, 12, 23, 23, 130, False),
+                      ("all points clamped to one pixel", 1, 12, 23, 24, 130, True))
+
+
+def check_gather_backward(name, forward, backward, plain, label, note):
+    """One gather backward (K11 or K12) against its plain version at one
+    key: ``forward()`` gives the forward's volume and indices; the upstream
+    gradient is seeded noise of the volume's shape. The kernel and the plain
+    version in float32 against the plain version in float64: the kernel's
+    error at most 2x the float32 plain version's own, in RMS over the rows'
+    gradient (or half a float32 ulp of its largest element where that is 0),
+    and at every element under 1e-5 of that largest element, or under twice
+    the float32 plain version's largest error where that is larger (where
+    every point clamps to one pixel, exact mode sums 373,248 terms into one
+    element: the float32 sum's own error passes 1e-5 there); two kernel
+    calls within the same bounds of each other. Both float32 versions add
+    with atomics in a changing order (``index_add_`` on the card too), so
+    one element's error is a draw: the plain version runs three times, and
+    the RMS over the tensor is the stable measure of the round-off. Returns
+    (grad, idx, the kernel's largest error)."""
+    import torch
+
+    vol, idx = forward()
+    g = torch.Generator(device=vol.device).manual_seed(7)
+    grad = torch.randn(vol.shape, device=vol.device, generator=g)
+    k, k2 = backward(grad, idx), backward(grad, idx)
+    p64 = plain(grad.double(), idx)
+    m = float(p64.abs().max())
+
+    def gaps(a, b):
+        d = a.double() - b.double()
+        return float(d.abs().max()), float(d.square().mean().sqrt())
+
+    (err, rms), (twice, rms_twice) = gaps(k, p64), gaps(k, k2)
+    plain_gaps = [gaps(plain(grad, idx), p64) for _ in range(3)]
+    err_p = max(e for e, _ in plain_gaps)
+    rms_p = sum(r for _, r in plain_gaps) / 3
+    tol = max(2 * rms_p, m * 2.0 ** -24)
+    tol_max = max(1e-5 * m, 2 * err_p)
+    same = torch.equal(k, k2)
+    note(f"{name} {label}: grad {tuple(grad.shape)}, indices {tuple(idx.shape)}, rows' gradient "
+         f"{tuple(k.shape)} (rows {k.stride(2)} apart): from the float64 plain version the "
+         f"kernel {rms:.2e} RMS, {err:.2e} max; the float32 plain version {rms_p:.2e} RMS, "
+         f"{err_p:.2e} max over 3 calls (tol {tol:.2e} RMS, {tol_max:.2e} max: "
+         + ("1e-5" if tol_max == 1e-5 * m else "2x the plain version's") + f" of {m:.3e}); "
+         f"two calls {rms_twice:.2e} RMS, {twice:.2e} max apart ("
+         + ("bit-equal this time" if same else "not bit-equal: the float atomics add in an order "
+            "that changes from run to run") + ")")
+    if rms > tol or rms_twice > tol or max(err, twice) > tol_max or k.stride(2) * 4 % 16:
+        fail(f"{name} {label}: kernel {rms} RMS, {err} max from float64, two calls {rms_twice} "
+             f"RMS, {twice} max apart (tol {tol} RMS, {tol_max} max)")
+    return grad, idx, err
+
+
+def backward_entry(name, mode, call, plain, grad, idx, err, launches, per_step, note, smi):
+    """The kernels line's entry of a gather backward at the production key:
+    device and wall ms, the plain version's, the bytes bound (the upstream
+    gradient and the indices read once, the padded rows' buffer written
+    once) and the float atomics it issues (B * C * points * J)."""
+    import torch
+
+    out = call(grad, idx)
+    B, C, hs2, S = out.shape[0], out.shape[1], out.shape[2], out.stride(2)
+    nbytes = grad.numel() * 4 + idx.numel() * 4 + B * C * hs2 * S * 4
+    atomics = idx.numel() * grad.shape[-1]
+    e = dict(name=name, route="cuda", kernels_per_call=1,
+             source="jarvis_hybridnet_torch/kernels/csrc/repro_gather_backward.cu",
+             replaces="jarvis_hybridnet_tpu/models/repro.py:280" if mode == "quarter_fused"
+             else ("jarvis_hybridnet_tpu/models/repro.py:266" if mode == "exact"
+                   else "jarvis_hybridnet_tpu/models/repro.py:302"),
+             launches=launches, calls_per_step=per_step, max_abs_err=err,
+             ms=graph_ms(lambda: call(grad, idx)), wall_ms=cuda_ms(lambda: call(grad, idx)),
+             plain_ms=cuda_ms(lambda: plain(grad, idx), iters=3, warmup=1),
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+             atomics=atomics,
+             zero_ms=graph_ms(lambda: torch.zeros((B, C, hs2, S), device=grad.device)))
+    if mode != "quarter_fused":
+        e["mode"] = mode
+    note(f"{name} at the production key: device {e['ms']:.4f} ms (of which zeroing the "
+         f"{B * C * hs2 * S * 4 / 1e6:.2f} MB buffer alone takes {e['zero_ms']:.4f}), wall "
+         f"{e['wall_ms']:.4f}, plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.4f} "
+         f"({nbytes / 1e6:.2f} MB); "
+         f"{atomics / 1e6:.2f} M float atomics, {atomics / e['ms'] / 1e6:.1f} G atomics/s; "
+         f"{per_step} a step; card: {smi}")
+    return e
+
+
+def check_k11_k12(kernels, recorder, path_counts, note, smi) -> list:
+    """K11 at the ``all`` step's key (the float32 training rows K2 was
+    called with, g4 = 18) and K12 in each mode at G = 72 on the same rows and
+    cameras, each against its plain version (``check_gather_backward``), then at
+    ``BACKWARD_EDGE_KEYS`` and an odd gather grid; timed at the production
+    key. Returns the kernels line's entries."""
+    import torch
+
+    from jarvis_hybridnet_torch.kernels.repro_gather import pad_rows
+
+    k11 = kernels.repro_quarter_gather_backward
+    k11_plain = kernels.repro_quarter_gather_backward_plain
+    (args,) = [a for a, per in recorder.k2.values() if "training_all_step" in per]
+    rows, c3d, chm, P, K, D, g4, step = args
+    entries = []
+
+    def quarter(rows, c3d, chm, cams, g4, step):
+        return (lambda: kernels.repro_quarter_gather(rows, c3d, chm, *cams, g4, step, True),
+                lambda grad, idx: k11(grad, idx, rows.shape[2], rows.shape[3]),
+                lambda grad, idx: k11_plain(grad, idx, rows.shape[2], rows.shape[3]))
+
+    def grid(rows, c3d, chm, cams, G, sp, mode):
+        # K5 reads 16-byte rows; the indices, and so K12, do not depend on S
+        padded = rows if rows.stride(2) * 4 % 16 == 0 else pad_rows(rows)
+        return (lambda: kernels.repro_grid_gather(padded, c3d, chm, *cams, G, sp, mode, True),
+                lambda grad, idx: kernels.repro_grid_gather_backward(grad, idx, rows.shape[2],
+                                                                     rows.shape[3], mode),
+                lambda grad, idx: kernels.repro_grid_gather_backward_plain(
+                    grad, idx, rows.shape[2], rows.shape[3], mode))
+
+    fwd, call, plain = quarter(rows, c3d, chm, (P, K, D), g4, step)
+    grad, idx, err = check_gather_backward("repro_quarter_gather_backward", fwd, call, plain,
+                                           f"training all step key g4 = {g4}", note)
+    entries.append(backward_entry(
+        "repro_quarter_gather_backward", "quarter_fused", call, plain, grad, idx, err,
+        path_counts["training_all"]["repro_quarter_gather_backward"],
+        path_counts["training_all_step"]["repro_quarter_gather_backward"], note, smi))
+    G, sp = 4 * g4, step / 4.0
+    for mode in OTHER_MODES:
+        fwd, call, plain = grid(rows, c3d, chm, (P, K, D), G, sp, mode)
+        grad, idx, err = check_gather_backward(f"repro_grid_gather_backward[{mode}]", fwd,
+                                               call, plain, f"training rows G = {G}", note)
+        counts = path_counts[f"training_all_step_{mode}"]
+        e = backward_entry(f"repro_grid_gather_backward[{mode}]", mode, call, plain, grad, idx,
+                           err, counts["repro_grid_gather_backward"],
+                           counts["repro_grid_gather_backward"], note, smi)
+        e["path"] = f"training_all_step_{mode}"
+        entries.append(e)
+        del grad, idx
+    for label, B, C, Je, S, hs, clamp in BACKWARD_EDGE_KEYS:
+        r, c, h, cams = backward_inputs(B, C, Je, S, hs, seed=B + C + Je + S, clamp=clamp)
+        for g4e in (g4, 9):
+            check_gather_backward("repro_quarter_gather_backward",
+                                  *quarter(r, c, h, cams, g4e, step), f"{label}, g4 = {g4e}",
+                                  note)
+        for mode in OTHER_MODES:
+            for Ge in (G, 38):
+                check_gather_backward(f"repro_grid_gather_backward[{mode}]",
+                                      *grid(r, c, h, cams, Ge, sp, mode), f"{label}, G = {Ge}",
+                                      note)
+        del r
+    torch.cuda.empty_cache()
+    return entries
+
+
 def ptxas_lines(name: str) -> list[str]:
     """The register, shared memory and spill lines ``nvcc -Xptxas -v`` wrote
     for a kernel library (``build.py`` keeps the log beside it)."""
@@ -442,6 +635,7 @@ class ShapeRecorder:
     def __init__(self):
         self.k1: dict = {}  # key -> {path: calls}
         self.k2: dict = {}  # key -> (arguments, {path: calls})
+        self.k2_graph: dict = {}  # path -> K2 calls with a graph (rows that require grad)
         self.k4: dict = {}  # key -> (arguments, {path: calls})
         self.k6: dict = {}  # key -> {path: calls}
         self.k8: dict = {}  # key -> (arguments, {path: calls})
@@ -450,6 +644,8 @@ class ShapeRecorder:
 
     @contextlib.contextmanager
     def on(self, path: str):
+        import torch
+
         from jarvis_hybridnet_torch.kernels import instance_norm
         from jarvis_hybridnet_torch.kernels.heatmap2d_loss import Heatmap2DLoss
         from jarvis_hybridnet_torch.models import layers, repro
@@ -475,7 +671,9 @@ class ShapeRecorder:
 
         def rec_k2(rows, center3d, center_hm, P, K, D, g4, step, return_indices=False):
             count(self.k2, (tuple(rows.shape), rows.dtype, g4, step),
-                  (rows, center3d, center_hm, P, K, D, g4, step))
+                  (rows.detach(), center3d, center_hm, P, K, D, g4, step))
+            if torch.is_grad_enabled() and rows.requires_grad:
+                self.k2_graph[path] = self.k2_graph.get(path, 0) + 1
             return k2(rows, center3d, center_hm, P, K, D, g4, step, return_indices)
 
         def rec_k4(x, height, width, mean, std, dtype):
@@ -810,6 +1008,12 @@ TRAIN_SPLITS = (("train", 4), ("val", 2))
 TRAINING_KERNELS = ("instance_norm_act", "repro_quarter_gather", "soft_argmax",
                     "instance_norm_act_backward", "hybridnet_loss_fwd", "hybridnet_loss_bwd",
                     "color_aug")
+# the freeze modes that train the 2D net add the gather's backward, K11 (K12
+# in the other repro modes, whose steps run K5 in place of K2)
+TRAINING_ALL_KERNELS = TRAINING_KERNELS + ("repro_quarter_gather_backward",)
+K12_STEP_KERNELS = ("instance_norm_act", "repro_grid_gather", "repro_grid_gather_backward",
+                    "soft_argmax", "instance_norm_act_backward", "hybridnet_loss_fwd",
+                    "hybridnet_loss_bwd")
 TRAIN2D_KERNELS = ("instance_norm_act", "instance_norm_act_backward", "heatmap2d_loss_fwd",
                    "heatmap2d_loss_bwd", "color_aug", "argmax2d")
 NETS_2D = ("CenterDetect", "KeypointDetect")
@@ -1074,24 +1278,34 @@ def training_data(parent: str, note) -> None:
     os.environ["JARVIS_PARENT_DIR"] = parent
 
 
-def training_phase(kernels, ckpt, recorder, smi, note):
-    """``train_hybridnet`` in 3D_only on the card, from the committed
+def training_phase(kernels, ckpt, recorder, smi, note, mode="3D_only") -> dict:
+    """``train_hybridnet`` in ``mode`` on the card, from the committed
     checkpoints, on the dataset of :func:`training_data`, for TRAIN_EPOCHS
-    epochs, with the default device color augmentation (K9); the launches of
-    the run; the 2D net bitwise frozen, V2V (front conv included) updated,
-    ``.ckpt`` and ``.pth`` written and reloaded; then the step's
-    framesets/s, ms and busy share, its K6 calls recorded; K7 at its shape
-    against its plain version. Returns (launch counts of the run, kernels
-    line entries)."""
+    epochs, with the default device color augmentation (K9); ``all`` as the
+    CLI's ``jarvis train hybridNet --mode all`` runs it, finetuning at a
+    tenth of the learning rate. The launches of the run; in 3D_only the 2D
+    net bitwise frozen, K2 never called with a graph and K11 never launched;
+    in ``all`` the 2D net (stem to heads) updated, K2 called with a graph
+    and K11 launched once a training step; V2V (front conv included)
+    updated; ``.ckpt`` and ``.pth`` written and reloaded; then the step's
+    framesets/s, ms and busy share, its calls recorded (K6's keys). Returns
+    the run's launch counts (``counts``), the step's (``step``), the trainer
+    and the step's batch on the card."""
     import torch
 
+    from jarvis_hybridnet_torch.dataset.dataset3d import Dataset3D
     from jarvis_hybridnet_torch.dataset.loader import _collate
     from jarvis_hybridnet_torch.models.weights import params_from_jax
     from jarvis_hybridnet_torch.training import checkpoints
     from jarvis_hybridnet_torch.training.train_interface import train_hybridnet
     from jarvis_hybridnet_torch.training.trainer3d import host_batch
     from jarvis_hybridnet_torch.utils.ckpt_io import read_ckpt
+    from jarvis_hybridnet_torch.utils.transfer import HostToDevice
 
+    frozen_2d = mode == "3D_only"
+    path = "training" if frozen_2d else f"training_{mode}"
+    names = TRAINING_KERNELS if frozen_2d else TRAINING_ALL_KERNELS
+    run_name = "Run" if frozen_2d else f"Run_{mode}"
     t_phase = time.perf_counter()
     parent = os.environ["JARVIS_PARENT_DIR"]
     start = {k: v.clone() for k, v in params_from_jax(read_ckpt(ckpt["HybridNet"]),
@@ -1099,88 +1313,192 @@ def training_phase(kernels, ckpt, recorder, smi, note):
     res = {}
     t0 = time.perf_counter()
     ok, counts = path_launches(
-        lambda: train_hybridnet("Train", TRAIN_EPOCHS, None, ckpt["HybridNet"],
-                                mode="3D_only", run_name="Run", device="cuda",
+        lambda: train_hybridnet("Train", TRAIN_EPOCHS, None, ckpt["HybridNet"], mode=mode,
+                                run_name=run_name, finetune=not frozen_2d, device="cuda",
                                 results=res),
-        kernels, TRAINING_KERNELS, "training", recorder)
+        kernels, names, path, recorder)
     run_s = time.perf_counter() - t0
     if not ok:
-        fail("train_hybridnet did not finish")
+        fail(f"train_hybridnet {mode} did not finish")
     trainer, hist = res["trainer"], res["history"]
     n_steps = TRAIN_EPOCHS * TRAIN_SPLITS[0][1]
-    note(f"training: train_hybridnet 3D_only, {TRAIN_EPOCHS} epochs of "
+    note(f"training: train_hybridnet {mode}{'' if frozen_2d else ', finetune'} (max LR "
+         f"{float(trainer.cfg.HYBRIDNET.MAX_LEARNING_RATE):g}), {TRAIN_EPOCHS} epochs of "
          f"{TRAIN_SPLITS[0][1]} steps (batch 1) and {TRAIN_SPLITS[1][1]} val framesets, "
          f"{run_s:.2f} s (data loading, JPEG decode and checkpoints included: "
          f"{n_steps / run_s:.2f} framesets/s); history {json.dumps(hist)}; launches "
-         f"{json.dumps(counts)}")
+         f"{json.dumps(counts)}; card: {smi}")
     losses = hist["train_loss"] + hist["val_loss"]
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite training loss: {losses}")
+    graph_calls = recorder.k2_graph.get(path, 0)
+    k11 = counts["repro_quarter_gather_backward"]
+    want = 0 if frozen_2d else n_steps
+    note(f"training {mode}: K2 called with a graph (its indices saved) {graph_calls} of "
+         f"{counts['repro_quarter_gather']} calls, K11 launched {k11} times (want {want}: "
+         f"{'none in 3D_only' if frozen_2d else 'one a training step, none in validation'})")
+    if graph_calls != want or k11 != want:
+        fail(f"training {mode}: K2 with a graph {graph_calls}, K11 {k11}, want {want} each")
     state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
-    moved_2d = [k for k in state if k.startswith("effTrack.") and
-                not torch.equal(state[k], start[k].to(state[k].dtype))]
+    eff = [k for k in state if k.startswith("effTrack.")]
+    moved_2d = [k for k in eff if not torch.equal(state[k], start[k].to(state[k].dtype))]
     v2v_w = [k for k in state if k.startswith("v2vNet.") and k.endswith(".weight")]
     still = [k for k in v2v_w if torch.equal(state[k], start[k])]
     front = "v2vNet.front_layers.0.block.0.weight"
-    note(f"training: 2D net {'bit-equal' if not moved_2d else 'CHANGED'} after training "
-         f"({sum(k.startswith('effTrack.') for k in state)} tensors); V2V weights changed: "
-         f"{len(v2v_w) - len(still)} of {len(v2v_w)} (front conv "
+    ends = ("effTrack.backbone_net.model._conv_stem.weight", "effTrack.deconv1.weight")
+    want_2d = ("want none" if frozen_2d else "stem and stride-2 head: "
+               + ", ".join(str(e in moved_2d) for e in ends))
+    note(f"training {mode}: 2D net {len(moved_2d)} of {len(eff)} tensors changed ({want_2d}); "
+         f"V2V weights changed: {len(v2v_w) - len(still)} of {len(v2v_w)} (front conv "
          f"{'changed' if front not in still else 'UNCHANGED'}, max |delta| "
          f"{float((state[front] - start[front]).abs().max()):.3e})")
-    if moved_2d or still:
-        fail(f"the 2D net moved ({moved_2d[:3]}) or V2V weights did not ({still[:3]})")
-    run_dir = os.path.join(parent, "projects", "Train", "models", "HybridNet", "Run")
+    if still or (moved_2d if frozen_2d else len(moved_2d) < 100
+                 or not all(e in moved_2d for e in ends)):
+        fail(f"training {mode}: the 2D net moved as it should not ({moved_2d[:3]}) or V2V "
+             f"weights did not move ({still[:3]})")
+    run_dir = os.path.join(parent, "projects", "Train", "models", "HybridNet", run_name)
     final = os.path.join(run_dir, "HybridNet-small_final")
     back = params_from_jax(read_ckpt(final + ".ckpt"), "small")
     pth = checkpoints.load_torch_state_dict(final + ".pth")
     same_ckpt = set(back) <= set(state) and all(torch.equal(back[k], state[k])
                                                  for k in back)
     same_pth = set(pth) == set(state) and all(torch.equal(pth[k], state[k]) for k in pth)
-    note(f"training: {os.path.basename(final)}.ckpt ({len(back)} tensors) and .pth "
+    note(f"training {mode}: {os.path.basename(final)}.ckpt ({len(back)} tensors) and .pth "
          f"({len(pth)}) reload in the port equal to the trained state: "
          f"{same_ckpt and same_pth}")
     if not (same_ckpt and same_pth):
         fail("the written checkpoints do not reload to the trained state")
 
-    note(f"training phase: {time.perf_counter() - t_phase:.1f} s so far")
+    note(f"training {mode} phase: {time.perf_counter() - t_phase:.1f} s so far")
     # the step alone: one batch of the run's data, on the card
-    from jarvis_hybridnet_torch.dataset.dataset3d import Dataset3D
-    from jarvis_hybridnet_torch.utils.transfer import HostToDevice
-
     ds = Dataset3D(trainer.cfg, set="train", device_targets=True, device_aug=True)
     b = HostToDevice("cuda")(host_batch(_collate([ds[0]])))
     opt, model = trainer.optimizer, trainer.model
     model.train()
-    prof_path = os.path.join(REPO, "chiprun_out", "chip_smoke_train_profile.txt")
+    prof_path = os.path.join(REPO, "chiprun_out", "chip_smoke_train_profile.txt" if frozen_2d
+                             else f"chip_smoke_train_{mode}_profile.txt")
     open(prof_path, "w").close()
-    step_rate(lambda: trainer.train_step(b, opt, 1e-6), 1, prof_path, "HybridNet", note,
-              f"training step (batch 1 frameset of {CAMS} crops of 256^2, G = 72, 3D_only, "
-              f"float32, AdamW, device color augmentation; batch on the card; card: {smi})",
-              unit="framesets/s")
+    step_rate(
+        lambda: trainer.train_step(b, opt, 1e-6), 1, prof_path, f"HybridNet {mode}", note,
+        f"training step (batch 1 frameset of {CAMS} crops of 256^2, G = 72, {mode}, float32, "
+        f"AdamW, device color augmentation; batch on the card; card: {smi})",
+        unit="framesets/s")
 
-    note(f"training phase: {time.perf_counter() - t_phase:.1f} s so far")
-    # the step's calls of K6 (checked with the 2D steps' later) and K7
-    # against its plain version
-    path_launches(lambda: trainer.train_step(b, opt, 1e-6), kernels, TRAINING_KERNELS,
-                  "training_step", recorder)
+    note(f"training {mode} phase: {time.perf_counter() - t_phase:.1f} s so far")
+    # the step's calls of K6 (checked with the 2D steps' later)
+    _, step = path_launches(lambda: trainer.train_step(b, opt, 1e-6), kernels, names,
+                            f"{path}_step", recorder)
+    return dict(counts=counts, step=step, trainer=trainer, batch=b)
+
+
+def k7_check(kernels, run, note):
+    """K7 at the 3D_only training step's volume (:func:`check_k7`)."""
+    import torch
+
+    trainer, b = run["trainer"], run["batch"]
     with torch.no_grad():
-        out, _ = model.train_outputs(trainer.prepare(b), b["center_hm"], b["center3d"],
-                                     b["camera_matrices"], b["intrinsics"],
-                                     b["distortions"])
+        out, _ = trainer.model.train_outputs(trainer.prepare(b), b["center_hm"],
+                                             b["center3d"], b["camera_matrices"],
+                                             b["intrinsics"], b["distortions"])
     kv, kw = b["kp_vox"].float().contiguous(), b["keypoints3D"].float().contiguous()
-    return counts, check_k7(kernels, out, kv, kw, counts, note)
+    return check_k7(kernels, out, kv, kw, run["counts"], note)
+
+
+def freeze_steps(kernels, run, ckpt, recorder, smi, note) -> dict:
+    """One AdamW step (lr 1e-3) on the card in ``bifpn`` and in
+    ``last_layers`` at full width, on the ``all`` run's batch, from the
+    committed checkpoint: every tensor the mode's labels freeze bitwise
+    unchanged and without a gradient; every trained tensor with a nonzero
+    gradient changed; K11 launched. Returns each step's launch counts."""
+    import torch
+
+    from jarvis_hybridnet_torch.training import optim
+    from jarvis_hybridnet_torch.training.trainer3d import HybridNetTrainer
+
+    out = {}
+    for mode in ("bifpn", "last_layers"):
+        trainer = HybridNetTrainer("train", run["trainer"].cfg, weights=ckpt["HybridNet"],
+                                   device="cuda", run_name=f"Step_{mode}", training_mode=mode)
+        model = trainer.model.train()
+        labels = optim.hybridnet_freeze_labels(model, mode)
+        opt = optim.make_optimizer("adamw", optim.apply_freeze(model, labels), 1e-3)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        _, out[mode] = path_launches(lambda: trainer.train_step(run["batch"], opt, 1e-3),
+                                     kernels, TRAINING_ALL_KERNELS, f"training_{mode}_step",
+                                     recorder)
+        params = dict(model.named_parameters())
+        frozen = [n for n, v in labels.items() if v == "freeze"]
+        moved = [n for n in frozen if params[n].grad is not None
+                 or not torch.equal(params[n].detach(), before[n])]
+        # AdamW's first step moves a tensor by about lr wherever |grad| >> its eps
+        live = [n for n, v in labels.items() if v == "train" and params[n].grad is not None
+                and float(params[n].grad.abs().max()) > 1e-8]
+        still = [n for n in live if torch.equal(params[n].detach(), before[n])]
+        trained_2d = sum(n.startswith("effTrack.") for n in live)
+        held = ("bitwise unchanged, without a gradient" if not moved
+                else f"MOVED: {moved[:3]}")
+        note(f"training step {mode} (full width, AdamW lr 1e-3): {len(frozen)} frozen tensors "
+             f"(the 2D backbone{' and BiFPN' if mode == 'last_layers' else ''}) {held}"
+             f"; {len(live) - len(still)} of {len(live)} trained tensors with a gradient "
+             f"above 1e-8 changed ({trained_2d} of them in the 2D net); launches "
+             f"{json.dumps(out[mode])}; card: {smi}")
+        if moved or still or not trained_2d:
+            fail(f"training step {mode}: frozen tensors moved ({moved[:3]}) or trained ones did "
+                 f"not ({still[:3]})")
+        del trainer, model, opt, before
+    return out
+
+
+def k12_steps(kernels, run, ckpt, recorder, smi, note) -> dict:
+    """One ``all`` step on the card in each of the exact, half_fused and half
+    repro modes (K5 forward, K12 backward), at full width on the ``all``
+    run's batch: the loss finite and K12 launched once. Returns each step's
+    launch counts by mode."""
+    import torch
+
+    from jarvis_hybridnet_torch.training import optim
+    from jarvis_hybridnet_torch.training.trainer3d import HybridNetTrainer
+
+    out = {}
+    for mode in OTHER_MODES:
+        cfg = run["trainer"].cfg.clone()
+        cfg.TPU.REPRO_MODE = mode
+        trainer = HybridNetTrainer("train", cfg, weights=ckpt["HybridNet"], device="cuda",
+                                   run_name=f"Step_all_{mode}")
+        model = trainer.model.train()
+        opt = optim.make_optimizer(
+            "adamw", optim.apply_freeze(model, optim.hybridnet_freeze_labels(model, "all")),
+            1e-6)
+        trainer.train_step(run["batch"], opt, 1e-6)  # warm-up
+        (loss, _), out[mode] = path_launches(lambda: trainer.train_step(run["batch"], opt, 1e-6),
+                                             kernels, K12_STEP_KERNELS,
+                                             f"training_all_step_{mode}", recorder)
+        note(f"training step all, repro mode {mode} (full width): loss {float(loss):.4f}, "
+             f"launches {json.dumps(out[mode])}; card: {smi}")
+        if not math.isfinite(float(loss)) or out[mode]["repro_grid_gather_backward"] != 1:
+            fail(f"training step all {mode}: loss {float(loss)}, K12 launched "
+                 f"{out[mode]['repro_grid_gather_backward']} times (want 1)")
+        del trainer, model, opt
+        torch.cuda.empty_cache()
+    return out
 
 
 GRAD_TOL = 1e-3  # card vs CPU training step, ReLU masks matched: per element of the tensor's max
 FLIP_TOL = 1e-3  # |pre-activation| of a ReLU element on another branch on the card than on the CPU
+# the 2D net's gradients in the all step, card vs CPU: its backbone's gradient
+# magnifies float32 round-off (the CPU's float32 step lies up to 3.6e-3 of a
+# tensor's max from JAX's float64 one, tests/test_torch_training_modes.py);
+# measured 5.97e-4, card (H100) against CPU (PERF.md section 6)
+EFF_GRAD_TOL = 2e-3
 
 
-def training_step_on(cfg, batch, ckpt, device, lr, tf32=False, like=None) -> dict:
-    """One 3D_only SGD step (Nesterov momentum 0.9, ``lr``) of a
-    ``HybridNetTrainer`` from the committed HybridNet checkpoint on
+def training_step_on(cfg, batch, ckpt, device, lr, tf32=False, like=None,
+                     mode="3D_only") -> dict:
+    """One SGD step (Nesterov momentum 0.9, ``lr``) in the freeze ``mode`` of
+    a ``HybridNetTrainer`` from the committed HybridNet checkpoint on
     ``device``, float32, in ``eval()`` (dropout and drop-connect off), TF32
-    as ``tf32`` says. Returns the loss, V2V's gradients and updated
-    parameters (on the CPU) and, for each ReLU of the step's K1 calls in
+    as ``tf32`` says. Returns the loss, the trained tensors' gradients and
+    updated parameters (on the CPU) and, for each ReLU of the step's K1 calls in
     order, (act, output, pre-activation) on the CPU. With ``like`` (another
     step's ReLU calls) each ReLU's mask is set to ``like``'s: the output
     takes ``like``'s value where only ``like``'s is positive and 0 where
@@ -1194,9 +1512,9 @@ def training_step_on(cfg, batch, ckpt, device, lr, tf32=False, like=None) -> dic
     from jarvis_hybridnet_torch.utils.transfer import HostToDevice
 
     trainer = HybridNetTrainer("train", cfg, weights=ckpt["HybridNet"], device=device,
-                               run_name=f"step_{device}")
+                               run_name=f"step_{device}", training_mode=mode)
     model = trainer.model
-    trained = optim.apply_freeze(model, optim.hybridnet_freeze_labels(model, "3D_only"))
+    trained = optim.apply_freeze(model, optim.hybridnet_freeze_labels(model, mode))
     opt = torch.optim.SGD(trained, lr=lr, momentum=0.9, nesterov=True)
     model.eval()
     k1 = InstanceNormAct.k1
@@ -1225,7 +1543,7 @@ def training_step_on(cfg, batch, ckpt, device, lr, tf32=False, like=None) -> dic
         loss, _ = trainer.forward(HostToDevice(device)(batch))
         opt.zero_grad()
         loss.backward()
-        live = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        live = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
         # copied before the step: SGD's foreach path on the card adds the
         # momentum buffer to the gradients in place
         grads = {n: p.grad.detach().cpu().clone() for n, p in live}
@@ -1249,8 +1567,9 @@ def step_gap(a: dict, b: dict, lr: float) -> dict:
     import torch
 
     ga, gb, pa, pb = a["grads"], b["grads"], a["params"], b["params"]
-    zero = [n for n in gb if n.endswith(".bias") and "output_layer" not in n]
-    rest = [n for n in gb if n not in zero]
+    v2v = [n for n in gb if n.startswith("v2vNet.")]
+    zero = [n for n in v2v if n.endswith(".bias") and "output_layer" not in n]
+    rest = [n for n in v2v if n not in zero]
     scale = max(float(gb[n].abs().max()) for n in rest if n.endswith(".weight"))
     elem = {n: float((ga[n] - gb[n]).abs().max() / gb[n].abs().max().clamp_min(1e-30))
             for n in rest}
@@ -1267,9 +1586,9 @@ def step_gap(a: dict, b: dict, lr: float) -> dict:
                          for n in zero), tensors=len(rest), biases=len(zero))
 
 
-def training_card_vs_cpu(ckpt, note) -> None:
-    """One 3D_only training step on the card against the same step on the
-    CPU, float32, TF32 off, dropout and drop-connect off, at the tests' size
+def training_card_vs_cpu(ckpt, note, mode="3D_only") -> None:
+    """One training step in the freeze ``mode`` on the card against the same
+    step on the CPU, float32, TF32 off, dropout and drop-connect off, at the tests' size
     (4 cameras of 320x256, 128^2 crops, a 48 mm cube at 4 mm), from the
     committed HybridNet checkpoint, with SGD (lr 1e-3).
 
@@ -1284,7 +1603,11 @@ def training_card_vs_cpu(ckpt, note) -> None:
     gradients allow (``step_gap``). Every ReLU element whose mask was set is
     printed with its pre-activation on both devices, and each must lie
     within FLIP_TOL of zero on both (a normalized value: a round-off tie,
-    not a different activation). The control is the
+    not a different activation). In ``all`` the 2D net's gradients are held
+    too (``_grad_gap``): each convolution's per element within EFF_GRAD_TOL
+    of its tensor's largest, the fusion weights' within EFF_GRAD_TOL of the
+    largest fusion-weight gradient, the conv biases ahead of an InstanceNorm
+    within 1e-4 of the largest weight gradient. The control is the
     card's step with TF32 allowed, compared the same way: the gate must
     refuse it."""
     import tempfile
@@ -1307,33 +1630,54 @@ def training_card_vs_cpu(ckpt, note) -> None:
         cfg = pm.get_cfg()
         sample = Dataset3D(cfg, set="val", device_targets=True)[0]
         batch = {k: np.asarray(sample[k])[None] for k in BATCH_KEYS}
-        card = training_step_on(cfg, batch, ckpt, "cuda", lr)
-        cpu = training_step_on(cfg, batch, ckpt, "cpu", lr)
-        matched = training_step_on(cfg, batch, ckpt, "cpu", lr, like=card["calls"])
-        tf32 = training_step_on(cfg, batch, ckpt, "cuda", lr, tf32=True)
-        tf32_matched = training_step_on(cfg, batch, ckpt, "cpu", lr, like=tf32["calls"])
+        step = functools.partial(training_step_on, cfg, batch, ckpt, lr=lr, mode=mode)
+        card = step("cuda")
+        cpu = step("cpu")
+        matched = step("cpu", like=card["calls"])
+        tf32 = step("cuda", tf32=True)
+        tf32_matched = step("cpu", like=tf32["calls"])
     as_is, gap, control = (step_gap(card, cpu, lr), step_gap(card, matched, lr),
                            step_gap(tf32, tf32_matched, lr))
+    eff = eff_control = None
+    if mode != "3D_only":
+        def eff_grads(st):
+            return {n[len("effTrack."):]: g for n, g in st["grads"].items()
+                    if n.startswith("effTrack.")}
+
+        eff = _grad_gap(eff_grads(card), eff_grads(matched))
+        eff_control = _grad_gap(eff_grads(tf32), eff_grads(tf32_matched))
     relus = sum(c[1].numel() for c in card["calls"])
     flips = matched["flips"]
     flip_pre = max((max(abs(f[3]), abs(f[4])) for f in flips), default=0.0)
     tf32_pre = max((max(abs(f[3]), abs(f[4])) for f in tf32_matched["flips"]), default=0.0)
     shown = "; ".join(f"call {i} ({act}) element {idx}: CPU {pc:.3e}, card {pg:.3e}"
                       for i, act, idx, pc, pg in flips[:8])
-    note(f"training step, card vs CPU (4 cameras, 128^2 crops, G = 12, float32, TF32 off, "
+    note(f"training step {mode}, card vs CPU (4 cameras, 128^2 crops, G = 12, float32, TF32 off, "
          f"eval, SGD lr {lr}): loss {card['loss']:.6f} vs {cpu['loss']:.6f}; as it is (no "
          f"bound): V2V gradients within {as_is['elem']:.2e} of their tensor's max per element, "
          f"{as_is['norm']:.2e} in norm; ReLU elements on another branch on the CPU than on "
          f"the card: {len(flips)} of {relus} over {len(card['calls'])} K1 calls, largest "
          f"|pre-activation| among them {flip_pre:.3e} (tol {FLIP_TOL:g})"
          f"{': ' + shown if flips else ''}")
-    note(f"training step, card vs CPU with the CPU's ReLU masks set to the card's: V2V "
+    note(f"training step {mode}, card vs CPU with the CPU's ReLU masks set to the card's: V2V "
          f"gradients of {gap['tensors']} tensors within {gap['elem']:.2e} of their tensor's max "
          f"per element (worst: {gap['worst']}; tol {GRAD_TOL:g}), {gap['norm']:.2e} in norm; the "
          f"{gap['biases']} biases ahead of an InstanceNorm within {gap['bias']:.2e} of the "
          f"largest weight gradient (tol 1e-4); parameters at {gap['param']:.3f} of their "
          f"bound (tol 1); loss {matched['loss']:.6f}")
-    note(f"training step control, the card with TF32 allowed against the CPU with its "
+    if eff is not None:
+        note(f"training step {mode}, card vs CPU, masks set: the 2D net's convolutions' "
+             f"gradients within {eff['elem']:.2e} of their tensor's max per element (tol "
+             f"{EFF_GRAD_TOL:g}); the {eff['fusion']} fusion weights' within {eff['fused']:.2e} "
+             f"of the largest fusion-weight gradient (tol {EFF_GRAD_TOL:g}); the biases ahead "
+             f"of an InstanceNorm within {eff['ahead']:.2e} of the largest weight gradient "
+             f"(tol 1e-4); largest per-tensor gaps (information): {eff['top']}")
+        note(f"training step {mode} control, TF32: the 2D net's convolutions' gradients within "
+             f"{eff_control['elem']:.2e} of their tensor's max, fusion weights "
+             f"{eff_control['fused']:.2e} (largest: {eff_control['top']}): "
+             f"{'refused' if eff_control['elem'] > EFF_GRAD_TOL else 'not refused'} by the 2D "
+             f"net's gate")
+    note(f"training step {mode} control, the card with TF32 allowed against the CPU with its "
          f"masks ({len(tf32_matched['flips'])} set, largest |pre-activation| {tf32_pre:.3e}): "
          f"gradients within {control['elem']:.2e} of their tensor's max per element (worst: "
          f"{control['worst']}), {control['norm']:.2e} in norm, "
@@ -1342,10 +1686,12 @@ def training_card_vs_cpu(ckpt, note) -> None:
     if (abs(card["loss"] - matched["loss"]) > 1e-4 * abs(matched["loss"])
             or abs(card["loss"] - cpu["loss"]) > 1e-4 * abs(cpu["loss"])
             or gap["elem"] > GRAD_TOL or gap["bias"] > 1e-4 or gap["param"] > 1.0
-            or flip_pre > FLIP_TOL):
-        fail("the training step on the card disagrees with the CPU step")
+            or flip_pre > FLIP_TOL
+            or (eff is not None and (eff["elem"] > EFF_GRAD_TOL or eff["fused"] > EFF_GRAD_TOL
+                                     or eff["ahead"] > 1e-4))):
+        fail(f"the {mode} training step on the card disagrees with the CPU step")
     if control["elem"] <= GRAD_TOL:
-        fail("the card-vs-CPU training gate does not tell a TF32 step from a float32 one")
+        fail(f"the card-vs-CPU {mode} training gate does not tell a TF32 step from a float32 one")
 
 
 def train2d_phase(kernels, ckpt, recorder, smi, note):
@@ -1987,7 +2333,8 @@ def main() -> int:
     note(f"build: {time.perf_counter() - t0:.1f} s for {len(build.SOURCES)} kernels")
     for name, label in (("repro_grid_gather", "K5"), ("instance_norm_act_backward", "K6"),
                         ("hybridnet_loss", "K7"), ("heatmap2d_loss", "K8"),
-                        ("color_aug", "K9"), ("argmax2d", "K10")):
+                        ("color_aug", "K9"), ("argmax2d", "K10"),
+                        ("repro_gather_backward", "K11, K12")):
         log.write(f"ptxas for {name}.cu ({label}):\n")
         for line in ptxas_lines(name):
             log.write(f"  {line}\n")
@@ -2099,17 +2446,31 @@ def main() -> int:
     path_counts["driver"] = driver_phase(kernels, cfg, predictor, frames, out_dir, recorder,
                                          note)
 
-    # 12. training on one synthetic dataset: train_hybridnet in 3D_only, then
-    # train_efficienttrack for both 2D nets, from the committed checkpoints,
-    # each net's step card vs CPU; K6 (every key of the 3D and 2D steps) and
-    # K7-K10 against their plain versions
+    # 12. training on one synthetic dataset: train_hybridnet in 3D_only and in
+    # all (with a step in bifpn, in last_layers and in all in each other repro
+    # mode), then train_efficienttrack for both 2D nets, from the committed
+    # checkpoints, each kind's step card vs CPU; K6 (every key of the 3D and
+    # 2D steps), K7-K12 against their plain versions
     import tempfile
 
     with tempfile.TemporaryDirectory() as parent:
         phase("training")
         training_data(parent, note)
-        path_counts["training"], train_entries = training_phase(kernels, ckpt, recorder, smi,
-                                                                note)
+        run3d = training_phase(kernels, ckpt, recorder, smi, note)
+        path_counts["training"], path_counts["training_step"] = run3d["counts"], run3d["step"]
+        train_entries = k7_check(kernels, run3d, note)
+        del run3d
+        phase("training all")
+        run_all = training_phase(kernels, ckpt, recorder, smi, note, mode="all")
+        path_counts["training_all"], path_counts["training_all_step"] = (run_all["counts"],
+                                                                         run_all["step"])
+        phase("training bifpn, last_layers steps")
+        for mode, counts in freeze_steps(kernels, run_all, ckpt, recorder, smi, note).items():
+            path_counts[f"training_{mode}_step"] = counts
+        phase("training all steps in the other repro modes")
+        for mode, counts in k12_steps(kernels, run_all, ckpt, recorder, smi, note).items():
+            path_counts[f"training_all_step_{mode}"] = counts
+        del run_all
         phase("training 2D")
         runs2d, steps2d = train2d_phase(kernels, ckpt, recorder, smi, note)
         for net in NETS_2D:
@@ -2120,10 +2481,15 @@ def main() -> int:
         os.environ.pop("JARVIS_PARENT_DIR", None)
     phase("training step card vs CPU")
     training_card_vs_cpu(ckpt, note)
+    phase("training all step card vs CPU")
+    training_card_vs_cpu(ckpt, note, mode="all")
     phase("K6 checks")
     train_entries.insert(0, check_k6(kernels, recorder.k6,
                                      path_counts["training"]["instance_norm_act_backward"],
-                                     note, step_paths=[f"train2d_step_{n}" for n in NETS_2D]))
+                                     note, step_paths=["training_all_step"]
+                                     + [f"train2d_step_{n}" for n in NETS_2D]))
+    phase("K11, K12 checks")
+    train_entries += check_k11_k12(kernels, recorder, path_counts, note, smi)
     phase("K8, K9, K10 checks")
     train_entries += check_k8(kernels, recorder, runs2d, note)
     train_entries += check_k9(kernels, recorder, cfg, runs2d, path_counts["training"], baseline,
@@ -2384,8 +2750,8 @@ def main() -> int:
         if wrapper == "resize_normalize":  # K4's float32 input instantiation
             float_input = r["input_dtype"] == "float32"
             paths = {p: c for p, c in paths.items() if (p == "float_frames") == float_input}
-        if "mode" in r:  # K5 counts its launches in every mode together
-            paths = {r["mode"]: paths[r["mode"]]}
+        if "mode" in r:  # K5 and K12 count their launches in every mode together
+            paths = {r.get("path", r["mode"]): paths[r.get("path", r["mode"])]}
         r["paths"] = {p: c[wrapper] for p, c in paths.items() if c[wrapper]}
     for r in report:
         log.write(json.dumps(r) + "\n")

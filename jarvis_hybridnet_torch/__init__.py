@@ -1,12 +1,12 @@
 """PyTorch / CUDA port of the JARVIS-HybridNet prediction cascades and of
-HybridNet (3D) training.
+their training.
 
 Runs beside the JAX package ``jarvis_hybridnet_tpu`` and imports nothing of
 it. Entry points: ``prediction.loaders`` (``make_predictor3d``,
 ``make_predictor3d_twophase``, ``make_predictor2d``) and the video -> CSV
 drivers ``prediction.predict3d.predict3D`` and
 ``prediction.predict2d.predict2D``; ``training.train_interface.train_hybridnet``
-(the ``3D_only`` mode). The hand-written
+(every freeze mode) and ``train_efficienttrack``. The hand-written
 Hopper kernels live in ``kernels/``; each wrapper launches its CUDA kernel on
 a CUDA tensor and runs its plain PyTorch version on a CPU tensor.
 """

@@ -7,7 +7,8 @@ parallelize the heavy work. Batches are emitted in submission order, and a
 bounded prefetch queue lets host data building overlap device compute. The
 JAX package's forked-process worker modes and pod loaders
 (``parallel/multihost.make_dp_loaders``) wait for multi-device training
-(ROADMAP.md A.12); ``worker_mode`` other than ``'thread'`` raises.
+(ROADMAP.md A.12); ``worker_mode`` other than ``'thread'`` raises, and the
+trainers pass what :func:`trainer_worker_mode` gives for their config.
 """
 
 from __future__ import annotations
@@ -79,6 +80,20 @@ def _collate(samples):
     if isinstance(first, str):
         return list(samples)
     return np.stack([np.asarray(s) for s in samples])
+
+
+def trainer_worker_mode(cfg) -> str:
+    """The worker mode a trainer passes to its loaders: ``'thread'``. A
+    config whose ``DATALOADER_WORKER_MODE`` asks for process workers (the
+    default, ``'process'``) is told once, by a warning, that thread workers
+    stand in for them."""
+    mode = str(cfg.get("DATALOADER_WORKER_MODE", "process"))
+    if mode != "thread":
+        from ..utils import clp
+
+        clp.warning(f"DATALOADER_WORKER_MODE {mode!r}: the port's loader runs thread workers "
+                    "in its place until process workers are ported (ROADMAP.md A.12)")
+    return "thread"
 
 
 class DataLoader:

@@ -36,10 +36,15 @@ Each wrapper counts the calls that launch its CUDA source in
 - argmax2d (K10) reduces each heatmap channel to its maximum and first
   index through 64-bit order keys, several CTAs a channel (or an image of
   channels-last heads), merged by atomics and a last-CTA ticket.
+- repro_quarter_gather_backward (K11) and repro_grid_gather_backward (K12),
+  the gathers' VJPs with respect to the rows: a thread per (gather point,
+  joint) sums the transposed value upsample and adds it, divided by C, to
+  each camera's row with float atomics, into a buffer zeroed on the stream.
 
-``InstanceNormAct`` (K1 forward, K6 backward), ``hybridnet_loss`` (K7) and
-``Heatmap2DLoss`` (K8, through ``heatmap2d_loss``) are the autograd
-Functions the training steps go through.
+``InstanceNormAct`` (K1 forward, K6 backward), ``hybridnet_loss`` (K7),
+``Heatmap2DLoss`` (K8, through ``heatmap2d_loss``), ``QuarterGather`` (K2
+forward, K11 backward) and ``GridGather`` (K5 forward, K12 backward) are the
+autograd Functions the training steps go through.
 """
 
 from .argmax2d import argmax2d, argmax_2d_plain
@@ -66,14 +71,25 @@ from .instance_norm import (
     instance_norm_act_backward_plain,
     instance_norm_act_plain,
 )
-from .repro_gather import repro_quarter_gather, repro_quarter_gather_plain
-from .repro_grid_gather import repro_grid_gather, repro_grid_gather_plain
+from .repro_gather import (
+    repro_quarter_gather,
+    repro_quarter_gather_backward,
+    repro_quarter_gather_backward_plain,
+    repro_quarter_gather_plain,
+)
+from .repro_grid_gather import (
+    repro_grid_gather,
+    repro_grid_gather_backward,
+    repro_grid_gather_backward_plain,
+    repro_grid_gather_plain,
+)
 from .resize_normalize import resize_normalize, resize_normalize_plain
 from .soft_argmax import soft_argmax, soft_argmax_plain
 
 WRAPPERS = (instance_norm_act, repro_quarter_gather, repro_grid_gather, soft_argmax,
             resize_normalize, instance_norm_act_backward, hybridnet_loss_fwd,
-            hybridnet_loss_bwd, heatmap2d_loss_fwd, heatmap2d_loss_bwd, color_aug, argmax2d)
+            hybridnet_loss_bwd, heatmap2d_loss_fwd, heatmap2d_loss_bwd, color_aug, argmax2d,
+            repro_quarter_gather_backward, repro_grid_gather_backward)
 
 
 def reset_launch_counts() -> None:
@@ -93,8 +109,10 @@ __all__ = [
     "hybridnet_loss_bwd_plain", "hybridnet_loss_fwd", "hybridnet_loss_fwd_plain",
     "instance_norm_act", "instance_norm_act_backward", "instance_norm_act_backward_plain",
     "instance_norm_act_plain",
-    "launch_counts", "repro_grid_gather", "repro_grid_gather_plain",
-    "repro_quarter_gather", "repro_quarter_gather_plain",
+    "launch_counts", "repro_grid_gather", "repro_grid_gather_backward",
+    "repro_grid_gather_backward_plain", "repro_grid_gather_plain",
+    "repro_quarter_gather", "repro_quarter_gather_backward",
+    "repro_quarter_gather_backward_plain", "repro_quarter_gather_plain",
     "reset_launch_counts", "resize_normalize", "resize_normalize_plain",
     "soft_argmax", "soft_argmax_plain",
 ]

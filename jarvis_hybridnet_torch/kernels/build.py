@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("instance_norm_act", "repro_quarter_gather", "repro_grid_gather",
            "soft_argmax", "resize_normalize", "instance_norm_act_backward", "hybridnet_loss",
-           "heatmap2d_loss", "color_aug", "argmax2d")
+           "heatmap2d_loss", "color_aug", "argmax2d", "repro_gather_backward")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -32,8 +32,9 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # reference does; the sources use __f*_rn intrinsics and this flag keeps
 # nvcc from contracting anything else into an FMA. soft_argmax flushes
 # denormals, which drops the scaling around its exp2 / log2 operations. K8
-# and K9 round every product before its sum, as their plain versions do.
-# ptxas reports K5's-K10's registers and spills into their build logs.
+# and K9 round every product before its sum, as their plain versions do,
+# and so do K11 / K12 in their transposed stencils.
+# ptxas reports K5's-K12's registers and spills into their build logs.
 _EXTRA_FLAGS = {"repro_quarter_gather": ["--fmad=false"],
                 "repro_grid_gather": ["--fmad=false", "-Xptxas=-v"],
                 "soft_argmax": ["-ftz=true"],
@@ -41,7 +42,8 @@ _EXTRA_FLAGS = {"repro_quarter_gather": ["--fmad=false"],
                 "hybridnet_loss": ["-Xptxas=-v"],
                 "heatmap2d_loss": ["--fmad=false", "-Xptxas=-v"],
                 "color_aug": ["--fmad=false", "-Xptxas=-v"],
-                "argmax2d": ["-Xptxas=-v"]}
+                "argmax2d": ["-Xptxas=-v"],
+                "repro_gather_backward": ["--fmad=false", "-Xptxas=-v"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

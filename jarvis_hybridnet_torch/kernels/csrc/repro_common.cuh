@@ -2,7 +2,9 @@
 // (repro_quarter_gather.cu) and K5 (repro_grid_gather.cu): the per-camera
 // fields staged in shared memory, the projection of one grid point into a
 // camera's crop and the flat pixel index; and K2's camera mean of the
-// gathered J-rows (K5 gathers 16-byte lanes of padded rows instead).
+// gathered J-rows (K5 gathers 16-byte lanes of padded rows instead). Their
+// backwards, K11 and K12 (repro_gather_backward.cu), share the camera
+// mean's transpose, scatter_camera_rows, at the end of this file.
 //
 // The index arithmetic rounds after every operation with __f*_rn
 // intrinsics in the op order of models/repro.py reproject_indices
@@ -111,5 +113,20 @@ __device__ __forceinline__ void gather_means(const T* __restrict__ rb, const int
     }
     store(v, jj, __fdiv_rn(acc, (float)C));
     if (two) store(v2, jj, __fdiv_rn(acc2, (float)C));
+  }
+}
+
+// The camera mean's transpose for one (gather point, joint): `val`, the mean's
+// gradient already divided by C, added to the joint's element of the point's
+// row in every camera. idx points at camera 0's index of the point, the
+// cameras' indices `cam_stride` apart; out at the frameset's (C, hs2, S)
+// gradient rows, offset by the joint. Float atomics: the sums' order, and so
+// their rounding, changes from run to run.
+__device__ __forceinline__ void scatter_camera_rows(float* out, const int* __restrict__ idx,
+                                                    size_t cam_stride, int C, int hs2, int S,
+                                                    float val) {
+  for (int c = 0; c < C; ++c) {
+    const int pix = min(max(idx[(size_t)c * cam_stride], 0), hs2 - 1);  // memory safety only
+    atomicAdd(out + ((size_t)c * hs2 + pix) * S, val);
   }
 }

@@ -15,6 +15,15 @@ Heatmap rows are a (B, C, hs*hs, J) view whose rows lie S >= J elements
 apart in a contiguous (B, C, hs*hs, S) buffer: ``pad_rows`` (and
 ``HybridNetBackbone.heatmap_rows``) make S * itemsize a multiple of 16
 bytes, zero-filled, so K5 reads a row in 16-byte loads. K2 takes any S.
+
+The gather is differentiable with respect to the float32 rows (the indices,
+centers and cameras get no gradient, as in JAX): with grad enabled and
+``rows.requires_grad`` the forward saves its indices and the backward is K11
+(``repro_quarter_gather_backward``, ``csrc/repro_gather_backward.cu``), the
+VJP of ``reprojection_layer``'s quarter_fused mode (repro.py:280-300): the
+aligned upsample transposed along z, y and x, divided by C and scatter-added
+into each camera's rows at the saved indices. Its plain version and the
+scatter (``scatter_rows_plain``) also serve K12 (``repro_grid_gather.py``).
 """
 
 from __future__ import annotations
@@ -24,11 +33,13 @@ import functools
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 6  # quarter voxels per tile edge: 27 tiles of the 18^3 production grid
+BACKWARD_THREADS = 256  # K11's and K12's block (kernel_sweep.py --only k11 times the others)
 
 
 def padded_width(j: int, itemsize: int) -> int:
@@ -140,6 +151,66 @@ def _upsample2_aligned(x: torch.Tensor, axis: int) -> torch.Tensor:
     return out.reshape(shape)
 
 
+def _upsample2_transposed(g: torch.Tensor, axis: int) -> torch.Tensor:
+    """The VJP of ``_upsample2`` along ``axis``: in[k] receives 0.75 of
+    out[2k] and out[2k+1], 0.25 of out[2k+2] and out[2k-1], and the clamped
+    edges' quarters (out[0] at the bottom, out[2L-1] at the top) besides."""
+    L = g.shape[axis] // 2
+    g = g.unflatten(axis, (L, 2))
+    even, odd = g.select(axis + 1, 0), g.select(axis + 1, 1)
+    out = 0.75 * even + 0.75 * odd
+    out.narrow(axis, 0, L - 1).add_(0.25 * even.narrow(axis, 1, L - 1))
+    out.narrow(axis, 0, 1).add_(0.25 * even.narrow(axis, 0, 1))
+    out.narrow(axis, 1, L - 1).add_(0.25 * odd.narrow(axis, 0, L - 1))
+    out.narrow(axis, L - 1, 1).add_(0.25 * odd.narrow(axis, L - 1, 1))
+    return out
+
+
+def _upsample2_aligned_transposed(g: torch.Tensor, axis: int) -> torch.Tensor:
+    """The VJP of ``_upsample2_aligned`` along ``axis``: in[k] receives
+    out[2k] and half of out[2k+1] and out[2k-1]; at the top edge the clamped
+    odd output gives in[L-1] its whole weight."""
+    L = g.shape[axis] // 2
+    g = g.unflatten(axis, (L, 2))
+    half = 0.5 * g.select(axis + 1, 1)
+    out = g.select(axis + 1, 0) + half
+    out.narrow(axis, 1, L - 1).add_(half.narrow(axis, 0, L - 1))
+    out.narrow(axis, L - 1, 1).add_(half.narrow(axis, L - 1, 1))
+    return out
+
+
+def scatter_rows_plain(q: torch.Tensor, idx: torch.Tensor, hs2: int, J: int) -> torch.Tensor:
+    """The VJP of ``camera_mean``: q (B, N, J), the gradient of the mean,
+    divided by C and added (``index_add_``) to each camera's row at idx
+    (B, C, N). Returns (B, C, hs2, J) in q's dtype, the J-view of a zeroed
+    buffer whose rows are ``padded_width(J, 4)`` apart."""
+    B, C, N = idx.shape
+    if q.shape != (B, N, J):
+        raise ValueError(f"gradient {tuple(q.shape)} does not fit indices {tuple(idx.shape)}, "
+                         f"J = {J}")
+    S = padded_width(J, 4)
+    buf = q.new_zeros((B, C, hs2, S))
+    base = torch.arange(B * C, device=idx.device).view(B, C, 1) * hs2
+    buf.view(-1, S)[:, :J].index_add_(0, (idx.long() + base).reshape(-1),
+                                      (q / C)[:, None].expand(B, C, N, J).reshape(-1, J))
+    return buf[..., :J]
+
+
+def check_backward(grad: torch.Tensor, idx: torch.Tensor, J: int, grid: int,
+                   points: int) -> tuple[int, int]:
+    """Raise unless the arguments are what the gather backwards (K11, K12)
+    take: a contiguous float32 upstream gradient (B, grid, grid, grid, J) and
+    the forward's contiguous int32 indices (B, C, points^3) on the card.
+    Returns (B, C)."""
+    build.require(grad, "grad", (torch.float32,), 5)
+    build.require(idx, "idx", (torch.int32,), 3)
+    B, C = idx.shape[0], idx.shape[1]
+    if tuple(grad.shape) != (B, grid, grid, grid, J) or idx.shape[2] != points ** 3:
+        raise ValueError(f"gradient {tuple(grad.shape)} and indices {tuple(idx.shape)} do not "
+                         f"fit a {grid}^3 grid of J = {J} gathered at {points}^3 points")
+    return B, C
+
+
 def camera_mean(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The rows (B, C, hs*hs, J) gathered at idx (B, C, N), summed over the
     cameras in camera order in float32 and divided by C: (B, N, J), as
@@ -214,8 +285,29 @@ def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
     (B, C, 2) int32; P (B, C, 4, 3), K (B, C, 3, 3), D (B, C, 1, 5) float32.
     The quarter grid has g4 points per axis at ``step`` mm around center3d.
     With ``return_indices`` the (B, C, g4^3) int32 gather indices come back
-    too.
+    too. With grad enabled and ``rows.requires_grad`` (float32 rows only)
+    the volume carries the gather's graph, whose backward is K11.
     """
+    if torch.is_grad_enabled() and rows.requires_grad:
+        require_float32_rows(rows)
+        out, idx = QuarterGather.apply(rows, center3d, center_hm, P, K, D, g4, step)
+        return (out, idx) if return_indices else out
+    return _quarter_gather(rows, center3d, center_hm, P, K, D, g4, step, return_indices)
+
+
+repro_quarter_gather.launches = 0
+
+
+def require_float32_rows(rows: torch.Tensor) -> None:
+    if rows.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the reprojection gather's backward takes float32 rows, got {rows.dtype}: "
+            "bf16 training is ROADMAP.md A.10b (TPU.TRAIN_DTYPE: bfloat16)")
+
+
+def _quarter_gather(rows, center3d, center_hm, P, K, D, g4: int, step: float,
+                    return_indices: bool):
+    """The forward alone: the plain version on the CPU, else one K2 launch."""
     if build.on_cpu(rows, center3d, center_hm, P, K, D):
         half, idx = repro_quarter_gather_plain(rows, center3d, center_hm, P, K,
                                                D, g4, step)
@@ -235,7 +327,74 @@ def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
     return (out, idx) if return_indices else out
 
 
-repro_quarter_gather.launches = 0
+class QuarterGather(torch.autograd.Function):
+    """K2 with respect to the rows: the forward saves its (B, C, g4^3)
+    indices, the backward is ``repro_quarter_gather_backward``."""
+
+    @staticmethod
+    def forward(ctx, rows, center3d, center_hm, P, K, D, g4, step):
+        out, idx = _quarter_gather(rows, center3d, center_hm, P, K, D, g4, step, True)
+        ctx.save_for_backward(idx)
+        ctx.hs2, ctx.J = rows.shape[2], rows.shape[3]
+        ctx.mark_non_differentiable(idx)
+        return out, idx
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad, _):
+        (idx,) = ctx.saved_tensors
+        return (repro_quarter_gather_backward(grad.contiguous(), idx, ctx.hs2, ctx.J),
+                None, None, None, None, None, None, None)
+
+
+def repro_quarter_gather_backward_plain(grad_half: torch.Tensor, idx: torch.Tensor, hs2: int,
+                                        J: int) -> torch.Tensor:
+    """Plain PyTorch version of K11: the aligned upsample transposed along
+    z, then y, then x, then ``scatter_rows_plain``; in grad_half's dtype."""
+    g = grad_half
+    for axis in (3, 2, 1):
+        g = _upsample2_aligned_transposed(g, axis)
+    return scatter_rows_plain(g.reshape(g.shape[0], -1, g.shape[-1]), idx, hs2, J)
+
+
+def repro_quarter_gather_backward(grad_half: torch.Tensor, idx: torch.Tensor, hs2: int,
+                                  J: int) -> torch.Tensor:
+    """K11, the VJP of K2 with respect to the rows: grad_half (B, 2g4, 2g4,
+    2g4, J) float32 and K2's indices (B, C, g4^3) int32 -> the rows'
+    gradient (B, C, hs2, J) float32, the J-view of a zeroed buffer whose rows
+    are ``padded_width(J, 4)`` apart. The plain version on the CPU, else
+    one K11 launch (after a ``cudaMemsetAsync`` of the buffer)."""
+    if build.on_cpu(grad_half, idx):
+        return repro_quarter_gather_backward_plain(grad_half, idx, hs2, J)
+    g4 = grad_half.shape[1] // 2
+    B, C = check_backward(grad_half, idx, J, 2 * g4, g4)
+    buf = launch_backward("repro_quarter_gather_backward", grad_half, idx, B, C, J, hs2, g4)
+    repro_quarter_gather_backward.launches += 1
+    return buf
+
+
+repro_quarter_gather_backward.launches = 0
+
+
+def launch_backward(symbol: str, grad, idx, B: int, C: int, J: int, hs2: int, n: int,
+                    *extra, threads: int = BACKWARD_THREADS) -> torch.Tensor:
+    """One launch of a gather backward of ``csrc/repro_gather_backward.cu``
+    (K11, or K12 with its mode in ``extra``) on checked tensors, in blocks of
+    ``threads``; n: the gather grid's points per axis. Returns the J-view of
+    the buffer. Counts no launch (the wrappers count theirs)."""
+    S = padded_width(J, 4)
+    buf = torch.empty((B, C, hs2, S), dtype=torch.float32, device=grad.device)
+    p = build.ptr
+    err = _backward_fn(symbol, len(extra))(p(grad), p(idx), p(buf), B, C, J, S, hs2, n, *extra,
+                                           threads, build.stream())
+    build.check(err, symbol)
+    return buf[..., :J]
+
+
+@functools.cache
+def _backward_fn(symbol: str, extra: int):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build.bind("repro_gather_backward", symbol, [p] * 3 + [i] * (7 + extra) + [p])
 
 
 @functools.cache

@@ -13,6 +13,13 @@ The rows are gathered in their own dtype and summed in float32. JAX's
 exact mode gathers float32 (``hybridnet.py:73,84-85``); a bf16 row widened
 to float32 is exactly the value it gathers from its float32 cast of the
 same bf16 heatmaps, so every mode may read bf16 rows.
+
+With grad enabled and ``rows.requires_grad`` (float32 rows) the gather is
+differentiable with respect to the rows, its backward K12
+(``repro_grid_gather_backward``, ``csrc/repro_gather_backward.cu``): the VJP
+of the mode's ``reprojection_layer`` (repro.py:266-273, :302-317), the
+0.25/0.75 value upsample transposed along z, y and x for half, then the
+camera mean's scatter at the saved indices.
 """
 
 from __future__ import annotations
@@ -23,10 +30,12 @@ import functools
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import build
-from .repro_gather import (_DTYPES, _upsample2, camera_mean, check_cameras,
-                           reproject_indices_plain)
+from .repro_gather import (_DTYPES, _upsample2, _upsample2_transposed, camera_mean,
+                           check_backward, check_cameras, launch_backward,
+                           reproject_indices_plain, require_float32_rows, scatter_rows_plain)
 
 MODES = {"exact": 0, "half": 1, "half_fused": 2}
 # the kernel's constants (csrc/repro_grid_gather.cu)
@@ -151,12 +160,29 @@ def repro_grid_gather(rows: torch.Tensor, center3d: torch.Tensor,
     center3d (B, 3) and center_hm (B, C, 2) int32; P (B, C, 4, 3),
     K (B, C, 3, 3), D (B, C, 1, 5) float32. With ``return_indices`` the
     int32 gather indices come back too: (B, C, G^3) for exact, (B, C,
-    (G/2)^3) for the half modes.
+    (G/2)^3) for the half modes. With grad enabled and ``rows.requires_grad``
+    (float32 rows only) the volume carries the gather's graph, whose
+    backward is K12.
     """
     if mode not in MODES:
         raise ValueError(f"repro_grid_gather: unknown mode {mode!r}")
     if grid_size % 2:
         raise ValueError(f"repro_grid_gather: grid_size must be even, got {grid_size}")
+    if torch.is_grad_enabled() and rows.requires_grad:
+        require_float32_rows(rows)
+        vol, idx = GridGather.apply(rows, center3d, center_hm, P, K, D, grid_size,
+                                    grid_spacing, mode)
+        return (vol, idx) if return_indices else vol
+    return _grid_gather(rows, center3d, center_hm, P, K, D, grid_size, grid_spacing, mode,
+                        return_indices)
+
+
+repro_grid_gather.launches = 0
+
+
+def _grid_gather(rows, center3d, center_hm, P, K, D, grid_size: int, grid_spacing: float,
+                 mode: str, return_indices: bool):
+    """The forward alone: the plain version on the CPU, else one K5 launch."""
     if build.on_cpu(rows, center3d, center_hm, P, K, D):
         vol, idx = repro_grid_gather_plain(rows, center3d, center_hm, P, K, D, grid_size,
                                            grid_spacing, mode)
@@ -172,7 +198,59 @@ def repro_grid_gather(rows: torch.Tensor, center3d: torch.Tensor,
     return out
 
 
-repro_grid_gather.launches = 0
+class GridGather(torch.autograd.Function):
+    """K5 with respect to the rows: the forward saves its indices, the
+    backward is ``repro_grid_gather_backward``."""
+
+    @staticmethod
+    def forward(ctx, rows, center3d, center_hm, P, K, D, grid_size, grid_spacing, mode):
+        vol, idx = _grid_gather(rows, center3d, center_hm, P, K, D, grid_size, grid_spacing,
+                                mode, True)
+        ctx.save_for_backward(idx)
+        ctx.hs2, ctx.J, ctx.mode = rows.shape[2], rows.shape[3], mode
+        ctx.mark_non_differentiable(idx)
+        return vol, idx
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad, _):
+        (idx,) = ctx.saved_tensors
+        return (repro_grid_gather_backward(grad.contiguous(), idx, ctx.hs2, ctx.J, ctx.mode),
+                None, None, None, None, None, None, None, None)
+
+
+def repro_grid_gather_backward_plain(grad: torch.Tensor, idx: torch.Tensor, hs2: int, J: int,
+                                     mode: str) -> torch.Tensor:
+    """Plain PyTorch version of K12: for half the 0.25/0.75 upsample
+    transposed along z, then y, then x; then ``scatter_rows_plain`` at the
+    (B, C, G^3) (exact) or (B, C, (G/2)^3) indices; in grad's dtype."""
+    if mode == "half":
+        for axis in (3, 2, 1):
+            grad = _upsample2_transposed(grad, axis)
+    return scatter_rows_plain(grad.reshape(grad.shape[0], -1, grad.shape[-1]), idx, hs2, J)
+
+
+def repro_grid_gather_backward(grad: torch.Tensor, idx: torch.Tensor, hs2: int, J: int,
+                               mode: str) -> torch.Tensor:
+    """K12, the VJP of K5 with respect to the rows: grad float32 in the
+    forward's output layout ((B, G, G, G, J) for exact and half, (B, G/2,
+    G/2, G/2, J) for half_fused) and K5's int32 indices -> the rows'
+    gradient (B, C, hs2, J) float32, the J-view of a zeroed buffer whose rows
+    are ``padded_width(J, 4)`` apart. The plain version on the CPU, else one
+    K12 launch (after a ``cudaMemsetAsync`` of the buffer)."""
+    if mode not in MODES:
+        raise ValueError(f"repro_grid_gather_backward: unknown mode {mode!r}")
+    if build.on_cpu(grad, idx):
+        return repro_grid_gather_backward_plain(grad, idx, hs2, J, mode)
+    F = grad.shape[1]
+    n = F // 2 if mode == "half" else F
+    B, C = check_backward(grad, idx, J, 2 * n if mode == "half" else n, n)
+    buf = launch_backward("repro_grid_gather_backward", grad, idx, B, C, J, hs2, n, MODES[mode])
+    repro_grid_gather_backward.launches += 1
+    return buf
+
+
+repro_grid_gather_backward.launches = 0
 
 
 def run_plan(plan: Plan, rows, center3d, center_hm, P, K, D, grid_size: int,

@@ -7,9 +7,12 @@ quarter_fused through K2, exact / half / half_fused through K5), divided by
 the half grid, half_fused and quarter_fused), and decoded by softplus +
 soft-argmax (K3) into world mm and confidences.
 
-:meth:`HybridNetBackbone.train_outputs` is the training forward of the
-3D_only mode: the frozen 2D net and the gather run without a graph, V2V
-with one; the loss (K7, ``kernels/hybridnet_loss``) takes V2V's output.
+:meth:`HybridNetBackbone.train_outputs` is the training forward of every
+freeze mode. In ``3D_only`` the frozen 2D net and the gather run without a
+graph, V2V with one; in ``all``, ``bifpn`` and ``last_layers`` the 2D net
+and the gather run with one too, and the gradient reaches KeypointDetect
+through the gather's backward (K11 for quarter_fused, K12 for the other
+modes). The loss (K7, ``kernels/hybridnet_loss``) takes V2V's output.
 """
 
 from __future__ import annotations
@@ -89,15 +92,14 @@ class HybridNetBackbone(nn.Module):
     def train_outputs(self, imgs, center_hm, center3d, P, K, D):
         """Training forward: (V2V output (B, g, g, g, J) float32, with its
         graph when grad is enabled; points3D (B, J, 3) mm by K3 from its
-        detached copy, for the mm-accuracy). The 2D net must be frozen
-        (3D_only): gradients through the reprojection gather are not ported
-        (ROADMAP.md B9)."""
-        if torch.is_grad_enabled() and any(p.requires_grad for p in self.effTrack.parameters()):
-            raise NotImplementedError(
-                "training the 2D net needs the reprojection gather's backward, which is "
-                "not ported yet (ROADMAP.md B9); freeze it (3D_only)")
+        detached copy, for the mm-accuracy). The 2D net runs in the module's
+        mode (drop-connect in ``train()``, as JAX's ``deterministic=False``);
+        with a graph only when grad is enabled and one of its parameters
+        requires grad (the modes other than 3D_only), and the gather then
+        saves its indices for its backward."""
         center3d = center3d.to(torch.int32).contiguous()
-        with torch.no_grad():
+        with torch.set_grad_enabled(torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.effTrack.parameters())):
             rows = self.heatmap_rows(imgs)
         out = self.v2v_output(rows, center_hm, center3d, P, K, D).float().contiguous()
         points, _ = soft_argmax(out.detach(), center3d, float(self.grid_spacing),

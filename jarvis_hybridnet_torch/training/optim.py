@@ -17,9 +17,9 @@ defaults differ:
 
 Frozen parameters (``optax.multi_transform`` with ``set_to_zero`` in JAX)
 are kept out of the optimizer and set ``requires_grad_(False)``: no update,
-no weight decay. The port trains the ``3D_only`` mode only: the other modes
-send gradients through the reprojection gather, whose backward is not
-ported (ROADMAP.md B9).
+no weight decay. A trained parameter that gets no gradient (one that reaches
+no loss) is skipped by AdamW, weight decay included, where optax decays it
+(ROADMAP.md C.3).
 """
 
 from __future__ import annotations

@@ -9,9 +9,10 @@ EfficientTrackTrainer`. ``train_hybridnet`` builds the 3D datasets, seeds
 the embedded 2D net from a KeypointDetect checkpoint, supports finetune (LR
 / 10, reference train_interface.py:201-203) and resuming, and runs
 :class:`~jarvis_hybridnet_torch.training.trainer3d.HybridNetTrainer`. Both
-run on ``device``, the card unless the caller asks for the CPU. The port
-trains HybridNet in the ``3D_only`` mode; the project's configuration checks
-(``config/checks.py``) are not ported yet (ROADMAP.md A.13).
+run on ``device``, the card unless the caller asks for the CPU. HybridNet
+trains in every freeze mode (``all``, ``bifpn``, ``last_layers``,
+``3D_only``); the project's configuration checks (``config/checks.py``) are
+not ported yet (ROADMAP.md A.13).
 """
 
 from __future__ import annotations
@@ -98,8 +99,8 @@ def train_hybridnet(project_name, num_epochs, weights_keypoint_detect,
                     weights, mode="3D_only", run_name=None, finetune=False,
                     streamlit_widgets=None, cameras_to_use=None,
                     resume=None, device="cuda", results=None):
-    """mode in {'all', 'bifpn', 'last_layers', '3D_only'} (the port trains
-    '3D_only'; reference: jarvis/train_interface.py:124-213). ``resume`` is a
+    """mode in {'all', 'bifpn', 'last_layers', '3D_only'} (reference:
+    jarvis/train_interface.py:124-213). ``resume`` is a
     train_state.ckpt path or 'latest'. ``results``, a dict when given,
     receives the trainer's results (with ``history``) and the trainer
     (``"trainer"``)."""

@@ -32,8 +32,9 @@ parameters instead, so its resumed run replays part of an epoch on them.
 The host-side augmentation draws of thread workers are not replayed.
 
 Not ported, and raising: ``TPU.TRAIN_DTYPE`` bfloat16, the Streamlit
-monitor (ROADMAP.md A.13) and multi-device meshes (A.12). The loader always
-uses thread workers.
+monitor (ROADMAP.md A.13) and multi-device meshes (A.12). The loader runs
+thread workers whatever ``DATALOADER_WORKER_MODE`` says, and says so when it
+asks for process workers (``loader.trainer_worker_mode``).
 """
 
 from __future__ import annotations
@@ -198,7 +199,7 @@ class EfficientTrackTrainer:
 
     def train(self, training_set, validation_set, num_epochs, start_epoch=0,
               streamlitWidgets=None, resume_from=None) -> dict:
-        from ..dataset.loader import DataLoader, maybe_preload
+        from ..dataset.loader import DataLoader, maybe_preload, trainer_worker_mode
 
         cfg = self.cfg
         if streamlitWidgets is not None:
@@ -209,11 +210,12 @@ class EfficientTrackTrainer:
         maybe_preload(self.main_cfg, training_set, validation_set)
 
         workers = int(self.main_cfg.get("DATALOADER_NUM_WORKERS", 4))
+        worker_mode = trainer_worker_mode(self.main_cfg)
         batch = int(cfg.BATCH_SIZE)
         train_loader = DataLoader(training_set, batch_size=batch, shuffle=True, drop_last=True,
-                                  num_workers=workers)
+                                  num_workers=workers, worker_mode=worker_mode)
         val_loader = DataLoader(validation_set, batch_size=batch, shuffle=False,
-                                drop_last=True, num_workers=workers)
+                                drop_last=True, num_workers=workers, worker_mode=worker_mode)
         steps_per_epoch = len(train_loader)
         max_lr = float(cfg.MAX_LEARNING_RATE)
         optimizer = optim.make_optimizer(cfg.OPTIMIZER, list(self.model.parameters()), max_lr)

@@ -1,5 +1,6 @@
 """HybridNet (3D) trainer (port of ``jarvis_hybridnet_tpu/training/trainer3d.py``),
-on one device, in the ``3D_only`` mode.
+on one device, in the freeze modes ``all`` (the default, as JAX's),
+``bifpn``, ``last_layers`` and ``3D_only``.
 
 The loop of the JAX trainer (``trainer3d.py:195-383``): masked voxel-MSE
 training with AdamW / SGD, OneCycle or plateau schedules, the mm-accuracy
@@ -13,9 +14,14 @@ pair (``utils/transfer.HostToDevice``); K9 turns the raw uint8 crops into
 the normalized input there, with the per-camera color augmentation of the
 batch's ``aug`` record on the train split when ``TPU.DEVICE_AUG`` is on (as
 the JAX trainer's ``prepare``, trainer3d.py:113-124; no border re-zero in
-3D); the frozen 2D net and the reprojection gather run
-without a graph; V2V runs with one, its InstanceNorms through K1 forward and
-K6 backward (``kernels.InstanceNormAct``); K7 (``kernels.hybridnet_loss``)
+3D); the 2D net and the reprojection gather run with a graph
+in ``all``, ``bifpn`` and ``last_layers`` (the gather's backward is K11, or
+K12 in the exact / half / half_fused modes) and without one in ``3D_only``,
+where the 2D net is frozen; V2V runs with one; the InstanceNorms of both
+nets run through K1 forward and K6 backward (``kernels.InstanceNormAct``).
+``optim.apply_freeze`` sets ``requires_grad`` from the mode's labels, so the
+frozen tensors stay out of AdamW's updates and weight decay, as JAX's
+``set_to_zero`` keeps them. K7 (``kernels.hybridnet_loss``)
 builds the Gaussian target from ``kp_vox`` / ``keypoints3D`` and gives the
 loss and V2V's output gradient; K3 gives the points for the mm-accuracy.
 Step k's loss and points are read back after step k + 1 is dispatched, as
@@ -23,9 +29,10 @@ the JAX trainer does. Dropout and drop-connect draw from one
 ``torch.Generator`` the trainer holds, reseeded from (``seed``, epoch) at
 every epoch, so a resumed run draws the masks the uninterrupted run drew.
 
-Not ported yet, and raising: the freeze modes other than ``3D_only``
-(ROADMAP.md B9), ``TPU.TRAIN_DTYPE`` bfloat16, and the Streamlit monitor
-(A.13). The loader always uses thread workers.
+Not ported yet, and raising: ``TPU.TRAIN_DTYPE`` bfloat16 (ROADMAP.md
+A.10b) and the Streamlit monitor (A.13). The loader runs thread workers
+whatever ``DATALOADER_WORKER_MODE`` says, and says so when it asks for
+process workers (``loader.trainer_worker_mode``).
 """
 
 from __future__ import annotations
@@ -79,7 +86,7 @@ def _progress(iterable, total):
 
 class HybridNetTrainer:
     def __init__(self, mode: str, cfg, weights=None, efficienttrack_weights=None,
-                 run_name=None, training_mode: str = "3D_only", device="cuda", seed: int = 2):
+                 run_name=None, training_mode: str = "all", device="cuda", seed: int = 2):
         self.cfg = cfg
         self.training_mode = training_mode
         self.device = torch.device(device)
@@ -121,7 +128,7 @@ class HybridNetTrainer:
 
     def set_training_mode(self, mode: str) -> None:
         """'all' | 'bifpn' | 'last_layers' | '3D_only' (reference:
-        hybridnet.py:367-388); the port trains '3D_only'."""
+        hybridnet.py:367-388)."""
         self.training_mode = mode
 
     def _device_aug(self) -> bool:
@@ -159,13 +166,9 @@ class HybridNetTrainer:
 
     def train(self, training_set, validation_set, num_epochs, start_epoch=0,
               streamlitWidgets=None, resume_from=None) -> dict:
-        from ..dataset.loader import DataLoader, maybe_preload
+        from ..dataset.loader import DataLoader, maybe_preload, trainer_worker_mode
 
         cfg = self.cfg.HYBRIDNET
-        if self.training_mode != "3D_only":
-            raise NotImplementedError(
-                f"training mode {self.training_mode!r}: its gradients cross the reprojection "
-                "gather, whose backward is not ported yet (ROADMAP.md B9); use '3D_only'")
         if streamlitWidgets is not None:
             raise NotImplementedError("the Streamlit monitor is not ported yet (ROADMAP.md A.13)")
         device_aug = (self._device_aug() and training_set.set_name == "train"
@@ -176,11 +179,12 @@ class HybridNetTrainer:
         maybe_preload(self.cfg, training_set, validation_set)
 
         workers = int(self.cfg.get("DATALOADER_NUM_WORKERS", 4))
+        worker_mode = trainer_worker_mode(self.cfg)
         batch = int(cfg.BATCH_SIZE)
         train_loader = DataLoader(training_set, batch_size=batch, shuffle=True,
-                                  num_workers=workers)
+                                  num_workers=workers, worker_mode=worker_mode)
         val_loader = DataLoader(validation_set, batch_size=batch, shuffle=False,
-                                num_workers=workers)
+                                num_workers=workers, worker_mode=worker_mode)
         steps_per_epoch = len(train_loader)
         max_lr = float(cfg.MAX_LEARNING_RATE)
         labels = optim.hybridnet_freeze_labels(self.model, self.training_mode)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Launch-plan sweep of the K1, K2, K3, K5, K6, K8, K9 and K10 kernels on one CUDA card.
+"""Launch-plan sweep of the K1, K2, K3, K5, K6, K8-K12 kernels on one CUDA card.
 
-    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5,k5probe,k6,k6probe,k7probe,k8,k9,k9ops,k10]
+    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5,k5probe,k6,k6probe,k7probe,k8,k9,k9ops,k10,k11]
     python3 kernel_sweep.py --only k9,k9ops,k9probe --baseline-csrc DIR
 
 K1 instance_norm_act: for V2V's and the 2D networks' largest main-path
@@ -49,6 +49,10 @@ returns after the launch, the taps, the tile load and the column pass; no
 row pass, no Philox, no Box-Muller, no noise, no border, no stores) and of
 the current one (returns after the launch, the staging and the column
 pass; no blur passes, no Philox, no Box-Muller, no noise, no stores).
+K11 / K12, the gathers' backward (``k11``): blocks of 64-1024 threads at
+the production key (seeded float32 rows of 12 cameras, 130^2 padded maps,
+23 joints; K11 at g4 = 18, K12 in each mode at G = 72), beside the
+wrappers' ``BACKWARD_THREADS``, each held to the plain version in float64.
 
 Times are device times of CUDA-graph replays (``chip_smoke.graph_ms``);
 every configuration is also checked against the plain version (bf16 ulps
@@ -1003,6 +1007,41 @@ def sweep_k9ops(say) -> None:
         + json.dumps({k: v - fewest["none"] for k, v in fewest.items() if k != "none"}))
 
 
+def sweep_k11(say, dev) -> None:
+    """K11 and K12 under every block size at the production key."""
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch import kernels
+    from jarvis_hybridnet_torch.kernels import repro_gather as k2
+
+    del dev
+    rows, c3d, chm, cams = chip_smoke.backward_inputs(1, 12, 23, 24, 130)
+    B, C, hs2, J = rows.shape
+    cases = [("K11", "repro_quarter_gather_backward", (),
+              kernels.repro_quarter_gather(rows, c3d, chm, *cams, 18, 8.0, True), 18,
+              lambda g, i: kernels.repro_quarter_gather_backward_plain(g, i, hs2, J))]
+    k5 = importlib.import_module("jarvis_hybridnet_torch.kernels.repro_grid_gather")
+    for mode in k5.MODES:
+        cases.append((f"K12 {mode}", "repro_grid_gather_backward", (k5.MODES[mode],),
+                      kernels.repro_grid_gather(rows, c3d, chm, *cams, 72, 2.0, mode, True),
+                      72 if mode == "exact" else 36,
+                      functools.partial(kernels.repro_grid_gather_backward_plain, hs2=hs2, J=J,
+                                        mode=mode)))
+    for label, symbol, extra, (vol, idx), n, plain in cases:
+        grad = torch.randn(vol.shape, device=vol.device,
+                           generator=torch.Generator(device=vol.device).manual_seed(7))
+        ref = plain(grad.double(), idx)
+        for threads in (64, 128, 256, 512, 1024):
+            def call(t=threads):
+                return k2.launch_backward(symbol, grad, idx, B, C, J, hs2, n, *extra, threads=t)
+
+            err = float((call().double() - ref).abs().max() / ref.abs().max())
+            say(f"{label} block {threads}: {chip_smoke.graph_ms(call):.4f} ms, "
+                f"{err:.1e} of the largest element from the float64 plain version"
+                + (" <- BACKWARD_THREADS" if threads == k2.BACKWARD_THREADS else ""))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="k1,k2,k3,k5",
@@ -1057,6 +1096,8 @@ def main() -> int:
             sweep_k8(say, dev)
         if "k10" in only:
             sweep_k10(say, dev)
+        if "k11" in only:
+            sweep_k11(say, dev)
     return 0
 
 

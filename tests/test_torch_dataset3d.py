@@ -141,8 +141,8 @@ def test_train_hybridnet_at_the_default_config(parent, tmp_path, monkeypatch):
                                                                      / "datasets" / "Synth")}})
     monkeypatch.setenv("JARVIS_PARENT_DIR", str(tmp_path))
     res = {}
-    assert train_hybridnet("P", 1, None, str(TRAINED / "HybridNet_final.ckpt"), device="cpu",
-                           run_name="Default", results=res)
+    assert train_hybridnet("P", 1, None, str(TRAINED / "HybridNet_final.ckpt"), mode="3D_only",
+                           device="cpu", run_name="Default", results=res)
     trainer = res["trainer"]
     assert trainer.cfg.TPU.DEVICE_AUG and np.isfinite(res["history"]["train_loss"]).all()
     ds = Dataset3D(trainer.cfg, set="train", device_targets=True, device_aug=True)

@@ -19,8 +19,9 @@ MonkeyHand HybridNet checkpoint.
   bitwise frozen and V2V updated; the loss halves over a short plateau-LR
   overfit (as ``tests/test_training.py:130`` asks of the JAX trainer); a
   resume from ``train_state.ckpt`` gives the uninterrupted run's parameters;
-  the modes and options that are not ported raise (on-device color
-  augmentation is ported and no longer among them).
+  the options that are not ported raise (on-device color augmentation and
+  the freeze modes other than 3D_only are ported and no longer among them:
+  ``test_torch_training_modes.py`` holds those modes to JAX).
 """
 
 import os
@@ -179,7 +180,8 @@ def test_training_step_matches_jax(parent, optimizer, steps):
     cfg = _cfg(parent)
     batch = _batch(cfg)
     lr = 1e-3
-    trainer = HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu", run_name=optimizer)
+    trainer = HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu", run_name=optimizer,
+                               training_mode="3D_only")
     model = trainer.model
     trained = optim.apply_freeze(model, optim.hybridnet_freeze_labels(model, "3D_only"))
     assert all(n.startswith("v2vNet.") for n, p in model.named_parameters() if p.requires_grad)
@@ -269,7 +271,7 @@ def _train(parent, tmp_run, epochs, **kw):
 def test_train_hybridnet_freezes_2d_and_trains_v2v(parent, monkeypatch):
     monkeypatch.setenv("JARVIS_PARENT_DIR", parent)
     start = params_from_jax(read_ckpt(HYBRID), "small")
-    ok, res = _train(parent, "Freeze", 1)
+    ok, res = _train(parent, "Freeze", 1, mode="3D_only")
     assert ok
     h = res["history"]
     assert len(h["train_loss"]) == 1 and np.isfinite(h["train_loss"] + h["val_loss"]).all()
@@ -297,7 +299,7 @@ def test_plateau_overfit_halves_the_loss(parent, monkeypatch):
     val.frameset_keys, val.keypoints3D = val.frameset_keys[:1], val.keypoints3D[:1]
     trainer = HybridNetTrainer("train", cfg, weights=None,
                                efficienttrack_weights=str(TRAINED / "KeypointDetect_final.ckpt"),
-                               device="cpu", run_name="Converge")
+                               device="cpu", run_name="Converge", training_mode="3D_only")
     h = trainer.train(ds, val, num_epochs=12)["history"]
     assert h["train_loss"][-1] < 0.5 * h["train_loss"][0], h["train_loss"]
     assert h["train_acc"][-1] < h["train_acc"][0], h["train_acc"]
@@ -315,7 +317,8 @@ def test_resume_matches_the_uninterrupted_run(parent, monkeypatch):
     def train(run, epochs, resume=None):
         cfg = _cfg(parent, VAL_INTERVAL=100)
         ds, val = Dataset3D(cfg, set="val"), Dataset3D(cfg, set="val")
-        trainer = HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu", run_name=run)
+        trainer = HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu", run_name=run,
+                                   training_mode="3D_only")
         results = trainer.train(ds, val, num_epochs=epochs, resume_from=resume)
         return trainer, results
 
@@ -338,10 +341,7 @@ def test_unported_options_raise(parent, monkeypatch):
     cfg = _cfg(parent)
     ds = Dataset3D(cfg, set="val")
     trainer = HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu", run_name="Raise",
-                               training_mode="all")
-    with pytest.raises(NotImplementedError, match="B9"):
-        trainer.train(ds, ds, 1)
-    trainer = HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu", run_name="Raise")
+                               training_mode="3D_only")
     with pytest.raises(NotImplementedError, match="A.13"):
         trainer.train(ds, ds, 1, streamlitWidgets={})
     cfg.TPU.TRAIN_DTYPE = "bfloat16"
