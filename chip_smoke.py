@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --baseline-csrc DIR
+    python3 chip_smoke.py --baseline-csrc DIR [--baseline-kernel k9|k12]
 
-Builds the eleven CUDA kernel sources from ``jarvis_hybridnet_torch/kernels/csrc``,
+Builds the twelve CUDA kernel sources from ``jarvis_hybridnet_torch/kernels/csrc``,
 loads the committed MonkeyHand checkpoints through the port's own reader,
 and drives ``make_predictor3d`` at the production configuration (bf16,
 quarter_fused, 12 cameras of 1280x1024 on the synthetic rig, 23 joints,
@@ -51,7 +51,8 @@ K10 also under other plans and on hand-made edge batches in both dtypes
 and layouts); K11 and K12 (each mode) at the ``all`` step's rows and at
 edge keys (B = 2, C = 1, J = 1 and 23 with rows S = J and 24 apart, every
 point clamped to one pixel, an odd gather grid) against their plain
-versions in float64, within twice the float32 plain version's own error.
+versions in float64, within twice the float32 plain version's own error,
+with K12's windowed and overflow (tile, camera) counts at every key.
 It then checks every kernel against its plain PyTorch version on the card:
 K1, K2 and K4 at every shape a driven path gave them, K3 and K5 at the main
 path's, and times kernel, plain version and library call. A kernel's
@@ -64,13 +65,19 @@ Per-shape details go to ``chiprun_out/chip_smoke.txt``; the training
 steps' device time by kernel to ``chip_smoke_train_profile.txt`` (3D_only),
 ``chip_smoke_train_all_profile.txt`` and ``chip_smoke_train2d_profile.txt``.
 
-With ``--baseline-csrc DIR``, DIR holds an earlier version of the kernel
-sources whose ``color_aug.cu`` has the C interface of ``BASELINE_SIGNATURE``
-(that of b3d34a0: K9 over 32 x 32 tiles staged with their halo); it builds
-that K9 too and times it beside the current one at every recorded key, in
-the order baseline, current, current, baseline, into
-``chiprun_out/chip_smoke_baseline.txt``. K9's outputs must equal the
-baseline's bit for bit at every recorded key and every edge key.
+With ``--baseline-csrc DIR`` (and ``--baseline-kernel k9``, the default),
+DIR holds an earlier version of the kernel sources whose ``color_aug.cu``
+has the C interface of ``BASELINE_SIGNATURE`` (that of b3d34a0: K9 over 32
+x 32 tiles staged with their halo); it builds that K9 too and times it
+beside the current one at every recorded key, in the order baseline,
+current, current, baseline, into ``chiprun_out/chip_smoke_baseline.txt``.
+K9's outputs must equal the baseline's bit for bit at every recorded key
+and every edge key. With ``--baseline-kernel k12`` DIR's
+``repro_gather_backward.cu`` has K12 with the C interface of
+``BASELINE_K12_SIGNATURE`` (that of 3ddb97d: a thread a (gather point,
+joint), scalar atomics); that K12 is timed beside the current one at the
+production key in each mode, in the same order, both held to the float64
+plain version (float atomics: not bit for bit).
 """
 
 from __future__ import annotations
@@ -273,6 +280,49 @@ def build_baseline(csrc: str):
     return functools.partial(call_baseline, bind_baseline(ctypes.CDLL(path)))
 
 
+# The C interface of the earlier K12 design that --baseline-kernel k12
+# builds from <DIR>/repro_gather_backward.cu (that of 3ddb97d: a thread a
+# (gather point, joint) and scalar atomics; mode and threads are ints).
+BASELINE_K12_SIGNATURE = "grad, idx, out, B, C, J, S, hs2, n, mode, threads, stream"
+
+
+def build_k12_baseline(csrc: str):
+    """K12 of an earlier design, built from ``<csrc>/repro_gather_backward.cu``
+    against that directory's own headers: a function (grad, idx, hs2, J,
+    mode) -> the rows' gradient, as ``kernels.repro_grid_gather_backward``
+    on the card, in blocks of 256."""
+    from jarvis_hybridnet_torch.kernels import build
+    from jarvis_hybridnet_torch.kernels.repro_grid_gather import MODES
+    from jarvis_hybridnet_torch.kernels.repro_gather import padded_width
+
+    out_dir = os.path.join(csrc, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "librepro_gather_backward.so")
+    proc = subprocess.run([build._nvcc(), *build._flags("repro_gather_backward"), "-o", path,
+                           os.path.join(csrc, "repro_gather_backward.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f"nvcc failed for the baseline repro_gather_backward.cu:\n{proc.stdout}"
+             f"{proc.stderr}")
+    fn = ctypes.CDLL(path).repro_grid_gather_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p if a in ("grad", "idx", "out", "stream") else ctypes.c_int
+                   for a in BASELINE_K12_SIGNATURE.split(", ")]
+
+    def call(grad, idx, hs2, J, mode):
+        import torch
+
+        B, C, n = idx.shape[0], idx.shape[1], grad.shape[1] // (2 if mode == "half" else 1)
+        S = padded_width(J, 4)
+        buf = torch.empty((B, C, hs2, S), dtype=torch.float32, device=grad.device)
+        b = build.ptr
+        build.check(fn(b(grad), b(idx), b(buf), B, C, J, S, hs2, n, MODES[mode], 256,
+                       build.stream()), "baseline K12")
+        return buf[..., :J]
+
+    return call
+
+
 def against_baseline(current, baseline, check) -> tuple[float, float]:
     """Device ms of the current and the baseline call, timed in the order
     baseline, current, current, baseline (the mean of each pair); ``check``
@@ -430,26 +480,49 @@ def check_gather_backward(name, forward, backward, plain, label, note):
     return grad, idx, err
 
 
+def index_add_call(grad, idx, hs2: int):
+    """The library call beside K12 in exact and half_fused: one
+    ``index_add_`` of the per-camera rows (grad / C, expanded over the
+    cameras) at the int64 flat indices into the (B * C * hs2, J) view of a
+    padded buffer, both built here, outside the timed call (which adds into
+    the same buffer every time; zeroing it is ``zero_ms``)."""
+    import torch
+
+    from jarvis_hybridnet_torch.kernels.repro_gather import padded_width
+
+    B, C, N = idx.shape
+    J = grad.shape[-1]
+    flat = (idx.long() + torch.arange(B * C, device=idx.device).view(B, C, 1) * hs2).reshape(-1)
+    src = (grad.reshape(B, N, J) / C)[:, None].expand(B, C, N, J).reshape(-1, J).contiguous()
+    view = torch.zeros((B * C * hs2, padded_width(J, 4)), device=grad.device)[:, :J]
+    return lambda: view.index_add_(0, flat, src)
+
+
 def backward_entry(name, mode, call, plain, grad, idx, err, launches, per_step, note, smi):
     """The kernels line's entry of a gather backward at the production key:
     device and wall ms, the plain version's, the bytes bound (the upstream
     gradient and the indices read once, the padded rows' buffer written
-    once) and the float atomics it issues (B * C * points * J)."""
+    once), the adds it makes (B * C * points * J) and, for K12 in exact and
+    half_fused, one ``index_add_`` as the library call."""
     import torch
 
     out = call(grad, idx)
     B, C, hs2, S = out.shape[0], out.shape[1], out.shape[2], out.stride(2)
     nbytes = grad.numel() * 4 + idx.numel() * 4 + B * C * hs2 * S * 4
     atomics = idx.numel() * grad.shape[-1]
+    library = (graph_ms(index_add_call(grad, idx, hs2)) if mode in ("exact", "half_fused")
+               else None)
     e = dict(name=name, route="cuda", kernels_per_call=1,
-             source="jarvis_hybridnet_torch/kernels/csrc/repro_gather_backward.cu",
+             source="jarvis_hybridnet_torch/kernels/csrc/" + (
+                 "repro_gather_backward.cu" if mode == "quarter_fused"
+                 else "repro_grid_gather_backward.cu"),
              replaces="jarvis_hybridnet_tpu/models/repro.py:280" if mode == "quarter_fused"
              else ("jarvis_hybridnet_tpu/models/repro.py:266" if mode == "exact"
                    else "jarvis_hybridnet_tpu/models/repro.py:302"),
              launches=launches, calls_per_step=per_step, max_abs_err=err,
              ms=graph_ms(lambda: call(grad, idx)), wall_ms=cuda_ms(lambda: call(grad, idx)),
              plain_ms=cuda_ms(lambda: plain(grad, idx), iters=3, warmup=1),
-             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=library,
              atomics=atomics,
              zero_ms=graph_ms(lambda: torch.zeros((B, C, hs2, S), device=grad.device)))
     if mode != "quarter_fused":
@@ -457,21 +530,41 @@ def backward_entry(name, mode, call, plain, grad, idx, err, launches, per_step, 
     note(f"{name} at the production key: device {e['ms']:.4f} ms (of which zeroing the "
          f"{B * C * hs2 * S * 4 / 1e6:.2f} MB buffer alone takes {e['zero_ms']:.4f}), wall "
          f"{e['wall_ms']:.4f}, plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.4f} "
-         f"({nbytes / 1e6:.2f} MB); "
-         f"{atomics / 1e6:.2f} M float atomics, {atomics / e['ms'] / 1e6:.1f} G atomics/s; "
+         f"({nbytes / 1e6:.2f} MB)"
+         + (f", index_add_ {library:.4f}" if library is not None else "") + "; "
+         f"{atomics / 1e6:.2f} M adds, {atomics / e['ms'] / 1e6:.1f} G adds/s; "
          f"{per_step} a step; card: {smi}")
     return e
 
 
-def check_k11_k12(kernels, recorder, path_counts, note, smi) -> list:
+def check_k11_k12(kernels, recorder, path_counts, note, smi, k12_baseline=None,
+                  base_log=None) -> list:
     """K11 at the ``all`` step's key (the float32 training rows K2 was
     called with, g4 = 18) and K12 in each mode at G = 72 on the same rows and
     cameras, each against its plain version (``check_gather_backward``), then at
-    ``BACKWARD_EDGE_KEYS`` and an odd gather grid; timed at the production
-    key. Returns the kernels line's entries."""
+    ``BACKWARD_EDGE_KEYS`` and an odd gather grid; K12's windowed and
+    overflow (tile, camera) counts at every key, the overflow branch taken
+    at one key at least; timed at the production key, with
+    ``k12_baseline`` in turns with the earlier K12 design, both held to the
+    float64 plain version. Returns the kernels line's entries."""
+    import importlib
+
     import torch
 
     from jarvis_hybridnet_torch.kernels.repro_gather import pad_rows
+
+    k5 = importlib.import_module("jarvis_hybridnet_torch.kernels.repro_grid_gather")
+    overflowed = []
+
+    def k12_choice(mode, grad, idx, hs2, label):
+        n = grad.shape[1] // 2 if mode == "half" else grad.shape[1]
+        plan = k5.backward_plan(idx.shape[1], grad.shape[-1], n, mode)
+        windowed, overflow = k5.window_choice(idx, hs2, plan)
+        note(f"repro_grid_gather_backward[{mode}] {label}: {windowed} windowed / {overflow} "
+             f"overflow (frameset, tile, camera) triples under tile {plan.tile}, window "
+             f"{plan.win} pixels, {plan.threads} threads")
+        if overflow:
+            overflowed.append(f"{mode} {label}")
 
     k11 = kernels.repro_quarter_gather_backward
     k11_plain = kernels.repro_quarter_gather_backward_plain
@@ -505,11 +598,31 @@ def check_k11_k12(kernels, recorder, path_counts, note, smi) -> list:
         fwd, call, plain = grid(rows, c3d, chm, (P, K, D), G, sp, mode)
         grad, idx, err = check_gather_backward(f"repro_grid_gather_backward[{mode}]", fwd,
                                                call, plain, f"training rows G = {G}", note)
+        k12_choice(mode, grad, idx, rows.shape[2], f"training rows G = {G}")
         counts = path_counts[f"training_all_step_{mode}"]
         e = backward_entry(f"repro_grid_gather_backward[{mode}]", mode, call, plain, grad, idx,
                            err, counts["repro_grid_gather_backward"],
                            counts["repro_grid_gather_backward"], note, smi)
         e["path"] = f"training_all_step_{mode}"
+        if k12_baseline is not None:
+            hs2, J = rows.shape[2], rows.shape[3]
+            want = plain(grad.double(), idx)
+            bound = 1e-5 * float(want.abs().max())
+
+            def held(cur, base):
+                gaps = [float((o.double() - want).abs().max()) for o in (cur, base)]
+                if max(gaps) > bound:
+                    fail(f"K12 {mode}: current {gaps[0]}, baseline {gaps[1]} from the float64 "
+                         f"plain version (tol {bound})")
+
+            cur, e["baseline_ms"] = against_baseline(
+                lambda: call(grad, idx), lambda: k12_baseline(grad, idx, hs2, J, mode), held)
+            line = (f"repro_grid_gather_backward[{mode}] at the production key, in turns "
+                    f"(baseline, current, current, baseline): current {cur:.4f} ms, baseline "
+                    f"{e['baseline_ms']:.4f} ms ({e['baseline_ms'] / cur:.2f}x); both within "
+                    f"1e-5 of the largest element of the float64 plain version; card: {smi}")
+            note(line)
+            base_log.write(line + "\n")
         entries.append(e)
         del grad, idx
     for label, B, C, Je, S, hs, clamp in BACKWARD_EDGE_KEYS:
@@ -520,10 +633,15 @@ def check_k11_k12(kernels, recorder, path_counts, note, smi) -> list:
                                   note)
         for mode in OTHER_MODES:
             for Ge in (G, 38):
-                check_gather_backward(f"repro_grid_gather_backward[{mode}]",
-                                      *grid(r, c, h, cams, Ge, sp, mode), f"{label}, G = {Ge}",
-                                      note)
+                grad, idx, _ = check_gather_backward(f"repro_grid_gather_backward[{mode}]",
+                                                     *grid(r, c, h, cams, Ge, sp, mode),
+                                                     f"{label}, G = {Ge}", note)
+                k12_choice(mode, grad, idx, r.shape[2], f"{label}, G = {Ge}")
         del r
+    if not overflowed:
+        fail("repro_grid_gather_backward: no checked key took the overflow branch")
+    note(f"repro_grid_gather_backward: the overflow branch taken at {len(overflowed)} checked "
+         f"keys ({', '.join(overflowed[:4])}{', ...' if len(overflowed) > 4 else ''})")
     torch.cuda.empty_cache()
     return entries
 
@@ -2287,7 +2405,11 @@ def check_k10(kernels, recorder, path_counts, note) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-csrc", metavar="DIR",
-                    help="time K9 built from DIR beside the current one")
+                    help="time the kernel of --baseline-kernel built from DIR beside the "
+                         "current one")
+    ap.add_argument("--baseline-kernel", choices=("k9", "k12"), default="k9",
+                    help="the kernel --baseline-csrc holds: K9 (BASELINE_SIGNATURE) or K12 "
+                         "(BASELINE_K12_SIGNATURE)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -2334,12 +2456,17 @@ def main() -> int:
     for name, label in (("repro_grid_gather", "K5"), ("instance_norm_act_backward", "K6"),
                         ("hybridnet_loss", "K7"), ("heatmap2d_loss", "K8"),
                         ("color_aug", "K9"), ("argmax2d", "K10"),
-                        ("repro_gather_backward", "K11, K12")):
+                        ("repro_gather_backward", "K11"), ("repro_grid_gather_backward", "K12")):
         log.write(f"ptxas for {name}.cu ({label}):\n")
         for line in ptxas_lines(name):
             log.write(f"  {line}\n")
-    baseline = build_baseline(os.path.abspath(args.baseline_csrc)) if args.baseline_csrc else None
-    base_log = open(os.path.join(out_dir, "chip_smoke_baseline.txt"), "w") if baseline else None
+    baseline = k12_baseline = None
+    if args.baseline_csrc and args.baseline_kernel == "k9":
+        baseline = build_baseline(os.path.abspath(args.baseline_csrc))
+    elif args.baseline_csrc:
+        k12_baseline = build_k12_baseline(os.path.abspath(args.baseline_csrc))
+    base_log = (open(os.path.join(out_dir, "chip_smoke_baseline.txt"), "w")
+                if args.baseline_csrc else None)
 
     phase("load")
     # 3-5. checkpoints, rig, predictor at the production configuration
@@ -2489,7 +2616,8 @@ def main() -> int:
                                      note, step_paths=["training_all_step"]
                                      + [f"train2d_step_{n}" for n in NETS_2D]))
     phase("K11, K12 checks")
-    train_entries += check_k11_k12(kernels, recorder, path_counts, note, smi)
+    train_entries += check_k11_k12(kernels, recorder, path_counts, note, smi, k12_baseline,
+                                   base_log)
     phase("K8, K9, K10 checks")
     train_entries += check_k8(kernels, recorder, runs2d, note)
     train_entries += check_k9(kernels, recorder, cfg, runs2d, path_counts["training"], baseline,

@@ -37,9 +37,15 @@ Each wrapper counts the calls that launch its CUDA source in
   index through 64-bit order keys, several CTAs a channel (or an image of
   channels-last heads), merged by atomics and a last-CTA ticket.
 - repro_quarter_gather_backward (K11) and repro_grid_gather_backward (K12),
-  the gathers' VJPs with respect to the rows: a thread per (gather point,
-  joint) sums the transposed value upsample and adds it, divided by C, to
-  each camera's row with float atomics, into a buffer zeroed on the stream.
+  the gathers' VJPs with respect to the rows, into a buffer zeroed on the
+  stream. K11: a thread per (gather point, joint) sums the transposed
+  value upsample and adds it, divided by C, to each camera's row with
+  float atomics. K12: a block per tile of gather points stages the tile's
+  values (half: the transposed upsample, separably from the tile's
+  upstream block) and every camera's indices in shared memory; exact sorts
+  each camera's points by pixel inside a window over the tile's box and
+  adds each pixel's sum once, in 16-byte reductions; half_fused takes a
+  thread per (point, 4 joints) and no tile.
 
 ``InstanceNormAct`` (K1 forward, K6 backward), ``hybridnet_loss`` (K7),
 ``Heatmap2DLoss`` (K8, through ``heatmap2d_loss``), ``QuarterGather`` (K2

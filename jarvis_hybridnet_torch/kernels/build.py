@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("instance_norm_act", "repro_quarter_gather", "repro_grid_gather",
            "soft_argmax", "resize_normalize", "instance_norm_act_backward", "hybridnet_loss",
-           "heatmap2d_loss", "color_aug", "argmax2d", "repro_gather_backward")
+           "heatmap2d_loss", "color_aug", "argmax2d", "repro_gather_backward",
+           "repro_grid_gather_backward")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -43,7 +44,8 @@ _EXTRA_FLAGS = {"repro_quarter_gather": ["--fmad=false"],
                 "heatmap2d_loss": ["--fmad=false", "-Xptxas=-v"],
                 "color_aug": ["--fmad=false", "-Xptxas=-v"],
                 "argmax2d": ["-Xptxas=-v"],
-                "repro_gather_backward": ["--fmad=false", "-Xptxas=-v"]}
+                "repro_gather_backward": ["--fmad=false", "-Xptxas=-v"],
+                "repro_grid_gather_backward": ["--fmad=false", "-Xptxas=-v"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

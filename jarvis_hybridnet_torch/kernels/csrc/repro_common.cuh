@@ -2,9 +2,9 @@
 // (repro_quarter_gather.cu) and K5 (repro_grid_gather.cu): the per-camera
 // fields staged in shared memory, the projection of one grid point into a
 // camera's crop and the flat pixel index; and K2's camera mean of the
-// gathered J-rows (K5 gathers 16-byte lanes of padded rows instead). Their
-// backwards, K11 and K12 (repro_gather_backward.cu), share the camera
-// mean's transpose, scatter_camera_rows, at the end of this file.
+// gathered J-rows (K5 gathers 16-byte lanes of padded rows instead). K2's
+// backward, K11 (repro_gather_backward.cu), adds with the camera mean's
+// transpose, scatter_camera_rows, at the end of this file.
 //
 // The index arithmetic rounds after every operation with __f*_rn
 // intrinsics in the op order of models/repro.py reproject_indices

@@ -39,7 +39,7 @@ from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 6  # quarter voxels per tile edge: 27 tiles of the 18^3 production grid
-BACKWARD_THREADS = 256  # K11's and K12's block (kernel_sweep.py --only k11 times the others)
+BACKWARD_THREADS = 256  # K11's block (kernel_sweep.py --only k11 times the others)
 
 
 def padded_width(j: int, itemsize: int) -> int:
@@ -368,7 +368,7 @@ def repro_quarter_gather_backward(grad_half: torch.Tensor, idx: torch.Tensor, hs
         return repro_quarter_gather_backward_plain(grad_half, idx, hs2, J)
     g4 = grad_half.shape[1] // 2
     B, C = check_backward(grad_half, idx, J, 2 * g4, g4)
-    buf = launch_backward("repro_quarter_gather_backward", grad_half, idx, B, C, J, hs2, g4)
+    buf = launch_backward(grad_half, idx, B, C, J, hs2, g4)
     repro_quarter_gather_backward.launches += 1
     return buf
 
@@ -376,25 +376,24 @@ def repro_quarter_gather_backward(grad_half: torch.Tensor, idx: torch.Tensor, hs
 repro_quarter_gather_backward.launches = 0
 
 
-def launch_backward(symbol: str, grad, idx, B: int, C: int, J: int, hs2: int, n: int,
-                    *extra, threads: int = BACKWARD_THREADS) -> torch.Tensor:
-    """One launch of a gather backward of ``csrc/repro_gather_backward.cu``
-    (K11, or K12 with its mode in ``extra``) on checked tensors, in blocks of
-    ``threads``; n: the gather grid's points per axis. Returns the J-view of
-    the buffer. Counts no launch (the wrappers count theirs)."""
+def launch_backward(grad, idx, B: int, C: int, J: int, hs2: int, g4: int,
+                    threads: int = BACKWARD_THREADS) -> torch.Tensor:
+    """One K11 launch (``csrc/repro_gather_backward.cu``) on checked tensors,
+    in blocks of ``threads``; g4: the gather grid's points per axis. Returns
+    the J-view of the buffer. Counts no launch (the wrapper counts its)."""
     S = padded_width(J, 4)
     buf = torch.empty((B, C, hs2, S), dtype=torch.float32, device=grad.device)
     p = build.ptr
-    err = _backward_fn(symbol, len(extra))(p(grad), p(idx), p(buf), B, C, J, S, hs2, n, *extra,
-                                           threads, build.stream())
-    build.check(err, symbol)
+    err = _backward_fn()(p(grad), p(idx), p(buf), B, C, J, S, hs2, g4, threads, build.stream())
+    build.check(err, "repro_quarter_gather_backward")
     return buf[..., :J]
 
 
 @functools.cache
-def _backward_fn(symbol: str, extra: int):
+def _backward_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return build.bind("repro_gather_backward", symbol, [p] * 3 + [i] * (7 + extra) + [p])
+    return build.bind("repro_gather_backward", "repro_quarter_gather_backward",
+                      [p] * 3 + [i] * 7 + [p])
 
 
 @functools.cache

@@ -16,10 +16,16 @@ same bf16 heatmaps, so every mode may read bf16 rows.
 
 With grad enabled and ``rows.requires_grad`` (float32 rows) the gather is
 differentiable with respect to the rows, its backward K12
-(``repro_grid_gather_backward``, ``csrc/repro_gather_backward.cu``): the VJP
-of the mode's ``reprojection_layer`` (repro.py:266-273, :302-317), the
-0.25/0.75 value upsample transposed along z, y and x for half, then the
-camera mean's scatter at the saved indices.
+(``repro_grid_gather_backward``, ``csrc/repro_grid_gather_backward.cu``):
+the VJP of the mode's ``reprojection_layer`` (repro.py:266-273, :302-317),
+the 0.25/0.75 value upsample transposed along z, y and x for half, then the
+camera mean's scatter at the saved indices. One launch (``BackwardPlan``),
+a block per (frameset, tile of ``BACKWARD_TILE[mode]``^3 gather points):
+the tile's values in shared memory, then 16-byte reductions into the
+rows: with a window, a camera whose box of the tile's pixels holds at most
+``BACKWARD_WIN[mode]`` pixels sorts the points by pixel and adds each
+pixel's sum once, any other (the overflow branch) adds point by point.
+Tile 0 (half_fused's plan) has no tile: a thread per (point, 4 joints).
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from torch.autograd.function import once_differentiable
 
 from . import build
 from .repro_gather import (_DTYPES, _upsample2, _upsample2_transposed, camera_mean,
-                           check_backward, check_cameras, launch_backward,
+                           check_backward, check_cameras, padded_width,
                            reproject_indices_plain, require_float32_rows, scatter_rows_plain)
 
 MODES = {"exact": 0, "half": 1, "half_fused": 2}
@@ -237,20 +243,171 @@ def repro_grid_gather_backward(grad: torch.Tensor, idx: torch.Tensor, hs2: int, 
     G/2, G/2, J) for half_fused) and K5's int32 indices -> the rows'
     gradient (B, C, hs2, J) float32, the J-view of a zeroed buffer whose rows
     are ``padded_width(J, 4)`` apart. The plain version on the CPU, else one
-    K12 launch (after a ``cudaMemsetAsync`` of the buffer)."""
+    K12 launch (after a ``cudaMemsetAsync`` of the buffer) with
+    ``backward_plan``."""
     if mode not in MODES:
         raise ValueError(f"repro_grid_gather_backward: unknown mode {mode!r}")
     if build.on_cpu(grad, idx):
         return repro_grid_gather_backward_plain(grad, idx, hs2, J, mode)
     F = grad.shape[1]
     n = F // 2 if mode == "half" else F
-    B, C = check_backward(grad, idx, J, 2 * n if mode == "half" else n, n)
-    buf = launch_backward("repro_grid_gather_backward", grad, idx, B, C, J, hs2, n, MODES[mode])
+    check_backward(grad, idx, J, 2 * n if mode == "half" else n, n)
+    buf = run_backward(backward_plan(idx.shape[1], J, n, mode), grad, idx, hs2)
     repro_grid_gather_backward.launches += 1
     return buf
 
 
 repro_grid_gather_backward.launches = 0
+
+# K12 (csrc/repro_grid_gather_backward.cu): the tile edges compiled per
+# mode (K12_TILES in the source; 0: point_backward, a thread per (point, 4
+# joints) and no tile), and the wrapper's plan: gather points per tile
+# edge, the window's capacity in pixels (0: every (tile, camera) takes the
+# overflow branch) and the block, per mode (kernel_sweep.py --only k12
+# times the others)
+BACKWARD_TILES = {"exact": (0, 4, 6, 8), "half": (2, 3, 4), "half_fused": (0, 4)}
+BACKWARD_TILE = {"exact": 6, "half": 3, "half_fused": 0}
+BACKWARD_WIN = {"exact": 128, "half": 0, "half_fused": 0}
+BACKWARD_THREADS = {"exact": 256, "half": 256, "half_fused": 512}
+
+
+def backward_layout(mode: str, C: int, tile: int, J: int, S: int, win: int) -> dict[str, int]:
+    """The kernel's shared-memory layout in 4-byte words (``layout`` in the
+    source): the values (tile^3 rows of S), the points' pixels in every
+    camera, the cameras' boxes, then on 16 bytes a region that first holds
+    the staged upstream rows J apart (the tile's, or for half its (e, e, e)
+    block, e = 2t + 2, with the z pass's (e, e, t) rows of S behind it at
+    ``tz`` and the y pass's rows over the block), then with a window the
+    counting sort's C rows of win + 1 counts and C rows of P points."""
+    P, e = tile ** 3, 2 * tile + 2
+    box = P * S + C * P
+    wnd = -(-(box + 4 * C) // 4) * 4
+    tz = wnd + -(-e ** 3 * J // 4) * 4
+    staged = tz - wnd + e * e * tile * S if mode == "half" else P * J
+    sort = C * (win + 1) + C * P if win else 0
+    return {"val": 0, "pix": P * S, "box": box, "wnd": wnd, "tz": tz,
+            "total": wnd + max(sort, staged)}
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How K12 covers one call: ``tiles``^3 tiles of ``tile``^3 gather points
+    per frameset (n per axis), a block of ``threads`` each, numbered
+    frameset by frameset; a (tile, camera) whose pixels' box holds at most
+    ``win`` pixels adds through the window, any other through the overflow
+    branch. Tile 0: no tile, a thread per (point, 4 joints), every point
+    through the overflow branch. Rows S floats apart; ``smem`` bytes of
+    shared memory a block."""
+
+    mode: str
+    n: int
+    tile: int
+    tiles: int
+    win: int
+    threads: int
+    S: int
+    smem: int
+
+    def item(self, block: int) -> tuple[int, int, int, int]:
+        """Block ``block``'s work item: (frameset, x0, y0, z0), its first
+        gather point."""
+        b, t = divmod(block, self.tiles ** 3)
+        return (b, t // self.tiles ** 2 * self.tile, t // self.tiles % self.tiles * self.tile,
+                t % self.tiles * self.tile)
+
+
+def make_backward_plan(C: int, J: int, n: int, mode: str, tile: int, win: int,
+                       threads: int = 256) -> BackwardPlan:
+    """K12's plan for a tile edge, window and block; raises where the
+    kernel refuses it (the source's checks)."""
+    S = padded_width(J, 4)
+    smem = 4 * backward_layout(mode, C, tile, J, S, win)["total"] if tile else 0
+    if (threads not in (256, 512) or S > threads or tile not in BACKWARD_TILES[mode]
+            or not 0 <= win < 32768 or (tile == 0 and win)):
+        raise ValueError(f"repro_grid_gather_backward: no plan for J = {J}, tile {tile}, "
+                         f"win {win}, {threads} threads")
+    if smem > SMEM_MAX:
+        raise ValueError(f"repro_grid_gather_backward: {smem} bytes of shared memory")
+    return BackwardPlan(mode, n, tile, -(-n // tile) if tile else n, win, threads, S, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def backward_plan(C: int, J: int, n: int, mode: str) -> BackwardPlan:
+    """The wrapper's plan: ``BACKWARD_TILE`` / ``BACKWARD_WIN`` /
+    ``BACKWARD_THREADS`` of the mode (the fastest in ``kernel_sweep.py
+    --only k12`` at the production key); where the shared memory does not
+    fit (many cameras), the window halved, then the next smaller compiled
+    tile edge, until it does."""
+    tiles = sorted((t for t in BACKWARD_TILES[mode] if t <= BACKWARD_TILE[mode]), reverse=True)
+    win = BACKWARD_WIN[mode]
+    while True:
+        try:
+            return make_backward_plan(C, J, n, mode, tiles[0], win, BACKWARD_THREADS[mode])
+        except ValueError:
+            if win == 0 and len(tiles) == 1:
+                raise
+            if win:
+                win //= 2
+            else:
+                tiles = tiles[1:]
+
+
+def window_choice(idx: torch.Tensor, hs2: int, plan: BackwardPlan) -> tuple[int, int]:
+    """(windowed, overflow): the (frameset, tile, camera) triples whose
+    pixels' bounding box fits ``plan.win`` pixels and those that take the
+    overflow branch, from the (B, C, n^3) indices, as the kernel decides
+    (tile 0: every (frameset, point, camera) overflows)."""
+    B, C = idx.shape[:2]
+    n, t, T = plan.n, plan.tile, plan.tiles
+    if t == 0:  # a point each
+        return 0, idx.numel()
+    hs = math.isqrt(hs2)
+    hs = hs if hs * hs == hs2 else hs2
+    q = idx.long().clamp(0, hs2 - 1).reshape(B, C, n, n, n)
+    tiles = (B, C, T, t, T, t, T, t)
+    boxes = []
+    for part in (q // hs, q % hs):  # rows, columns; past the grid's edge no point
+        lo = part.new_full((B, C, T * t, T * t, T * t), hs2)
+        hi = part.new_full(lo.shape, -1)
+        lo[:, :, :n, :n, :n] = hi[:, :, :n, :n, :n] = part
+        boxes.append(hi.reshape(tiles).amax((3, 5, 7)) - lo.reshape(tiles).amin((3, 5, 7)) + 1)
+    area = boxes[0] * boxes[1]
+    windowed = int((area <= plan.win).sum()) if plan.win > 0 else 0
+    return windowed, area.numel() - windowed
+
+
+def run_backward(plan: BackwardPlan, grad: torch.Tensor, idx: torch.Tensor,
+                 hs2: int) -> torch.Tensor:
+    """Launch K12 with ``plan`` on checked CUDA tensors (the wrapper's
+    launch; ``kernel_sweep.py`` times other plans through it). Returns the
+    J-view of the zeroed-and-filled buffer; counts no launch."""
+    B, C = idx.shape[:2]
+    J = grad.shape[-1]
+    buf = torch.empty((B, C, hs2, plan.S), dtype=torch.float32, device=grad.device)
+    p = build.ptr
+    err = _backward_fn()(p(grad), p(idx), p(buf), B, C, J, plan.S, hs2, plan.n,
+                         MODES[plan.mode], plan.tile, plan.win, plan.smem, plan.threads,
+                         build.stream())
+    build.check(err, "repro_grid_gather_backward")
+    return buf[..., :J]
+
+
+def backward_occupancy(plan: BackwardPlan) -> int:
+    """Blocks of ``plan`` one SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    n = ctypes.c_int(0)
+    i = ctypes.c_int
+    fn = build.bind("repro_grid_gather_backward", "repro_grid_backward_occupancy",
+                    [i] * 4 + [ctypes.c_void_p])
+    build.check(fn(MODES[plan.mode], plan.tile, plan.threads, plan.smem, ctypes.byref(n)),
+                "repro_grid_backward_occupancy")
+    return n.value
+
+
+@functools.cache
+def _backward_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build.bind("repro_grid_gather_backward", "repro_grid_gather_backward",
+                      [p] * 3 + [i] * 11 + [p])
 
 
 def run_plan(plan: Plan, rows, center3d, center_hm, P, K, D, grid_size: int,

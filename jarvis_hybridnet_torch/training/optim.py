@@ -17,9 +17,10 @@ defaults differ:
 
 Frozen parameters (``optax.multi_transform`` with ``set_to_zero`` in JAX)
 are kept out of the optimizer and set ``requires_grad_(False)``: no update,
-no weight decay. A trained parameter that gets no gradient (one that reaches
-no loss) is skipped by AdamW, weight decay included, where optax decays it
-(ROADMAP.md C.3).
+no weight decay. A trained parameter that reaches no loss gets a zero
+gradient before the step (:func:`fill_missing_grads`), as JAX's
+``value_and_grad`` gives every trained leaf one: AdamW then decays it and
+steps its moments, and SGD its momentum, as optax does.
 """
 
 from __future__ import annotations
@@ -91,6 +92,16 @@ def make_optimizer(optimizer_name: str, params, learning_rate: float) -> torch.o
         return torch.optim.AdamW(params, lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS,
                                  weight_decay=ADAMW_WEIGHT_DECAY)
     return torch.optim.SGD(params, lr=learning_rate, momentum=SGD_MOMENTUM, nesterov=True)
+
+
+def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
+    """A zero gradient for every parameter of the optimizer's groups that the
+    backward left without one, so that the step decays and moves it as
+    optax's does a leaf whose gradient is zero."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -183,6 +183,7 @@ class EfficientTrackTrainer:
         loss, out2 = self.forward(b)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        optim.fill_missing_grads(optimizer)
         optim.set_learning_rate(optimizer, lr)
         optimizer.step()
         xy, _ = argmax_2d(out2.detach().permute(0, 2, 3, 1))

@@ -152,6 +152,7 @@ class HybridNetTrainer:
         loss, points = self.forward(b)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        optim.fill_missing_grads(optimizer)
         optim.set_learning_rate(optimizer, lr)
         optimizer.step()
         return loss.detach(), points

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Launch-plan sweep of the K1, K2, K3, K5, K6, K8-K12 kernels on one CUDA card.
 
-    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5,k5probe,k6,k6probe,k7probe,k8,k9,k9ops,k10,k11]
+    python3 kernel_sweep.py [--only k1,k2,k3,k3probe,k5,k5probe,k6,k6probe,k7probe,k8,k9,k9ops,k10,k11,k12]
     python3 kernel_sweep.py --only k9,k9ops,k9probe --baseline-csrc DIR
 
 K1 instance_norm_act: for V2V's and the 2D networks' largest main-path
@@ -49,10 +49,14 @@ returns after the launch, the taps, the tile load and the column pass; no
 row pass, no Philox, no Box-Muller, no noise, no border, no stores) and of
 the current one (returns after the launch, the staging and the column
 pass; no blur passes, no Philox, no Box-Muller, no noise, no stores).
-K11 / K12, the gathers' backward (``k11``): blocks of 64-1024 threads at
-the production key (seeded float32 rows of 12 cameras, 130^2 padded maps,
-23 joints; K11 at g4 = 18, K12 in each mode at G = 72), beside the
-wrappers' ``BACKWARD_THREADS``, each held to the plain version in float64.
+K11, the quarter_fused gather's backward (``k11``): blocks of 64-1024
+threads at the production key (seeded float32 rows of 12 cameras, 130^2
+padded maps, 23 joints, g4 = 18), beside the wrapper's
+``BACKWARD_THREADS``, held to the plain version in float64. K12, the other
+modes' (``k12``), at G = 72 on the same rows: tile edges, windows and
+blocks in each mode, the windowed / overflow (tile, camera) counts, the
+time of each phase at the wrapper's plan (``K12_PROBES``) and the key where
+every point clamps to one pixel.
 
 Times are device times of CUDA-graph replays (``chip_smoke.graph_ms``);
 every configuration is also checked against the plain version (bf16 ulps
@@ -1008,7 +1012,7 @@ def sweep_k9ops(say) -> None:
 
 
 def sweep_k11(say, dev) -> None:
-    """K11 and K12 under every block size at the production key."""
+    """K11 under every block size at the production key."""
     import torch
 
     import chip_smoke
@@ -1018,28 +1022,120 @@ def sweep_k11(say, dev) -> None:
     del dev
     rows, c3d, chm, cams = chip_smoke.backward_inputs(1, 12, 23, 24, 130)
     B, C, hs2, J = rows.shape
-    cases = [("K11", "repro_quarter_gather_backward", (),
-              kernels.repro_quarter_gather(rows, c3d, chm, *cams, 18, 8.0, True), 18,
-              lambda g, i: kernels.repro_quarter_gather_backward_plain(g, i, hs2, J))]
-    k5 = importlib.import_module("jarvis_hybridnet_torch.kernels.repro_grid_gather")
-    for mode in k5.MODES:
-        cases.append((f"K12 {mode}", "repro_grid_gather_backward", (k5.MODES[mode],),
-                      kernels.repro_grid_gather(rows, c3d, chm, *cams, 72, 2.0, mode, True),
-                      72 if mode == "exact" else 36,
-                      functools.partial(kernels.repro_grid_gather_backward_plain, hs2=hs2, J=J,
-                                        mode=mode)))
-    for label, symbol, extra, (vol, idx), n, plain in cases:
+    _, idx = kernels.repro_quarter_gather(rows, c3d, chm, *cams, 18, 8.0, True)
+    grad = torch.randn((B, 36, 36, 36, J), device=rows.device,
+                       generator=torch.Generator(device=rows.device).manual_seed(7))
+    ref = kernels.repro_quarter_gather_backward_plain(grad.double(), idx, hs2, J)
+    for threads in (64, 128, 256, 512, 1024):
+        def call(t=threads):
+            return k2.launch_backward(grad, idx, B, C, J, hs2, 18, threads=t)
+
+        err = float((call().double() - ref).abs().max() / ref.abs().max())
+        say(f"K11 block {threads}: {chip_smoke.graph_ms(call):.4f} ms, "
+            f"{err:.1e} of the largest element from the float64 plain version"
+            + (" <- BACKWARD_THREADS" if threads == k2.BACKWARD_THREADS else ""))
+
+
+# Variants of K12 (csrc/repro_grid_gather_backward.cu) that cut its phases
+# (each substitution must match the source once): where its time goes
+_K12_STAGED = "  copies_landed();\n  __syncthreads();\n"
+_K12_SCATTER = "  __syncthreads();\n\n  // 4. the scatter,"
+_K12_ADD = "  // add: a (pixel, 4 joints) item"
+K12_PROBES = {
+    "memset and staging": [(_K12_STAGED, _K12_STAGED + "  if (C > 0) return;\n")],
+    "+ values, pixels and boxes": [(_K12_SCATTER, "  if (C > 0) return;\n" + _K12_SCATTER)],
+    "+ the window's sort (no adds)": [(_K12_ADD, "  if (C > 0) return;\n" + _K12_ADD)],
+    "whole kernel": [],
+}
+
+
+def k12_inputs(clamp: bool = False):
+    """K12's production key (seeded float32 rows of 12 cameras, 130^2 padded
+    maps, 23 joints, G = 72 at 2 mm), in each mode: {mode: (grad, idx, n)}."""
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch import kernels
+
+    rows, c3d, chm, cams = chip_smoke.backward_inputs(1, 12, 23, 24, 130, clamp=clamp)
+    out = {}
+    for mode in ("exact", "half", "half_fused"):
+        vol, idx = kernels.repro_grid_gather(rows, c3d, chm, *cams, 72, 2.0, mode, True)
         grad = torch.randn(vol.shape, device=vol.device,
                            generator=torch.Generator(device=vol.device).manual_seed(7))
-        ref = plain(grad.double(), idx)
-        for threads in (64, 128, 256, 512, 1024):
-            def call(t=threads):
-                return k2.launch_backward(symbol, grad, idx, B, C, J, hs2, n, *extra, threads=t)
+        out[mode] = grad, idx, 72 if mode == "exact" else 36
+    return out, rows.shape[2]
 
-            err = float((call().double() - ref).abs().max() / ref.abs().max())
-            say(f"{label} block {threads}: {chip_smoke.graph_ms(call):.4f} ms, "
-                f"{err:.1e} of the largest element from the float64 plain version"
-                + (" <- BACKWARD_THREADS" if threads == k2.BACKWARD_THREADS else ""))
+
+def sweep_k12(say, dev) -> None:
+    """K12 in each mode at the production key under tile edges, windows and
+    blocks (each plan held to the float64 plain version: 1e-5 of the largest
+    element), with the windowed / overflow (tile, camera) counts and the
+    blocks an SM holds; at the wrapper's plan and the fastest the time of
+    each phase (the source cut after it, ``K12_PROBES``) and of zeroing the
+    buffer; the same at the key where every point clamps to one pixel."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke
+    from jarvis_hybridnet_torch import kernels
+    from jarvis_hybridnet_torch.kernels import build
+
+    del dev
+    k5 = importlib.import_module("jarvis_hybridnet_torch.kernels.repro_grid_gather")
+    wins = {"exact": (0, 128, 192, 256, 320), "half": (0, 128, 256), "half_fused": (0, 128, 256, 512)}
+    libs = build_variants("repro_grid_gather_backward", K12_PROBES, "k12probe",
+                          build._flags("repro_grid_gather_backward"))
+    for clamp in (False, True):
+        keys, hs2 = k12_inputs(clamp)
+        for mode, (grad, idx, n) in keys.items():
+            J = grad.shape[-1]
+            ref = kernels.repro_grid_gather_backward_plain(grad.double(), idx, hs2, J, mode)
+            m = float(ref.abs().max())
+            C = idx.shape[1]
+            best = k5.backward_plan(C, J, n, mode)
+            plans = [best] if clamp else [
+                k5.make_backward_plan(C, J, n, mode, t, w, th) for t in k5.BACKWARD_TILES[mode]
+                for w in wins[mode] for th in (256, 512) if t == 0 and w == 0 or t and (
+                    4 * k5.backward_layout(mode, C, t, J, k5.padded_width(J, 4), w)["total"]
+                    <= k5.SMEM_MAX)]
+            say(f"K12 {mode}{' all points clamped to one pixel' if clamp else ''}: "
+                f"grad {tuple(grad.shape)}, indices {tuple(idx.shape)}")
+            times = {}
+            for plan in plans:
+                def call(plan=plan):
+                    return k5.run_backward(plan, grad, idx, hs2)
+
+                err = float((call().double() - ref).abs().max()) / m
+                if err > (1e-4 if clamp else 1e-5):
+                    raise SystemExit(f"kernel_sweep: K12 {plan} is {err} of the largest element "
+                                     "from the float64 plain version")
+                wnd, ovf = k5.window_choice(idx, hs2, plan)
+                times[plan] = chip_smoke.graph_ms(call)
+                say(f"  tile {plan.tile} win {plan.win:3d} block {plan.threads:4d}: "
+                    f"{times[plan]:.4f} ms, {err:.1e} of the largest element, "
+                    f"{wnd} windowed / {ovf} overflow (tile, camera), "
+                    f"{k5.backward_occupancy(plan)} blocks per SM"
+                    + (" <- the wrapper's plan" if plan == best else ""))
+            S = best.S
+            buf = torch.empty((1, 12, hs2, S), device=grad.device)
+            fastest = min(times, key=times.get) if times else best
+            for plan in dict.fromkeys((best, fastest)):
+                for name, lib in libs.items():
+                    fn = lib.repro_grid_gather_backward
+                    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+                    fn.restype = ctypes.c_int
+
+                    def call(fn=fn, plan=plan):
+                        b = build.ptr
+                        build.check(fn(b(grad), b(idx), b(buf), 1, 12, J, S, hs2, n,
+                                       k5.MODES[mode], plan.tile, plan.win, plan.smem,
+                                       plan.threads, build.stream()), "K12 probe")
+                    say(f"  tile {plan.tile} win {plan.win} block {plan.threads}, phase "
+                        f"{name:28s}: {chip_smoke.graph_ms(call):.4f} ms")
+            say(f"  phase {'zeroing the buffer alone':38s}: "
+                f"{chip_smoke.graph_ms(buf.zero_):.4f} ms")
 
 
 def main() -> int:
@@ -1098,6 +1194,8 @@ def main() -> int:
             sweep_k10(say, dev)
         if "k11" in only:
             sweep_k11(say, dev)
+        if "k12" in only:
+            sweep_k12(say, dev)
     return 0
 
 

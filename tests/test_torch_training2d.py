@@ -40,6 +40,7 @@ from jarvis_hybridnet_torch.config.project_manager import ProjectManager
 from jarvis_hybridnet_torch.dataset.dataset2d import Dataset2D
 from jarvis_hybridnet_torch.models.weights import efficienttrack_params_to_jax
 from jarvis_hybridnet_torch.testing import synthetic_rig, write_dataset3d, write_project
+from jarvis_hybridnet_torch.training import optim
 from jarvis_hybridnet_torch.training.train_interface import train_efficienttrack
 from jarvis_hybridnet_torch.training.trainer2d import EfficientTrackTrainer, host_batch
 from jarvis_hybridnet_torch.utils.ckpt_io import read_ckpt
@@ -112,30 +113,16 @@ def _step_batch(rng, b, joints):
     return imgs, kps, rec
 
 
-def test_train_step_matches_jax(parent, monkeypatch):
-    monkeypatch.setenv("JARVIS_PARENT_DIR", parent)
-    cfg = _cfg(parent)
+@pytest.fixture(scope="module")
+def jax_step(parent):
+    """The KeypointDetect step's seeded batch (23 joints, batch 2) and JAX's
+    loss and gradients of it (``jax.value_and_grad`` of the JAX package's
+    own functions) at the committed checkpoint."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("JARVIS_PARENT_DIR", parent)
+        cfg = _cfg(parent)
     cfg.KEYPOINTDETECT.NUM_JOINTS = 23
-    trainer = EfficientTrackTrainer("KeypointDetect", cfg,
-                                    weights=str(TRAINED / "KeypointDetect_final.ckpt"),
-                                    device="cpu", run_name="Step")
-    model = trainer.model
     imgs, kps, rec = _step_batch(np.random.default_rng(3), 2, 23)
-    arrays, _ = host_batch((imgs, kps, rec))
-    batch = {k: torch.from_numpy(v) for k, v in arrays.items()}
-
-    opt = torch.optim.AdamW(model.parameters(), lr=LR, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=1e-4)
-    model.eval()
-    loss, _ = trainer.forward(batch)
-    opt.zero_grad()
-    loss.backward()
-    live = {n: p for n, p in model.named_parameters() if p.grad is not None}
-    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-             for n, p in model.named_parameters()}
-    jax_grads_of_port = efficienttrack_params_to_jax(grads, "small")
-    opt.step()
-
     jmodel = JaxEfficientTrack(model_size="small", output_channels=23, dtype=jnp.float32)
     params = jax.tree.map(jnp.asarray, read_ckpt(str(TRAINED / "KeypointDetect_final.ckpt")))
     mean = jnp.asarray(cfg.DATASET.MEAN, jnp.float32)
@@ -152,6 +139,36 @@ def test_train_step_matches_jax(parent, monkeypatch):
         return heatmap_loss(jmodel.apply({"params": p}, x), (t4, t2))
 
     jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    arrays, _ = host_batch((imgs, kps, rec))
+    return dict(cfg=cfg, batch=arrays, params=params, loss=float(jloss), grads=jgrads)
+
+
+def _keypoint_trainer(cfg, run_name: str) -> EfficientTrackTrainer:
+    return EfficientTrackTrainer("KeypointDetect", cfg,
+                                 weights=str(TRAINED / "KeypointDetect_final.ckpt"),
+                                 device="cpu", run_name=run_name)
+
+
+def test_train_step_matches_jax(parent, monkeypatch, jax_step):
+    monkeypatch.setenv("JARVIS_PARENT_DIR", parent)
+    cfg = jax_step["cfg"]
+    trainer = _keypoint_trainer(cfg, "Step")
+    model = trainer.model
+    batch = {k: torch.from_numpy(v) for k, v in jax_step["batch"].items()}
+
+    opt = torch.optim.AdamW(model.parameters(), lr=LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    model.eval()
+    loss, _ = trainer.forward(batch)
+    opt.zero_grad()
+    loss.backward()
+    live = {n: p for n, p in model.named_parameters() if p.grad is not None}
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in model.named_parameters()}
+    jax_grads_of_port = efficienttrack_params_to_jax(grads, "small")
+    opt.step()
+
+    params, jloss, jgrads = jax_step["params"], jax_step["loss"], jax_step["grads"]
     assert abs(float(loss.detach()) - float(jloss)) <= LOSS_TOL * abs(float(jloss))
     flat_port = dict(jax.tree_util.tree_flatten_with_path(jax_grads_of_port)[0])
     leaves = jax.tree_util.tree_flatten_with_path(jgrads)[0]
@@ -183,6 +200,57 @@ def test_train_step_matches_jax(parent, monkeypatch):
     for path, ref in jax.tree_util.tree_flatten_with_path(stepped)[0]:
         got = dict(jax.tree_util.tree_flatten_with_path(mine)[0])[path]
         np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=1e-6, err_msg=str(path))
+
+
+# lr * weight decay = 1e-5 a step: 84-168 float32 ulps of each value
+DECAY_LR = 1e-1
+
+
+def test_train_step_decays_tensors_without_a_gradient_as_jax(parent, monkeypatch, jax_step):
+    """ROADMAP.md C.3: one ``train_step`` of ``EfficientTrackTrainer`` at lr
+    1e-1 from the committed KeypointDetect checkpoint. The tensors that
+    reach no loss (JAX's float32 gradient exactly zero: the last BiFPN
+    cell's fusion weights that feed no head) get a zero gradient and move as
+    JAX's ``make_optimizer``, fed JAX's own gradients, moves them: within one
+    float32 ulp (at most 1.19e-7 relative; the two optimizers round p - lr *
+    1e-4 * p each its own way, so the planned 1e-7 relative cannot hold for
+    values whose mantissa is near 1). 3ddb97d's trainer left them without a
+    gradient and torch's AdamW skipped them: 1e-5 relative (84-168 ulps)
+    from JAX's, which fails here."""
+    monkeypatch.setenv("JARVIS_PARENT_DIR", parent)
+    trainer = _keypoint_trainer(jax_step["cfg"], "Decay")
+    model = trainer.model
+    opt = optim.make_optimizer("adamw", list(model.parameters()), DECAY_LR)
+    model.eval()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer.train_step({k: torch.from_numpy(v) for k, v in jax_step["batch"].items()}, opt,
+                       DECAY_LR)
+
+    params, jgrads = jax_step["params"], jax_step["grads"]
+    tx = jax_optim.make_optimizer("adamw", DECAY_LR)
+    updates, _ = tx.update(jgrads, tx.init(params), params)
+    stepped = dict(jax.tree_util.tree_flatten_with_path(optax.apply_updates(params, updates))[0])
+    def tree(sd):
+        return dict(jax.tree_util.tree_flatten_with_path(
+            efficienttrack_params_to_jax(sd, "small"))[0])
+
+    after = tree({n: p.detach() for n, p in model.named_parameters()})
+    start = tree(before)
+    # NaN where the backward left no gradient
+    grads = tree({n: p.grad if p.grad is not None else torch.full_like(p, math.nan)
+                  for n, p in model.named_parameters()})
+    unreached = 0
+    for path, g in jax.tree_util.tree_flatten_with_path(jgrads)[0]:
+        if np.asarray(g).any():
+            continue
+        unreached += 1
+        name = jax.tree_util.keystr(path)
+        got, p0 = np.asarray(after[path]), np.asarray(start[path])
+        assert not np.asarray(grads[path]).any(), name
+        assert np.array_equal(got != p0, p0 != 0), name  # decayed where not zero
+        want = np.asarray(stepped[path])
+        assert (np.abs(got - want) <= np.spacing(np.abs(want))).all(), name  # one ulp
+    assert unreached >= 2
 
 
 @pytest.mark.parametrize("mode", ["CenterDetect", "KeypointDetect"])
