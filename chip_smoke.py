@@ -16,9 +16,24 @@ frames as float32 in [0, 1], ``make_predictor2d`` on T = 8 frames of one
 camera, the two-phase cascade (``make_predictor3d_twophase``: low-resolution
 frames reduced 4x, host crops, phase B) and the streaming loop of the
 ``predict3D`` driver writing ``data3D.csv`` from a reader of seeded
-batches, each path with the launch counts set to 0 before one step and read
-after it; the arguments of K1, K2, K4 and K10 are recorded over each path's
-step. Then the training phases, on a synthetic COCO-style dataset written to
+batches, each path eager (``graph=False``) with the launch counts set to 0
+before one step and read after it; the arguments of K1, K2, K4 and K10 are
+recorded over each path's step. Then every serving path as captured CUDA
+graphs (``graph=True``, ``prediction/export.py``) against its eager step:
+predict3D quarter_fused on uint8 and float32 frames, exact, half_fused,
+half, two-phase phase A and phase B, predict2D, each with its eager step
+run under ``torch.cuda.set_sync_debug_mode("error")``, four alternating
+replays of two seeded batches bit-equal to the eager step and the two
+batches' replays different, eager and graphed steps/s (median of 3 runs of
+5 steps), the host's ms to issue one step, a profiled run of 5 steps (the
+CUDA-event span, kernel time and busy share of the same steps), the
+graphed profile's calls of K1-K5 and K10 equal to the eager launch counts,
+capture ms and pool bytes; and the three drivers' loops
+(``stream_predict3d``, ``stream_predict3d_twophase``, predict2D's
+``stream_rows``) with the graphed predictors, their CSV rows equal to the
+eager predictor's outputs batch by batch over 4 alternating batches, their
+rates beside the eager loops' (``chip_smoke_graphs.txt``: the graphed
+steps' kernels). Then the training phases, on a synthetic COCO-style dataset written to
 a temporary directory (12 cameras of 1280x1024 JPEG frames, 23 keypoints
 with each image's bounding box, 4 train and 2 val framesets: 48 and 24
 images), at the default ``TPU`` section (color augmentation on the device,
@@ -58,7 +73,8 @@ K1, K2 and K4 at every shape a driven path gave them, K3 and K5 at the main
 path's, and times kernel, plain version and library call. A kernel's
 ``ms`` is device time: a CUDA graph of ``GRAPH_CALLS`` captured calls is
 replayed, so host launch gaps do not count; ``wall_ms`` is the event time
-of calls launched one by one from Python. Prints the card, the predict3D
+of calls launched one by one from Python; the kernels line counts each
+path's launches on its eager step. Prints the card, the predict3D
 rates, one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero on any failure, or when no CUDA device is present.
 Per-shape details go to ``chiprun_out/chip_smoke.txt``; the training
@@ -85,6 +101,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import faulthandler
 import functools
 import json
 import math
@@ -887,7 +904,7 @@ def predict2d_phase(kernels, cfg, ckpt, frames, recorder, note):
 
     imgs = [f[:, 0].contiguous() for f in frames]
     pred = make_predictor2d(cfg, ckpt["CenterDetect"], ckpt["KeypointDetect"],
-                            dtype="bfloat16", device="cuda")
+                            dtype="bfloat16", device="cuda", graph=False)
     pred(imgs[0])
     out, counts = path_launches(lambda: pred(imgs[0]), kernels,
                                 ("instance_norm_act", "resize_normalize", "argmax2d"), "predict2d",
@@ -946,7 +963,7 @@ def twophase_phase(kernels, cfg, rig, ckpt, frames, fused_points, recorder, note
     low = [area_reduce(fr, f).cpu().numpy() for fr in frames]
     phase_a, phase_b, crop_fn = make_predictor3d_twophase(
         cfg, rig, (W, H), ckpt["CenterDetect"], ckpt["HybridNet"], lowres_factor=f,
-        dtype="bfloat16", device="cuda")
+        dtype="bfloat16", device="cuda", graph=False)
 
     def step(i):
         cx, cy, c3d, valid = phase_a(low[i % 2])
@@ -1120,6 +1137,427 @@ def driver_phase(kernels, cfg, predictor, frames, out_dir, recorder, note):
          f"builds and loads: {native.video_available()}")
     return counts
 
+
+# The serving paths as captured CUDA graphs (prediction/export.py): each
+# __global__ symbol of the serving kernels, as torch.profiler names it
+KERNEL_SYMBOLS = {"instance_norm_act": r"\bin_fused<", "repro_quarter_gather": r"\brepro_tile<",
+                  "repro_grid_gather": r"\brepro_grid<", "soft_argmax": r"\bsa_cluster<",
+                  "resize_normalize": r"\bresize_norm<", "argmax2d": r"\bk10<"}
+
+
+def pool_bytes(pool) -> int:
+    """Bytes of the caching allocator's segments that belong to ``pool``."""
+    import torch
+
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def profiled_steps(kernels, step, n: int = ITERS) -> dict:
+    """``n`` calls ``step(i)`` under torch.profiler, each between two CUDA
+    events: the host's wall ms per step, the events' span per step
+    (median), the kernels' device ms per step (profiler), the busy share
+    (kernel time over the wall time of the same steps), the kernels by name
+    (memory copies apart) and the wrappers' launch counts over the run."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(n)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the tracer can miss the first kernel after it starts: a marker
+        # kernel first, left out below
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            events[i][0].record()
+            step(i)
+            events[i][1].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    names, copies, device_us = collections.Counter(), collections.Counter(), 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or "spin_kernel" in e.key:
+            continue
+        device_us += e.self_device_time_total
+        # memory copies and sets: the runtime's, or its kernels for a
+        # graph's copy and set nodes (memcpy32_post, memset32)
+        is_copy = "memcpy" in e.key.lower() or "memset" in e.key.lower()
+        (copies if is_copy else names)[e.key] += e.count
+    spans = sorted(a.elapsed_time(b) for a, b in events)
+    return dict(wall_ms=wall_ms / n, event_ms=spans[n // 2], device_ms=device_us / 1e3 / n,
+                busy=device_us / 1e3 / wall_ms, kernels=names, copies=copies, launches=launches)
+
+
+def issue_ms(step, n: int = ITERS) -> float:
+    """Median host time of one call of ``step`` on an idle stream: the
+    call's wall time before any synchronization."""
+    import torch
+
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(i)
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return sorted(times)[n // 2]
+
+
+def same_outputs(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def graph_path(kernels, label, eager, graphed, steps, count, unit, note, smi) -> dict:
+    """One serving path eager (``eager(i)``) and graphed (``graphed(i)``),
+    each a step on seeded batch i % 2 returning its outputs; ``steps`` are
+    the path's ``export.GraphedStep`` objects. The eager step runs under
+    ``torch.cuda.set_sync_debug_mode("error")``; four alternating replays
+    equal the eager step's outputs bit for bit and the two batches' replays
+    differ; then rates (median of REPEATS runs of ITERS steps), the host's
+    issue time, a profiled run of each (event span, kernel time, busy share)
+    whose calls of K1-K5 and K10 must equal the eager run's launch
+    counts, capture ms and pool bytes."""
+    import re
+
+    import torch
+
+    eager(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager(0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    replays = {}
+    for i in range(4):
+        g, e = graphed(i), eager(i)
+        if not same_outputs(g, e):
+            fail(f"{label}: the graph replay of batch {i % 2} differs from the eager step")
+        replays[i % 2] = g
+    if same_outputs(replays[0], replays[1]):
+        fail(f"{label}: the replays of two different batches give the same outputs")
+    res = {"label": label}
+    for name, fn in (("eager", eager), ("graphed", graphed)):
+        rates = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(ITERS):
+                fn(i)
+            torch.cuda.synchronize()
+            rates.append(count * ITERS / (time.perf_counter() - t0))
+        res[name] = dict(rate=sorted(rates)[REPEATS // 2], rates=rates, issue_ms=issue_ms(fn),
+                         **profiled_steps(kernels, fn))
+    e, g = res["eager"], res["graphed"]
+    # Beside the hand-written kernels (held below to the launch counters),
+    # the two profiles are compared for information only: the tracer drops
+    # a few kernel records of eager steps (the first after it starts, now
+    # and then one in the run), the graphed step adds the clones of strided
+    # outputs (phase A's crop centers), and PyTorch's elementwise kernels
+    # take their vector width from the buffers' alignment
+    res["renamed"] = {k: (e["kernels"][k], g["kernels"][k])
+                      for k in set(e["kernels"]) | set(g["kernels"])
+                      if e["kernels"][k] != g["kernels"][k]}
+    for wrapper, pattern in KERNEL_SYMBOLS.items():
+        seen = sum(c for k, c in g["kernels"].items() if re.search(pattern, k))
+        if seen != e["launches"][wrapper]:
+            fail(f"{label}: {wrapper} launched {e['launches'][wrapper]} times in the eager "
+                 f"steps, the graphed steps' profile shows {seen}")
+        if g["launches"][wrapper]:
+            fail(f"{label}: {wrapper} was called from Python during the graphed steps")
+    res["capture_ms"] = [ms for s in steps for ms in s.captures.values()]
+    res["pool_bytes"] = pool_bytes(steps[0].pool)
+    per = {w: e["launches"][w] // ITERS for w in KERNEL_SYMBOLS if e["launches"][w]}
+    note(f"graph {label}: replays bit-equal to the eager step on two alternating batches, the "
+         f"two batches' replays differ; eager step passes sync debug 'error'; kernels per step "
+         f"(eager launches = graphed profile) {json.dumps(per)}, "
+         f"profiled kernels over {ITERS} steps eager {sum(e['kernels'].values())}, graphed "
+         f"{sum(g['kernels'].values())}, {len(res['renamed'])} names with other counts "
+         f"(chip_smoke_graphs.txt)")
+    for name in ("eager", "graphed"):
+        r = res[name]
+        note(f"graph {label} {name}: {r['rate']:.2f} {unit} (median of {REPEATS} runs of "
+             f"{ITERS} steps: {', '.join(f'{x:.2f}' for x in r['rates'])}); host issue "
+             f"{r['issue_ms']:.3f} ms a step; profiled {ITERS} steps: wall {r['wall_ms']:.3f} ms "
+             f"a step, CUDA-event span {r['event_ms']:.3f} ms, kernel time {r['device_ms']:.3f} "
+             f"ms, busy {r['busy']:.3f}; copies {json.dumps(dict(r['copies']))}; card: {smi}")
+    note(f"graph {label}: capture (warm-up, capture, first replay) "
+         f"{', '.join(f'{x:.1f}' for x in res['capture_ms'])} ms; pool {res['pool_bytes']} bytes; "
+         f"graphed / eager rate {g['rate'] / e['rate']:.3f}")
+    return res
+
+
+class PairReader(BatchReader):
+    """:class:`BatchReader` over (full, low-resolution) host batches, as the
+    native reader's paired ring gives the two-phase driver."""
+
+    def __iter__(self):
+        for i in range(self.repeats):
+            full, low = self.batches[i % len(self.batches)]
+            yield full, low, T
+
+
+def csv_batches(path: str, expect, per_joint: int) -> None:
+    """``path``'s rows, batch k against ``expect[k % 2]`` = (points,
+    confidences, valid) as numpy, exactly: each valid row the float32
+    values, each invalid row NaN."""
+    import csv
+
+    import numpy as np
+
+    with open(path, newline="") as f:
+        body = np.array(list(csv.reader(f))[2:], dtype=np.float64)
+    if body.shape[0] % T or body.shape[0] == 0:
+        fail(f"{path}: {body.shape[0]} rows, not a whole number of batches of {T}")
+    for k in range(body.shape[0] // T):
+        points, conf, valid = expect[k % 2]
+        ref = np.concatenate([points, conf[..., None]], axis=-1).reshape(T, -1).astype(np.float64)
+        ref[~valid] = np.nan
+        if body.shape[1] != ref.shape[1] or ref.shape[1] % per_joint:
+            fail(f"{path}: rows of {body.shape[1]} values, expected {ref.shape[1]}")
+        if not np.array_equal(body[k * T:(k + 1) * T], ref, equal_nan=True):
+            fail(f"{path}: batch {k}'s rows differ from the eager outputs of batch {k % 2}")
+
+
+class EventSpans:
+    """Callables wrapped so that each call lies between two CUDA events on
+    the current stream; :meth:`ms` sums the spans (for a graph replay, its
+    device time; for an eager step, that and the launch gaps between)."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def wrap(self, fn):
+        import torch
+
+        def call(*args):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        return call
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+class SpannedPredictor:
+    """A predictor's interface for a driver (``device``, a call) with each
+    call between two CUDA events of ``spans``."""
+
+    def __init__(self, predictor, spans: EventSpans):
+        self.device = predictor.device
+        self.call = spans.wrap(predictor)
+
+    def __call__(self, imgs):
+        return self.call(imgs)
+
+
+def driver_graph_path(kernels, label, run, expect, per_joint, unit, note, smi) -> dict:
+    """A driver's loop with the graphed predictor (``run(True, n, dir,
+    spans)``) against its loop with the eager one (``run(False, ...)``),
+    each writing its CSV into ``dir`` over n alternating seeded batches and
+    returning its path, the predictor's calls wrapped by ``spans`` (an
+    :class:`EventSpans`): the graphed run's rows equal the eager
+    predictor's outputs batch by batch over 4 batches; rates (median of
+    REPEATS runs of ITERS batches); one more run of ITERS batches of each
+    whose predictor calls' event spans are summed against its wall time,
+    and the eager loop's kernel time in one profiled run. The graphed loop
+    is not profiled: under torch.profiler a graph replay in the driver's
+    loop (beside the upload's side stream) crashed the process on the card
+    (a segmentation fault in ``CUDAGraph.replay``, torch 2.11, CUDA 12.8)."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_batches(run(True, 4, tmp, EventSpans()), expect, per_joint)
+        res = {"label": label}
+        for name, graphed in (("eager", False), ("graphed", True)):
+            rates = []
+            for _ in range(REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(graphed, ITERS, tmp, EventSpans())
+                torch.cuda.synchronize()
+                rates.append(T * ITERS / (time.perf_counter() - t0))
+            spans = EventSpans()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(graphed, ITERS, tmp, spans)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            res[name] = dict(rate=sorted(rates)[REPEATS // 2], rates=rates, wall_ms=wall_ms,
+                             span_ms=spans.ms())
+        prof = profiled_steps(kernels, lambda i: run(False, ITERS, tmp, EventSpans()), n=1)
+        res["eager"].update(device_ms=prof["device_ms"], busy=prof["busy"],
+                            profiled_wall_ms=prof["wall_ms"])
+    for name in ("eager", "graphed"):
+        r = res[name]
+        prof = (f"; profiled run: wall {r['profiled_wall_ms'] / ITERS:.3f} ms a batch, kernel "
+                f"time {r['device_ms'] / ITERS:.3f} ms a batch, busy {r['busy']:.3f}"
+                if "busy" in r else "")
+        note(f"graph driver {label} {name}: {r['rate']:.2f} {unit} (median of {REPEATS} runs of "
+             f"{ITERS} batches: {', '.join(f'{x:.2f}' for x in r['rates'])}); a run of {ITERS} "
+             f"batches: wall {r['wall_ms'] / ITERS:.3f} ms a batch, the predictor calls' "
+             f"CUDA-event span {r['span_ms'] / ITERS:.3f} ms a batch, "
+             f"{r['span_ms'] / r['wall_ms']:.3f} of the wall{prof}; card: {smi}")
+    note(f"graph driver {label}: rows of 4 alternating batches equal the eager predictor's "
+         f"outputs bit for bit; graphed / eager rate "
+         f"{res['graphed']['rate'] / res['eager']['rate']:.3f}")
+    return res
+
+
+def graph_phase(kernels, cfg, rig, ckpt, frames, predictor, note, smi) -> list:
+    """Every serving path eager against graphed (:func:`graph_path`):
+    predict3D in the production mode on uint8 and float32 frames and in
+    exact / half_fused / half, phase A and phase B of the two-phase cascade,
+    predict2D; then the three drivers' loops (:func:`driver_graph_path`);
+    and the copy of one batch into a graph's static input, timed beside
+    the graphed step. ``predictor`` is the eager production predictor."""
+    import torch
+
+    from jarvis_hybridnet_torch.prediction.loaders import (
+        make_predictor2d,
+        make_predictor3d,
+        make_predictor3d_twophase,
+    )
+    from jarvis_hybridnet_torch.prediction.predict2d import _fused_steps, stream_rows
+    from jarvis_hybridnet_torch.prediction.predict3d import (
+        PER_JOINT,
+        stream_predict3d,
+        stream_predict3d_twophase,
+    )
+
+    results = []
+
+    def pred3d(mcfg, graph):
+        return make_predictor3d(mcfg, rig, ckpt["CenterDetect"], ckpt["HybridNet"],
+                                dtype="bfloat16", device="cuda", graph=graph)
+
+    graphed = pred3d(cfg, True)
+    float_frames = [f.float() / 255.0 for f in frames]
+    for label, eager, gpred, batches in (
+            ("predict3D quarter_fused", predictor, graphed, frames),
+            ("predict3D quarter_fused, float32 frames", predictor, graphed, float_frames)):
+        results.append(graph_path(kernels, label, lambda i: eager(batches[i % 2]),
+                                  lambda i: gpred(batches[i % 2]), [gpred.step], T, "poses/s",
+                                  note, smi))
+    # the copy of one batch into the static input of a graph, on the card
+    # (the driver's upload lands in a tensor of its own first)
+    static, fresh = torch.empty_like(frames[0]), frames[1].clone()
+    copy_ms = graph_ms(lambda: static.copy_(fresh))
+    step_ms = results[0]["graphed"]["event_ms"]
+    note(f"graph input copy: {frames[0].nbytes} bytes into the static input {copy_ms:.4f} ms "
+         f"(bound {2 * frames[0].nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, read and write), "
+         f"{copy_ms / step_ms:.4f} of the graphed step's {step_ms:.3f} ms")
+    del static, fresh, float_frames
+    for mode in OTHER_MODES:
+        mcfg = cfg.clone()
+        mcfg.TPU.REPRO_MODE = mode
+        eager, gpred = pred3d(mcfg, False), pred3d(mcfg, True)
+        results.append(graph_path(kernels, f"predict3D {mode}", lambda i: eager(frames[i % 2]),
+                                  lambda i: gpred(frames[i % 2]), [gpred.step], T, "poses/s",
+                                  note, smi))
+        del eager, gpred
+
+    # the two-phase cascade, each phase on its device inputs of two batches.
+    # The low-resolution frames take every f-th pixel: an area reduction
+    # averages noise to grey, where no frameset passes the gate and phase A's
+    # outputs would not tell two batches apart
+    f = 4
+    low = [fr[:, :, ::f, ::f].contiguous() for fr in frames]
+    host_full = [fr.cpu().numpy() for fr in frames]
+    phases = {g: make_predictor3d_twophase(cfg, rig, (W, H), ckpt["CenterDetect"],
+                                           ckpt["HybridNet"], lowres_factor=f,
+                                           dtype="bfloat16", device="cuda", graph=g)
+              for g in (False, True)}
+    a_out = [phases[False][0](lo) for lo in low]
+    b_in = [(torch.from_numpy(phases[False][2](host_full[k], a_out[k][0].cpu().numpy(),
+                                               a_out[k][1].cpu().numpy())).cuda(),
+             *(a.contiguous() for a in a_out[k][:3])) for k in range(2)]
+    results.append(graph_path(kernels, "two-phase A", lambda i: phases[False][0](low[i % 2]),
+                              lambda i: phases[True][0](low[i % 2]), [phases[True][0].step],
+                              T, "framesets/s", note, smi))
+    results.append(graph_path(kernels, "two-phase B", lambda i: phases[False][1](*b_in[i % 2]),
+                              lambda i: phases[True][1](*b_in[i % 2]),
+                              [phases[True][1].step], T, "framesets/s", note, smi))
+
+    imgs = [fr[:, 0].contiguous() for fr in frames]
+    pred2d = {g: make_predictor2d(cfg, ckpt["CenterDetect"], ckpt["KeypointDetect"],
+                                  dtype="bfloat16", device="cuda", graph=g) for g in (False, True)}
+    results.append(graph_path(kernels, "predict2D", lambda i: pred2d[False](imgs[i % 2]),
+                              lambda i: pred2d[True](imgs[i % 2]), [pred2d[True].step], T,
+                              "frames/s", note, smi))
+
+    # the drivers' loops over seeded host batches, the graphed predictors
+    # built above against the eager ones
+    dcfg = cfg.clone()
+    dcfg.KEYPOINT_NAMES = [f"joint_{j}" for j in range(int(cfg.KEYPOINTDETECT.NUM_JOINTS))]
+    preds = {False: predictor, True: graphed}
+
+    def run3d(graph, n, tmp, spans):
+        return stream_predict3d(dcfg, SpannedPredictor(preds[graph], spans),
+                                BatchReader(host_full, n), tmp)
+
+    expect3d = [[a.cpu().numpy() for a in predictor(fr)] for fr in frames]
+    results.append(driver_graph_path(kernels, "predict3D (stream_predict3d)", run3d, expect3d,
+                                     len(PER_JOINT), "poses/s", note, smi))
+    host_low = [lo.cpu().numpy() for lo in low]
+
+    def run_twophase(graph, n, tmp, spans):
+        phase_a, phase_b, crop_fn = phases[graph]
+        return stream_predict3d_twophase(
+            dcfg, (spans.wrap(phase_a), spans.wrap(phase_b), crop_fn),
+            PairReader(list(zip(host_full, host_low)), n), "cuda", tmp)
+
+    expect2p = []
+    for k in range(2):
+        cx, cy, c3d, valid = a_out[k]
+        pts, conf = phases[False][1](*b_in[k])
+        expect2p.append([a.cpu().numpy() for a in (pts, conf, valid)])
+    results.append(driver_graph_path(kernels, "two-phase (stream_predict3d_twophase)",
+                                     run_twophase, expect2p, len(PER_JOINT), "poses/s", note,
+                                     smi))
+    host_imgs = [im.cpu().numpy() for im in imgs]
+
+    def run2d(graph, n, tmp, spans):
+        path = os.path.join(tmp, "data2D.csv")
+        stream_rows(dcfg, _fused_steps(SpannedPredictor(pred2d[graph], spans),
+                                       BatchReader(host_imgs, n)), path, ("x", "y", "confidence"))
+        return path
+
+    expect2d = [[a.cpu().numpy() for a in pred2d[False](im)] for im in imgs]
+    results.append(driver_graph_path(kernels, "predict2D (stream_rows)", run2d, expect2d, 3,
+                                     "frames/s", note, smi))
+    with open(os.path.join(REPO, "chiprun_out", "chip_smoke_graphs.txt"), "w") as log:
+        log.write(f"card: {smi}\nkernels a step of each graphed path (torch.profiler, "
+                  f"{ITERS} replays; drivers: a run of {ITERS} batches)\n")
+        for r in results:
+            if "kernels" not in r["graphed"]:  # the drivers' loops
+                continue
+            log.write(f"{r['label']}:\n")
+            for key, count in r["graphed"]["kernels"].most_common():
+                log.write(f"  {count / ITERS:8.1f}  {key[:160]}\n")
+            for key, (eager, graphed) in sorted(r.get("renamed", {}).items()):
+                log.write(f"  name differs, calls eager {eager} graphed {graphed}: {key[:160]}\n")
+    return results
 
 TRAIN_EPOCHS = 2
 TRAIN_SPLITS = (("train", 4), ("val", 2))
@@ -2411,6 +2849,7 @@ def main() -> int:
                     help="the kernel --baseline-csrc holds: K9 (BASELINE_SIGNATURE) or K12 "
                          "(BASELINE_K12_SIGNATURE)")
     args = ap.parse_args()
+    faulthandler.enable()  # a crash in a library prints the Python stack
     t_start = time.perf_counter()
     import torch
 
@@ -2479,7 +2918,7 @@ def main() -> int:
     keypoint.load_state_dict(params_from_jax(read_ckpt(ckpt["KeypointDetect"]), "small"),
                              strict=True)
     predictor = make_predictor3d(cfg, rig, ckpt["CenterDetect"], ckpt["HybridNet"],
-                                 dtype="bfloat16", device="cuda")
+                                 dtype="bfloat16", device="cuda", graph=False)
     n_params = sum(p.numel() for m in (predictor.center_model, predictor.hybrid_model)
                    for p in m.parameters())
     note(f"load: {time.perf_counter() - t0:.2f} s for the 3 MonkeyHand checkpoints "
@@ -2529,7 +2968,7 @@ def main() -> int:
         mcfg = cfg.clone()
         mcfg.TPU.REPRO_MODE = mode
         pred = make_predictor3d(mcfg, rig, ckpt["CenterDetect"], ckpt["HybridNet"],
-                                dtype="bfloat16", device="cuda")
+                                dtype="bfloat16", device="cuda", graph=False)
         pred(frames[0])
         (mode_points[mode], _, _), mode_launches[mode] = path_launches(
             lambda: pred(frames[0]), kernels, MODE_PATH_KERNELS, mode, recorder)
@@ -2572,6 +3011,8 @@ def main() -> int:
     phase("driver")
     path_counts["driver"] = driver_phase(kernels, cfg, predictor, frames, out_dir, recorder,
                                          note)
+    phase("graphs")
+    graph_phase(kernels, cfg, rig, ckpt, frames, predictor, note, smi)
 
     # 12. training on one synthetic dataset: train_hybridnet in 3D_only and in
     # all (with a step in bifpn, in last_layers and in all in each other repro

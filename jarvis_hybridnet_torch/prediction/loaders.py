@@ -12,6 +12,7 @@ from ..models.efficienttrack import EfficientTrackBackbone
 from ..models.hybridnet import HybridNetBackbone
 from ..models.layers import cast_convs
 from ..training.checkpoints import load_efficienttrack_state, load_hybridnet_state
+from .export import wrap_predictor
 from .predictor2d import Predict2D
 from .predictor3d import Predict3D, build_predict3d_twophase
 
@@ -107,14 +108,23 @@ def _hybrid_state(cfg, weights):
     return init_hybridnet_state(cfg) if hybrid is None else hybrid
 
 
+def _graphed(predictor, graph: bool):
+    """``predictor`` with its step replayed from CUDA graphs when ``graph``."""
+    if graph:
+        predictor.step = wrap_predictor(predictor.eager_step, predictor.device)
+    return predictor
+
+
 def make_predictor2d(cfg, weights_center_detect="latest",
                      weights_keypoint_detect="latest", dtype=None,
-                     device="cuda") -> Predict2D:
+                     device="cuda", graph: bool = True) -> Predict2D:
     """Fused 2D predictor on ``device`` (CUDA by default).
 
     Each weight spec is a ``.ckpt`` or ``.pth`` path, ``'latest'``, a
     pretrain name or None (a seeded random init): see
-    ``training/checkpoints.py``."""
+    ``training/checkpoints.py``. ``graph`` (the counterpart of the JAX
+    loaders' ``jit``) replays each step from a CUDA graph on the card
+    (``export.wrap_predictor``); ``graph=False`` launches it op by op."""
     dtype = _resolve_dtype(cfg, dtype)
     _float32_precision(dtype)
     center, keypoint = (
@@ -122,18 +132,19 @@ def make_predictor2d(cfg, weights_center_detect="latest",
                dtype, device)
         for module, weights in (("CenterDetect", weights_center_detect),
                                 ("KeypointDetect", weights_keypoint_detect)))
-    return Predict2D(cfg, center, keypoint, device)
+    return _graphed(Predict2D(cfg, center, keypoint, device), graph)
 
 
 def make_predictor3d(cfg, rig, weights_center_detect="latest",
                      weights_hybridnet="latest", dtype=None,
-                     device="cuda") -> Predict3D:
+                     device="cuda", graph: bool = True) -> Predict3D:
     """Fused 3D predictor on ``device`` (CUDA by default).
 
     ``TPU.REPRO_MODE`` picks the reprojection mode (exact, half, half_fused
     or quarter_fused; exact when the configuration names none). ``rig``
     provides camera_matrices (C, 4, 3), intrinsics (C, 3, 3) and
-    distortions (C, 1, 5). Weight specs as in :func:`make_predictor2d`.
+    distortions (C, 1, 5). Weight specs and ``graph`` as in
+    :func:`make_predictor2d`.
     """
     dtype = _resolve_dtype(cfg, dtype)
     _float32_precision(dtype)
@@ -141,17 +152,18 @@ def make_predictor3d(cfg, rig, weights_center_detect="latest",
                     _efficienttrack_state(cfg, "CenterDetect", weights_center_detect), dtype,
                     device)
     hybrid = _build(_hybridnet(cfg), _hybrid_state(cfg, weights_hybridnet), dtype, device)
-    return Predict3D(cfg, center, hybrid, rig.camera_matrices, rig.intrinsics,
-                     rig.distortions, device)
+    return _graphed(Predict3D(cfg, center, hybrid, rig.camera_matrices, rig.intrinsics,
+                              rig.distortions, device), graph)
 
 
 def make_predictor3d_twophase(cfg, rig, full_size, weights_center_detect="latest",
                               weights_hybridnet="latest", lowres_factor: int = 4,
-                              dtype=None, device="cuda"):
+                              dtype=None, device="cuda", graph: bool = True):
     """(phase_a, phase_b, crop_fn) of the split streaming cascade
     (``predictor3d.build_predict3d_twophase``) with resolved weights.
     ``full_size`` is (W, H) of the recording; phase A takes the reader's
-    low-resolution frames.
+    low-resolution frames; ``graph`` as in :func:`make_predictor2d`, for
+    each phase.
 
     ``lowres_factor`` has no effect: the cascade reads the low-resolution
     size from the frames it is given, and the reader alone sets the factor.
@@ -159,5 +171,10 @@ def make_predictor3d_twophase(cfg, rig, full_size, weights_center_detect="latest
     unchanged."""
     del lowres_factor
     predictor = make_predictor3d(cfg, rig, weights_center_detect, weights_hybridnet,
-                                 dtype=dtype, device=device)
-    return build_predict3d_twophase(predictor, full_size)
+                                 dtype=dtype, device=device, graph=False)
+    phases = build_predict3d_twophase(predictor, full_size)
+    if graph:  # one memory pool for both phases
+        phase_a, phase_b, _ = phases
+        phase_a.step = wrap_predictor(phase_a.step, predictor.device)
+        phase_b.step = wrap_predictor(phase_b.step, predictor.device, pool=phase_a.step.pool)
+    return phases

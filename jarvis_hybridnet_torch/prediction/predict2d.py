@@ -13,6 +13,11 @@ pinned staging pair on a side stream (``utils/transfer.HostToDevice``): the
 copy of batch k + 1 overlaps the device's work on batch k. The helper copies
 a batch into its staging buffer before it returns, so the reader's ring
 buffer goes back to the reader as soon as the batch's work is dispatched.
+On the card the predictors replay one CUDA graph a batch (the loaders'
+``graph=True``, ``export.wrap_predictor``); the reader yields full batches
+of ``FRAME_BATCH`` frames, so a driver captures one graph. A replay's
+outputs are clones, so batch k's pending outputs keep their values while
+batch k + 1 runs.
 
 The CSV writers and :func:`stream_rows` are shared with the 3D driver and
 need neither yaml, cv2 nor tqdm; the drivers import those where they read

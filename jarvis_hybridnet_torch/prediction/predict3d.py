@@ -8,7 +8,9 @@ with identical output layout: writes
 when fewer than two cameras detect the subject). Videos are matched to
 calibration camera names; framesets are decoded ahead by the reader and
 processed in ``FRAME_BATCH`` batches, one batch in flight on the device
-while the previous one's rows are written.
+while the previous one's rows are written. On the card each step (each
+phase of the split cascade) replays a CUDA graph (``predict2d.py``'s
+docstring).
 
 With ``TPU.TWO_PHASE`` and the native video library, the split cascade
 streams instead: the reader's paired low-resolution ring feeds phase A, the

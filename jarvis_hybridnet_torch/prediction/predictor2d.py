@@ -27,11 +27,13 @@ from .predictor3d import FRAME_DTYPES
 class Predict2D:
     """``predictor(imgs) -> (points2D (T, J, 2) full-resolution pixels,
     confidences (T, J), valid (T,) bool)`` for imgs (T, H, W, 3), uint8 or
-    float32 RGB in [0, 1], on the predictor's device."""
+    float32 RGB in [0, 1], on the predictor's device. A call runs ``step``
+    on the checked frames, as ``Predict3D``'s."""
 
     def __init__(self, cfg, center_model: EfficientTrackBackbone,
                  keypoint_model: EfficientTrackBackbone, device):
         self.device = torch.device(device)
+        self.step = self.eager_step
         self.center_size = int(cfg.CENTERDETECT.IMAGE_SIZE)
         self.bbox = int(cfg.KEYPOINTDETECT.BOUNDING_BOX_SIZE)
         self.mean = [float(v) for v in cfg.DATASET.MEAN]
@@ -82,11 +84,15 @@ class Predict2D:
         return points, kmax.clamp(max=255.0) / 255.0, khm
 
     @torch.no_grad()
+    def eager_step(self, imgs: torch.Tensor):
+        """One step on checked frames on the device, launched op by op."""
+        cx, cy, valid, _ = self.detect(imgs)
+        points, conf, _ = self.keypoints(imgs, cx, cy)
+        return points, conf, valid
+
     def __call__(self, imgs):
         imgs = torch.as_tensor(imgs, device=self.device)
         if imgs.dtype not in FRAME_DTYPES or imgs.dim() != 4 or imgs.shape[-1] != 3:
             raise ValueError("expected uint8 or float32 frames (T, H, W, 3), got "
                              f"{imgs.dtype} {tuple(imgs.shape)}")
-        cx, cy, valid, _ = self.detect(imgs)
-        points, conf, _ = self.keypoints(imgs, cx, cy)
-        return points, conf, valid
+        return self.step(imgs)

@@ -34,12 +34,17 @@ from ..utils.reprojection import project_points, triangulate
 class Predict3D:
     """``predictor(imgs) -> (points3D (T, J, 3) mm, confidences (T, J),
     valid (T,) bool)`` for imgs (T, C, H, W, 3), uint8 or float32 RGB in
-    [0, 1], on the predictor's device."""
+    [0, 1], on the predictor's device.
+
+    A call checks the frames, moves them to the device and runs ``step``
+    on them: :meth:`eager_step`, or its replays from a CUDA graph captured
+    per input shape once the loaders wrap it (``export.wrap_predictor``)."""
 
     def __init__(self, cfg, center_model: EfficientTrackBackbone,
                  hybrid_model: HybridNetBackbone, camera_matrices, intrinsics,
                  distortions, device):
         self.device = torch.device(device)
+        self.step = self.eager_step
         self.center_size = int(cfg.CENTERDETECT.IMAGE_SIZE)
         self.bbox = int(cfg.KEYPOINTDETECT.BOUNDING_BOX_SIZE)
         self.mean = [float(v) for v in cfg.DATASET.MEAN]
@@ -133,11 +138,14 @@ class Predict3D:
             per_frameset(self.K), per_frameset(self.D))
 
     @torch.no_grad()
-    def __call__(self, imgs):
-        imgs = self.frames(imgs)
+    def eager_step(self, imgs: torch.Tensor):
+        """One step on checked frames on the device, launched op by op."""
         center_hm, center3d, valid = self.centers(imgs)
         points, conf = self.hybrid_points(self.crops(imgs, center_hm), center_hm, center3d)
         return points, conf, valid
+
+    def __call__(self, imgs):
+        return self.step(self.frames(imgs))
 
 
 FRAME_DTYPES = (torch.uint8, torch.float32)
@@ -162,26 +170,33 @@ def build_predict3d_twophase(predictor: Predict3D, full_size):
     Inputs may be numpy arrays or tensors; they are moved to the predictor's
     device. Nothing synchronizes with the host, so the caller's copy of
     ``cx, cy`` to the host for ``crop_fn`` is the one synchronization of a
-    step.
+    step. Each phase runs its ``step`` on device tensors, which the loaders
+    may replace by its CUDA graph replays (``export.wrap_predictor``); the
+    moves to the device stay outside.
     """
     W_full, H_full = int(full_size[0]), int(full_size[1])
     bbox, hw = predictor.bbox, predictor.bbox // 2
 
     @torch.no_grad()
-    def phase_a(lowres):
-        lowres = predictor.frames(lowres)
+    def step_a(lowres):
         center_hm, center3d, valid = predictor.place(*predictor.detect(lowres), H_full,
                                                      W_full)
         return center_hm[..., 0], center_hm[..., 1], center3d.to(torch.int32), valid
 
     @torch.no_grad()
+    def step_b(crops, cx, cy, center3d):
+        center_hm = torch.stack([cx, cy], dim=-1)
+        return predictor.hybrid_points(predictor.normalize(crops), center_hm, center3d)
+
+    def phase_a(lowres):
+        return phase_a.step(predictor.frames(lowres))
+
     def phase_b(crops, cx, cy, center3d):
-        crops = predictor.frames(crops)
-        dev = predictor.device
-        center_hm = torch.stack([torch.as_tensor(cx, device=dev),
-                                 torch.as_tensor(cy, device=dev)], dim=-1)
-        return predictor.hybrid_points(predictor.normalize(crops), center_hm,
-                                       torch.as_tensor(center3d, device=dev))
+        return phase_b.step(predictor.frames(crops),
+                            *(torch.as_tensor(a, device=predictor.device)
+                              for a in (cx, cy, center3d)))
+
+    phase_a.step, phase_b.step = step_a, step_b
 
     def crop_fn(frames: np.ndarray, cx: np.ndarray, cy: np.ndarray) -> np.ndarray:
         """Host-side window slicing from the full-resolution frames."""

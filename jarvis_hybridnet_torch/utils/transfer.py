@@ -15,7 +15,10 @@ again before the compute that reads them has run.
 
 The copy into the staging buffer is done when a call returns, so the
 caller's host arrays are free then: the device copy reads only the
-staging buffer. On the CPU a call returns tensors that share the host
+staging buffer. A graphed predictor (``prediction/export.py``) copies the
+device tensor into its graph's static input on the compute stream, a
+device-to-device copy under 1% of the step (PERF.md), so the upload does
+not write the static input itself. On the CPU a call returns tensors that share the host
 arrays' memory, which stay in use until the work on them has run.
 """
 

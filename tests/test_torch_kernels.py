@@ -14,6 +14,7 @@ The CUDA kernels themselves are checked against these on the card by
 chip_smoke.py.
 """
 
+import contextlib
 import importlib.util
 import pathlib
 
@@ -69,16 +70,70 @@ def _k1_inputs(shape, seed=0):
     return x, s
 
 
-@pytest.mark.parametrize("act", ["none", "silu", "relu", "add_relu"])
-@pytest.mark.parametrize("shape", [(2, 12, 10, 24), (2, 6, 5, 7, 10)])
-def test_k1_f32_matches_jax_instance_norm(act, shape):
-    x, s = _k1_inputs(shape)
-    ref = np.asarray(_JAX_ACTS[act](instance_norm(jnp.asarray(x)), jnp.asarray(s)))
-    n, c = shape[0], shape[-1]
+@contextlib.contextmanager
+def _private_jax_compiles():
+    """JAX's persistent compilation cache off: its directory
+    (``tests/.xla_cache_cpu``) is shared by the test processes, which
+    write and read it at once."""
+    enabled = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", enabled)
+
+
+def _k1_jax(x, s, act):
+    with _private_jax_compiles():
+        return np.asarray(_JAX_ACTS[act](instance_norm(jnp.asarray(x)), jnp.asarray(s)))
+
+
+def _k1_port(x, s, act):
+    n, c = x.shape[0], x.shape[-1]
     got = kernels.instance_norm_act(
         torch.from_numpy(x).reshape(n, -1, c), act,
         torch.from_numpy(s).reshape(n, -1, c) if act == "add_relu" else None)
-    np.testing.assert_allclose(got.reshape(shape).numpy(), ref, rtol=0, atol=1e-5)
+    return got.reshape(x.shape).numpy()
+
+
+def _k1_float64(x, s, act):
+    """InstanceNorm + act in float64 with numpy: the yardstick that says
+    which side moved when the two disagree."""
+    x64 = x.astype(np.float64)
+    axes = tuple(range(1, x.ndim - 1))
+    mean = x64.mean(axis=axes, keepdims=True)
+    y = (x64 - mean) / np.sqrt(((x64 - mean) ** 2).mean(axis=axes, keepdims=True) + 1e-5)
+    return {"none": y, "silu": y / (1.0 + np.exp(-y)), "relu": np.maximum(y, 0.0),
+            "add_relu": np.maximum(y + s, 0.0)}[act]
+
+
+@pytest.mark.parametrize("act", ["none", "silu", "relu", "add_relu"])
+@pytest.mark.parametrize("shape", [(2, 12, 10, 24), (2, 6, 5, 7, 10)])
+def test_k1_f32_matches_jax_instance_norm(act, shape):
+    """The port's float32 plain version within 1e-5 of JAX's. The JAX side
+    compiles outside the persistent cache that the test processes share
+    (ROADMAP.md section C: one case failed once in six parallel processes
+    and never alone). On a mismatch both sides are computed again and
+    each is held to the float64 yardstick, so the failure says which side
+    moved and whether it moves again."""
+    x, s = _k1_inputs(shape)
+    ref, got = _k1_jax(x, s, act), _k1_port(x, s, act)
+    if np.abs(got - ref).max() > 1e-5:
+        f64 = _k1_float64(x, s, act)
+        again_ref, again_got = _k1_jax(x, s, act), _k1_port(x, s, act)
+        pytest.fail(
+            "port vs JAX {:.3e} at > 1e-5; from float64: port {:.3e} (again {:.3e}), JAX "
+            "{:.3e} (again {:.3e}); instances (sample, channel) off by > 1e-5: port {}, JAX {}"
+            .format(np.abs(got - ref).max(), np.abs(got - f64).max(),
+                    np.abs(again_got - f64).max(), np.abs(ref - f64).max(),
+                    np.abs(again_ref - f64).max(), _off_instances(got, f64),
+                    _off_instances(ref, f64)))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def _off_instances(a, b):
+    axes = tuple(range(1, a.ndim - 1))
+    return [tuple(int(i) for i in ix) for ix in np.argwhere(np.abs(a - b).max(axis=axes) > 1e-5)]
 
 
 def test_k1_f32_matches_pallas_kernel_interpret():
