@@ -43,12 +43,18 @@ class Basic3DBlock(_Dropped):
         self.fused_up = fused_up
         self._fused = None  # (key, interior, corrections), built on first use
 
+    # a trainer turns the cache off (``set_fused_cache``): its weights change
+    # in place, and a CUDA graph's replay of the update leaves the host's
+    # version counter of the weight where it was, so a key on it goes stale
+    cache_fused = True
+
     def _fused_weights(self):
         """The transformed kernels. With grad enabled they are computed from
         the live weight in every call, so the weight gets their gradient;
-        under ``no_grad`` they are cached until the weight changes."""
+        under ``no_grad`` they are cached until the weight changes, where
+        ``cache_fused`` is on, else computed in every call."""
         w = self.block[0].weight
-        if torch.is_grad_enabled() and w.requires_grad:
+        if (torch.is_grad_enabled() and w.requires_grad) or not self.cache_fused:
             return prepare_fused_weights(w, w.dtype)
         key = (w.data_ptr(), w._version, w.dtype, w.device)
         if self._fused is None or self._fused[0] != key:
@@ -63,6 +69,16 @@ class Basic3DBlock(_Dropped):
         else:
             x = conv(self.block[0], x)
         return self.drop(instance_norm(x, "relu"))
+
+
+def set_fused_cache(module: nn.Module, on: bool) -> nn.Module:
+    """Turn the no-grad cache of the fused kernels of every
+    ``Basic3DBlock`` under ``module`` on or off."""
+    for m in module.modules():
+        if isinstance(m, Basic3DBlock):
+            m.cache_fused = on
+            m._fused = None
+    return module
 
 
 class Res3DBlock(_Dropped):

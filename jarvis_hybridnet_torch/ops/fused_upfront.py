@@ -22,6 +22,7 @@ gives it. Plain cuDNN convolutions.
 
 from __future__ import annotations
 
+import functools
 import itertools
 
 import torch
@@ -35,9 +36,17 @@ _D_LO = torch.tensor([-0.25, 0.25, 0.0], dtype=torch.float32)
 _D_HI = torch.tensor([0.0, 0.0, 0.25], dtype=torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _on(device: torch.device) -> tuple:
+    """(T_IN, D_LO, D_HI) on ``device``, copied there once: a copy from the
+    host in every training step would synchronize, which a CUDA graph's
+    capture refuses."""
+    return tuple(t.to(device) for t in (_T_IN, _D_LO, _D_HI))
+
+
 def _transform_interior(w: torch.Tensor, axes) -> torch.Tensor:
     """Interior transform on the given spatial axes of (3, 3, 3, Cin, Cout)."""
-    t = _T_IN.to(w.device)
+    t = _on(w.device)[0]
     eqs = ("ab,bjkio->ajkio", "ab,jbkio->jakio", "ab,jkbio->jkaio")
     for a in axes:
         w = torch.einsum(eqs[a], t, w)
@@ -45,7 +54,7 @@ def _transform_interior(w: torch.Tensor, axes) -> torch.Tensor:
 
 
 def _contract_delta(w: torch.Tensor, axis: int, lo: bool) -> torch.Tensor:
-    d = (_D_LO if lo else _D_HI).to(w.device)
+    d = _on(w.device)[1 if lo else 2]
     return torch.tensordot(d, torch.movedim(w, axis, 0), dims=([0], [0]))
 
 

@@ -57,7 +57,12 @@ def load_checkpoint(path: str) -> dict:
 
 def _to_tree(obj):
     """A torch optimizer state dict as msgpack-able nested dicts: tensors to
-    numpy, tuples to lists, int keys to strings."""
+    numpy, tuples to lists, int keys to strings; a group's lr tensor
+    (``optim.make_optimizer``) to a float, as a float lr is written."""
+    if isinstance(obj, dict) and "param_groups" in obj:
+        groups = [{k: float(v) if k == "lr" else v for k, v in g.items()}
+                  for g in obj["param_groups"]]
+        return {"state": _to_tree(obj["state"]), "param_groups": _to_tree(groups)}
     if isinstance(obj, dict):
         return {str(k): _to_tree(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):

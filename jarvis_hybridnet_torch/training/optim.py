@@ -15,6 +15,17 @@ defaults differ:
   the train loss. The JAX step multiplies its update by ``lr / max_lr``,
   which for both optimizers equals running them at that lr.
 
+The learning rate is a 0-d tensor on the parameters' device in every
+param group, which :func:`set_learning_rate` writes in place: a captured
+update (``training/graphed.py``) reads the value of its replay's step, as
+JAX's jitted step takes ``lr_scale`` as an argument. On the card AdamW is
+built ``capturable`` (its step count and bias correction on the device) and
+the lr is float32, for eager steps and replays alike; on the CPU, where
+torch refuses ``capturable``, the lr is float64, so that torch's CPU update,
+which computes its step size in the lr's dtype, is bit for bit the update
+at a float lr. SGD is :class:`NesterovSGD`, whose update reads the lr tensor
+on the device on both (torch's multi-tensor SGD reads it on the host).
+
 Frozen parameters (``optax.multi_transform`` with ``set_to_zero`` in JAX)
 are kept out of the optimizer and set ``requires_grad_(False)``: no update,
 no weight decay. A trained parameter that reaches no loss gets a zero
@@ -87,11 +98,55 @@ class PlateauScheduler:
 
 
 def make_optimizer(optimizer_name: str, params, learning_rate: float) -> torch.optim.Optimizer:
-    """'adamw' or 'sgd' over ``params`` (the trained parameters only)."""
+    """'adamw' or 'sgd' over ``params`` (the trained parameters only), with
+    the lr tensor of the module docstring on their device."""
+    params = list(params)
+    device = params[0].device
+    on_card = device.type == "cuda"
+    lr = torch.tensor(learning_rate, dtype=torch.float32 if on_card else torch.float64,
+                      device=device)
     if optimizer_name == "adamw":
-        return torch.optim.AdamW(params, lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS,
-                                 weight_decay=ADAMW_WEIGHT_DECAY)
-    return torch.optim.SGD(params, lr=learning_rate, momentum=SGD_MOMENTUM, nesterov=True)
+        opt = torch.optim.AdamW(params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS,
+                                weight_decay=ADAMW_WEIGHT_DECAY, capturable=on_card)
+        # the eager step is capturable on purpose, to compute as the replays
+        # do: no warning that it runs outside a capture
+        opt._warned_capturable_if_run_uncaptured = True
+        return opt
+    return NesterovSGD(params, lr)
+
+
+class NesterovSGD(torch.optim.SGD):
+    """``optax.sgd(momentum=0.9, nesterov=True)``, no weight decay, as device
+    ops that read the group's lr tensor: trace = momentum * trace + grad
+    (the first step's trace is the gradient), param -= lr * (grad + momentum
+    * trace). torch's SGD computes the same (within a float32 ulp), but its
+    multi-tensor update reads a tensor lr on the host, which a capture
+    refuses. The groups and the ``momentum_buffer`` state are torch's SGD's,
+    so a train state written with torch's SGD resumes here."""
+
+    def __init__(self, params, lr):
+        super().__init__(params, lr=lr, momentum=SGD_MOMENTUM, nesterov=True)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            momentum = group["momentum"]
+            bufs = []
+            for p, g in zip(params, grads):
+                state = self.state[p]
+                buf = state.get("momentum_buffer")
+                if buf is None:
+                    buf = state["momentum_buffer"] = g.detach().clone()
+                else:
+                    buf.mul_(momentum).add_(g)
+                bufs.append(buf)
+            updates = torch._foreach_add(grads, bufs, alpha=momentum)
+            torch._foreach_mul_(updates, group["lr"])
+            torch._foreach_sub_(params, updates)
 
 
 def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
@@ -105,8 +160,39 @@ def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """``lr`` into every group: in place into a tensor lr (on the card a
+    launch on the caller's stream, ahead of the step that reads it), else
+    as a float."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+# the group keys that choose torch's update implementation
+_IMPLEMENTATION = ("capturable", "foreach", "fused", "differentiable")
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
+    """``optimizer.load_state_dict(state_dict)``, keeping what
+    :func:`make_optimizer` built: each group's lr tensor (the loaded lr
+    written into it) and the flags that choose the update's implementation,
+    and a capturable optimizer's step counts on its parameters' device. So a
+    train state written with a float lr, or on another device, resumes
+    here, before any step is captured."""
+    built = [{k: v for k, v in g.items() if k != "params"} for g in optimizer.param_groups]
+    optimizer.load_state_dict(state_dict)
+    for group, kept in zip(optimizer.param_groups, built):
+        if isinstance(kept["lr"], torch.Tensor):
+            kept["lr"].fill_(float(group["lr"]))
+            group["lr"] = kept["lr"]
+        group.update({k: kept[k] for k in _IMPLEMENTATION if k in kept})
+        if group.get("capturable"):
+            for p in group["params"]:
+                state = optimizer.state.get(p, {})
+                if "step" in state:
+                    state["step"] = state["step"].to(device=p.device, dtype=torch.float32)
 
 
 def hybridnet_freeze_labels(model: torch.nn.Module, mode: str) -> dict[str, str]:

@@ -9,7 +9,9 @@ EfficientTrackTrainer`. ``train_hybridnet`` builds the 3D datasets, seeds
 the embedded 2D net from a KeypointDetect checkpoint, supports finetune (LR
 / 10, reference train_interface.py:201-203) and resuming, and runs
 :class:`~jarvis_hybridnet_torch.training.trainer3d.HybridNetTrainer`. Both
-run on ``device``, the card unless the caller asks for the CPU. HybridNet
+run on ``device``, the card unless the caller asks for the CPU, and on the
+card replay each train and eval step from a CUDA graph unless ``graph`` is
+False (``training/graphed.py``). HybridNet
 trains in every freeze mode (``all``, ``bifpn``, ``last_layers``,
 ``3D_only``); the project's configuration checks (``config/checks.py``) are
 not ported yet (ROADMAP.md A.13).
@@ -61,7 +63,7 @@ def _report_final(results, acc_unit):
 
 def train_efficienttrack(mode, project_name, num_epochs, weights, run_name=None,
                          streamlit_widgets=None, cameras_to_use=None, resume=None,
-                         device="cuda", results=None):
+                         device="cuda", results=None, graph=True):
     """mode in {'CenterDetect', 'KeypointDetect'}; True on success
     (reference: jarvis/train_interface.py:52-121). ``resume`` is a
     train_state.ckpt path or 'latest'. ``results``, a dict when given,
@@ -84,7 +86,7 @@ def train_efficienttrack(mode, project_name, num_epochs, weights, run_name=None,
     if resume is not None and resume != "None" and resume_from is None:
         return False
     trainer = EfficientTrackTrainer(mode, cfg, weights=weights, run_name=run_name,
-                                    device=device)
+                                    device=device, graph=graph)
     if not trainer.found_weights:
         clp.error("Could not load weights, aborting training!")
         return False
@@ -98,7 +100,7 @@ def train_efficienttrack(mode, project_name, num_epochs, weights, run_name=None,
 def train_hybridnet(project_name, num_epochs, weights_keypoint_detect,
                     weights, mode="3D_only", run_name=None, finetune=False,
                     streamlit_widgets=None, cameras_to_use=None,
-                    resume=None, device="cuda", results=None):
+                    resume=None, device="cuda", results=None, graph=True):
     """mode in {'all', 'bifpn', 'last_layers', '3D_only'} (reference:
     jarvis/train_interface.py:124-213). ``resume`` is a
     train_state.ckpt path or 'latest'. ``results``, a dict when given,
@@ -128,7 +130,7 @@ def train_hybridnet(project_name, num_epochs, weights_keypoint_detect,
         return False
     trainer = HybridNetTrainer(
         "train", cfg, weights=weights, efficienttrack_weights=weights_keypoint_detect,
-        run_name=run_name, training_mode=mode, device=device)
+        run_name=run_name, training_mode=mode, device=device, graph=graph)
     out = trainer.train(train_set, val_set, num_epochs,
                         streamlitWidgets=streamlit_widgets, resume_from=resume_from)
     if results is not None:

@@ -21,6 +21,13 @@ optimizer steps; K10 gives the stride-2 argmax for the px meter. Step k's
 loss and argmax are read back after step k + 1 is dispatched, as the JAX
 trainer does.
 
+With ``graph=True`` (the default, the counterpart of JAX's ``jax.jit``) each
+train step (forward, backward, AdamW / SGD, K10) and each eval step on the
+card is one replay of a CUDA graph captured per batch shape and train /
+eval (``training/graphed.py``), taking the eager run's updates, learning
+rates and random draws step for step; ``graph=False`` launches the step op
+by op. On the CPU both run the step as it is.
+
 Preemption contract: a resumed run equals the uninterrupted one. The
 generator is reseeded from (``seed``, epoch) at every epoch and the loader's
 order follows (seed, epoch), so an epoch replays from its start. A stop
@@ -55,7 +62,7 @@ from ..ops.heatmap import argmax_2d
 from ..utils import clp
 from ..utils.logger import AverageMeter, NetLogger
 from ..utils.transfer import HostToDevice
-from . import checkpoints, optim
+from . import checkpoints, graphed, optim
 
 SIGMA_BASE = {"CenterDetect": 1.0, "KeypointDetect": 1.5}  # trainer2d.py:130
 
@@ -115,7 +122,7 @@ def host_batch(b) -> tuple[dict, np.ndarray]:
 
 class EfficientTrackTrainer:
     def __init__(self, mode: str, cfg, weights=None, run_name=None, device="cuda",
-                 seed: int = 1):
+                 seed: int = 1, graph: bool = True):
         if mode not in SIGMA_BASE:
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
@@ -155,6 +162,7 @@ class EfficientTrackTrainer:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         set_generator(self.model, self.generator)
+        self.graphs = graphed.TrainGraphs(self.device, self.generator, enabled=graph)
         self.color_aug = make_color_aug(cfg.AUGMENTATION, cfg.DATASET.MEAN, cfg.DATASET.STD)
 
     def _device_aug(self) -> bool:
@@ -179,18 +187,30 @@ class EfficientTrackTrainer:
 
     def train_step(self, b: dict, optimizer, lr: float):
         """One optimizer step at ``lr``; (loss, stride-2 argmax (B, J, 2)) on
-        the device."""
-        loss, out2 = self.forward(b)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optim.fill_missing_grads(optimizer)
+        the device, a graph replay on the card with ``graph=True``."""
         optim.set_learning_rate(optimizer, lr)
-        optimizer.step()
-        xy, _ = argmax_2d(out2.detach().permute(0, 2, 3, 1))
-        return loss.detach(), xy
+        return self.graphs.run("train", (optimizer, self.model.training),
+                               lambda: self._train_fn(optimizer), b)
+
+    def _train_fn(self, optimizer):
+        def step(b: dict):
+            loss, out2 = self.forward(b)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optim.fill_missing_grads(optimizer)
+            optimizer.step()
+            xy, _ = argmax_2d(out2.detach().permute(0, 2, 3, 1))
+            return loss.detach(), xy
+
+        return step
 
     @torch.no_grad()
     def eval_step(self, b: dict):
+        """(loss, stride-2 argmax) of one batch in ``eval()``, a graph replay
+        on the card with ``graph=True``."""
+        return self.graphs.run("eval", (), lambda: self._eval_fn, b)
+
+    def _eval_fn(self, b: dict):
         self.model.eval()
         try:
             loss, out2 = self.forward(b)
@@ -213,6 +233,7 @@ class EfficientTrackTrainer:
         workers = int(self.main_cfg.get("DATALOADER_NUM_WORKERS", 4))
         worker_mode = trainer_worker_mode(self.main_cfg)
         batch = int(cfg.BATCH_SIZE)
+        self.graphs.reset()  # graphs live for one call, as JAX's jitted closures
         train_loader = DataLoader(training_set, batch_size=batch, shuffle=True, drop_last=True,
                                   num_workers=workers, worker_mode=worker_mode)
         val_loader = DataLoader(validation_set, batch_size=batch, shuffle=False,
@@ -232,7 +253,7 @@ class EfficientTrackTrainer:
             state, opt_state, start_epoch = checkpoints.load_train_state(
                 resume_from, cfg.MODEL_SIZE)
             self.model.load_state_dict(state, strict=True)
-            optimizer.load_state_dict(opt_state["optimizer"])
+            optim.load_optimizer_state(optimizer, opt_state["optimizer"])
             step = opt_state["step"]
             clp.info(f"Resumed training state from {resume_from} (epoch {start_epoch})")
             if start_epoch >= num_epochs:

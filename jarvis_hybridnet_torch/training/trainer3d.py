@@ -29,6 +29,13 @@ the JAX trainer does. Dropout and drop-connect draw from one
 ``torch.Generator`` the trainer holds, reseeded from (``seed``, epoch) at
 every epoch, so a resumed run draws the masks the uninterrupted run drew.
 
+With ``graph=True`` (the default, the counterpart of JAX's ``jax.jit``) each
+train step (forward, backward, AdamW / SGD, points) and each eval step on
+the card is one replay of a CUDA graph captured per batch shape, freeze
+mode and train / eval (``training/graphed.py``), taking the eager run's
+updates, learning rates and random draws step for step; ``graph=False``
+launches the step op by op. On the CPU both run the step as it is.
+
 Not ported yet, and raising: ``TPU.TRAIN_DTYPE`` bfloat16 (ROADMAP.md
 A.10b) and the Streamlit monitor (A.13). The loader runs thread workers
 whatever ``DATALOADER_WORKER_MODE`` says, and says so when it asks for
@@ -45,12 +52,13 @@ import torch
 
 from ..models.hybridnet import HybridNetBackbone
 from ..models.layers import cast_convs, set_generator
+from ..models.v2v import set_fused_cache
 from ..kernels import hybridnet_loss
 from ..ops.augment import make_color_aug, record_arrays, record_of
 from ..utils import clp
 from ..utils.logger import AverageMeter, NetLogger
 from ..utils.transfer import HostToDevice
-from . import checkpoints, optim
+from . import checkpoints, graphed, optim
 
 BATCH_KEYS = ("imgs", "center_hm", "center3d", "kp_vox", "keypoints3D",
               "camera_matrices", "intrinsics", "distortions")
@@ -86,7 +94,8 @@ def _progress(iterable, total):
 
 class HybridNetTrainer:
     def __init__(self, mode: str, cfg, weights=None, efficienttrack_weights=None,
-                 run_name=None, training_mode: str = "all", device="cuda", seed: int = 2):
+                 run_name=None, training_mode: str = "all", device="cuda", seed: int = 2,
+                 graph: bool = True):
         self.cfg = cfg
         self.training_mode = training_mode
         self.device = torch.device(device)
@@ -124,6 +133,8 @@ class HybridNetTrainer:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         set_generator(self.model, self.generator)
+        set_fused_cache(self.model, False)  # the eval step reads the weights trained in place
+        self.graphs = graphed.TrainGraphs(self.device, self.generator, enabled=graph)
         self.color_aug = make_color_aug(cfg.AUGMENTATION, cfg.DATASET.MEAN, cfg.DATASET.STD)
 
     def set_training_mode(self, mode: str) -> None:
@@ -148,17 +159,30 @@ class HybridNetTrainer:
         return hybridnet_loss(out, b["kp_vox"], b["keypoints3D"]), points
 
     def train_step(self, b: dict, optimizer, lr: float):
-        """One optimizer step at ``lr``; (loss, points3D) on the device."""
-        loss, points = self.forward(b)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optim.fill_missing_grads(optimizer)
+        """One optimizer step at ``lr``; (loss, points3D) on the device, a
+        graph replay on the card with ``graph=True``."""
         optim.set_learning_rate(optimizer, lr)
-        optimizer.step()
-        return loss.detach(), points
+        return self.graphs.run("train", (optimizer, self.training_mode, self.model.training),
+                               lambda: self._train_fn(optimizer), b)
+
+    def _train_fn(self, optimizer):
+        def step(b: dict):
+            loss, points = self.forward(b)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optim.fill_missing_grads(optimizer)
+            optimizer.step()
+            return loss.detach(), points
+
+        return step
 
     @torch.no_grad()
     def eval_step(self, b: dict):
+        """(loss, points3D) of one batch in ``eval()``, a graph replay on the
+        card with ``graph=True``."""
+        return self.graphs.run("eval", (self.training_mode,), lambda: self._eval_fn, b)
+
+    def _eval_fn(self, b: dict):
         self.model.eval()
         try:
             return self.forward(b)
@@ -182,6 +206,7 @@ class HybridNetTrainer:
         workers = int(self.cfg.get("DATALOADER_NUM_WORKERS", 4))
         worker_mode = trainer_worker_mode(self.cfg)
         batch = int(cfg.BATCH_SIZE)
+        self.graphs.reset()  # graphs live for one call, as JAX's jitted closures
         train_loader = DataLoader(training_set, batch_size=batch, shuffle=True,
                                   num_workers=workers, worker_mode=worker_mode)
         val_loader = DataLoader(validation_set, batch_size=batch, shuffle=False,
@@ -202,7 +227,7 @@ class HybridNetTrainer:
             state, opt_state, start_epoch = checkpoints.load_train_state(
                 resume_from, self.cfg.KEYPOINTDETECT.MODEL_SIZE)
             self.model.load_state_dict(state, strict=True)
-            optimizer.load_state_dict(opt_state["optimizer"])
+            optim.load_optimizer_state(optimizer, opt_state["optimizer"])
             step = opt_state["step"]
             clp.info(f"Resumed training state from {resume_from} (epoch {start_epoch})")
             if start_epoch >= num_epochs:
