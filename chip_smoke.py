@@ -89,7 +89,22 @@ host draws, one loader thread; the generator reseeded per epoch between
 replays) under the same rule; then the loops of 3D_only, ``all`` and both 2D
 nets as a user runs them (4 loader threads), eager and graphed, their rate
 from the steps' call times (``chip_smoke_train_graphs.txt``: the graphed
-steps' kernels by name and count).
+steps' kernels by name and count). Then bf16 training
+(``TPU.TRAIN_DTYPE: bfloat16``: float32 masters, bf16 compute): every
+training path's eager bf16 step counted (its kernels launched, the bf16
+keys of K1, K6, K8, K10 and the bf16 rows of K2 recorded; the parameters,
+gradients and AdamW moments float32), every path's bf16 steps and its
+2-epoch ``train()`` graphed against eager as above (``train graph bf16
+<path>`` lines, ``chip_smoke_train_graphs_bf16.txt``; where K11 / K12 add
+and a replay is not bit-equal, ``flip_verdict``); the bf16 ``all`` and
+KeypointDetect steps (4 framesets / images, two seeds) on the card and the
+CPU at bf16 and float32: the card's bf16-vs-float32 gradient gap within
+BF16_GAP_FACTOR times the CPU's on the mean over the tensors and within
+BF16_TENSOR_FACTOR on each, every bf16 convolution on the card within
+CONV_ROUND_TOL of its float64 value rounded once; K11 and K12 (each mode) at the bf16
+``all`` step's rows within half a bf16 ulp of the float64 plain value plus
+twice the float32 plain version's error, timed beside ``index_add_`` into
+bf16 rows.
 It then checks every kernel against its plain PyTorch version on the card:
 K1, K2 and K4 at every shape a driven path gave them, K3 and K5 at the main
 path's, and times kernel, plain version and library call. A kernel's
@@ -519,21 +534,26 @@ def check_gather_backward(name, forward, backward, plain, label, note):
     return grad, idx, err
 
 
-def index_add_call(grad, idx, hs2: int):
+def index_add_call(grad, idx, hs2: int, dtype=None):
     """The library call beside K12 in exact and half_fused: one
     ``index_add_`` of the per-camera rows (grad / C, expanded over the
     cameras) at the int64 flat indices into the (B * C * hs2, J) view of a
     padded buffer, both built here, outside the timed call (which adds into
-    the same buffer every time; zeroing it is ``zero_ms``)."""
+    the same buffer every time; zeroing it is ``zero_ms``). At bf16 rows
+    (``dtype``) the rows and the buffer are bf16: JAX's VJP adds rounded
+    cotangents into a bf16 table."""
     import torch
 
     from jarvis_hybridnet_torch.kernels.repro_gather import padded_width
 
+    dtype = dtype or torch.float32
     B, C, N = idx.shape
     J = grad.shape[-1]
     flat = (idx.long() + torch.arange(B * C, device=idx.device).view(B, C, 1) * hs2).reshape(-1)
-    src = (grad.reshape(B, N, J) / C)[:, None].expand(B, C, N, J).reshape(-1, J).contiguous()
-    view = torch.zeros((B * C * hs2, padded_width(J, 4)), device=grad.device)[:, :J]
+    src = (grad.reshape(B, N, J) / C).to(dtype)[:, None].expand(B, C, N, J).reshape(-1, J)
+    src = src.contiguous()
+    view = torch.zeros((B * C * hs2, padded_width(J, src.element_size())), dtype=dtype,
+                       device=grad.device)[:, :J]
     return lambda: view.index_add_(0, flat, src)
 
 
@@ -541,17 +561,21 @@ def backward_entry(name, mode, call, plain, grad, idx, err, launches, per_step, 
     """The kernels line's entry of a gather backward at the production key:
     device and wall ms, the plain version's, the bytes bound (the upstream
     gradient and the indices read once, the padded rows' buffer written
-    once), the adds it makes (B * C * points * J) and, for K12 in exact and
-    half_fused, one ``index_add_`` as the library call."""
+    once, in the rows' dtype), the adds it makes (B * C * points * J) and,
+    for K12 in exact and half_fused, one ``index_add_`` as the library call.
+    At bf16 rows the call is the float32 pass and the rounding pass."""
     import torch
+
+    from jarvis_hybridnet_torch.kernels.repro_gather import padded_width
 
     out = call(grad, idx)
     B, C, hs2, S = out.shape[0], out.shape[1], out.shape[2], out.stride(2)
-    nbytes = grad.numel() * 4 + idx.numel() * 4 + B * C * hs2 * S * 4
+    nbytes = grad.numel() * 4 + idx.numel() * 4 + B * C * hs2 * S * out.element_size()
     atomics = idx.numel() * grad.shape[-1]
-    library = (graph_ms(index_add_call(grad, idx, hs2)) if mode in ("exact", "half_fused")
-               else None)
-    e = dict(name=name, route="cuda", kernels_per_call=1,
+    library = (graph_ms(index_add_call(grad, idx, hs2, out.dtype))
+               if mode in ("exact", "half_fused") else None)
+    S32 = padded_width(out.shape[3], 4)  # the float32 buffer K11 / K12 zero and add into
+    e = dict(name=name, route="cuda", kernels_per_call=1 if out.dtype == torch.float32 else 2,
              source="jarvis_hybridnet_torch/kernels/csrc/" + (
                  "repro_gather_backward.cu" if mode == "quarter_fused"
                  else "repro_grid_gather_backward.cu"),
@@ -563,14 +587,15 @@ def backward_entry(name, mode, call, plain, grad, idx, err, launches, per_step, 
              plain_ms=cuda_ms(lambda: plain(grad, idx), iters=3, warmup=1),
              bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=library,
              atomics=atomics,
-             zero_ms=graph_ms(lambda: torch.zeros((B, C, hs2, S), device=grad.device)))
+             zero_ms=graph_ms(lambda: torch.zeros((B, C, hs2, S32), device=grad.device)))
     if mode != "quarter_fused":
         e["mode"] = mode
     note(f"{name} at the production key: device {e['ms']:.4f} ms (of which zeroing the "
-         f"{B * C * hs2 * S * 4 / 1e6:.2f} MB buffer alone takes {e['zero_ms']:.4f}), wall "
+         f"{B * C * hs2 * S32 * 4 / 1e6:.2f} MB buffer alone takes {e['zero_ms']:.4f}), wall "
          f"{e['wall_ms']:.4f}, plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.4f} "
          f"({nbytes / 1e6:.2f} MB)"
-         + (f", index_add_ {library:.4f}" if library is not None else "") + "; "
+         + (f", index_add_ {library:.4f}" if library is not None else "")
+         + (f" ({out.dtype} rows)" if out.dtype != torch.float32 else "") + "; "
          f"{atomics / 1e6:.2f} M adds, {atomics / e['ms'] / 1e6:.1f} G adds/s; "
          f"{per_step} a step; card: {smi}")
     return e
@@ -846,7 +871,7 @@ class ShapeRecorder:
 
         def rec_k8(out4, out2, kps, input_size, sigma_base):
             count(self.k8, (tuple(out4.shape), out4.stride(), tuple(out2.shape), out2.stride(),
-                            input_size, sigma_base),
+                            input_size, sigma_base, out4.dtype),
                   (out4.detach(), out2.detach(), kps, input_size, sigma_base))
             return k8(out4, out2, kps, input_size, sigma_base)
 
@@ -1636,7 +1661,7 @@ NETS_2D = ("CenterDetect", "KeypointDetect")
 
 
 def training_project(parent: str, dataset: str, epochs: int, bbox: int, cube: int,
-                     spacing: int, joints: int, workers: int = 4) -> None:
+                     spacing: int, joints: int, cameras: int, workers: int = 4) -> None:
     """The synthetic project ``Train`` whose ``train_hybridnet`` and
     ``train_efficienttrack`` runs the training phases drive: MonkeyHand's
     networks (256^2 CenterDetect input, ``bbox``^2 crops), batch 4 for the
@@ -1651,7 +1676,7 @@ def training_project(parent: str, dataset: str, epochs: int, bbox: int, cube: in
         "KEYPOINTDETECT": {"MODEL_SIZE": "small", "NUM_JOINTS": joints,
                            "BOUNDING_BOX_SIZE": bbox, "BATCH_SIZE": 4, "NUM_EPOCHS": epochs},
         "HYBRIDNET": {"ROI_CUBE_SIZE": cube, "GRID_SPACING": spacing, "BATCH_SIZE": 1,
-                      "NUM_EPOCHS": epochs},
+                      "NUM_EPOCHS": epochs, "NUM_CAMERAS": cameras},
         "TPU": {"REPRO_MODE": "quarter_fused", "TRAIN_DTYPE": "float32"},
         "DATALOADER_NUM_WORKERS": workers,
     })
@@ -1888,7 +1913,7 @@ def training_data(parent: str, note) -> None:
     dataset = write_dataset3d(os.path.join(parent, "datasets", "Synth"),
                               synthetic_rig(CAMS, W, H), W, H, 23, splits=TRAIN_SPLITS,
                               extent_mm=100.0, seed=5)
-    training_project(parent, dataset, TRAIN_EPOCHS, 256, 144, 2, 23)
+    training_project(parent, dataset, TRAIN_EPOCHS, 256, 144, 2, 23, CAMS)
     note(f"training: synthetic dataset of {sum(n for _, n in TRAIN_SPLITS)} framesets "
          f"x {CAMS} cameras of {W}x{H} JPEG written in {time.perf_counter() - t0:.2f} s")
     os.environ["JARVIS_PARENT_DIR"] = parent
@@ -2241,7 +2266,7 @@ def training_card_vs_cpu(ckpt, note, mode="3D_only") -> None:
         dataset = write_dataset3d(os.path.join(parent, "datasets", "Small"),
                                   synthetic_rig(4, 320, 256), 320, 256, 23,
                                   splits=(("val", 1),), extent_mm=40.0, seed=6)
-        training_project(parent, dataset, 1, 128, 48, 4, 23, workers=0)
+        training_project(parent, dataset, 1, 128, 48, 4, 23, 4, workers=0)
         pm = ProjectManager(parent)
         pm.load("Train")
         cfg = pm.get_cfg()
@@ -2501,12 +2526,14 @@ def train2d_card_vs_cpu(ckpt, note) -> None:
         fail("the card-vs-CPU 2D training gate does not tell a TF32 step from a float32 one")
 
 
-def check_k8(kernels, recorder, runs, note) -> list:
-    """K8 at every (heads, input size, sigma) a driven path gave it, against
-    its plain version: the loss within 1e-6 relative, both heads' gradients
-    equal to the plain version's bit for bit, two calls of each bit-equal;
-    each key timed (forward and backward: device, wall, plain, bound). The
-    kernels line: each net's training key."""
+def check_k8(kernels, recorder, runs, path_counts, note) -> list:
+    """K8 at every (heads, input size, sigma, dtype) a driven path gave it,
+    against its plain version: the loss within 1e-6 relative, both heads'
+    gradients equal to the plain version's bit for bit (at bf16 heads: both
+    compute the float32 gradient and round it once; stricter than the 1 bf16
+    ulp of JAX's the tests hold the plain version to), two calls of each
+    bit-equal; each key timed (forward and backward: device, wall, plain,
+    bound). The kernels line: each net's training key, and its bf16 one."""
     import torch
 
     from jarvis_hybridnet_torch.kernels.heatmap2d_loss import walk_plan
@@ -2527,7 +2554,7 @@ def check_k8(kernels, recorder, runs, note) -> list:
         gsame = all(torch.equal(k, p) for k, p in zip(kg, pg))
         twice = (torch.equal(kl, kl2) and torch.equal(km, km2)
                  and all(torch.equal(a, b) for a, b in zip(kg, kg2)))
-        fwd_bytes = (out4.numel() + out2.numel()) * 4
+        fwd_bytes = (out4.numel() + out2.numel()) * out4.element_size()
         timing = {}
         for name, call, plain, nbytes in (
                 ("fwd", lambda: kernels.heatmap2d_loss_fwd(*args),
@@ -2540,8 +2567,9 @@ def check_k8(kernels, recorder, runs, note) -> list:
         walks = walk_plan(
             out4.shape[0], out4.shape[1], tuple((*o.shape[2:], int(not o.is_contiguous()))
                                                 for o in (out4, out2)))
-        note(f"heatmap2d_loss out4 {key[0]} strides {key[1]}, out2 {key[2]}, input {size}, "
-             f"sigma base {base} (calls per path {json.dumps(per)}): loss {float(kl):.6f} vs "
+        note(f"heatmap2d_loss out4 {key[0]} strides {key[1]}, out2 {key[2]}, {out4.dtype}, "
+             f"input {size}, sigma base {base} (calls per path {json.dumps(per)}): loss "
+             f"{float(kl):.6f} vs "
              f"plain {float(pl):.6f} ({lrel:.2e} relative, tol 1e-6), gradients "
              f"{'equal' if gsame else f'DIFFER ({grel:.2e} of max)'} (tol 0), two calls "
              f"{'bit-equal' if twice else 'DIFFER'}; forward device "
@@ -2553,17 +2581,24 @@ def check_k8(kernels, recorder, runs, note) -> list:
         if lrel > 1e-6 or not gsame or not twice:
             fail("heatmap2d_loss differs from its plain version, or between two calls")
         net = next((n for n in NETS_2D if f"train2d_{n}" in per), None)
-        if net is None:
+        bnet = next((n for n in NETS_2D if bf16_path(n) in per), None)
+        if net is None and bnet is None:
             continue
         for name, err in (("fwd", abs(float(kl) - float(pl))),
                           ("bwd", max(float((k - p).abs().max()) for k, p in zip(kg, pg)))):
             wrapper = f"heatmap2d_loss_{name}"
+            if net is None:
+                launches, label = path_counts[bf16_path(bnet)][wrapper], f"[bf16 {bnet}]"
+            else:
+                launches = runs[net][wrapper]
+                label = "" if net == "KeypointDetect" else f"[{net}]"
             entries.append(dict(
-                name=wrapper if net == "KeypointDetect" else f"{wrapper}[{net}]", route="cuda",
+                name=wrapper + label, route="cuda",
                 kernels_per_call=1, source="jarvis_hybridnet_torch/kernels/csrc/heatmap2d_loss.cu",
                 replaces="jarvis_hybridnet_tpu/training/trainer2d.py:31",
-                launches=runs[net][wrapper], max_abs_err=err, bound_by="bytes",
-                library_ms=None, per="train2d step", **timing[name]))
+                launches=launches, max_abs_err=err, bound_by="bytes",
+                library_ms=None, per="train2d step", dtype=str(out4.dtype).split(".")[-1],
+                **timing[name]))
     return entries
 
 
@@ -3006,6 +3041,122 @@ def twin_verdict(eager: list, graphed: list) -> tuple:
             f"{emax:.3e} RMS {erms:.3e} (tol {GAP_FACTOR:g}x)")
 
 
+# At bf16 rows the gather's backward (K11, K12) adds float32 sums with
+# atomics and rounds them to bf16 once: another order of the adds moves a
+# rounding now and then (two calls of K11 / K12 on the card differ in about
+# 1e-4 of the rows' gradient elements, by one ulp). Two eager twins,
+# launched alike, seldom show it; a replay may. Where such a replay is not
+# bit-equal to its eager twin, the outputs and all the gather's backward
+# does not reach (V2V's tensors and their AdamW state, the 2D net's buffers
+# and AdamW step counts) are held bit-equal, and the 2D net tensor by
+# tensor (``live_groups``): each AdamW moment's distance to the eager
+# twin's over its RMS (exp_avg takes 0.1 of the step's gradient,
+# exp_avg_sq 0.001 of its square), each parameter's over the step's own
+# move of it, the median tensor of each within BF16_FLIP_MEDIAN and every
+# tensor within BF16_FLIP_TENSOR. The bf16 backward through the 2D net
+# spreads one flip over every tensor at bf16's own noise: on the CPU
+# (``test_chip_smoke_flip_rule``, the small rig) a flip of 1e-4 to 1e-2 of
+# the rows' gradient elements read medians 0.015-0.040 and tensors up to
+# 0.155 (SE branches); a rows gradient zeroed, one step old (the other
+# batch's) or halved read medians 0.26-1.02 and their largest tensor
+# 0.71-2.71. A fault within bf16's noise passes (the rows' gradient 1% too
+# small read as a flip)
+BF16_FLIP_MEDIAN = 0.1
+BF16_FLIP_TENSOR = 0.5
+
+
+def live_groups(d: dict) -> list:
+    """The tensors of ``d`` (the 2D net's names -> tensors) held one by one,
+    as lists of names: the BiFPN fusion weights (2-3 values each, sums of
+    whole feature maps that cancel) as one group; left out, the ones zero
+    but for round-off (a conv bias ahead of an InstanceNorm; a tensor below
+    1e-6 of the largest weight's largest element)."""
+    import re
+
+    wmax = max(float(v.abs().max()) for k, v in d.items() if k.endswith("weight"))
+    fusion = [k for k in d if re.search(r"_w\d$", k) or k.endswith("weights_cat")]
+    live = [[k] for k, v in d.items() if k not in fusion and not (
+        k.endswith("pointwise_conv.bias") or re.search(r"\.\d\.bias$", k)
+        or float(v.abs().max()) < 1e-6 * wmax)]
+    return live + ([fusion] if fusion else [])
+
+
+def group_gaps(a: dict, b: dict, groups: list, scale: dict | None = None) -> list:
+    """(RMS(a - b) / RMS(scale, else b), the group's first name) for each
+    group of ``live_groups``, every group's tensors as one vector."""
+    import torch
+
+    def cat(d, g):
+        return torch.cat([d[k].double().flatten() for k in g])
+
+    ref = b if scale is None else scale
+    return [(float((cat(a, g) - cat(b, g)).square().mean().sqrt()
+                   / cat(ref, g).square().mean().sqrt().clamp_min(1e-300)), g[0])
+            for g in groups]
+
+
+def split_state(out, trainer, opt, before: dict) -> tuple:
+    """A copy of a step's state in two parts: a list of the tensors a bf16
+    rounding flip in the gather's backward cannot reach (the outputs, V2V's
+    tensors and their optimizer state, the 2D net's buffers and step
+    counts), and for the 2D net (``effTrack.``) name -> tensor dicts of its
+    parameters (``p``), their move in the step from ``before`` (``move``)
+    and AdamW's moments (``m``, ``v``). Copies: the next step and
+    ``sync_twin`` write the live tensors."""
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    params = dict(trainer.model.named_parameters())
+    up = list(out)
+    down = {"p": {}, "move": {}, "m": {}, "v": {}}
+    for n, t in trainer.model.state_dict().items():
+        if not n.startswith("effTrack."):
+            up.append(t)
+        elif n in params:
+            down["p"][n] = t
+            down["move"][n] = t - before[n]
+        else:
+            up.append(t)
+    for p, st in opt.state.items():
+        n = names[id(p)]
+        if not n.startswith("effTrack."):
+            up.extend(v for v in st.values() if hasattr(v, "dtype"))
+            continue
+        up.append(st["step"])
+        down["m"][n], down["v"][n] = st["exp_avg"], st["exp_avg_sq"]
+    return ([t.detach().clone() for t in up],
+            {k: {n: t.detach().clone() for n, t in d.items()} for k, d in down.items()})
+
+
+def flip_verdict(pairs: list) -> tuple:
+    """(held, words) over (replay, eager twin) pairs of ``split_state``s:
+    the first parts bit-equal; in the second, over the live groups
+    (``live_groups`` of the eager twin's exp_avg), each of exp_avg,
+    exp_avg_sq (over their RMS) and the parameters (over the step's move):
+    the median group within BF16_FLIP_MEDIAN, every group within
+    BF16_FLIP_TENSOR."""
+    import statistics
+
+    import torch
+
+    same, median, worst = True, {}, {}
+    for (ru, rd), (eu, ed) in pairs:
+        same = same and all(torch.equal(a, b) for a, b in zip(ru, eu))
+        groups = live_groups(ed["m"])
+        for kind in ("m", "v", "p"):
+            gaps = group_gaps(rd[kind], ed[kind], groups,
+                              ed["move"] if kind == "p" else None)
+            median[kind] = max(median.get(kind, 0.0), statistics.median(g for g, _ in gaps))
+            worst[kind] = max([worst.get(kind, (0.0, "")), *gaps])
+    held = same and all(median[k] <= BF16_FLIP_MEDIAN and worst[k][0] <= BF16_FLIP_TENSOR
+                        for k in median)
+    words = "; ".join(f"{what} median {median[k]:.3e}, largest {worst[k][0]:.3e} ({worst[k][1]})"
+                      for k, what in (("m", "exp_avg"), ("v", "exp_avg_sq"),
+                                      ("p", "parameters (of the step's move)")))
+    return (held, f"a K11 / K12 rounding moved: outputs, V2V's tensors and AdamW state, the 2D "
+                  f"net's step counts {'bit-equal' if same else 'DIFFER'}; the 2D net's tensors "
+                  f"against the eager twin's: {words} (tol median {BF16_FLIP_MEDIAN:g}, each "
+                  f"{BF16_FLIP_TENSOR:g})")
+
+
 def seeded_set(ds, seed: int = 11):
     """``ds`` with its host augmentation's generators seeded: two runs over it
     with one loader thread draw the same batches."""
@@ -3115,10 +3266,14 @@ def train_graph_steps(kernels, cfg, ckpt, label, net, mode, repro, note, smi) ->
         twins = [train_graph_trainer(cfg, ckpt, net, mode, repro, g, f"Twin{i}_{label}")
                  for i, g in enumerate((False, False, True))]
         for kind in ("train", "eval"):
-            eager_gaps, graph_gaps = [], []
+            eager_gaps, graph_gaps, splits, eager_splits = [], [], [], []
+            flips = (kind == "train" and net == "HybridNet" and mode != "3D_only"
+                     and str(cfg.TPU.get("TRAIN_DTYPE", "float32")) == "bfloat16")
             for n, lr in enumerate(TRAIN_GRAPH_LRS):
                 b = batches[n % 2]
                 outs = []
+                before = ({k: p.detach().clone() for k, p in twins[2][0].model.named_parameters()
+                           if k.startswith("effTrack.")} if flips else None)
                 for i, (trainer, opt) in enumerate(twins):
                     if i < 2:
                         sync_twin(twins[i], twins[2])
@@ -3131,9 +3286,22 @@ def train_graph_steps(kernels, cfg, ckpt, label, net, mode, repro, note, smi) ->
                         torch.cuda.set_sync_debug_mode(0)
                 states = [twin_state(o, t, opt) for o, (t, opt) in zip(outs, twins)]
                 eager_gaps.append(twin_gap(states[1], states[0]))
+                if flips:
+                    parts = [split_state(o, t, opt, before) for o, (t, opt) in zip(outs, twins)]
+                    if not eager_gaps[-1][0]:
+                        eager_splits.append((parts[1], parts[0]))
                 if n >= graphed.WARMUP:  # the capture's replay and the replays after it
                     graph_gaps.append(twin_gap(states[2], states[0]))
+                    if flips and not graph_gaps[-1][0]:
+                        splits.append((parts[2], parts[0]))
             held, words = twin_verdict(eager_gaps, graph_gaps)
+            if flips and not held:
+                held, words = flip_verdict(splits)
+            if flips and (splits or eager_splits):
+                note(f"train graph {label} {kind}: the flip rule's readings (information where "
+                     f"the rule above is not it): the replays that differ: "
+                     f"{flip_verdict(splits)[1] if splits else 'none'}; the eager twins that "
+                     f"differ: {flip_verdict(eager_splits)[1] if eager_splits else 'none'}")
             step = twins[2][0].graphs.steps[kind][1]
             res[kind] = dict(held=held, words=words, captures=len(step.graphs))
             gaps = ", ".join("equal" if g[0] else f"{g[1]:.2e} / {g[2]:.2e}" for g in graph_gaps)
@@ -3308,12 +3476,15 @@ def train_graph_loop(ckpt, label, net, mode, graph, note, smi) -> float:
     return rate_
 
 
-def train_graph_phase(kernels, ckpt, note, smi) -> list:
-    """Every training path eager against graphed (``train_graph_steps``,
-    ``train_graph_run``), then the loops of 3D_only, ``all`` and both 2D nets
-    as a user runs them, eager and graphed (``train_graph_loop``);
-    ``chiprun_out/chip_smoke_train_graphs.txt`` lists the kernels of each
-    graphed step by name and count."""
+def train_graph_phase(kernels, ckpt, note, smi, dtype: str = "float32") -> list:
+    """Every training path at ``TPU.TRAIN_DTYPE`` ``dtype`` eager against
+    graphed (``train_graph_steps``) and its ``train()`` graphed against
+    eager (``train_graph_run``), labelled ``<path>`` at float32 and ``bf16
+    <path>`` at bf16; at float32 then the loops of 3D_only, ``all`` and both
+    2D nets as a user runs them, eager and graphed (``train_graph_loop``).
+    ``chiprun_out/chip_smoke_train_graphs.txt`` (float32) or
+    ``chip_smoke_train_graphs_bf16.txt`` lists the kernels of each graphed
+    step by name and count."""
     import gc
 
     import torch
@@ -3323,28 +3494,399 @@ def train_graph_phase(kernels, ckpt, note, smi) -> list:
     pm = ProjectManager(os.environ["JARVIS_PARENT_DIR"])
     pm.load("Train")
     cfg = pm.get_cfg()
+    bf16 = dtype == "bfloat16"
+    if bf16:
+        cfg = bf16_cfg(cfg)
+    prefix = "bf16 " if bf16 else ""
     results = []
     for label, net, mode, repro in TRAIN_GRAPH_PATHS:
-        res = train_graph_steps(kernels, cfg, ckpt, label, net, mode, repro, note, smi)
-        res["run"] = train_graph_run(cfg, ckpt, label, net, mode, repro, note, smi)
+        res = train_graph_steps(kernels, cfg, ckpt, prefix + label, net, mode, repro, note, smi)
+        res["run"] = train_graph_run(cfg, ckpt, prefix + label, net, mode, repro, note, smi)
         results.append(res)
         gc.collect()
         torch.cuda.empty_cache()
-    for label, net, mode, _ in TRAIN_GRAPH_PATHS:
-        if label in ("3D_only", "all", "CenterDetect", "KeypointDetect"):
-            res = next(r for r in results if r["label"] == label)
+    for res, (label, net, mode, _) in zip(results, TRAIN_GRAPH_PATHS):
+        if not bf16 and label in ("3D_only", "all", "CenterDetect", "KeypointDetect"):
             res["loop"] = {name: train_graph_loop(ckpt, label, net, mode, g, note, smi)
                            for name, g in (("eager", False), ("graphed", True))}
             gc.collect()
             torch.cuda.empty_cache()
-    with open(os.path.join(REPO, "chiprun_out", "chip_smoke_train_graphs.txt"), "w") as log:
-        log.write(f"card: {smi}\nkernels a step of each graphed training step "
+    name = f"chip_smoke_train_graphs{'_bf16' if bf16 else ''}.txt"
+    with open(os.path.join(REPO, "chiprun_out", name), "w") as log:
+        log.write(f"card: {smi}\nkernels a step of each graphed {prefix}training step "
                   f"(torch.profiler, {ITERS} replays)\n")
         for r in results:
             log.write(f"{r['label']}:\n")
             for key, count in r["graphed"]["kernels"].most_common():
                 log.write(f"  {count / ITERS:8.1f}  {key[:160]}\n")
     return results
+
+
+# bf16 mixed-precision training (TPU.TRAIN_DTYPE bfloat16): the paths of
+# TRAIN_GRAPH_PATHS at bf16 compute with float32 masters
+# the card's bf16-vs-float32 gap of a step within this many times the CPU's
+BF16_GAP_FACTOR = 1.5
+# each tensor's (``live_groups``) card gap, pooled over BF16_SEEDS (the RMS
+# of its relative gaps), within this many times the CPU's: one seed's
+# largest tensor read 1.27-3.14 over four seeds and both steps on an H100
+# (SE reduce tensors, in steps whose convolutions all rounded once there:
+# bf16 noise carried along the backward, not a rounding), and the pooled
+# reading is at most the largest of its seeds'
+BF16_TENSOR_FACTOR = 4.0
+# (the 3D set's seed, the 2D images' seed) of the card-vs-CPU steps
+BF16_SEEDS = ((6, 9), (8, 10))
+
+
+def bf16_path(label: str) -> str:
+    """The launch-count path of a bf16 training path's counted step."""
+    return f"bf16_{label.replace(' ', '_')}_step"
+
+
+def bf16_cfg(cfg):
+    """``cfg`` at ``TPU.TRAIN_DTYPE: bfloat16``."""
+    cfg = cfg.clone()
+    cfg.TPU.TRAIN_DTYPE = "bfloat16"
+    return cfg
+
+
+def bf16_steps(kernels, ckpt, recorder, note, smi) -> dict:
+    """Every training path at bf16, eager, at full width: one warm-up step,
+    then one step counted (``path_launches`` under ``bf16_<label>_step``,
+    every hand-written kernel of the path launched, the arguments of K1, K2,
+    K6, K8, K9 and K10 recorded: the bf16 keys the checks hold to the plain
+    versions); the loss finite, the parameters, their gradients and AdamW's
+    state float32. Returns {path: launch counts}."""
+    import torch
+
+    from jarvis_hybridnet_torch.config.project_manager import ProjectManager
+
+    pm = ProjectManager(os.environ["JARVIS_PARENT_DIR"])
+    pm.load("Train")
+    cfg = bf16_cfg(pm.get_cfg())
+    out = {}
+    for label, net, mode, repro in TRAIN_GRAPH_PATHS:
+        names = (TRAIN2D_KERNELS if net != "HybridNet" else TRAINING_KERNELS
+                 if mode == "3D_only" else TRAINING_ALL_KERNELS if repro == "quarter_fused"
+                 else K12_STEP_KERNELS)
+        trainer, opt = train_graph_trainer(cfg, ckpt, net, mode, repro, False,
+                                           f"Bf16Count_{label}")
+        batches = train_graph_batches(cfg, net)
+        trainer.train_step(batches[0], opt, 1e-6)
+        path = bf16_path(label)
+        (loss, _), out[path] = path_launches(lambda: trainer.train_step(batches[1], opt, 1e-6),
+                                             kernels, names, path, recorder)
+        masters = all(p.dtype == torch.float32 for p in trainer.model.parameters())
+        grads = all(p.grad is None or p.grad.dtype == torch.float32
+                    for p in trainer.model.parameters())
+        moments = all(v.dtype == torch.float32 for s in opt.state.values()
+                      for k, v in s.items() if k.startswith("exp_avg"))
+        note(f"training bf16 {label} step (full width, eager, compute {trainer.dtype}): loss "
+             f"{float(loss):.4f}; parameters, gradients and AdamW moments float32: "
+             f"{masters and grads and moments}; launches {json.dumps(out[path])}; card: {smi}")
+        if not (math.isfinite(float(loss)) and masters and grads and moments):
+            fail(f"training bf16 {label}: loss {float(loss)}, float32 masters {masters}, "
+                 f"gradients {grads}, moments {moments}")
+        del trainer, opt, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_grad_gap(a: dict, b: dict) -> list:
+    """(RMS(a - b) / RMS(b), name) for each group of ``live_groups(b)``:
+    every tensor alone but the BiFPN fusion weights (one group), the ones
+    zero but for round-off left out."""
+    return group_gaps(a, b, live_groups(b))
+
+
+def mean_gap(gaps: list) -> float:
+    return sum(g for g, _ in gaps) / len(gaps)
+
+
+# a convolution's RMS error over that of its float64 value rounded once to
+# bf16, from the same bf16 operands: float32 accumulation rounded once
+# reads 1.0 (the CPU's convolutions read 1.0000,
+# ``test_bf16_step_convs_round_once``), float32 partial sums rounded to
+# bf16 before their last add 1.37-1.50, a sum in bf16 pairwise 2.65-3.83
+# and one in bf16 term by term 6.1-56 (``test_conv_rounding_reads_accumulation``).
+# On an H100 cuDNN's bf16 weight gradient of V2V's 1x1x1 output conv read
+# 1.27-1.49 (rounded partial sums), its bf16 input gradients of the SE
+# gates 1.55-2.30 (hence ``layers._apply``'s float32 path for them), so the
+# bound tells float32 accumulation with rounded partials from accumulation
+# in bf16
+CONV_ROUND_TOL = 2.0
+CONV_ONE_ROUNDING = 1.1  # convolutions above it are counted
+
+
+@contextlib.contextmanager
+def conv_witness():
+    """Every convolution ``models.layers.conv`` runs below float32 inside
+    the block, recorded (at ``layers._apply``): its operands in the compute
+    dtype, its output, and the gradients of its output, input and weight as
+    autograd hands them over (the bf16 results of the convolution's
+    backward as the port computes it). Yields the list of records."""
+    import torch
+
+    from jarvis_hybridnet_torch.models import layers
+
+    calls, apply = [], layers._apply
+
+    def recorded(fn, x, w, b, args):
+        if x.dtype == torch.float32:
+            return apply(fn, x, w, b, args)
+        rec = dict(fn=fn, args=args, x=x.detach(), w=w.detach())
+        x, w = x.view_as(x), w.view_as(w)  # their own gradients: this call's
+        for name, t in (("dx", x), ("dw", w)):
+            if t.requires_grad:
+                t.register_hook(functools.partial(rec.__setitem__, name))
+        y = apply(fn, x, w, b, args)
+        rec["y"] = y.detach()
+        if y.requires_grad:
+            y.register_hook(functools.partial(rec.__setitem__, "dy"))
+        calls.append(rec)
+        return y
+
+    layers._apply = recorded
+    try:
+        yield calls
+    finally:
+        layers._apply = apply
+
+
+def conv_rounding(calls: list) -> dict:
+    """For each record of ``conv_witness`` whose output got a gradient, the
+    convolution and its input and weight gradients recomputed in float64
+    from the same bf16 operands, on their device; each result's RMS error
+    over that of the float64 value rounded once to bf16. Returns {kind:
+    (the worst ratio, its weight's shape, the least share of elements equal
+    to the rounded float64 value, the count of convolutions above
+    CONV_ONE_ROUNDING)} for kind in y, dx, dw, and the count of
+    convolutions under ``calls``."""
+    import torch
+
+    out = {}
+    for rec in calls:
+        if "dy" not in rec:
+            continue
+        x = rec["x"].double().requires_grad_("dx" in rec)
+        w = rec["w"].double().requires_grad_("dw" in rec)
+        with torch.enable_grad():
+            y = rec["fn"](x, w, None, *rec["args"])
+            if y.requires_grad:
+                y.backward(rec["dy"].double())
+        for kind, got, ref in (("y", rec["y"], y.detach()), ("dx", rec.get("dx"), x.grad),
+                               ("dw", rec.get("dw"), w.grad)):
+            if got is None:
+                continue
+            rounded = ref.to(got.dtype).double()
+            ratio = float((got.double() - ref).square().mean().sqrt()
+                          / (rounded - ref).square().mean().sqrt().clamp_min(1e-300))
+            share = float((got.double() == rounded).double().mean())
+            worst, shape, least, over = out.get(kind, (0.0, None, 1.0, 0))
+            if ratio > worst:
+                worst, shape = ratio, tuple(rec["w"].shape)
+            out[kind] = (worst, shape, min(least, share), over + (ratio > CONV_ONE_ROUNDING))
+    out["calls"] = sum("dy" in rec for rec in calls)
+    return out
+
+
+def rounding_words(r: dict) -> str:
+    return "; ".join(f"{k} worst {r[k][0]:.4f} (weight {r[k][1]}), least share equal "
+                     f"{r[k][2]:.4f}, {r[k][3]} over {CONV_ONE_ROUNDING:g}"
+                     for k in ("y", "dx", "dw"))
+
+
+def bf16_card_vs_cpu(ckpt, note, smi) -> None:
+    """The bf16 ``all`` step (4 framesets of 4 cameras, 128^2 crops, G = 12,
+    quarter_fused) and the bf16 KeypointDetect step (4 images of 128^2), in
+    ``eval()``, from the committed checkpoints, at bf16 and at float32 on the
+    card and on the CPU (TF32 off), on the inputs of each of BF16_SEEDS:
+    bf16 round-off moves a gradient by far more than the two devices'
+    float32 steps differ, and the two devices' bf16 convolutions sum in
+    other orders, so the card's bf16 step is held to the CPU's through their
+    gaps to float32 (``bf16_grad_gap``): the mean over the tensors within
+    BF16_GAP_FACTOR times the CPU's for each seed, each tensor's over the
+    seeds pooled within BF16_TENSOR_FACTOR times the CPU's. Every bf16
+    convolution of both steps on the card
+    (``conv_witness``) within CONV_ROUND_TOL of its float64 value rounded
+    once, from the same bf16 operands (``conv_rounding``; the CPU's printed
+    beside): the card's convolutions accumulate in float32, not in bf16.
+    The loss gaps and the card's bf16 gradients against the CPU's are
+    printed (information)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from jarvis_hybridnet_torch.config.project_manager import ProjectManager
+    from jarvis_hybridnet_torch.dataset.dataset3d import Dataset3D
+    from jarvis_hybridnet_torch.testing import synthetic_rig, write_dataset3d
+    from jarvis_hybridnet_torch.training.trainer2d import EfficientTrackTrainer, host_batch
+    from jarvis_hybridnet_torch.training.trainer3d import BATCH_KEYS, HybridNetTrainer
+
+    def grads_of(trainer, batch, device):
+        model = trainer.model.eval()
+        with conv_witness() as calls:
+            loss, _ = trainer.forward({k: torch.from_numpy(v).to(device)
+                                       for k, v in batch.items()})
+            loss.backward()
+        return (float(loss.detach()), {n: p.grad.detach().cpu().clone()
+                                       for n, p in model.named_parameters()
+                                       if p.grad is not None},
+                conv_rounding(calls) if calls else None)
+
+    pooled = {}
+    for seed3d, seed2d in BF16_SEEDS:
+        with tempfile.TemporaryDirectory() as parent:
+            dataset = write_dataset3d(os.path.join(parent, "datasets", "Small"),
+                                      synthetic_rig(4, 320, 256), 320, 256, 23,
+                                      splits=(("val", 4),), extent_mm=40.0, seed=seed3d)
+            training_project(parent, dataset, 1, 128, 48, 4, 23, 4, workers=0)
+            pm = ProjectManager(parent)
+            pm.load("Train")
+            cfg = pm.get_cfg()
+            ds = Dataset3D(cfg, set="val", device_targets=True)
+            samples = [ds[i] for i in range(4)]
+            batch3d = {k: np.stack([np.asarray(s[k]) for s in samples]) for k in BATCH_KEYS}
+            rng = np.random.default_rng(seed2d)
+            imgs = rng.integers(0, 256, (4, 128, 128, 3), dtype=np.uint8)
+            kps = np.zeros((4, 1, 69), np.float32)
+            kps[..., 0::3], kps[..., 1::3], kps[..., 2::3] = (
+                rng.uniform(8, 120, (4, 1, 23)), rng.uniform(8, 120, (4, 1, 23)), 1.0)
+            batch2d, _ = host_batch((imgs, kps))
+            cfg2d = cfg.clone()
+            cfg2d.KEYPOINTDETECT.BOUNDING_BOX_SIZE = 128
+            steps = {}
+            for device in ("cuda", "cpu"):
+                for dtype in ("float32", "bfloat16"):
+                    c3, c2 = cfg.clone(), cfg2d.clone()
+                    c3.TPU.TRAIN_DTYPE = c2.TPU.TRAIN_DTYPE = dtype
+                    t3 = HybridNetTrainer("train", c3, weights=ckpt["HybridNet"], device=device,
+                                          run_name=f"bf16gap_{device}_{dtype}",
+                                          training_mode="all")
+                    t2 = EfficientTrackTrainer("KeypointDetect", c2,
+                                               weights=ckpt["KeypointDetect"], device=device,
+                                               run_name=f"bf16gap_{device}_{dtype}")
+                    steps[device, dtype] = (grads_of(t3, batch3d, device),
+                                            grads_of(t2, batch2d, device))
+                    del t3, t2
+        for i, what in enumerate(("all step (4 framesets, G = 12)",
+                                  "KeypointDetect step (4 images of 128^2)")):
+            what = f"{what}, seeds {seed3d} / {seed2d}"
+            (lc16, gc16, rc), (lc32, gc32, _) = (steps["cuda", d][i]
+                                                 for d in ("bfloat16", "float32"))
+            (lp16, gp16, rp), (lp32, gp32, _) = (steps["cpu", d][i]
+                                                 for d in ("bfloat16", "float32"))
+            card, cpu = bf16_grad_gap(gc16, gc32), bf16_grad_gap(gp16, gp32)
+            ratios = sorted(((c / max(p, 1e-300), n) for (c, n), (p, _) in zip(card, cpu)),
+                            reverse=True)
+            mc, mp = mean_gap(card), mean_gap(cpu)
+            note(f"training bf16 {what}, card vs CPU: gradients' relative RMS gap bf16 to "
+                 f"float32, mean over {len(card)} tensors on the card {mc:.4e}, on the CPU "
+                 f"{mp:.4e} (card / CPU {mc / mp:.3f}, tol {BF16_GAP_FACTOR:g}); each tensor's "
+                 f"card / CPU: largest {', '.join(f'{r:.3f} ({n})' for r, n in ratios[:4])}, "
+                 f"median {ratios[len(ratios) // 2][0]:.3f}, least {ratios[-1][0]:.3f} "
+                 f"(information: the seeds pooled are held below); float32 card vs CPU "
+                 f"{mean_gap(bf16_grad_gap(gc32, gp32)):.4e}; bf16 card vs CPU "
+                 f"{mean_gap(bf16_grad_gap(gc16, gp16)):.4e} (information); loss bf16 "
+                 f"{lc16:.6f} / {lp16:.6f}, float32 {lc32:.6f} / {lp32:.6f} (card / CPU; gaps to "
+                 f"float32 {abs(lc16 - lc32) / lc32:.3e} / {abs(lp16 - lp32) / lp32:.3e} "
+                 f"relative, information); card: {smi}")
+            note(f"training bf16 {what}: each bf16 convolution's RMS error over its float64 "
+                 f"value rounded once, from the same bf16 operands ({rc['calls']} convolutions "
+                 f"with a gradient): card {rounding_words(rc)} (tol {CONV_ROUND_TOL:g}); CPU "
+                 f"{rounding_words(rp)} (information)")
+            pooled.setdefault(i, []).append((dict((n, g) for g, n in card),
+                                             dict((n, g) for g, n in cpu)))
+            if not (mc <= BF16_GAP_FACTOR * mp and math.isfinite(lc16)):
+                fail(f"training bf16 {what}: the card's bf16 gap to float32 {mc} against the "
+                     f"CPU's {mp} (tol {BF16_GAP_FACTOR})")
+            if any(rc[k][0] > CONV_ROUND_TOL for k in ("y", "dx", "dw")):
+                fail(f"training bf16 {what}: a convolution on the card is off its float64 "
+                     f"value rounded once by more than {CONV_ROUND_TOL}x: {rounding_words(rc)}")
+    for i, what in enumerate(("all step", "KeypointDetect step")):
+        runs = pooled[i]
+        names = set.intersection(*(set(c) for c, _ in runs))
+        ratios = sorted(((math.sqrt(sum(c[n] ** 2 for c, _ in runs)
+                                    / max(sum(p[n] ** 2 for _, p in runs), 1e-300)), n)
+                         for n in names), reverse=True)
+        note(f"training bf16 {what}, card vs CPU, the {len(runs)} seeds pooled: each tensor's "
+             f"relative gap bf16 to float32 (RMS over the seeds) on the card over the CPU's: "
+             f"largest {', '.join(f'{r:.3f} ({n})' for r, n in ratios[:4])}, median "
+             f"{ratios[len(ratios) // 2][0]:.3f} over {len(ratios)} tensors (tol "
+             f"{BF16_TENSOR_FACTOR:g})")
+        if ratios[0][0] > BF16_TENSOR_FACTOR:
+            fail(f"training bf16 {what}: a tensor's card gap to float32 is {ratios[0][0]} x the "
+                 f"CPU's over the seeds ({ratios[0][1]}; tol {BF16_TENSOR_FACTOR})")
+
+
+def check_k11_k12_bf16(kernels, recorder, path_counts, note, smi) -> list:
+    """K11 at the bf16 ``all`` step's key (its bf16 rows, g4 = 18) and K12 in
+    each mode at G = 72 on the same rows, at bf16 rows: the rows' gradient
+    bf16 in 16-byte rows; against the plain version in float64, each element
+    within half a bf16 ulp of its float64 value (the one rounding) plus twice
+    the float32 plain version's largest error before rounding (the float32
+    sums' own); the share of elements off the float64 value's rounding
+    printed. Timed at that key: device, wall and plain ms, the bytes bound
+    (the upstream gradient and indices read, the bf16 rows written once) and
+    ``index_add_`` into bf16 rows (JAX's VJP adds rounded cotangents into a
+    bf16 table) where ``index_add_`` is the float32 library call too (exact,
+    half_fused). Returns the kernels line's entries."""
+    import torch
+
+    (args,) = [a for a, per in recorder.k2.values() if bf16_path("all") in per]
+    rows, c3d, chm, P, K, D, g4, step = args
+    if rows.dtype != torch.bfloat16:
+        fail(f"the bf16 all step gathered {rows.dtype} rows")
+    hs2, J = rows.shape[2], rows.shape[3]
+    bf16 = torch.bfloat16
+    cases = [("repro_quarter_gather_backward[bf16]", "quarter_fused",
+              lambda: kernels.repro_quarter_gather(rows, c3d, chm, P, K, D, g4, step, True),
+              lambda grad, idx: kernels.repro_quarter_gather_backward(grad, idx, hs2, J, bf16),
+              lambda grad, idx: kernels.repro_quarter_gather_backward_plain(grad, idx, hs2, J))]
+    G, sp = 4 * g4, step / 4.0
+    for mode in OTHER_MODES:
+        cases.append((f"repro_grid_gather_backward[bf16 {mode}]", mode,
+                      functools.partial(kernels.repro_grid_gather, rows, c3d, chm, P, K, D, G,
+                                        sp, mode, True),
+                      functools.partial(lambda m, grad, idx: kernels.repro_grid_gather_backward(
+                          grad, idx, hs2, J, m, bf16), mode),
+                      functools.partial(lambda m, grad, idx:
+                                        kernels.repro_grid_gather_backward_plain(
+                                            grad, idx, hs2, J, m), mode)))
+    entries = []
+    for name, mode, forward, call, plain in cases:
+        _, idx = forward()
+        shape = (1, 2 * g4, 2 * g4, 2 * g4, J) if mode == "quarter_fused" else (
+            (1, G // 2, G // 2, G // 2, J) if mode == "half_fused" else (1, G, G, G, J))
+        g = torch.Generator(device=rows.device).manual_seed(7)
+        grad = torch.randn(shape, device=rows.device, generator=g)
+        k, k2 = call(grad, idx), call(grad, idx)
+        p64 = plain(grad.double(), idx)
+        p32 = plain(grad, idx)
+        err32 = float((p32.double() - p64).abs().max())
+        ulp = torch.exp2(torch.floor(torch.log2(p64.abs().clamp_min(1e-30))) - 7)
+        excess = float(((k.double() - p64).abs() - 0.5 * ulp).max())
+        off = float((k.float() != p64.to(bf16).float()).double().mean())
+        twice = float((k.double() - k2.double()).abs().max())
+        tol = 2 * err32
+        held = (k.dtype == bf16 and k.stride(2) * 2 % 16 == 0 and excess <= tol
+                and twice <= ulp.max() and torch.isfinite(k.float()).all())
+        note(f"{name} at the bf16 all step's rows: rows' gradient {tuple(k.shape)} {k.dtype}, "
+             f"rows {k.stride(2)} apart; beyond half a bf16 ulp of the float64 plain value "
+             f"{excess:.3e} (tol {tol:.3e}, twice the float32 plain version's largest error); "
+             f"{off:.3e} of the elements off the float64 value's rounding; two calls "
+             f"{twice:.3e} apart")
+        if not held:
+            fail(f"{name}: {excess} beyond half an ulp (tol {tol}), dtype {k.dtype}")
+        path = bf16_path("all" if mode == "quarter_fused" else f"all {mode}")
+        count = path_counts[path][name.split("[")[0]]
+        e = backward_entry(name, mode, call, lambda grad, idx: plain(grad, idx).to(bf16), grad,
+                           idx, float((k.double() - p64).abs().max()), count, count, note, smi)
+        e.update(path=path, dtype="bfloat16")
+        entries.append(e)
+        del grad, idx, k, k2, p64, p32
+    torch.cuda.empty_cache()
+    return entries
 
 
 def main() -> int:
@@ -3555,21 +4097,29 @@ def main() -> int:
         train2d_card_vs_cpu(ckpt, note)
         phase("training graphs")
         train_graph_phase(kernels, ckpt, note, smi)
+        phase("training bf16 steps")
+        path_counts.update(bf16_steps(kernels, ckpt, recorder, note, smi))
+        phase("training bf16 graphs")
+        train_graph_phase(kernels, ckpt, note, smi, "bfloat16")
         os.environ.pop("JARVIS_PARENT_DIR", None)
     phase("training step card vs CPU")
     training_card_vs_cpu(ckpt, note)
     phase("training all step card vs CPU")
     training_card_vs_cpu(ckpt, note, mode="all")
+    phase("training bf16 steps card vs CPU")
+    bf16_card_vs_cpu(ckpt, note, smi)
     phase("K6 checks")
     train_entries.insert(0, check_k6(kernels, recorder.k6,
                                      path_counts["training"]["instance_norm_act_backward"],
                                      note, step_paths=["training_all_step"]
-                                     + [f"train2d_step_{n}" for n in NETS_2D]))
+                                     + [f"train2d_step_{n}" for n in NETS_2D]
+                                     + [bf16_path(label) for label, *_ in TRAIN_GRAPH_PATHS]))
     phase("K11, K12 checks")
     train_entries += check_k11_k12(kernels, recorder, path_counts, note, smi, k12_baseline,
                                    base_log)
+    train_entries += check_k11_k12_bf16(kernels, recorder, path_counts, note, smi)
     phase("K8, K9, K10 checks")
-    train_entries += check_k8(kernels, recorder, runs2d, note)
+    train_entries += check_k8(kernels, recorder, runs2d, path_counts, note)
     train_entries += check_k9(kernels, recorder, cfg, runs2d, path_counts["training"], baseline,
                               base_log, note)
     train_entries += check_k10(kernels, recorder, path_counts, note)

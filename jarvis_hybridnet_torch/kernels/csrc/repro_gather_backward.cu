@@ -18,6 +18,11 @@
 // B * C * L^3 * J float atomics at data-dependent rows. Measured at 53% of
 // the bytes bound (PERF.md).
 //
+// bf16 rows (bf16 training): the wrapper runs the float32 function into a
+// scratch buffer and then repro_rows_to_bf16 (below), a second launch that
+// rounds it once to the bf16 rows' layout. K12's wrapper calls the same
+// entry for its bf16 rows.
+//
 // Design: the buffer is zeroed by cudaMemsetAsync on the caller's stream;
 // one thread per (frameset, gather point, joint), joints fastest, so a
 // warp's loads of the upstream gradient and its atomics on one row are
@@ -27,6 +32,8 @@
 // element of each camera's row with atomicAdd (scatter_camera_rows in
 // repro_common.cuh). Built with --fmad=false: each product rounds before
 // its sum, as in the plain version.
+#include <algorithm>
+
 #include "repro_common.cuh"
 
 // The forward's output positions along one axis that read gather point k
@@ -107,4 +114,33 @@ extern "C" int repro_quarter_gather_backward(const void* grad, const void* idx, 
                                              int C, int J, int S, int hs2, int g4, int threads,
                                              void* stream) {
   return launch(grad, idx, out, B, C, J, S, hs2, g4, threads, (cudaStream_t)stream);
+}
+
+// bf16 rows: the backwards (K11, K12) sum a bf16 table's gradient in float32
+// and round it once here, in a second launch: out (rows, So) bf16 takes
+// in (rows, Si) float32's first J elements of each row rounded to nearest
+// even, and zeros in its padding. JAX scatter-adds the rounded cotangents
+// into a bf16 table instead (the VJP of jnp.take, repro.py:210): one
+// rounding per add, so its sums are less exact than these.
+__global__ void rows_to_bf16(const float* __restrict__ in, __nv_bfloat16* __restrict__ out,
+                             long long n, int J, int Si, int So) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / So;
+    const int k = (int)(i - r * So);
+    out[i] = __float2bfloat16_rn(k < J ? in[r * Si + k] : 0.f);
+  }
+}
+
+// in: float32 (rows, Si), the gradient K11 or K12 wrote; out: bf16 (rows,
+// So); Si, So >= J.
+extern "C" int repro_rows_to_bf16(const void* in, void* out, long long rows, int J, int Si,
+                                  int So, void* stream) {
+  if (rows < 1 || J < 1 || Si < J || So < J) return (int)cudaErrorInvalidValue;
+  const long long n = rows * So;
+  const int threads = 256;
+  const long long blocks = std::min<long long>((n + threads - 1) / threads, 1LL << 16);
+  rows_to_bf16<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)in, (__nv_bfloat16*)out, n, J, Si, So);
+  return launch_status();
 }

@@ -5,7 +5,10 @@ Replaces the jnp ops of the JAX package's 2D train step
 (``jarvis_hybridnet_tpu/training/trainer2d.py:140-160``): the targets
 ``ops/heatmap.py::gaussian_heatmaps_on_device`` (:73) at input/4 and input/2
 and ``trainer2d.py::heatmap_loss`` (:31), and their VJP. The targets are
-built on the fly and never stored.
+built on the fly and never stored. The heads are float32 or bf16 (bf16
+training): the loss stays float32 and the gradients come in the heads'
+dtype, each element rounded once, as JAX's promotion of a bf16 head to
+float32 and its transpose give them.
 """
 
 from __future__ import annotations
@@ -47,16 +50,21 @@ def heatmap2d_loss_fwd_plain(out4: torch.Tensor, out2: torch.Tensor, kps: torch.
 def heatmap2d_loss_bwd_plain(out4, out2, kps, input_size: int, sigma_base: float,
                              dloss: torch.Tensor):
     """Plain PyTorch version of K8's backward: dL/dout_s = dloss * (2 /
-    numel_s) * (out_s - t_s), in each head's layout."""
+    numel_s) * (out_s - t_s) in float32, then in each head's layout and
+    dtype."""
     t4, t2 = _targets(out4, out2, kps, input_size, sigma_base)
-    return tuple((dloss * (2.0 / o.numel())) * (o.float() - t) for o, t in ((out4, t4),
-                                                                          (out2, t2)))
+    return tuple(((dloss * (2.0 / o.numel())) * (o.float() - t)).to(o.dtype)
+                 for o, t in ((out4, t4), (out2, t2)))
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _layout(t: torch.Tensor, name: str) -> int:
     """0 for contiguous NCHW, 1 for channels-last memory; raises otherwise."""
-    if t.dtype != torch.float32 or t.device.type != "cuda" or t.dim() != 4:
-        raise ValueError(f"heatmap2d_loss: {name} must be a float32 (B, J, h, w) CUDA tensor")
+    if t.dtype not in _DTYPES or t.device.type != "cuda" or t.dim() != 4:
+        raise ValueError(f"heatmap2d_loss: {name} must be a float32 or bf16 (B, J, h, w) CUDA "
+                         "tensor")
     if t.is_contiguous():
         return 0
     if t.is_contiguous(memory_format=torch.channels_last):
@@ -111,8 +119,9 @@ def _args(out4, out2, kps, input_size, sigma_base, threads=THREADS, blocks=_TARG
     and ``blocks`` other than the defaults: kernel_sweep.py's plans)."""
     B, J = out4.shape[:2]
     cl = [_layout(out4, "out4"), _layout(out2, "out2")]
-    if out2.shape[:2] != (B, J):
-        raise ValueError(f"heatmap2d_loss: heads {tuple(out4.shape)} and {tuple(out2.shape)}")
+    if out2.shape[:2] != (B, J) or out2.dtype != out4.dtype:
+        raise ValueError(f"heatmap2d_loss: heads {tuple(out4.shape)} {out4.dtype} and "
+                         f"{tuple(out2.shape)} {out2.dtype}")
     build.require(kps, "kps", (torch.float32,), ndim=3)
     if tuple(kps.shape) != (B, J, 2):
         raise ValueError(f"heatmap2d_loss: kps must be ({B}, {J}, 2), got {tuple(kps.shape)}")
@@ -124,7 +133,7 @@ def _args(out4, out2, kps, input_size, sigma_base, threads=THREADS, blocks=_TARG
                        blocks)
     return (B, J, *out4.shape[2:], cl[0], w4.rows, *out2.shape[2:], cl[1], w2.rows,
             st[0].scale, st[0].off, st[0].den, st[0].ksize, st[1].scale, st[1].off, st[1].den,
-            st[1].ksize, threads, build.stream()), w4.blocks + w2.blocks
+            st[1].ksize, _DTYPES[out4.dtype], threads, build.stream()), w4.blocks + w2.blocks
 
 
 def heatmap2d_loss_fwd(out4: torch.Tensor, out2: torch.Tensor, kps: torch.Tensor,
@@ -149,7 +158,7 @@ def heatmap2d_loss_fwd(out4: torch.Tensor, out2: torch.Tensor, kps: torch.Tensor
 
 def heatmap2d_loss_bwd(out4, out2, kps, input_size: int, sigma_base: float,
                        dloss: torch.Tensor):
-    """K8's backward, (dL/dout4, dL/dout2) in the heads' layouts, as
+    """K8's backward, (dL/dout4, dL/dout2) in the heads' layouts and dtype, as
     :func:`heatmap2d_loss_bwd_plain`; ``dloss`` is a one-element tensor on
     the heads' device (read there). A CUDA tensor launches one kernel."""
     if build.on_cpu(out4, out2, kps, dloss):
@@ -195,14 +204,14 @@ Heatmap2DLoss.bwd = staticmethod(heatmap2d_loss_bwd)
 def heatmap2d_loss(out4: torch.Tensor, out2: torch.Tensor, kps: torch.Tensor,
                    input_size: int, sigma_base: float) -> torch.Tensor:
     """EfficientTrack's training loss from its heads (B, J, S/4, S/4) and
-    (B, J, S/2, S/2) float32 and the keypoints ``kps`` (B, J, 2) at input
+    (B, J, S/2, S/2), float32 or bf16, and the keypoints ``kps`` (B, J, 2) at input
     resolution ``input_size`` S, with targets of sigma ``sigma_base * out /
     64``; differentiable in both heads."""
     return Heatmap2DLoss.apply(out4, out2, kps, input_size, sigma_base)
 
 
 _i, _f = ctypes.c_int, ctypes.c_float
-_HEAD_ARGTYPES = [_i] * 10 + [_f, _f, _f, _i, _f, _f, _f, _i, _i, ctypes.c_void_p]
+_HEAD_ARGTYPES = [_i] * 10 + [_f, _f, _f, _i, _f, _f, _f, _i, _i, _i, ctypes.c_void_p]
 
 
 @functools.cache

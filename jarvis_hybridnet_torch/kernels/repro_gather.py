@@ -16,14 +16,18 @@ apart in a contiguous (B, C, hs*hs, S) buffer: ``pad_rows`` (and
 ``HybridNetBackbone.heatmap_rows``) make S * itemsize a multiple of 16
 bytes, zero-filled, so K5 reads a row in 16-byte loads. K2 takes any S.
 
-The gather is differentiable with respect to the float32 rows (the indices,
-centers and cameras get no gradient, as in JAX): with grad enabled and
-``rows.requires_grad`` the forward saves its indices and the backward is K11
-(``repro_quarter_gather_backward``, ``csrc/repro_gather_backward.cu``), the
-VJP of ``reprojection_layer``'s quarter_fused mode (repro.py:280-300): the
-aligned upsample transposed along z, y and x, divided by C and scatter-added
-into each camera's rows at the saved indices. Its plain version and the
-scatter (``scatter_rows_plain``) also serve K12 (``repro_grid_gather.py``).
+The gather is differentiable with respect to the float32 or bf16 rows (the
+indices, centers and cameras get no gradient, as in JAX): with grad enabled
+and ``rows.requires_grad`` the forward saves its indices and the backward is
+K11 (``repro_quarter_gather_backward``, ``csrc/repro_gather_backward.cu``),
+the VJP of ``reprojection_layer``'s quarter_fused mode (repro.py:280-300):
+the aligned upsample transposed along z, y and x, divided by C and
+scatter-added into each camera's rows at the saved indices. For bf16 rows
+(bf16 training, ``gather_dtype=bf16`` in JAX) the sums stay float32 and
+are rounded once to bf16 rows (``round_rows``); JAX adds rounded
+cotangents into a bf16 table. Its plain version, the scatter
+(``scatter_rows_plain``) and ``round_rows`` also serve K12
+(``repro_grid_gather.py``).
 """
 
 from __future__ import annotations
@@ -285,11 +289,11 @@ def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
     (B, C, 2) int32; P (B, C, 4, 3), K (B, C, 3, 3), D (B, C, 1, 5) float32.
     The quarter grid has g4 points per axis at ``step`` mm around center3d.
     With ``return_indices`` the (B, C, g4^3) int32 gather indices come back
-    too. With grad enabled and ``rows.requires_grad`` (float32 rows only)
-    the volume carries the gather's graph, whose backward is K11.
+    too. With grad enabled and ``rows.requires_grad`` the volume carries the
+    gather's graph, whose backward is K11.
     """
     if torch.is_grad_enabled() and rows.requires_grad:
-        require_float32_rows(rows)
+        require_row_dtype(rows)
         out, idx = QuarterGather.apply(rows, center3d, center_hm, P, K, D, g4, step)
         return (out, idx) if return_indices else out
     return _quarter_gather(rows, center3d, center_hm, P, K, D, g4, step, return_indices)
@@ -298,11 +302,11 @@ def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
 repro_quarter_gather.launches = 0
 
 
-def require_float32_rows(rows: torch.Tensor) -> None:
-    if rows.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the reprojection gather's backward takes float32 rows, got {rows.dtype}: "
-            "bf16 training is ROADMAP.md A.10b (TPU.TRAIN_DTYPE: bfloat16)")
+def require_row_dtype(rows: torch.Tensor) -> None:
+    """Raise unless the gathers' backwards (K11, K12) take ``rows``' dtype."""
+    if rows.dtype not in _DTYPES:
+        raise ValueError(f"the reprojection gather's backward takes rows of {tuple(_DTYPES)}, "
+                         f"got {rows.dtype}")
 
 
 def _quarter_gather(rows, center3d, center_hm, P, K, D, g4: int, step: float,
@@ -335,7 +339,7 @@ class QuarterGather(torch.autograd.Function):
     def forward(ctx, rows, center3d, center_hm, P, K, D, g4, step):
         out, idx = _quarter_gather(rows, center3d, center_hm, P, K, D, g4, step, True)
         ctx.save_for_backward(idx)
-        ctx.hs2, ctx.J = rows.shape[2], rows.shape[3]
+        ctx.hs2, ctx.J, ctx.dtype = rows.shape[2], rows.shape[3], rows.dtype
         ctx.mark_non_differentiable(idx)
         return out, idx
 
@@ -343,7 +347,7 @@ class QuarterGather(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad, _):
         (idx,) = ctx.saved_tensors
-        return (repro_quarter_gather_backward(grad.contiguous(), idx, ctx.hs2, ctx.J),
+        return (repro_quarter_gather_backward(grad.contiguous(), idx, ctx.hs2, ctx.J, ctx.dtype),
                 None, None, None, None, None, None, None)
 
 
@@ -358,22 +362,45 @@ def repro_quarter_gather_backward_plain(grad_half: torch.Tensor, idx: torch.Tens
 
 
 def repro_quarter_gather_backward(grad_half: torch.Tensor, idx: torch.Tensor, hs2: int,
-                                  J: int) -> torch.Tensor:
+                                  J: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K11, the VJP of K2 with respect to the rows: grad_half (B, 2g4, 2g4,
     2g4, J) float32 and K2's indices (B, C, g4^3) int32 -> the rows'
-    gradient (B, C, hs2, J) float32, the J-view of a zeroed buffer whose rows
-    are ``padded_width(J, 4)`` apart. The plain version on the CPU, else
-    one K11 launch (after a ``cudaMemsetAsync`` of the buffer)."""
+    gradient (B, C, hs2, J) in the rows' ``dtype`` (float32 or bf16), the
+    J-view of a zeroed buffer whose rows are ``padded_width(J, itemsize)``
+    apart. The plain version on the CPU, else one K11 launch (after a
+    ``cudaMemsetAsync`` of the buffer), and for bf16 the rounding launch
+    (``round_rows``)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"repro_quarter_gather_backward: rows of {dtype}")
     if build.on_cpu(grad_half, idx):
-        return repro_quarter_gather_backward_plain(grad_half, idx, hs2, J)
+        return round_rows(repro_quarter_gather_backward_plain(grad_half, idx, hs2, J), dtype)
     g4 = grad_half.shape[1] // 2
     B, C = check_backward(grad_half, idx, J, 2 * g4, g4)
-    buf = launch_backward(grad_half, idx, B, C, J, hs2, g4)
+    buf = round_rows(launch_backward(grad_half, idx, B, C, J, hs2, g4), dtype)
     repro_quarter_gather_backward.launches += 1
     return buf
 
 
 repro_quarter_gather_backward.launches = 0
+
+
+def round_rows(buf: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The gradient rows ``buf`` (B, C, hs2, J) float32, the J-view of a
+    buffer, in ``dtype``: ``buf`` itself for float32; for bf16 each element
+    rounded once to nearest even, as the J-view of a zero-padded buffer whose
+    rows are ``padded_width(J, 2)`` apart: by ``pad_rows`` on the CPU, on the
+    card by ``repro_rows_to_bf16`` in K11's source (K11 and K12 call it)."""
+    if dtype == torch.float32:
+        return buf
+    if buf.device.type == "cpu":
+        return pad_rows(buf.to(dtype))
+    B, C, hs2, J = buf.shape
+    So = padded_width(J, 2)
+    out = torch.empty((B, C, hs2, So), dtype=dtype, device=buf.device)
+    err = _round_fn()(build.ptr(buf), build.ptr(out), B * C * hs2, J, buf.stride(2), So,
+                      build.stream())
+    build.check(err, "repro_rows_to_bf16")
+    return out[..., :J]
 
 
 def launch_backward(grad, idx, B: int, C: int, J: int, hs2: int, g4: int,
@@ -394,6 +421,13 @@ def _backward_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.bind("repro_gather_backward", "repro_quarter_gather_backward",
                       [p] * 3 + [i] * 7 + [p])
+
+
+@functools.cache
+def _round_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build.bind("repro_gather_backward", "repro_rows_to_bf16",
+                      [p, p, ctypes.c_longlong, i, i, i, p])
 
 
 @functools.cache

@@ -14,8 +14,8 @@ exact mode gathers float32 (``hybridnet.py:73,84-85``); a bf16 row widened
 to float32 is exactly the value it gathers from its float32 cast of the
 same bf16 heatmaps, so every mode may read bf16 rows.
 
-With grad enabled and ``rows.requires_grad`` (float32 rows) the gather is
-differentiable with respect to the rows, its backward K12
+With grad enabled and ``rows.requires_grad`` (float32 or bf16 rows) the
+gather is differentiable with respect to the rows, its backward K12
 (``repro_grid_gather_backward``, ``csrc/repro_grid_gather_backward.cu``):
 the VJP of the mode's ``reprojection_layer`` (repro.py:266-273, :302-317),
 the 0.25/0.75 value upsample transposed along z, y and x for half, then the
@@ -26,6 +26,10 @@ rows: with a window, a camera whose box of the tile's pixels holds at most
 ``BACKWARD_WIN[mode]`` pixels sorts the points by pixel and adds each
 pixel's sum once, any other (the overflow branch) adds point by point.
 Tile 0 (half_fused's plan) has no tile: a thread per (point, 4 joints).
+For bf16 rows a second launch rounds the float32 sums once to bf16 rows
+(``repro_gather.round_rows``): at exact, JAX's VJP rounds once too (at
+the transpose of its float32 cast); at half and half_fused it adds rounded
+cotangents into a bf16 table.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ from torch.autograd.function import once_differentiable
 from . import build
 from .repro_gather import (_DTYPES, _upsample2, _upsample2_transposed, camera_mean,
                            check_backward, check_cameras, padded_width,
-                           reproject_indices_plain, require_float32_rows, scatter_rows_plain)
+                           reproject_indices_plain, require_row_dtype, round_rows,
+                           scatter_rows_plain)
 
 MODES = {"exact": 0, "half": 1, "half_fused": 2}
 # the kernel's constants (csrc/repro_grid_gather.cu)
@@ -167,7 +172,7 @@ def repro_grid_gather(rows: torch.Tensor, center3d: torch.Tensor,
     K (B, C, 3, 3), D (B, C, 1, 5) float32. With ``return_indices`` the
     int32 gather indices come back too: (B, C, G^3) for exact, (B, C,
     (G/2)^3) for the half modes. With grad enabled and ``rows.requires_grad``
-    (float32 rows only) the volume carries the gather's graph, whose
+    the volume carries the gather's graph, whose
     backward is K12.
     """
     if mode not in MODES:
@@ -175,7 +180,7 @@ def repro_grid_gather(rows: torch.Tensor, center3d: torch.Tensor,
     if grid_size % 2:
         raise ValueError(f"repro_grid_gather: grid_size must be even, got {grid_size}")
     if torch.is_grad_enabled() and rows.requires_grad:
-        require_float32_rows(rows)
+        require_row_dtype(rows)
         vol, idx = GridGather.apply(rows, center3d, center_hm, P, K, D, grid_size,
                                     grid_spacing, mode)
         return (vol, idx) if return_indices else vol
@@ -213,7 +218,7 @@ class GridGather(torch.autograd.Function):
         vol, idx = _grid_gather(rows, center3d, center_hm, P, K, D, grid_size, grid_spacing,
                                 mode, True)
         ctx.save_for_backward(idx)
-        ctx.hs2, ctx.J, ctx.mode = rows.shape[2], rows.shape[3], mode
+        ctx.hs2, ctx.J, ctx.mode, ctx.dtype = rows.shape[2], rows.shape[3], mode, rows.dtype
         ctx.mark_non_differentiable(idx)
         return vol, idx
 
@@ -221,7 +226,8 @@ class GridGather(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad, _):
         (idx,) = ctx.saved_tensors
-        return (repro_grid_gather_backward(grad.contiguous(), idx, ctx.hs2, ctx.J, ctx.mode),
+        return (repro_grid_gather_backward(grad.contiguous(), idx, ctx.hs2, ctx.J, ctx.mode,
+                                           ctx.dtype),
                 None, None, None, None, None, None, None, None)
 
 
@@ -237,22 +243,26 @@ def repro_grid_gather_backward_plain(grad: torch.Tensor, idx: torch.Tensor, hs2:
 
 
 def repro_grid_gather_backward(grad: torch.Tensor, idx: torch.Tensor, hs2: int, J: int,
-                               mode: str) -> torch.Tensor:
+                               mode: str, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K12, the VJP of K5 with respect to the rows: grad float32 in the
     forward's output layout ((B, G, G, G, J) for exact and half, (B, G/2,
     G/2, G/2, J) for half_fused) and K5's int32 indices -> the rows'
-    gradient (B, C, hs2, J) float32, the J-view of a zeroed buffer whose rows
-    are ``padded_width(J, 4)`` apart. The plain version on the CPU, else one
-    K12 launch (after a ``cudaMemsetAsync`` of the buffer) with
-    ``backward_plan``."""
+    gradient (B, C, hs2, J) in the rows' ``dtype`` (float32 or bf16), the
+    J-view of a zeroed buffer whose rows are ``padded_width(J, itemsize)``
+    apart. The plain version on the CPU, else one K12 launch (after a
+    ``cudaMemsetAsync`` of the buffer) with ``backward_plan``, and for bf16
+    the rounding launch (``repro_gather.round_rows``)."""
     if mode not in MODES:
         raise ValueError(f"repro_grid_gather_backward: unknown mode {mode!r}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"repro_grid_gather_backward: rows of {dtype}")
     if build.on_cpu(grad, idx):
-        return repro_grid_gather_backward_plain(grad, idx, hs2, J, mode)
+        return round_rows(repro_grid_gather_backward_plain(grad, idx, hs2, J, mode), dtype)
     F = grad.shape[1]
     n = F // 2 if mode == "half" else F
     check_backward(grad, idx, J, 2 * n if mode == "half" else n, n)
-    buf = run_backward(backward_plan(idx.shape[1], J, n, mode), grad, idx, hs2)
+    buf = round_rows(run_backward(backward_plan(idx.shape[1], J, n, mode), grad, idx, hs2),
+                     dtype)
     repro_grid_gather_backward.launches += 1
     return buf
 

@@ -24,6 +24,7 @@ from ..kernels import soft_argmax
 from ..kernels.hybridnet_loss import hybridnet_mse_loss  # noqa: F401  (the JAX module's name)
 from ..kernels.repro_gather import padded_width
 from .efficienttrack import EfficientTrackBackbone
+from .layers import compute_dtype
 from .repro import REPRO_MODES, reproject_rows
 from .v2v import V2VNet
 
@@ -45,13 +46,17 @@ class HybridNetBackbone(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.v2vNet.output_layer.weight.dtype
+        """The compute dtype (the parameters may be float32 masters)."""
+        return compute_dtype(self.v2vNet.output_layer)
 
     def heatmap_rows(self, imgs: torch.Tensor) -> torch.Tensor:
         """Normalized crops (B, C, S, S, 3) -> padded KeypointDetect heatmaps
         as rows (B, C, hs*hs, J) in the compute dtype, hs = S/2 + 2: the
         J-view of a zero-filled buffer whose rows are whole 16-byte loads
-        (``repro_gather.pad_rows``)."""
+        (``repro_gather.pad_rows``). JAX's exact mode gathers the float32
+        cast of its bf16 heatmaps (``gather_dtype`` None): the same values,
+        and its VJP sums in float32 and rounds once to bf16 at the cast's
+        transpose, as K12 does at bf16 rows (``repro_gather.round_rows``)."""
         B, C, S = imgs.shape[0], imgs.shape[1], imgs.shape[2]
         flat = imgs.reshape(B * C, S, S, imgs.shape[-1]).permute(0, 3, 1, 2)
         hm = self.effTrack.heatmap2(flat)  # (B*C, J, h, h), channels last

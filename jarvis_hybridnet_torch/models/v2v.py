@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_upfront import fused_up_conv3d, prepare_fused_weights
-from .layers import conv, dropout, instance_norm
+from .layers import compute_dtype, conv, dropout, instance_norm
 
 DROPOUT = 0.2
 
@@ -40,6 +40,9 @@ class Basic3DBlock(_Dropped):
         super().__init__()
         self.block = nn.ModuleList(
             [nn.Conv3d(cin, cout, kernel, stride, (kernel - 1) // 2)])
+        # the fused kernels are transformed from the float32 weight and
+        # rounded once to the compute dtype, as JAX's fused_up_conv3d does
+        self.block[0].transformed = fused_up
         self.fused_up = fused_up
         self._fused = None  # (key, interior, corrections), built on first use
 
@@ -49,17 +52,18 @@ class Basic3DBlock(_Dropped):
     cache_fused = True
 
     def _fused_weights(self):
-        """The transformed kernels. With grad enabled they are computed from
-        the live weight in every call, so the weight gets their gradient;
-        under ``no_grad`` they are cached until the weight changes, where
-        ``cache_fused`` is on, else computed in every call."""
-        w = self.block[0].weight
+        """The transformed kernels in the compute dtype, from the float32
+        weight. With grad enabled they are computed from the live weight in
+        every call, so the weight gets their gradient; under ``no_grad``
+        they are cached until the weight changes, where ``cache_fused`` is
+        on, else computed in every call."""
+        w, dt = self.block[0].weight, compute_dtype(self.block[0])
         if (torch.is_grad_enabled() and w.requires_grad) or not self.cache_fused:
-            return prepare_fused_weights(w, w.dtype)
-        key = (w.data_ptr(), w._version, w.dtype, w.device)
+            return prepare_fused_weights(w, dt)
+        key = (w.data_ptr(), w._version, w.dtype, dt, w.device)
         if self._fused is None or self._fused[0] != key:
             with torch.no_grad():
-                self._fused = (key, *prepare_fused_weights(w, w.dtype))
+                self._fused = (key, *prepare_fused_weights(w, dt))
         return self._fused[1], self._fused[2]
 
     def forward(self, x):

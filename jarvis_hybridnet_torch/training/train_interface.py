@@ -11,14 +11,16 @@ the embedded 2D net from a KeypointDetect checkpoint, supports finetune (LR
 :class:`~jarvis_hybridnet_torch.training.trainer3d.HybridNetTrainer`. Both
 run on ``device``, the card unless the caller asks for the CPU, and on the
 card replay each train and eval step from a CUDA graph unless ``graph`` is
-False (``training/graphed.py``). HybridNet
-trains in every freeze mode (``all``, ``bifpn``, ``last_layers``,
-``3D_only``); the project's configuration checks (``config/checks.py``) are
-not ported yet (ROADMAP.md A.13).
+False (``training/graphed.py``). HybridNet trains in every freeze mode
+(``all``, ``bifpn``, ``last_layers``, ``3D_only``), and both at
+``TPU.TRAIN_DTYPE`` float32 or bfloat16. Both first run the project's
+configuration checks (``config/checks.py``) and stop, logging each problem,
+where one fails, as the JAX package's do.
 """
 
 from __future__ import annotations
 
+from ..config.checks import check_config
 from ..config.project_manager import ProjectManager
 from ..dataset.dataset2d import Dataset2D
 from ..dataset.dataset3d import Dataset3D
@@ -39,6 +41,15 @@ def _resolve_resume(resume, cfg, module):
             clp.error(f"No resumable train_state.ckpt found for {module}.")
         return path
     return resume
+
+
+def _config_ok(cfg, module: str) -> bool:
+    """False, with each problem logged, when the project's configuration
+    fails ``check_config`` for ``module``."""
+    problems = check_config(cfg, module)
+    for p in problems:
+        clp.error(p)
+    return not problems
 
 
 def _report_final(results, acc_unit):
@@ -73,6 +84,8 @@ def train_efficienttrack(mode, project_name, num_epochs, weights, run_name=None,
     if not project.load(project_name):
         return False
     cfg = project.get_cfg()
+    if not _config_ok(cfg, mode):
+        return False
     if num_epochs is None:
         num_epochs = int(cfg[mode.upper()].NUM_EPOCHS)
     clp.info(f"Training {mode} on project {project_name} for {num_epochs} epochs!")
@@ -110,6 +123,8 @@ def train_hybridnet(project_name, num_epochs, weights_keypoint_detect,
     if not project.load(project_name):
         return False
     cfg = project.get_cfg()
+    if not _config_ok(cfg, "HybridNet"):
+        return False
     if num_epochs is None:
         num_epochs = int(cfg.HYBRIDNET.NUM_EPOCHS)
     clp.info(f"Training HybridNet ({mode}) on project {project_name} for "

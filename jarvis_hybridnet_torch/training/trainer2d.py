@@ -38,8 +38,13 @@ resumed run redoes that epoch whole. The JAX trainer saves the mid-epoch
 parameters instead, so its resumed run replays part of an epoch on them.
 The host-side augmentation draws of thread workers are not replayed.
 
-Not ported, and raising: ``TPU.TRAIN_DTYPE`` bfloat16, the Streamlit
-monitor (ROADMAP.md A.13) and multi-device meshes (A.12). The loader runs
+At ``TPU.TRAIN_DTYPE: bfloat16`` (JAX's mixed precision) the parameters,
+the optimizer's state and the checkpoints stay float32 and the network
+computes in bf16 (``layers.set_compute_dtype``); K8 reads the bf16 heads,
+keeps its loss in float32 and writes their gradients in bf16.
+
+Not ported, and raising: the Streamlit monitor (ROADMAP.md A.13) and
+multi-device meshes (A.12). The loader runs
 thread workers whatever ``DATALOADER_WORKER_MODE`` says, and says so when it
 asks for process workers (``loader.trainer_worker_mode``).
 """
@@ -55,7 +60,7 @@ import torch
 
 from ..kernels import heatmap2d_loss
 from ..models.efficienttrack import EfficientTrackBackbone
-from ..models.layers import cast_convs, set_generator
+from ..models.layers import cast_convs, set_compute_dtype, set_generator
 from ..models.weights import params_from_jax, params_to_jax
 from ..ops.augment import make_color_aug, record_arrays, record_of
 from ..ops.heatmap import argmax_2d
@@ -130,10 +135,10 @@ class EfficientTrackTrainer:
         self.cfg = cfg[mode.upper()]
         self.device = torch.device(device)
         self.seed = seed
+        # float32 masters computing in bf16 at TPU.TRAIN_DTYPE bfloat16, as JAX's
+        # dtype=jnp.bfloat16 with param_dtype float32
         train_dtype = str(cfg.get("TPU", {}).get("TRAIN_DTYPE", "float32"))
-        if train_dtype != "float32":
-            raise NotImplementedError(f"TPU.TRAIN_DTYPE {train_dtype!r}: the port trains in "
-                                      "float32 only")
+        self.dtype = torch.bfloat16 if train_dtype == "bfloat16" else torch.float32
         self.model = EfficientTrackBackbone(self.cfg.MODEL_SIZE, int(self.cfg.NUM_JOINTS))
         if run_name is None:
             run_name = "Run_" + time.strftime("%Y%m%d-%H%M%S")
@@ -156,7 +161,7 @@ class EfficientTrackTrainer:
         state = params_from_jax(params_to_jax(loaded if loaded is not None else state,
                                               self.cfg.MODEL_SIZE), self.cfg.MODEL_SIZE)
         self.model.load_state_dict(state, strict=True)
-        cast_convs(self.model.to(self.device), torch.float32)
+        set_compute_dtype(cast_convs(self.model.to(self.device), torch.float32), self.dtype)
         if self.device.type == "cuda":  # float32 at full precision, as the JAX package
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,7 +194,7 @@ class EfficientTrackTrainer:
         """One optimizer step at ``lr``; (loss, stride-2 argmax (B, J, 2)) on
         the device, a graph replay on the card with ``graph=True``."""
         optim.set_learning_rate(optimizer, lr)
-        return self.graphs.run("train", (optimizer, self.model.training),
+        return self.graphs.run("train", (optimizer, self.model.training, self.dtype),
                                lambda: self._train_fn(optimizer), b)
 
     def _train_fn(self, optimizer):
@@ -208,7 +213,7 @@ class EfficientTrackTrainer:
     def eval_step(self, b: dict):
         """(loss, stride-2 argmax) of one batch in ``eval()``, a graph replay
         on the card with ``graph=True``."""
-        return self.graphs.run("eval", (), lambda: self._eval_fn, b)
+        return self.graphs.run("eval", (self.dtype,), lambda: self._eval_fn, b)
 
     def _eval_fn(self, b: dict):
         self.model.eval()

@@ -36,8 +36,16 @@ mode and train / eval (``training/graphed.py``), taking the eager run's
 updates, learning rates and random draws step for step; ``graph=False``
 launches the step op by op. On the CPU both run the step as it is.
 
-Not ported yet, and raising: ``TPU.TRAIN_DTYPE`` bfloat16 (ROADMAP.md
-A.10b) and the Streamlit monitor (A.13). The loader runs thread workers
+At ``TPU.TRAIN_DTYPE: bfloat16`` (JAX's mixed precision) the parameters,
+the optimizer's state and the checkpoints stay float32, and both nets
+compute in bf16 (``layers.set_compute_dtype``): every convolution casts its
+input, weight and bias to bf16 in each call, V2V's fused front kernels are
+transformed from the float32 weight and rounded once, the heatmap rows are
+gathered as bf16 (K11 / K12 sum their gradient in float32 and round it
+once), and the loss (K7) and the points (K3) read V2V's output cast to
+float32, as JAX's softplus does.
+
+Not ported yet, and raising: the Streamlit monitor (ROADMAP.md A.13). The loader runs thread workers
 whatever ``DATALOADER_WORKER_MODE`` says, and says so when it asks for
 process workers (``loader.trainer_worker_mode``).
 """
@@ -51,7 +59,7 @@ import numpy as np
 import torch
 
 from ..models.hybridnet import HybridNetBackbone
-from ..models.layers import cast_convs, set_generator
+from ..models.layers import cast_convs, set_compute_dtype, set_generator
 from ..models.v2v import set_fused_cache
 from ..kernels import hybridnet_loss
 from ..ops.augment import make_color_aug, record_arrays, record_of
@@ -100,10 +108,10 @@ class HybridNetTrainer:
         self.training_mode = training_mode
         self.device = torch.device(device)
         self.seed = seed
+        # float32 masters computing in bf16 at TPU.TRAIN_DTYPE bfloat16, as JAX's
+        # dtype=jnp.bfloat16 with param_dtype float32
         train_dtype = str(cfg.get("TPU", {}).get("TRAIN_DTYPE", "float32"))
-        if train_dtype != "float32":
-            raise NotImplementedError(f"TPU.TRAIN_DTYPE {train_dtype!r}: the port trains in "
-                                      "float32 only")
+        self.dtype = torch.bfloat16 if train_dtype == "bfloat16" else torch.float32
         self.model = HybridNetBackbone(
             num_joints=int(cfg.KEYPOINTDETECT.NUM_JOINTS),
             model_size=cfg.KEYPOINTDETECT.MODEL_SIZE,
@@ -127,7 +135,7 @@ class HybridNetTrainer:
         # None only when an explicitly requested checkpoint failed to load
         self.found_weights = loaded is not None
         self.model.load_state_dict(loaded if loaded is not None else state, strict=True)
-        cast_convs(self.model.to(self.device), torch.float32)
+        set_compute_dtype(cast_convs(self.model.to(self.device), torch.float32), self.dtype)
         if self.device.type == "cuda":  # float32 at full precision, as the JAX package
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -162,7 +170,8 @@ class HybridNetTrainer:
         """One optimizer step at ``lr``; (loss, points3D) on the device, a
         graph replay on the card with ``graph=True``."""
         optim.set_learning_rate(optimizer, lr)
-        return self.graphs.run("train", (optimizer, self.training_mode, self.model.training),
+        return self.graphs.run("train", (optimizer, self.training_mode, self.model.training,
+                                         self.dtype),
                                lambda: self._train_fn(optimizer), b)
 
     def _train_fn(self, optimizer):
@@ -180,7 +189,7 @@ class HybridNetTrainer:
     def eval_step(self, b: dict):
         """(loss, points3D) of one batch in ``eval()``, a graph replay on the
         card with ``graph=True``."""
-        return self.graphs.run("eval", (self.training_mode,), lambda: self._eval_fn, b)
+        return self.graphs.run("eval", (self.training_mode, self.dtype), lambda: self._eval_fn, b)
 
     def _eval_fn(self, b: dict):
         self.model.eval()

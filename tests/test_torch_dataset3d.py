@@ -46,7 +46,7 @@ TRAINED = pathlib.Path(__file__).resolve().parents[1] / "trained" / "MonkeyHand"
 CONFIG = {
     "DATASET": {"DATASET_3D": "Synth"},
     "KEYPOINTDETECT": {"MODEL_SIZE": "small", "NUM_JOINTS": 23, "BOUNDING_BOX_SIZE": 128},
-    "HYBRIDNET": {"ROI_CUBE_SIZE": 48, "GRID_SPACING": 4},
+    "HYBRIDNET": {"ROI_CUBE_SIZE": 48, "GRID_SPACING": 4, "NUM_CAMERAS": 4},
     "TPU": {"DEVICE_AUG": False},
 }
 

@@ -63,7 +63,8 @@ CONFIG = {
     "CENTERDETECT": {"MODEL_SIZE": "small", "IMAGE_SIZE": S2D, "BATCH_SIZE": 2},
     "KEYPOINTDETECT": {"MODEL_SIZE": "small", "NUM_JOINTS": 23, "BOUNDING_BOX_SIZE": 128,
                        "BATCH_SIZE": 2},
-    "HYBRIDNET": {"ROI_CUBE_SIZE": 48, "GRID_SPACING": 4, "BATCH_SIZE": 1},
+    "HYBRIDNET": {"ROI_CUBE_SIZE": 48, "GRID_SPACING": 4, "BATCH_SIZE": 1,
+                  "NUM_CAMERAS": 4},
     "TPU": {"REPRO_MODE": "quarter_fused", "TRAIN_DTYPE": "float32"},
     # one producer thread: with the datasets' generators seeded (``seeded``)
     # two runs draw the same host augmentation

@@ -19,9 +19,10 @@ MonkeyHand HybridNet checkpoint.
   bitwise frozen and V2V updated; the loss halves over a short plateau-LR
   overfit (as ``tests/test_training.py:130`` asks of the JAX trainer); a
   resume from ``train_state.ckpt`` gives the uninterrupted run's parameters;
-  the options that are not ported raise (on-device color augmentation and
-  the freeze modes other than 3D_only are ported and no longer among them:
-  ``test_torch_training_modes.py`` holds those modes to JAX).
+  the options that are not ported raise (on-device color augmentation,
+  the freeze modes other than 3D_only and bf16 training are ported and no
+  longer among them: ``test_torch_training_modes.py`` holds those modes to
+  JAX, ``test_torch_training_bf16.py`` bf16 training).
 """
 
 import os
@@ -57,7 +58,8 @@ CUBE, SPACING, BBOX = 48, 4, 128
 CONFIG = {
     "DATASET": {"DATASET_3D": "Synth"},
     "KEYPOINTDETECT": {"MODEL_SIZE": "small", "NUM_JOINTS": 23, "BOUNDING_BOX_SIZE": BBOX},
-    "HYBRIDNET": {"ROI_CUBE_SIZE": CUBE, "GRID_SPACING": SPACING, "BATCH_SIZE": 1},
+    "HYBRIDNET": {"ROI_CUBE_SIZE": CUBE, "GRID_SPACING": SPACING, "BATCH_SIZE": 1,
+                  "NUM_CAMERAS": 4},
     "TPU": {"DEVICE_AUG": False, "REPRO_MODE": "quarter_fused", "TRAIN_DTYPE": "float32"},
     "DATALOADER_NUM_WORKERS": 2,
 }
@@ -344,6 +346,9 @@ def test_unported_options_raise(parent, monkeypatch):
                                training_mode="3D_only")
     with pytest.raises(NotImplementedError, match="A.13"):
         trainer.train(ds, ds, 1, streamlitWidgets={})
+    # bf16 training is ported: the trainer builds with float32 masters that
+    # compute in bf16
     cfg.TPU.TRAIN_DTYPE = "bfloat16"
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu", run_name="Raise")
+    bf16 = HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu", run_name="Raise")
+    assert bf16.dtype == bf16.model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bf16.model.parameters())
