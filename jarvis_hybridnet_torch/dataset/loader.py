@@ -5,10 +5,11 @@ Samples of a batch are built concurrently on a thread pool: JPEG decode via
 cv2 / libjpeg and the native C++ pipeline release the GIL, so threads
 parallelize the heavy work. Batches are emitted in submission order, and a
 bounded prefetch queue lets host data building overlap device compute. The
-JAX package's forked-process worker modes and pod loaders
-(``parallel/multihost.make_dp_loaders``) wait for multi-device training
-(ROADMAP.md A.12); ``worker_mode`` other than ``'thread'`` raises, and the
-trainers pass what :func:`trainer_worker_mode` gives for their config.
+pod loaders of several processes are ``parallel/multihost`` (each rank's
+slice of every global batch, on this loader). The JAX package's
+forked-process worker modes wait for ROADMAP.md A.12a; ``worker_mode``
+other than ``'thread'`` raises, and the trainers pass what
+:func:`trainer_worker_mode` gives for their config.
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ def trainer_worker_mode(cfg) -> str:
         from ..utils import clp
 
         clp.warning(f"DATALOADER_WORKER_MODE {mode!r}: the port's loader runs thread workers "
-                    "in its place until process workers are ported (ROADMAP.md A.12)")
+                    "in its place until process workers are ported (ROADMAP.md A.12a)")
     return "thread"
 
 
@@ -118,7 +119,7 @@ class DataLoader:
         self.num_workers = max(0, int(num_workers))
         if worker_mode != "thread":
             raise ValueError(f"worker_mode {worker_mode!r}: only 'thread' workers are "
-                             "ported (process workers wait for ROADMAP.md A.12)")
+                             "ported (process workers wait for ROADMAP.md A.12a)")
         self.worker_mode = worker_mode
 
     def set_epoch(self, epoch: int) -> None:

@@ -83,12 +83,14 @@ __device__ __forceinline__ int pixel_index(float u, float v, int hs) {
 // The camera mean of n voxels' J-rows, S elements apart: idx[c * n + v] is
 // voxel v's pixel in camera c. A group of J threads per voxel, one per joint, two voxels at a
 // time: all 2 C row loads start before the sums, which add in camera
-// order 0..C-1 and divide by C (gather_voxel_volume, repro.py:206-213).
+// order 0..C-1 and divide by ct, the cameras of the whole rig (C itself
+// unless the cameras are sharded over ranks; gather_voxel_volume,
+// repro.py:206-213).
 // store(v, joint, mean) receives each result.
 template <typename T, typename Store>
 __device__ __forceinline__ void gather_means(const T* __restrict__ rb, const int* idx, int n,
-                                             int C, int J, int S, int hs2, int threads,
-                                             Store store) {
+                                             int C, int ct, int J, int S, int hs2,
+                                             int threads, Store store) {
   const int groups = threads / J;
   if ((int)threadIdx.x >= groups * J) return;
   const int g = threadIdx.x / J, jj = threadIdx.x % J;
@@ -111,13 +113,13 @@ __device__ __forceinline__ void gather_means(const T* __restrict__ rb, const int
           acc2 += val2[u];
         }
     }
-    store(v, jj, __fdiv_rn(acc, (float)C));
-    if (two) store(v2, jj, __fdiv_rn(acc2, (float)C));
+    store(v, jj, __fdiv_rn(acc, (float)ct));
+    if (two) store(v2, jj, __fdiv_rn(acc2, (float)ct));
   }
 }
 
 // The camera mean's transpose for one (gather point, joint): `val`, the mean's
-// gradient already divided by C, added to the joint's element of the point's
+// gradient already divided by the rig's cameras, added to the joint's element of the point's
 // row in every camera. idx points at camera 0's index of the point, the
 // cameras' indices `cam_stride` apart; out at the frameset's (C, hs2, S)
 // gradient rows, offset by the joint. Float atomics: the sums' order, and so

@@ -9,7 +9,7 @@
 //
 // The function: the upstream gradient of the forward's float32 half-grid
 // volume, in its layout (B, 2L, 2L, 2L, J), is transposed through the
-// aligned value upsample onto the L^3 gather points, divided by C, and added
+// aligned value upsample onto the L^3 gather points, divided by ct, and added
 // to the row each camera gathered the point from. The output is the (B, C,
 // hs2, J) gradient of the rows, as the J-view of a (B, C, hs2, S) buffer.
 //
@@ -28,7 +28,7 @@
 // warp's loads of the upstream gradient and its atomics on one row are
 // contiguous. The thread sums the transposed stencil from the upstream
 // gradient in registers (z innermost, then y, then x: the order of the
-// plain version's three passes), divides by C and adds the value to its
+// plain version's three passes), divides by ct and adds the value to its
 // element of each camera's row with atomicAdd (scatter_camera_rows in
 // repro_common.cuh). Built with --fmad=false: each product rounds before
 // its sum, as in the plain version.
@@ -51,7 +51,7 @@ __device__ __forceinline__ int axis_taps(int k, int L, int* pos, float* w) {
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
     gather_backward(const float* __restrict__ grad, const int* __restrict__ idx,
-                    float* __restrict__ out, int C, int J, int S, int hs2, int L) {
+                    float* __restrict__ out, int C, int ct, int J, int S, int hs2, int L) {
   const int F = 2 * L;
   const int n3 = L * L * L;
   const int t = blockIdx.x * kThreads + threadIdx.x;
@@ -76,31 +76,31 @@ __global__ void __launch_bounds__(kThreads)
     acc = __fadd_rn(acc, __fmul_rn(wx[a], sy));
   }
   scatter_camera_rows(out + (size_t)b * C * hs2 * S + j, idx + (size_t)b * C * n3 + v, n3, C,
-                      hs2, S, __fdiv_rn(acc, (float)C));
+                      hs2, S, __fdiv_rn(acc, (float)ct));
 }
 
 template <int kThreads>
-static void go(const void* grad, const void* idx, void* out, int B, int C, int J, int S, int hs2,
-               int L, long long work, cudaStream_t st) {
+static void go(const void* grad, const void* idx, void* out, int B, int C, int ct, int J, int S,
+               int hs2, int L, long long work, cudaStream_t st) {
   gather_backward<kThreads><<<dim3((unsigned)((work + kThreads - 1) / kThreads), B), kThreads, 0,
-                              st>>>((const float*)grad, (const int*)idx, (float*)out, C, J, S,
+                              st>>>((const float*)grad, (const int*)idx, (float*)out, C, ct, J, S,
                                     hs2, L);
 }
 
 // threads: the block size, 256 from the wrapper (kernel_sweep.py times the
 // others)
-static int launch(const void* grad, const void* idx, void* out, int B, int C, int J, int S,
-                  int hs2, int L, int threads, cudaStream_t st) {
+static int launch(const void* grad, const void* idx, void* out, int B, int C, int ct, int J,
+                  int S, int hs2, int L, int threads, cudaStream_t st) {
   const long long work = (long long)L * L * L * J;
-  if (work >= (1LL << 31) || B > 65535) return (int)cudaErrorInvalidValue;
+  if (work >= (1LL << 31) || B > 65535 || ct < C) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaMemsetAsync(out, 0, (size_t)B * C * hs2 * S * sizeof(float), st);
   if (e != cudaSuccess) return (int)e;
   switch (threads) {
-    case 64: go<64>(grad, idx, out, B, C, J, S, hs2, L, work, st); break;
-    case 128: go<128>(grad, idx, out, B, C, J, S, hs2, L, work, st); break;
-    case 256: go<256>(grad, idx, out, B, C, J, S, hs2, L, work, st); break;
-    case 512: go<512>(grad, idx, out, B, C, J, S, hs2, L, work, st); break;
-    case 1024: go<1024>(grad, idx, out, B, C, J, S, hs2, L, work, st); break;
+    case 64: go<64>(grad, idx, out, B, C, ct, J, S, hs2, L, work, st); break;
+    case 128: go<128>(grad, idx, out, B, C, ct, J, S, hs2, L, work, st); break;
+    case 256: go<256>(grad, idx, out, B, C, ct, J, S, hs2, L, work, st); break;
+    case 512: go<512>(grad, idx, out, B, C, ct, J, S, hs2, L, work, st); break;
+    case 1024: go<1024>(grad, idx, out, B, C, ct, J, S, hs2, L, work, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return launch_status();
@@ -109,11 +109,13 @@ static int launch(const void* grad, const void* idx, void* out, int B, int C, in
 // K11. grad: float32 (B, 2g4, 2g4, 2g4, J), the upstream gradient of K2's
 // half-grid volume; idx: int32 (B, C, g4^3), K2's indices. out: float32
 // (B, C, hs2, S), S >= J, zeroed here, then the rows' gradient in its first J
-// elements of each row. threads: 64, 128, 256, 512 or 1024 a block.
+// elements of each row. threads: 64, 128, 256, 512 or 1024 a block. ct:
+// the forward's divisor, the rig's cameras (C, or more where each rank
+// holds C of them).
 extern "C" int repro_quarter_gather_backward(const void* grad, const void* idx, void* out, int B,
                                              int C, int J, int S, int hs2, int g4, int threads,
-                                             void* stream) {
-  return launch(grad, idx, out, B, C, J, S, hs2, g4, threads, (cudaStream_t)stream);
+                                             int ct, void* stream) {
+  return launch(grad, idx, out, B, C, ct, J, S, hs2, g4, threads, (cudaStream_t)stream);
 }
 
 // bf16 rows: the backwards (K11, K12) sum a bf16 table's gradient in float32

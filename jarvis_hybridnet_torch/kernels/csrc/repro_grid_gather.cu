@@ -231,8 +231,8 @@ __device__ __forceinline__ void tile_indices(float* smem, Layout lay, const int*
 // The camera means of points [p0, p1): stage[(p - sbase) * J + joint].
 template <typename T, int NP>
 __device__ __forceinline__ void gather_round(const T* __restrict__ rb, const int* idx, float* stage,
-                                             int C, int J, int S, int L, int cstride, int p0,
-                                             int p1, int sbase) {
+                                             int C, int ct, int J, int S, int L, int cstride,
+                                             int p0, int p1, int sbase) {
   constexpr int V = Row<T>::V, KT = Row<T>::KT;
   const int q1 = (p1 - p0) * L;
   int pt[KT], lane[KT];
@@ -264,7 +264,7 @@ __device__ __forceinline__ void gather_round(const T* __restrict__ rb, const int
     // a zero sum (rows of the zero border) skips the division's slow path
 #pragma unroll
     for (int i = 0; i < V; ++i)
-      if (lane[k] + i < J) s[i] = acc[k][i] == 0.f ? 0.f : __fdiv_rn(acc[k][i], (float)C);
+      if (lane[k] + i < J) s[i] = acc[k][i] == 0.f ? 0.f : __fdiv_rn(acc[k][i], (float)ct);
   }
 }
 
@@ -337,7 +337,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     repro_grid(const T* __restrict__ rows, const int* __restrict__ center3d,
                const int* __restrict__ center_hm, const float* __restrict__ P,
                const float* __restrict__ K, const float* __restrict__ D, float* __restrict__ out,
-               int* __restrict__ idx_out, int C, int J, int S, int hs, int n2, float step) {
+               int* __restrict__ idx_out, int C, int ct, int J, int S, int hs, int n2,
+               float step) {
   using G = Tile<MODE, TILE>;
   extern __shared__ __align__(16) float smem[];
   const int L = (J + Row<T>::V - 1) / Row<T>::V;
@@ -358,7 +359,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const T* rb = rows + (size_t)b * C * cstride;
   for (int p0 = 0; p0 < G::np; p0 += rp) {
     const int p1 = min(p0 + rp, G::np);
-    gather_round<T, G::np>(rb, idx, stage, C, J, S, L, cstride, p0, p1, MODE == MODE_HALF ? 0 : p0);
+    gather_round<T, G::np>(rb, idx, stage, C, ct, J, S, L, cstride, p0, p1,
+                           MODE == MODE_HALF ? 0 : p0);
     if (MODE == MODE_HALF) continue;
     __syncthreads();
     if (MODE == MODE_EXACT)
@@ -392,30 +394,30 @@ static int allow_smem() {
 
 template <typename T, int MODE, int TILE>
 static int launch(const void* rows, const void* center3d, const void* center_hm, const void* P,
-                  const void* K, const void* D, void* out, void* idx_out, int B, int C, int J,
-                  int S, int hs, int n2, float step, int smem, cudaStream_t st) {
+                  const void* K, const void* D, void* out, void* idx_out, int B, int C, int ct,
+                  int J, int S, int hs, int n2, float step, int smem, cudaStream_t st) {
   const int err = allow_smem<T, MODE, TILE>();
   if (err != 0) return err;
   const int words = smem_words<T, MODE, TILE>(C, J);
   const int tiles = (n2 + TILE - 1) / TILE;
-  if (words < 0 || smem != 4 * words || smem > kSmemMax || B < 1 ||
+  if (words < 0 || smem != 4 * words || smem > kSmemMax || B < 1 || ct < C ||
       (S * (int)sizeof(T)) % 16 != 0 || S < J)
     return (int)cudaErrorInvalidValue;
   repro_grid<T, MODE, TILE><<<B * tiles * tiles * tiles, kThreads, smem, st>>>(
       (const T*)rows, (const int*)center3d, (const int*)center_hm, (const float*)P,
-      (const float*)K, (const float*)D, (float*)out, (int*)idx_out, C, J, S, hs, n2, step);
+      (const float*)K, (const float*)D, (float*)out, (int*)idx_out, C, ct, J, S, hs, n2, step);
   return launch_status();
 }
 
 template <typename T>
 static int dispatch(const void* rows, const void* center3d, const void* center_hm, const void* P,
-                    const void* K, const void* D, void* out, void* idx_out, int B, int C, int J,
-                    int S, int hs, int n2, int tile, float step, int mode, int smem,
+                    const void* K, const void* D, void* out, void* idx_out, int B, int C, int ct,
+                    int J, int S, int hs, int n2, int tile, float step, int mode, int smem,
                     cudaStream_t st) {
-#define K5_LAUNCH(M, TL)                                                                        \
-  if (mode == M && tile == TL)                                                                  \
-    return launch<T, M, TL>(rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, S, hs, n2, \
-                            step, smem, st);
+#define K5_LAUNCH(M, TL)                                                                      \
+  if (mode == M && tile == TL)                                                                \
+    return launch<T, M, TL>(rows, center3d, center_hm, P, K, D, out, idx_out, B, C, ct, J, S, \
+                            hs, n2, step, smem, st);
   K5_TILES(K5_LAUNCH)
 #undef K5_LAUNCH
   return (int)cudaErrorInvalidValue;
@@ -430,18 +432,19 @@ static int dispatch(const void* rows, const void* center3d, const void* center_h
 // shared memory (Layout). A block per (frameset, tile): B * ceil(n2 /
 // tile)^3 blocks. out: float32 (B, G^3, J), or (B, n2^3, J) for
 // half_fused. idx_out: null, or int32 (B, C, G^3) for exact, (B, C, n2^3)
-// otherwise, to receive the gather indices.
+// otherwise, to receive the gather indices. ct: the camera sum's divisor,
+// the rig's cameras (C, or more where each rank holds C of them).
 extern "C" int repro_grid_gather(const void* rows, const void* center3d, const void* center_hm,
                                  const void* P, const void* K, const void* D, void* out,
                                  void* idx_out, int B, int C, int J, int S, int hs, int n2,
-                                 int tile, float step, int mode, int smem, int dtype,
+                                 int tile, float step, int mode, int smem, int dtype, int ct,
                                  void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == DTYPE_BF16)
-    return dispatch<__nv_bfloat16>(rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, S,
-                                   hs, n2, tile, step, mode, smem, st);
-  return dispatch<float>(rows, center3d, center_hm, P, K, D, out, idx_out, B, C, J, S, hs, n2, tile,
-                         step, mode, smem, st);
+    return dispatch<__nv_bfloat16>(rows, center3d, center_hm, P, K, D, out, idx_out, B, C, ct, J,
+                                   S, hs, n2, tile, step, mode, smem, st);
+  return dispatch<float>(rows, center3d, center_hm, P, K, D, out, idx_out, B, C, ct, J, S, hs, n2,
+                         tile, step, mode, smem, st);
 }
 
 template <typename T, int MODE, int TILE>

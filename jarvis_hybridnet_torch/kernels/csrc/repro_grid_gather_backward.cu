@@ -12,8 +12,8 @@
 // its layout (B, F, F, F, J), goes through the 0.25/0.75 value upsample
 // transposed along z, then y, then x for half (F = 2n), or is taken as it
 // is for exact and half_fused (F = n); each of the n^3 gather points'
-// values, divided by C, is added to the row the point was gathered from in
-// each of the C cameras. The output is the (B, C, hs2, J) gradient of the
+// values, divided by the rig's cameras (ct), is added to the row the point
+// was gathered from in each of the C cameras. The output is the (B, C, hs2, J) gradient of the
 // rows, the J-view of a zeroed (B, C, hs2, S) buffer.
 //
 // Bound on the H100: bytes (the upstream gradient and the indices read
@@ -32,7 +32,7 @@
 //    (half: its upstream block with a one-position halo), a warp a run of
 //    consecutive z (contiguous in global memory), and of every camera's
 //    indices of its points, all in flight at once.
-// 2. The values, divided by C, rows S floats apart (joints past J are 0).
+// 2. The values, divided by ct, rows S floats apart (joints past J are 0).
 //    half: the transposed upsample from the staged block, separably (z,
 //    then y, then x), each product rounded before its sum in the plain
 //    version's order (_upsample2_transposed), so the values equal its
@@ -116,7 +116,7 @@ __device__ __forceinline__ float upsample2_t(At at, int k, int L) {
 template <int kMode, int kTile, int kThreads>
 __global__ void __launch_bounds__(kThreads)
     grid_backward(const float* __restrict__ grad, const int* __restrict__ idx,
-                  float* __restrict__ out, int C, int J, int S, int hs2, int hs, int n,
+                  float* __restrict__ out, int C, int ct, int J, int S, int hs2, int hs, int n,
                   int win) {
   constexpr int t = kTile, P = t * t * t, e = 2 * t + 2;
   extern __shared__ __align__(16) float sm[];
@@ -168,10 +168,10 @@ __global__ void __launch_bounds__(kThreads)
   copies_landed();
   __syncthreads();
 
-  // 2. the values / C in rows S apart, joints past J and points past the
+  // 2. the values / ct (the rig's cameras) in rows S apart, joints past J and points past the
   // grid's edge 0 (half: the transposed upsample's z, y and x passes first,
   // each product rounded before its sum)
-  const float fc = (float)C;
+  const float fc = (float)ct;
   if (kMode != kHalf) {
     for (int p = grp; in_group && p < P; p += groups) {
       const int x = x0 + p / (t * t), y = y0 + p / t % t, z = z0 + p % t;
@@ -334,19 +334,19 @@ __global__ void __launch_bounds__(kThreads)
 
 // The overflow branch without a tile (tile 0; exact and half_fused, no
 // window): a thread per (frameset, point, 4 joints) divides its 4 upstream
-// values by C and adds them to each camera's row in one 16-byte reduction,
+// values by ct and adds them to each camera's row in one 16-byte reduction,
 // its C index loads in flight together.
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
     point_backward(const float* __restrict__ grad, const int* __restrict__ idx,
-                   float* __restrict__ out, int C, int J, int S, int hs2, int n3) {
+                   float* __restrict__ out, int C, int ct, int J, int S, int hs2, int n3) {
   const int q4 = S / 4;
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   const int p = (int)(i / q4), q = (int)(i - (long long)p * q4);
   if (p >= n3 || 4 * q >= J) return;
   const int b = blockIdx.y;
   const float* g = grad + ((size_t)b * n3 + p) * J + 4 * q;
-  const float fc = (float)C;
+  const float fc = (float)ct;
   float4 v;
   v.x = __fdiv_rn(g[0], fc);
   v.y = 4 * q + 1 < J ? __fdiv_rn(g[1], fc) : 0.f;
@@ -372,12 +372,12 @@ static int allow_smem() {
 
 template <int kMode, int kTile, int kThreads>
 static int launch(const void* grad, const void* idx, void* out, int B, int C, int J, int S,
-                  int hs2, int hs, int n, int win, int smem, cudaStream_t st) {
+                  int hs2, int hs, int n, int win, int smem, int ct, cudaStream_t st) {
   const int err = allow_smem<kMode, kTile, kThreads>();
   if (err != 0) return err;
   const int tiles = (n + kTile - 1) / kTile;
   grid_backward<kMode, kTile, kThreads><<<B * tiles * tiles * tiles, kThreads, smem, st>>>(
-      (const float*)grad, (const int*)idx, (float*)out, C, J, S, hs2, hs, n, win);
+      (const float*)grad, (const int*)idx, (float*)out, C, ct, J, S, hs2, hs, n, win);
   return launch_status();
 }
 
@@ -391,15 +391,16 @@ static int launch(const void* grad, const void* idx, void* out, int B, int C, in
 // point_backward (exact, half_fused; win 0, smem 0); win: the window's
 // pixels, below 32768 (0: every (tile, camera) takes the overflow branch); smem: the
 // layout's bytes (Layout); threads: 256 or 512 a block, at least S. A block
-// per (frameset, tile): B * ceil(n / tile)^3 blocks.
+// per (frameset, tile): B * ceil(n / tile)^3 blocks. ct: the forward's
+// divisor, the rig's cameras (C, or more where each rank holds C of them).
 extern "C" int repro_grid_gather_backward(const void* grad, const void* idx, void* out, int B,
                                           int C, int J, int S, int hs2, int n, int mode,
-                                          int tile, int win, int smem, int threads,
+                                          int tile, int win, int smem, int threads, int ct,
                                           void* stream) {
   int hs = (int)std::lround(std::sqrt((double)hs2));
   if (hs * hs != hs2) hs = hs2;  // rows of one pixel row: the window still holds
   const long long tiles = tile > 0 ? (n + (long long)tile - 1) / tile : 1;
-  if (mode < kExact || mode > kHalfFused || B < 1 || C < 1 || J < 1 || S < J || S % 4 ||
+  if (mode < kExact || mode > kHalfFused || B < 1 || C < 1 || ct < C || J < 1 || S < J || S % 4 ||
       S > threads || n < 1 || tile < 0 || win < 0 || win >= 32768 || hs >= 32768 ||
       (size_t)out % 16 || smem > kSmemMax ||
       smem != (tile ? 4 * layout(mode, C, tile, J, S, win).total : 0) ||
@@ -414,10 +415,10 @@ extern "C" int repro_grid_gather_backward(const void* grad, const void* idx, voi
     const dim3 grid((unsigned)((work + threads - 1) / threads), B);
     if (threads == 256)
       point_backward<256><<<grid, 256, 0, st>>>((const float*)grad, (const int*)idx, (float*)out,
-                                                C, J, S, hs2, n * n * n);
+                                                C, ct, J, S, hs2, n * n * n);
     else if (threads == 512)
       point_backward<512><<<grid, 512, 0, st>>>((const float*)grad, (const int*)idx, (float*)out,
-                                                C, J, S, hs2, n * n * n);
+                                                C, ct, J, S, hs2, n * n * n);
     else
       return (int)cudaErrorInvalidValue;
     return launch_status();
@@ -425,10 +426,10 @@ extern "C" int repro_grid_gather_backward(const void* grad, const void* idx, voi
 #define K12_LAUNCH(M, TL)                                                                   \
   if (mode == M && tile == TL)                                                              \
     return threads == 256                                                                   \
-               ? launch<M, TL, 256>(grad, idx, out, B, C, J, S, hs2, hs, n, win, smem, st)  \
+               ? launch<M, TL, 256>(grad, idx, out, B, C, J, S, hs2, hs, n, win, smem, ct, st)  \
                : threads == 512                                                             \
                      ? launch<M, TL, 512>(grad, idx, out, B, C, J, S, hs2, hs, n, win, smem, \
-                                          st)                                               \
+                                          ct, st)                                             \
                      : (int)cudaErrorInvalidValue;
   K12_TILES(K12_LAUNCH)
 #undef K12_LAUNCH

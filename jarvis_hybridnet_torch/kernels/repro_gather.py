@@ -16,6 +16,12 @@ apart in a contiguous (B, C, hs*hs, S) buffer: ``pad_rows`` (and
 ``HybridNetBackbone.heatmap_rows``) make S * itemsize a multiple of 16
 bytes, zero-filled, so K5 reads a row in 16-byte loads. K2 takes any S.
 
+``c_total``, where given, is the camera mean's divisor: the cameras of the
+whole rig, of which the call holds C (camera-sharded HybridNet,
+``parallel/``: the partial sums over each rank's cameras are summed over
+the camera group). It defaults to C, and the kernels and plain versions
+then compute exactly what they computed before the argument existed.
+
 The gather is differentiable with respect to the float32 or bf16 rows (the
 indices, centers and cameras get no gradient, as in JAX): with grad enabled
 and ``rows.requires_grad`` the forward saves its indices and the backward is
@@ -183,9 +189,10 @@ def _upsample2_aligned_transposed(g: torch.Tensor, axis: int) -> torch.Tensor:
     return out
 
 
-def scatter_rows_plain(q: torch.Tensor, idx: torch.Tensor, hs2: int, J: int) -> torch.Tensor:
+def scatter_rows_plain(q: torch.Tensor, idx: torch.Tensor, hs2: int, J: int,
+                       c_total: int | None = None) -> torch.Tensor:
     """The VJP of ``camera_mean``: q (B, N, J), the gradient of the mean,
-    divided by C and added (``index_add_``) to each camera's row at idx
+    divided by ``c_total`` (default C) and added (``index_add_``) to each camera's row at idx
     (B, C, N). Returns (B, C, hs2, J) in q's dtype, the J-view of a zeroed
     buffer whose rows are ``padded_width(J, 4)`` apart."""
     B, C, N = idx.shape
@@ -196,7 +203,8 @@ def scatter_rows_plain(q: torch.Tensor, idx: torch.Tensor, hs2: int, J: int) -> 
     buf = q.new_zeros((B, C, hs2, S))
     base = torch.arange(B * C, device=idx.device).view(B, C, 1) * hs2
     buf.view(-1, S)[:, :J].index_add_(0, (idx.long() + base).reshape(-1),
-                                      (q / C)[:, None].expand(B, C, N, J).reshape(-1, J))
+                                      (q / (c_total or C))[:, None].expand(B, C, N, J)
+                                      .reshape(-1, J))
     return buf[..., :J]
 
 
@@ -215,27 +223,27 @@ def check_backward(grad: torch.Tensor, idx: torch.Tensor, J: int, grid: int,
     return B, C
 
 
-def camera_mean(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def camera_mean(rows: torch.Tensor, idx: torch.Tensor, c_total: int | None = None) -> torch.Tensor:
     """The rows (B, C, hs*hs, J) gathered at idx (B, C, N), summed over the
-    cameras in camera order in float32 and divided by C: (B, N, J), as
-    ``gather_voxel_volume`` (repro.py:157-213)."""
+    cameras in camera order in float32 and divided by ``c_total`` (default
+    C): (B, N, J), as ``gather_voxel_volume`` (repro.py:157-213)."""
     C, J = rows.shape[1], rows.shape[3]
     acc = None
     for c in range(C):
         vals = torch.gather(rows[:, c], 1,
                             idx[:, c, :, None].long().expand(-1, -1, J)).float()
         acc = vals if acc is None else acc + vals
-    return acc / C
+    return acc / (c_total or C)
 
 
 def repro_quarter_gather_plain(rows, center3d, center_hm, P, K, D, g4: int,
-                               step: float):
+                               step: float, c_total: int | None = None):
     """Plain PyTorch version; returns (half volume, indices)."""
     B, hs2, J = rows.shape[0], rows.shape[2], rows.shape[3]
     # reproject_indices(G/2, 2 * spacing, upsample=False) is the quarter grid
     idx = reproject_indices_plain(center3d, center_hm, P, K, D, 2 * g4, step / 2.0,
                                   math.isqrt(hs2), upsample=False)
-    half = camera_mean(rows, idx).reshape(B, g4, g4, g4, J)
+    half = camera_mean(rows, idx, c_total).reshape(B, g4, g4, g4, J)
     for axis in (1, 2, 3):
         half = _upsample2_aligned(half, axis)
     return half, idx
@@ -281,7 +289,8 @@ def check_cameras(rows, center3d, center_hm, P, K, D) -> tuple[int, int, int, in
 def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
                          center_hm: torch.Tensor, P: torch.Tensor,
                          K: torch.Tensor, D: torch.Tensor, g4: int,
-                         step: float, return_indices: bool = False):
+                         step: float, return_indices: bool = False,
+                         c_total: int | None = None):
     """Half-grid voxel volume (B, 2g4, 2g4, 2g4, J) float32.
 
     rows: (B, C, hs*hs, J) padded heatmaps (bf16 or f32), J contiguous, rows
@@ -289,17 +298,29 @@ def repro_quarter_gather(rows: torch.Tensor, center3d: torch.Tensor,
     (B, C, 2) int32; P (B, C, 4, 3), K (B, C, 3, 3), D (B, C, 1, 5) float32.
     The quarter grid has g4 points per axis at ``step`` mm around center3d.
     With ``return_indices`` the (B, C, g4^3) int32 gather indices come back
-    too. With grad enabled and ``rows.requires_grad`` the volume carries the
-    gather's graph, whose backward is K11.
+    too. ``c_total``: the camera mean's divisor (module docstring). With
+    grad enabled and ``rows.requires_grad`` the volume carries the gather's
+    graph, whose backward is K11.
     """
+    ct = _c_total(rows, c_total)
     if torch.is_grad_enabled() and rows.requires_grad:
         require_row_dtype(rows)
-        out, idx = QuarterGather.apply(rows, center3d, center_hm, P, K, D, g4, step)
+        out, idx = QuarterGather.apply(rows, center3d, center_hm, P, K, D, g4, step, ct)
         return (out, idx) if return_indices else out
-    return _quarter_gather(rows, center3d, center_hm, P, K, D, g4, step, return_indices)
+    return _quarter_gather(rows, center3d, center_hm, P, K, D, g4, step, return_indices, ct)
 
 
 repro_quarter_gather.launches = 0
+
+
+def _c_total(rows: torch.Tensor, c_total: int | None) -> int:
+    """The camera mean's divisor: ``c_total``, at least the rows' C, or C."""
+    C = rows.shape[1]
+    if c_total is None:
+        return C
+    if int(c_total) < C:
+        raise ValueError(f"c_total {c_total} is below the {C} cameras of the rows")
+    return int(c_total)
 
 
 def require_row_dtype(rows: torch.Tensor) -> None:
@@ -310,11 +331,11 @@ def require_row_dtype(rows: torch.Tensor) -> None:
 
 
 def _quarter_gather(rows, center3d, center_hm, P, K, D, g4: int, step: float,
-                    return_indices: bool):
+                    return_indices: bool, ct: int):
     """The forward alone: the plain version on the CPU, else one K2 launch."""
     if build.on_cpu(rows, center3d, center_hm, P, K, D):
         half, idx = repro_quarter_gather_plain(rows, center3d, center_hm, P, K,
-                                               D, g4, step)
+                                               D, g4, step, ct)
         return (half, idx) if return_indices else half
     B, C, hs, J, S = check_cameras(rows, center3d, center_hm, P, K, D)
     dev = rows.device
@@ -325,7 +346,7 @@ def _quarter_gather(rows, center3d, center_hm, P, K, D, g4: int, step: float,
     p = build.ptr
     err = _fn()(p(rows), p(center3d), p(center_hm), p(P), p(K), p(D),
                 p(out), p(idx), B, C, J, S, hs, g4, TILE, step,
-                _DTYPES[rows.dtype], build.stream())
+                _DTYPES[rows.dtype], ct, build.stream())
     build.check(err, "repro_quarter_gather")
     repro_quarter_gather.launches += 1
     return (out, idx) if return_indices else out
@@ -336,10 +357,10 @@ class QuarterGather(torch.autograd.Function):
     indices, the backward is ``repro_quarter_gather_backward``."""
 
     @staticmethod
-    def forward(ctx, rows, center3d, center_hm, P, K, D, g4, step):
-        out, idx = _quarter_gather(rows, center3d, center_hm, P, K, D, g4, step, True)
+    def forward(ctx, rows, center3d, center_hm, P, K, D, g4, step, ct):
+        out, idx = _quarter_gather(rows, center3d, center_hm, P, K, D, g4, step, True, ct)
         ctx.save_for_backward(idx)
-        ctx.hs2, ctx.J, ctx.dtype = rows.shape[2], rows.shape[3], rows.dtype
+        ctx.hs2, ctx.J, ctx.dtype, ctx.ct = rows.shape[2], rows.shape[3], rows.dtype, ct
         ctx.mark_non_differentiable(idx)
         return out, idx
 
@@ -347,36 +368,39 @@ class QuarterGather(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad, _):
         (idx,) = ctx.saved_tensors
-        return (repro_quarter_gather_backward(grad.contiguous(), idx, ctx.hs2, ctx.J, ctx.dtype),
-                None, None, None, None, None, None, None)
+        return (repro_quarter_gather_backward(grad.contiguous(), idx, ctx.hs2, ctx.J, ctx.dtype,
+                                              ctx.ct),
+                None, None, None, None, None, None, None, None)
 
 
 def repro_quarter_gather_backward_plain(grad_half: torch.Tensor, idx: torch.Tensor, hs2: int,
-                                        J: int) -> torch.Tensor:
+                                        J: int, c_total: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of K11: the aligned upsample transposed along
     z, then y, then x, then ``scatter_rows_plain``; in grad_half's dtype."""
     g = grad_half
     for axis in (3, 2, 1):
         g = _upsample2_aligned_transposed(g, axis)
-    return scatter_rows_plain(g.reshape(g.shape[0], -1, g.shape[-1]), idx, hs2, J)
+    return scatter_rows_plain(g.reshape(g.shape[0], -1, g.shape[-1]), idx, hs2, J, c_total)
 
 
 def repro_quarter_gather_backward(grad_half: torch.Tensor, idx: torch.Tensor, hs2: int,
-                                  J: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                                  J: int, dtype: torch.dtype = torch.float32,
+                                  c_total: int | None = None) -> torch.Tensor:
     """K11, the VJP of K2 with respect to the rows: grad_half (B, 2g4, 2g4,
     2g4, J) float32 and K2's indices (B, C, g4^3) int32 -> the rows'
     gradient (B, C, hs2, J) in the rows' ``dtype`` (float32 or bf16), the
     J-view of a zeroed buffer whose rows are ``padded_width(J, itemsize)``
     apart. The plain version on the CPU, else one K11 launch (after a
     ``cudaMemsetAsync`` of the buffer), and for bf16 the rounding launch
-    (``round_rows``)."""
+    (``round_rows``). ``c_total``: the forward's divisor (default C)."""
     if dtype not in _DTYPES:
         raise ValueError(f"repro_quarter_gather_backward: rows of {dtype}")
+    ct = _c_total(idx, c_total)
     if build.on_cpu(grad_half, idx):
-        return round_rows(repro_quarter_gather_backward_plain(grad_half, idx, hs2, J), dtype)
+        return round_rows(repro_quarter_gather_backward_plain(grad_half, idx, hs2, J, ct), dtype)
     g4 = grad_half.shape[1] // 2
     B, C = check_backward(grad_half, idx, J, 2 * g4, g4)
-    buf = round_rows(launch_backward(grad_half, idx, B, C, J, hs2, g4), dtype)
+    buf = round_rows(launch_backward(grad_half, idx, B, C, J, hs2, g4, c_total=ct), dtype)
     repro_quarter_gather_backward.launches += 1
     return buf
 
@@ -404,14 +428,16 @@ def round_rows(buf: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def launch_backward(grad, idx, B: int, C: int, J: int, hs2: int, g4: int,
-                    threads: int = BACKWARD_THREADS) -> torch.Tensor:
+                    threads: int = BACKWARD_THREADS, c_total: int | None = None) -> torch.Tensor:
     """One K11 launch (``csrc/repro_gather_backward.cu``) on checked tensors,
-    in blocks of ``threads``; g4: the gather grid's points per axis. Returns
-    the J-view of the buffer. Counts no launch (the wrapper counts its)."""
+    in blocks of ``threads``; g4: the gather grid's points per axis;
+    ``c_total``: the divisor (default C). Returns the J-view of the buffer.
+    Counts no launch (the wrapper counts its)."""
     S = padded_width(J, 4)
     buf = torch.empty((B, C, hs2, S), dtype=torch.float32, device=grad.device)
     p = build.ptr
-    err = _backward_fn()(p(grad), p(idx), p(buf), B, C, J, S, hs2, g4, threads, build.stream())
+    err = _backward_fn()(p(grad), p(idx), p(buf), B, C, J, S, hs2, g4, threads, c_total or C,
+                         build.stream())
     build.check(err, "repro_quarter_gather_backward")
     return buf[..., :J]
 
@@ -420,7 +446,7 @@ def launch_backward(grad, idx, B: int, C: int, J: int, hs2: int, g4: int,
 def _backward_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.bind("repro_gather_backward", "repro_quarter_gather_backward",
-                      [p] * 3 + [i] * 7 + [p])
+                      [p] * 3 + [i] * 8 + [p])
 
 
 @functools.cache
@@ -434,4 +460,4 @@ def _round_fn():
 def _fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.bind("repro_quarter_gather", "repro_quarter_gather",
-                      [p] * 8 + [i] * 7 + [ctypes.c_float, i, p])
+                      [p] * 8 + [i] * 7 + [ctypes.c_float, i, i, p])

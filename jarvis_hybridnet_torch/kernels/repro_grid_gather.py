@@ -30,6 +30,10 @@ For bf16 rows a second launch rounds the float32 sums once to bf16 rows
 (``repro_gather.round_rows``): at exact, JAX's VJP rounds once too (at
 the transpose of its float32 cast); at half and half_fused it adds rounded
 cotangents into a bf16 table.
+
+``c_total``, where given, divides the camera sum in place of C, forward and
+backward (``repro_gather``'s docstring); its default, C, leaves every
+output as it was.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import build
-from .repro_gather import (_DTYPES, _upsample2, _upsample2_transposed, camera_mean,
+from .repro_gather import (_DTYPES, _c_total, _upsample2, _upsample2_transposed, camera_mean,
                            check_backward, check_cameras, padded_width,
                            reproject_indices_plain, require_row_dtype, round_rows,
                            scatter_rows_plain)
@@ -60,13 +64,13 @@ TILE = {"exact": 4, "half": 6, "half_fused": 6}
 
 
 def repro_grid_gather_plain(rows, center3d, center_hm, P, K, D, grid_size: int,
-                            grid_spacing: float, mode: str):
+                            grid_spacing: float, mode: str, c_total: int | None = None):
     """Plain PyTorch version; returns (volume, indices)."""
     B, hs2, J = rows.shape[0], rows.shape[2], rows.shape[3]
     idx = reproject_indices_plain(center3d, center_hm, P, K, D, grid_size, grid_spacing,
                                   math.isqrt(hs2), upsample=mode == "exact")
     n = grid_size if mode == "exact" else grid_size // 2
-    vol = camera_mean(rows, idx).reshape(B, n, n, n, J)
+    vol = camera_mean(rows, idx, c_total).reshape(B, n, n, n, J)
     if mode == "half":
         for axis in (1, 2, 3):
             vol = _upsample2(vol, axis)
@@ -161,7 +165,7 @@ def launch_plan(B: int, C: int, J: int, hs: int, G: int, mode: str, itemsize: in
 def repro_grid_gather(rows: torch.Tensor, center3d: torch.Tensor,
                       center_hm: torch.Tensor, P: torch.Tensor, K: torch.Tensor,
                       D: torch.Tensor, grid_size: int, grid_spacing: float, mode: str,
-                      return_indices: bool = False):
+                      return_indices: bool = False, c_total: int | None = None):
     """Voxel volume of the G^3 cube (G = ``grid_size``, even) in float32:
     (B, G, G, G, J) for exact and half, (B, G/2, G/2, G/2, J) for half_fused.
 
@@ -171,32 +175,33 @@ def repro_grid_gather(rows: torch.Tensor, center3d: torch.Tensor,
     center3d (B, 3) and center_hm (B, C, 2) int32; P (B, C, 4, 3),
     K (B, C, 3, 3), D (B, C, 1, 5) float32. With ``return_indices`` the
     int32 gather indices come back too: (B, C, G^3) for exact, (B, C,
-    (G/2)^3) for the half modes. With grad enabled and ``rows.requires_grad``
-    the volume carries the gather's graph, whose
-    backward is K12.
+    (G/2)^3) for the half modes. ``c_total``: the camera sum's divisor
+    (module docstring). With grad enabled and ``rows.requires_grad`` the
+    volume carries the gather's graph, whose backward is K12.
     """
     if mode not in MODES:
         raise ValueError(f"repro_grid_gather: unknown mode {mode!r}")
     if grid_size % 2:
         raise ValueError(f"repro_grid_gather: grid_size must be even, got {grid_size}")
+    ct = _c_total(rows, c_total)
     if torch.is_grad_enabled() and rows.requires_grad:
         require_row_dtype(rows)
         vol, idx = GridGather.apply(rows, center3d, center_hm, P, K, D, grid_size,
-                                    grid_spacing, mode)
+                                    grid_spacing, mode, ct)
         return (vol, idx) if return_indices else vol
     return _grid_gather(rows, center3d, center_hm, P, K, D, grid_size, grid_spacing, mode,
-                        return_indices)
+                        return_indices, ct)
 
 
 repro_grid_gather.launches = 0
 
 
 def _grid_gather(rows, center3d, center_hm, P, K, D, grid_size: int, grid_spacing: float,
-                 mode: str, return_indices: bool):
+                 mode: str, return_indices: bool, ct: int):
     """The forward alone: the plain version on the CPU, else one K5 launch."""
     if build.on_cpu(rows, center3d, center_hm, P, K, D):
         vol, idx = repro_grid_gather_plain(rows, center3d, center_hm, P, K, D, grid_size,
-                                           grid_spacing, mode)
+                                           grid_spacing, mode, ct)
         return (vol, idx) if return_indices else vol
     B, C, hs, J, S = check_cameras(rows, center3d, center_hm, P, K, D)
     if (S * rows.element_size()) % 16 or rows.data_ptr() % 16:
@@ -204,7 +209,7 @@ def _grid_gather(rows, center3d, center_hm, P, K, D, grid_size: int, grid_spacin
                          f"16 bytes apart (row stride {S}); pad them with pad_rows")
     plan = launch_plan(B, C, J, hs, grid_size, mode, rows.element_size())
     out = run_plan(plan, rows, center3d, center_hm, P, K, D, grid_size, grid_spacing,
-                   return_indices)
+                   return_indices, c_total=ct)
     repro_grid_gather.launches += 1
     return out
 
@@ -214,11 +219,12 @@ class GridGather(torch.autograd.Function):
     backward is ``repro_grid_gather_backward``."""
 
     @staticmethod
-    def forward(ctx, rows, center3d, center_hm, P, K, D, grid_size, grid_spacing, mode):
+    def forward(ctx, rows, center3d, center_hm, P, K, D, grid_size, grid_spacing, mode, ct):
         vol, idx = _grid_gather(rows, center3d, center_hm, P, K, D, grid_size, grid_spacing,
-                                mode, True)
+                                mode, True, ct)
         ctx.save_for_backward(idx)
         ctx.hs2, ctx.J, ctx.mode, ctx.dtype = rows.shape[2], rows.shape[3], mode, rows.dtype
+        ctx.ct = ct
         ctx.mark_non_differentiable(idx)
         return vol, idx
 
@@ -227,23 +233,25 @@ class GridGather(torch.autograd.Function):
     def backward(ctx, grad, _):
         (idx,) = ctx.saved_tensors
         return (repro_grid_gather_backward(grad.contiguous(), idx, ctx.hs2, ctx.J, ctx.mode,
-                                           ctx.dtype),
-                None, None, None, None, None, None, None, None)
+                                           ctx.dtype, ctx.ct),
+                None, None, None, None, None, None, None, None, None)
 
 
 def repro_grid_gather_backward_plain(grad: torch.Tensor, idx: torch.Tensor, hs2: int, J: int,
-                                     mode: str) -> torch.Tensor:
+                                     mode: str, c_total: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of K12: for half the 0.25/0.75 upsample
     transposed along z, then y, then x; then ``scatter_rows_plain`` at the
     (B, C, G^3) (exact) or (B, C, (G/2)^3) indices; in grad's dtype."""
     if mode == "half":
         for axis in (3, 2, 1):
             grad = _upsample2_transposed(grad, axis)
-    return scatter_rows_plain(grad.reshape(grad.shape[0], -1, grad.shape[-1]), idx, hs2, J)
+    return scatter_rows_plain(grad.reshape(grad.shape[0], -1, grad.shape[-1]), idx, hs2, J,
+                              c_total)
 
 
 def repro_grid_gather_backward(grad: torch.Tensor, idx: torch.Tensor, hs2: int, J: int,
-                               mode: str, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                               mode: str, dtype: torch.dtype = torch.float32,
+                               c_total: int | None = None) -> torch.Tensor:
     """K12, the VJP of K5 with respect to the rows: grad float32 in the
     forward's output layout ((B, G, G, G, J) for exact and half, (B, G/2,
     G/2, G/2, J) for half_fused) and K5's int32 indices -> the rows'
@@ -251,18 +259,20 @@ def repro_grid_gather_backward(grad: torch.Tensor, idx: torch.Tensor, hs2: int, 
     J-view of a zeroed buffer whose rows are ``padded_width(J, itemsize)``
     apart. The plain version on the CPU, else one K12 launch (after a
     ``cudaMemsetAsync`` of the buffer) with ``backward_plan``, and for bf16
-    the rounding launch (``repro_gather.round_rows``)."""
+    the rounding launch (``repro_gather.round_rows``). ``c_total``: the
+    forward's divisor (default C)."""
     if mode not in MODES:
         raise ValueError(f"repro_grid_gather_backward: unknown mode {mode!r}")
     if dtype not in _DTYPES:
         raise ValueError(f"repro_grid_gather_backward: rows of {dtype}")
+    ct = _c_total(idx, c_total)
     if build.on_cpu(grad, idx):
-        return round_rows(repro_grid_gather_backward_plain(grad, idx, hs2, J, mode), dtype)
+        return round_rows(repro_grid_gather_backward_plain(grad, idx, hs2, J, mode, ct), dtype)
     F = grad.shape[1]
     n = F // 2 if mode == "half" else F
     check_backward(grad, idx, J, 2 * n if mode == "half" else n, n)
-    buf = round_rows(run_backward(backward_plan(idx.shape[1], J, n, mode), grad, idx, hs2),
-                     dtype)
+    buf = round_rows(run_backward(backward_plan(idx.shape[1], J, n, mode), grad, idx, hs2,
+                                  c_total=ct), dtype)
     repro_grid_gather_backward.launches += 1
     return buf
 
@@ -387,17 +397,18 @@ def window_choice(idx: torch.Tensor, hs2: int, plan: BackwardPlan) -> tuple[int,
 
 
 def run_backward(plan: BackwardPlan, grad: torch.Tensor, idx: torch.Tensor,
-                 hs2: int) -> torch.Tensor:
+                 hs2: int, c_total: int | None = None) -> torch.Tensor:
     """Launch K12 with ``plan`` on checked CUDA tensors (the wrapper's
-    launch; ``kernel_sweep.py`` times other plans through it). Returns the
-    J-view of the zeroed-and-filled buffer; counts no launch."""
+    launch; ``kernel_sweep.py`` times other plans through it), dividing by
+    ``c_total`` (default C). Returns the J-view of the zeroed-and-filled
+    buffer; counts no launch."""
     B, C = idx.shape[:2]
     J = grad.shape[-1]
     buf = torch.empty((B, C, hs2, plan.S), dtype=torch.float32, device=grad.device)
     p = build.ptr
     err = _backward_fn()(p(grad), p(idx), p(buf), B, C, J, plan.S, hs2, plan.n,
                          MODES[plan.mode], plan.tile, plan.win, plan.smem, plan.threads,
-                         build.stream())
+                         c_total or C, build.stream())
     build.check(err, "repro_grid_gather_backward")
     return buf[..., :J]
 
@@ -417,13 +428,14 @@ def backward_occupancy(plan: BackwardPlan) -> int:
 def _backward_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.bind("repro_grid_gather_backward", "repro_grid_gather_backward",
-                      [p] * 3 + [i] * 11 + [p])
+                      [p] * 3 + [i] * 12 + [p])
 
 
 def run_plan(plan: Plan, rows, center3d, center_hm, P, K, D, grid_size: int,
-             grid_spacing: float, return_indices: bool = False):
+             grid_spacing: float, return_indices: bool = False, c_total: int | None = None):
     """Launch the kernel with ``plan`` on checked CUDA tensors (the wrapper's
-    launch; ``kernel_sweep.py`` times other plans through it)."""
+    launch; ``kernel_sweep.py`` times other plans through it), dividing the
+    camera sum by ``c_total`` (default C)."""
     B, C, hs2, J = rows.shape
     n = grid_size // 2 if plan.mode == "half_fused" else grid_size
     dev = rows.device
@@ -435,7 +447,7 @@ def run_plan(plan: Plan, rows, center3d, center_hm, P, K, D, grid_size: int,
     err = _fn()(p(rows), p(center3d), p(center_hm), p(P), p(K), p(D), p(out), p(idx),
                 B, C, J, rows.stride(2), math.isqrt(hs2), grid_size // 2, plan.tile,
                 float(grid_spacing) * 2.0, MODES[plan.mode], plan.smem,
-                _DTYPES[rows.dtype], build.stream())
+                _DTYPES[rows.dtype], c_total or C, build.stream())
     build.check(err, "repro_grid_gather")
     return (out, idx) if return_indices else out
 
@@ -454,4 +466,4 @@ def occupancy(plan: Plan, dtype: torch.dtype) -> int:
 def _fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.bind("repro_grid_gather", "repro_grid_gather",
-                      [p] * 8 + [i] * 7 + [ctypes.c_float] + [i] * 3 + [p])
+                      [p] * 8 + [i] * 7 + [ctypes.c_float] + [i] * 4 + [p])

@@ -100,6 +100,7 @@ class MBConvBlock(nn.Module):
     """Mobile inverted residual block (reference efficientnet.py:22-123)."""
 
     generator = None
+    draw_shard = None  # layers.set_draw_shard
 
     def __init__(self, spec: BlockSpec, drop_rate: float = 0.0):
         super().__init__()
@@ -133,7 +134,7 @@ class MBConvBlock(nn.Module):
         x = instance_norm(conv(self._project_conv, x))
         if spec.id_skip and spec.stride == 1 and spec.in_filters == spec.out_filters:
             if self.training and self.drop_rate:
-                x = drop_connect(x, self.drop_rate, self.generator)
+                x = drop_connect(x, self.drop_rate, self.generator, shard=self.draw_shard)
             x = x + inputs
         return x
 

@@ -13,6 +13,12 @@ graph, V2V with one; in ``all``, ``bifpn`` and ``last_layers`` the 2D net
 and the gather run with one too, and the gradient reaches KeypointDetect
 through the gather's backward (K11 for quarter_fused, K12 for the other
 modes). The loss (K7, ``kernels/hybridnet_loss``) takes V2V's output.
+
+Under camera sharding (:meth:`HybridNetBackbone.set_mesh`) the module runs
+on this rank's cameras: the gather divides by the rig's camera count and
+the camera group sums the partial volumes before V2V, which runs on every
+camera rank; the dropout and drop-connect sites keep their part of the
+global batch's draws (``layers.DrawShard``).
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from ..kernels import soft_argmax
 from ..kernels.hybridnet_loss import hybridnet_mse_loss  # noqa: F401  (the JAX module's name)
 from ..kernels.repro_gather import padded_width
 from .efficienttrack import EfficientTrackBackbone
-from .layers import compute_dtype
+from ..parallel.collectives import camera_sum
+from .layers import DrawShard, compute_dtype, set_draw_shard
 from .repro import REPRO_MODES, reproject_rows
 from .v2v import V2VNet
 
@@ -43,6 +50,23 @@ class HybridNetBackbone(nn.Module):
         self.effTrack = EfficientTrackBackbone(model_size, num_joints)
         self.v2vNet = V2VNet(num_joints, fused_upsample_front=repro_mode in (
             "half_fused", "quarter_fused"))
+        self.mesh = None  # set_mesh
+        self.c_total = None
+
+    def set_mesh(self, mesh, num_cameras: int) -> "HybridNetBackbone":
+        """Run on ``mesh``'s part of each batch: this rank's samples and,
+        with more than one camera rank, its cameras of the ``num_cameras``
+        of the rig (module docstring). None: one process, the whole batch."""
+        if mesh is None:
+            self.mesh = self.c_total = None
+            set_draw_shard(self, None)
+            return self
+        cams = mesh.cameras(num_cameras)
+        self.mesh, self.c_total = mesh, int(num_cameras)
+        set_draw_shard(self.effTrack, DrawShard(mesh.n_data, mesh.data_index, mesh.n_cameras,
+                                                mesh.camera_index, cams.stop - cams.start))
+        set_draw_shard(self.v2vNet, DrawShard(mesh.n_data, mesh.data_index))
+        return self
 
     @property
     def dtype(self) -> torch.dtype:
@@ -69,7 +93,8 @@ class HybridNetBackbone(nn.Module):
     def v2v_output(self, rows, center_hm, center3d, P, K, D) -> torch.Tensor:
         """Heatmap rows -> V2V output (B, g, g, g, J) in the compute dtype."""
         voxels = reproject_rows(rows, center3d, center_hm, P, K, D, self.grid_size,
-                                float(self.grid_spacing), self.repro_mode)
+                                float(self.grid_spacing), self.repro_mode, c_total=self.c_total)
+        voxels = camera_sum(voxels, self.mesh)
         vol = (voxels / 255.0).to(self.dtype).permute(0, 4, 1, 2, 3)
         return self.v2vNet(vol).permute(0, 2, 3, 4, 1)
 

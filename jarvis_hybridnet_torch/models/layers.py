@@ -15,10 +15,14 @@ gives the same bits. ``sigmoid`` and ``silu`` evaluate 1 / (1 + exp(-x)) op
 by op, so in bfloat16 they round where XLA rounds ``jax.nn.sigmoid`` /
 ``jax.nn.silu``. Dropout and drop-connect round their Python scalars to the
 input's dtype first, as JAX rounds a weak-typed scalar (:func:`weak`).
+Under data or camera sharding each rank draws the masks of the global batch
+and keeps its own part (:class:`DrawShard`), so a sharded step applies the
+masks the single-process step applies to the whole batch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -58,25 +62,62 @@ def instance_norm(x: torch.Tensor, act: str = "none",
     return y.reshape(xl.shape).permute(inv)
 
 
+@dataclasses.dataclass(frozen=True)
+class DrawShard:
+    """The part of the global batch's random draws that one rank keeps.
+
+    The leading axis of a tensor at a dropout or drop-connect site holds
+    this rank's samples, each with ``cameras`` items (its cameras in the
+    2D net of HybridNet, else 1). The global draw has ``n_data`` times the
+    samples and ``n_cameras`` times the items, laid out as the
+    single-process step lays out the whole batch (samples major, then
+    cameras); the rank keeps data block ``data_index`` and camera block
+    ``camera_index``. Every rank draws the same global tensor from the
+    same generator state, so the generators stay in step."""
+
+    n_data: int = 1
+    data_index: int = 0
+    n_cameras: int = 1
+    camera_index: int = 0
+    cameras: int = 1
+
+    def rand(self, shape, generator, device) -> torch.Tensor:
+        per = shape[0] // self.cameras
+        full = torch.rand((self.n_data * per, self.n_cameras * self.cameras) + tuple(shape[1:]),
+                          generator=generator, device=device)
+        part = full.narrow(0, self.data_index * per, per).narrow(
+            1, self.camera_index * self.cameras, self.cameras)
+        return part.reshape(shape)
+
+
+def _rand(shape, generator, device, shard: DrawShard | None) -> torch.Tensor:
+    if shard is None:
+        return torch.rand(shape, generator=generator, device=device)
+    return shard.rand(tuple(shape), generator, device)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            mask: torch.Tensor | None = None) -> torch.Tensor:
+            mask: torch.Tensor | None = None, shard: DrawShard | None = None) -> torch.Tensor:
     """flax ``nn.Dropout(rate)``: keep each element with probability 1 - rate
     and scale it by 1 / (1 - rate). The keep mask is drawn from
-    ``generator`` (uniform < 1 - rate) unless ``mask`` is given."""
+    ``generator`` (uniform < 1 - rate; ``shard``'s part of the global draw)
+    unless ``mask`` is given."""
     keep = 1.0 - rate
     if mask is None:
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        mask = _rand(x.shape, generator, x.device, shard) < keep
     return torch.where(mask, x / weak(keep, x.dtype), torch.zeros_like(x))
 
 
 def drop_connect(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-                 uniform: torch.Tensor | None = None) -> torch.Tensor:
+                 uniform: torch.Tensor | None = None,
+                 shard: DrawShard | None = None) -> torch.Tensor:
     """Per-sample stochastic depth, as ``models/layers.py::drop_connect`` of
     the JAX package: x / keep * floor(keep + u), u ~ U[0, 1) per sample in
-    x's dtype, drawn from ``generator`` unless ``uniform`` (N,) is given."""
+    x's dtype, drawn from ``generator`` (``shard``'s part of the global
+    draw) unless ``uniform`` (N,) is given."""
     keep = weak(1.0 - rate, x.dtype)
     if uniform is None:
-        uniform = torch.rand(x.shape[0], generator=generator, device=x.device)
+        uniform = _rand((x.shape[0],), generator, x.device, shard)
     binary = torch.floor(keep + uniform.to(x.dtype)).reshape(-1, *(1,) * (x.dim() - 1))
     return x / keep * binary
 
@@ -87,6 +128,15 @@ def set_generator(module: nn.Module, generator: torch.Generator | None) -> nn.Mo
     for m in module.modules():
         if hasattr(type(m), "generator"):
             m.generator = generator
+    return module
+
+
+def set_draw_shard(module: nn.Module, shard: DrawShard | None) -> nn.Module:
+    """Give every dropout and drop-connect site under ``module`` the part of
+    the global draw it keeps (None: the whole draw, one process)."""
+    for m in module.modules():
+        if hasattr(type(m), "draw_shard"):
+            m.draw_shard = shard
     return module
 
 

@@ -26,9 +26,10 @@ class _Dropped(nn.Module):
     mode, with masks from ``generator`` (set by ``layers.set_generator``)."""
 
     generator = None
+    draw_shard = None  # layers.set_draw_shard
 
     def drop(self, x: torch.Tensor) -> torch.Tensor:
-        return dropout(x, DROPOUT, self.generator) if self.training else x
+        return dropout(x, DROPOUT, self.generator, shard=self.draw_shard) if self.training else x
 
 
 class Basic3DBlock(_Dropped):

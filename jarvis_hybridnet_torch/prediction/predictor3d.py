@@ -12,6 +12,15 @@ the bbox^2 crops normalized in float32, then HybridNet (K1 throughout the
 soft-argmax). Everything stays on the
 predictor's device; nothing synchronizes with the host.
 
+Camera sharding (:meth:`Predict3D.set_mesh`, ``parallel/predict_step``):
+each rank of a camera group takes its own cameras' frames, runs K4,
+CenterDetect and the argmax on them, and the centers and maxima are
+gathered over the group in camera order (``collectives.camera_gather``),
+so every rank computes the same gate, DLT and crop centers; then each rank
+crops its cameras, runs KeypointDetect on them and gathers their rows
+divided by the rig's camera count, the group sums the partial volumes
+(``collectives.camera_sum``), and V2V and K3 run on every rank.
+
 The two-phase cascade splits that step for streaming: phase A runs the
 center stage on low-resolution frames and returns crop centers in
 full-resolution pixels, the host cuts the crops out of its full-resolution
@@ -28,6 +37,7 @@ from ..kernels.resize_normalize import value_scale
 from ..models.efficienttrack import EfficientTrackBackbone
 from ..models.hybridnet import HybridNetBackbone
 from ..ops.heatmap import argmax_2d
+from ..parallel.collectives import camera_gather
 from ..utils.reprojection import project_points, triangulate
 
 
@@ -57,6 +67,19 @@ class Predict3D:
 
         self.P, self.K, self.D = dev(camera_matrices), dev(intrinsics), dev(distortions)
         self.mean_t, self.std_t = dev(self.mean), dev(self.std)
+        self.set_mesh(None)
+
+    def set_mesh(self, mesh) -> "Predict3D":
+        """Shard the cameras over ``mesh``'s camera group (module
+        docstring): a call then takes this rank's cameras' frames (T,
+        C / n_cameras, H, W, 3). None, or one camera rank: every camera."""
+        C = self.P.shape[0]
+        self.mesh = mesh if mesh is not None and mesh.n_cameras > 1 else None
+        self.cams = slice(0, C) if self.mesh is None else self.mesh.cameras(C)
+        self.local_P, self.local_K, self.local_D = (a[self.cams] for a in (self.P, self.K,
+                                                                             self.D))
+        self.hybrid_model.set_mesh(self.mesh, C)
+        return self
 
     @property
     def dtype(self) -> torch.dtype:
@@ -66,14 +89,16 @@ class Predict3D:
     def detect(self, imgs: torch.Tensor):
         """Resize + normalize (K4), CenterDetect and argmax: the detected
         centers (T, C, 2) in CenterDetect heatmap pixels, float32, and
-        their heatmap maxima (T, C)."""
+        their heatmap maxima (T, C), of every camera of the rig (gathered
+        over the camera group where the frames are this rank's cameras)."""
         T, C, H, W = imgs.shape[:4]
         cs = self.center_size
         inp = resize_normalize(imgs.reshape(T * C, H, W, 3), cs, cs, self.mean,
                                self.std, self.dtype)
         hm = self.center_model.heatmap2(inp.permute(0, 3, 1, 2))
         xy, maxval = argmax_2d(hm.permute(0, 2, 3, 1))  # (T*C, 1, 2), (T*C, 1) float32
-        return xy[:, 0].reshape(T, C, 2).float(), maxval[:, 0].reshape(T, C)
+        return (camera_gather(xy[:, 0].reshape(T, C, 2).float(), self.mesh),
+                camera_gather(maxval[:, 0].reshape(T, C).float(), self.mesh))
 
     @torch.no_grad()
     def place(self, preds: torch.Tensor, maxvals: torch.Tensor, height: int,
@@ -127,21 +152,23 @@ class Predict3D:
 
     @torch.no_grad()
     def hybrid_points(self, crops, center_hm, center3d):
-        """HybridNet on normalized crops: (points3D, confidences)."""
+        """HybridNet on normalized crops of this rank's cameras, at their
+        crop centers: (points3D, confidences)."""
         T = crops.shape[0]
 
         def per_frameset(a):
             return a.expand(T, *a.shape)
 
         return self.hybrid_model.points(
-            crops, center_hm, center3d.to(torch.int32), per_frameset(self.P),
-            per_frameset(self.K), per_frameset(self.D))
+            crops, center_hm, center3d.to(torch.int32), per_frameset(self.local_P),
+            per_frameset(self.local_K), per_frameset(self.local_D))
 
     @torch.no_grad()
     def eager_step(self, imgs: torch.Tensor):
         """One step on checked frames on the device, launched op by op."""
         center_hm, center3d, valid = self.centers(imgs)
-        points, conf = self.hybrid_points(self.crops(imgs, center_hm), center_hm, center3d)
+        local = center_hm[:, self.cams]
+        points, conf = self.hybrid_points(self.crops(imgs, local), local, center3d)
         return points, conf, valid
 
     def __call__(self, imgs):

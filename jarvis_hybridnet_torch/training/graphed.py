@@ -40,6 +40,12 @@ freeze mode for evaluation; the trainers drop both at the start of every
 ``train()``, as the JAX trainers jit fresh closures per call. A capture
 that fails raises: there is no eager fallback on the card. On a CPU device
 (or with ``graph=False``) the step runs as it is.
+
+Under a mesh of processes (``parallel/``) the sharded step's all-reduce of
+the gradients and the loss runs inside the captured step: NCCL's
+collectives are captured as graph nodes, and the ``WARMUP`` eager steps run
+them first, as a capture needs. gloo's cannot be captured: a gloo mesh on
+the card takes ``graph=False`` (:func:`check_capturable` raises otherwise).
 """
 
 from __future__ import annotations
@@ -51,6 +57,24 @@ import torch
 from ..prediction.export import _clone
 
 WARMUP = 2  # eager steps of a key before its capture
+
+
+def check_capturable(graph: bool, device, mesh) -> None:
+    """Raise where a trainer's steps are to be captured on the card (``graph``
+    on a CUDA device) while their collectives run on gloo."""
+    if graph and torch.device(device).type == "cuda" and mesh is not None \
+            and mesh.backend != "nccl":
+        raise ValueError(f"a {mesh.backend} collective cannot be captured in a CUDA graph; "
+                         "pass graph=False, or run the mesh on NCCL")
+
+
+def rank_device(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` is the current device
+    (``cuda:LOCAL_RANK`` once ``multihost.initialize_distributed`` ran)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class GraphedTrainStep:

@@ -43,8 +43,20 @@ the optimizer's state and the checkpoints stay float32 and the network
 computes in bf16 (``layers.set_compute_dtype``); K8 reads the bf16 heads,
 keeps its loss in float32 and writes their gradients in bf16.
 
-Not ported, and raising: the Streamlit monitor (ROADMAP.md A.13) and
-multi-device meshes (A.12). The loader runs
+Several processes (``torchrun --nproc_per_node=N``, ``parallel/``): with
+``WORLD_SIZE`` > 1 the trainer joins the world (NCCL on the card, or it
+raises) and runs data-parallel over it when ``BATCH_SIZE`` divides across
+the ranks (``auto_data_mesh``, the JAX trainer's rule; else rank 0 trains
+alone); ``mesh=`` gives one explicitly (gloo needs ``graph=False`` on the
+card). Each rank loads its slice of every global batch
+(``multihost.make_dp_loaders``), and the step
+(``train_step.make_data_parallel_train_step``) averages the gradients and
+the loss over the ranks in one all-reduce, inside the CUDA graph under
+NCCL; drop-connect keeps the rank's part of the global batch's draws.
+Rank 0 alone writes checkpoints, train states and logs; a stop signalled
+on any rank stops every rank at the same step.
+
+Not ported, and raising: the Streamlit monitor (ROADMAP.md A.13). The loader runs
 thread workers whatever ``DATALOADER_WORKER_MODE`` says, and says so when it
 asks for process workers (``loader.trainer_worker_mode``).
 """
@@ -60,12 +72,16 @@ import torch
 
 from ..kernels import heatmap2d_loss
 from ..models.efficienttrack import EfficientTrackBackbone
-from ..models.layers import cast_convs, set_compute_dtype, set_generator
+from ..models.layers import DrawShard, cast_convs, set_compute_dtype, set_draw_shard, set_generator
 from ..models.weights import params_from_jax, params_to_jax
 from ..ops.augment import make_color_aug, record_arrays, record_of
 from ..ops.heatmap import argmax_2d
+from ..parallel import multihost
+from ..parallel.mesh import auto_data_mesh
+from ..parallel.train_step import global_loss, make_data_parallel_train_step
 from ..utils import clp
-from ..utils.logger import AverageMeter, NetLogger
+from ..utils.logger import AverageMeter, NetLogger, NullLogger
+from ..utils.preemption import is_primary_host
 from ..utils.transfer import HostToDevice
 from . import checkpoints, graphed, optim
 
@@ -127,13 +143,23 @@ def host_batch(b) -> tuple[dict, np.ndarray]:
 
 class EfficientTrackTrainer:
     def __init__(self, mode: str, cfg, weights=None, run_name=None, device="cuda",
-                 seed: int = 1, graph: bool = True):
+                 seed: int = 1, graph: bool = True, mesh="auto"):
         if mode not in SIGMA_BASE:
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
         self.main_cfg = cfg
         self.cfg = cfg[mode.upper()]
-        self.device = torch.device(device)
+        if isinstance(mesh, str):  # "auto": the JAX trainer's mesh over the world
+            mesh = None
+            if multihost.world_size() > 1:
+                multihost.initialize_distributed()
+                mesh = auto_data_mesh(int(self.cfg.BATCH_SIZE))
+        self.mesh = mesh
+        self.idle = (mesh is not None and not mesh.member) or (
+            mesh is None and not is_primary_host())
+        self.primary = is_primary_host()
+        graphed.check_capturable(graph, device, mesh)
+        self.device = graphed.rank_device(device) if mesh is not None else torch.device(device)
         self.seed = seed
         # float32 masters computing in bf16 at TPU.TRAIN_DTYPE bfloat16, as JAX's
         # dtype=jnp.bfloat16 with param_dtype float32
@@ -143,8 +169,11 @@ class EfficientTrackTrainer:
         if run_name is None:
             run_name = "Run_" + time.strftime("%Y%m%d-%H%M%S")
         self.model_savepath = os.path.join(cfg.savePaths[mode], run_name)
-        os.makedirs(self.model_savepath, exist_ok=True)
-        self.logger = NetLogger(os.path.join(cfg.logPaths[mode], run_name))
+        if self.primary:
+            os.makedirs(self.model_savepath, exist_ok=True)
+            self.logger = NetLogger(os.path.join(cfg.logPaths[mode], run_name))
+        else:
+            self.logger = NullLogger()
         self.lossMeter = AverageMeter()
         self.accuracyMeter = AverageMeter()
         self.input_size = int(self.cfg.IMAGE_SIZE if mode == "CenterDetect"
@@ -167,6 +196,8 @@ class EfficientTrackTrainer:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         set_generator(self.model, self.generator)
+        if mesh is not None and mesh.member:
+            set_draw_shard(self.model, DrawShard(mesh.n_data, mesh.data_index))
         self.graphs = graphed.TrainGraphs(self.device, self.generator, enabled=graph)
         self.color_aug = make_color_aug(cfg.AUGMENTATION, cfg.DATASET.MEAN, cfg.DATASET.STD)
 
@@ -198,7 +229,13 @@ class EfficientTrackTrainer:
                                lambda: self._train_fn(optimizer), b)
 
     def _train_fn(self, optimizer):
+        sharded = (make_data_parallel_train_step(self, optimizer, self.mesh)
+                   if self.mesh is not None else None)
+
         def step(b: dict):
+            if sharded is not None:
+                loss, out2 = sharded(b)
+                return loss, argmax_2d(out2.permute(0, 2, 3, 1))[0]
             loss, out2 = self.forward(b)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -219,17 +256,22 @@ class EfficientTrackTrainer:
         self.model.eval()
         try:
             loss, out2 = self.forward(b)
-            return loss, argmax_2d(out2.permute(0, 2, 3, 1))[0]
         finally:
             self.model.train()
+        if self.mesh is not None:
+            loss = global_loss(loss, self.mesh, 1.0 / self.mesh.n_data)
+        return loss, argmax_2d(out2.permute(0, 2, 3, 1))[0]
 
     def train(self, training_set, validation_set, num_epochs, start_epoch=0,
               streamlitWidgets=None, resume_from=None) -> dict:
-        from ..dataset.loader import DataLoader, maybe_preload, trainer_worker_mode
+        from ..dataset.loader import maybe_preload, trainer_worker_mode
 
         cfg = self.cfg
         if streamlitWidgets is not None:
             raise NotImplementedError("the Streamlit monitor is not ported yet (ROADMAP.md A.13)")
+        if self.idle:
+            clp.info("this rank is outside the training mesh and idles")
+            return {"idle": True}
         training_set.device_targets = True
         validation_set.device_targets = True
         training_set.device_aug = self._device_aug() and training_set.set_name == "train"
@@ -239,10 +281,9 @@ class EfficientTrackTrainer:
         worker_mode = trainer_worker_mode(self.main_cfg)
         batch = int(cfg.BATCH_SIZE)
         self.graphs.reset()  # graphs live for one call, as JAX's jitted closures
-        train_loader = DataLoader(training_set, batch_size=batch, shuffle=True, drop_last=True,
-                                  num_workers=workers, worker_mode=worker_mode)
-        val_loader = DataLoader(validation_set, batch_size=batch, shuffle=False,
-                                drop_last=True, num_workers=workers, worker_mode=worker_mode)
+        train_loader, val_loader = multihost.make_dp_loaders(
+            training_set, validation_set, batch, workers, self.mesh, drop_last=True,
+            worker_mode=worker_mode)
         steps_per_epoch = len(train_loader)
         max_lr = float(cfg.MAX_LEARNING_RATE)
         optimizer = optim.make_optimizer(cfg.OPTIMIZER, list(self.model.parameters()), max_lr)
@@ -278,7 +319,9 @@ class EfficientTrackTrainer:
         from ..utils.preemption import POD_POLL_STRIDE, PreemptionGuard
 
         upload = HostToDevice(self.device)
-        guard = PreemptionGuard()
+        guard = PreemptionGuard(group=None if self.mesh is None else self.mesh.group,
+                                device=self.device if self.mesh is not None
+                                and self.mesh.backend == "nccl" else "cpu")
 
         def to_device(b):
             arrays, gt = host_batch(b)
@@ -290,7 +333,7 @@ class EfficientTrackTrainer:
 
         def consume(p):
             loss, preds, gt = p
-            acc = accuracy_from_preds(preds.cpu().numpy(), gt)
+            acc = accuracy_from_preds(multihost.local_np(preds), gt)
             self.lossMeter.update(float(loss))
             if acc != -1:
                 self.accuracyMeter.update(acc)
@@ -306,7 +349,7 @@ class EfficientTrackTrainer:
                 # the state this epoch starts from, for a stop inside it
                 start = ({k: v.clone() for k, v in self.model.state_dict().items()},
                          copy.deepcopy(optimizer.state_dict()), step)
-                bar = _progress(train_loader, steps_per_epoch)
+                bar = _progress(train_loader, steps_per_epoch) if self.primary else train_loader
                 for b in bar:
                     batch_dev, gt = to_device(b)
                     loss, preds = self.train_step(batch_dev, optimizer,
@@ -343,7 +386,7 @@ class EfficientTrackTrainer:
                 self.accuracyMeter.reset()
 
                 if (epoch + 1) % int(cfg.CHECKPOINT_SAVE_INTERVAL) == 0 \
-                        and epoch + 1 < num_epochs:
+                        and epoch + 1 < num_epochs and self.primary:
                     self.save_checkpoint(f"EfficientTrack-{cfg.MODEL_SIZE}_Epoch_{epoch + 1}")
                     checkpoints.save_train_state(
                         os.path.join(self.model_savepath, "train_state.ckpt"),
@@ -355,13 +398,14 @@ class EfficientTrackTrainer:
                     for b in val_loader:
                         batch_dev, gt = to_device(b)
                         loss, preds = self.eval_step(batch_dev)
-                        acc = accuracy_from_preds(preds.cpu().numpy(), gt)
+                        acc = accuracy_from_preds(multihost.local_np(preds), gt)
                         self.lossMeter.update(float(loss))
                         if acc != -1:
                             self.accuracyMeter.update(acc)
-                    print("Val. Epoch: {}/{}. Loss: {:1.5f}. Acc: {:1.3f}".format(
-                        epoch + 1, num_epochs, self.lossMeter.read(),
-                        self.accuracyMeter.read()))
+                    if self.primary:
+                        print("Val. Epoch: {}/{}. Loss: {:1.5f}. Acc: {:1.3f}".format(
+                            epoch + 1, num_epochs, self.lossMeter.read(),
+                            self.accuracyMeter.read()))
                     results["val_loss"] = self.lossMeter.read()
                     results["val_acc"] = self.accuracyMeter.read()
                     if np.isnan(results["val_acc"]):
@@ -384,13 +428,17 @@ class EfficientTrackTrainer:
 
     def _save_preempted(self, state: dict, opt_state: dict, resume_epoch: int) -> None:
         """Write a resumable train state: the run resumes at the start of
-        epoch ``resume_epoch`` from ``state``."""
+        epoch ``resume_epoch`` from ``state`` (rank 0)."""
+        if not self.primary:
+            return
         path = os.path.join(self.model_savepath, "train_state.ckpt")
         checkpoints.save_train_state(path, state, opt_state, resume_epoch, self.cfg.MODEL_SIZE)
         clp.warning(f"Training preempted; resumable state saved to "
                     f"{path} (resumes at epoch {resume_epoch + 1})")
 
     def save_checkpoint(self, name: str) -> None:
+        if not self.primary:
+            return
         state = self.model.state_dict()
         checkpoints.save_checkpoint(state, os.path.join(self.model_savepath, name + ".ckpt"),
                                     self.cfg.MODEL_SIZE)

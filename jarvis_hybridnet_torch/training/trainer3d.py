@@ -1,6 +1,7 @@
 """HybridNet (3D) trainer (port of ``jarvis_hybridnet_tpu/training/trainer3d.py``),
-on one device, in the freeze modes ``all`` (the default, as JAX's),
-``bifpn``, ``last_layers`` and ``3D_only``.
+on one device or a (data, cameras) mesh of processes, in the freeze modes
+``all`` (the default, as JAX's), ``bifpn``, ``last_layers`` and
+``3D_only``.
 
 The loop of the JAX trainer (``trainer3d.py:195-383``): masked voxel-MSE
 training with AdamW / SGD, OneCycle or plateau schedules, the mm-accuracy
@@ -45,6 +46,22 @@ gathered as bf16 (K11 / K12 sum their gradient in float32 and round it
 once), and the loss (K7) and the points (K3) read V2V's output cast to
 float32, as JAX's softplus does.
 
+Several processes (``torchrun --nproc_per_node=N``, ``parallel/``): with
+``WORLD_SIZE`` > 1 the trainer joins the world (NCCL on the card, or it
+raises) and meshes it as the JAX trainer does
+(``auto_train_mesh(BATCH_SIZE, NUM_CAMERAS)``: the data axis splits the
+global batch ``BATCH_SIZE``, the camera axis the cameras); ``mesh=`` gives
+one explicitly (gloo where the caller made it so; a gloo step cannot be
+captured, so gloo needs ``graph=False``). Each data group loads its slice
+of every global batch (``multihost.make_dp_loaders``), the camera ranks of
+a data group take the group root's batch and their own cameras
+(``train_step.shard_batch``), and the sharded step
+(``train_step.make_hybridnet_train_step``) reduces the gradients and the
+loss in one all-reduce, inside the CUDA graph under NCCL. Rank 0 alone
+writes checkpoints, train states and logs; a stop signalled on any rank
+stops every rank at the same step (``utils/preemption``). Ranks outside
+the mesh idle.
+
 Not ported yet, and raising: the Streamlit monitor (ROADMAP.md A.13). The loader runs thread workers
 whatever ``DATALOADER_WORKER_MODE`` says, and says so when it asks for
 process workers (``loader.trainer_worker_mode``).
@@ -63,8 +80,12 @@ from ..models.layers import cast_convs, set_compute_dtype, set_generator
 from ..models.v2v import set_fused_cache
 from ..kernels import hybridnet_loss
 from ..ops.augment import make_color_aug, record_arrays, record_of
+from ..parallel import multihost
+from ..parallel.mesh import auto_train_mesh
+from ..parallel.train_step import global_loss, make_hybridnet_train_step, shard_batch
 from ..utils import clp
-from ..utils.logger import AverageMeter, NetLogger
+from ..utils.logger import AverageMeter, NetLogger, NullLogger
+from ..utils.preemption import is_primary_host
 from ..utils.transfer import HostToDevice
 from . import checkpoints, graphed, optim
 
@@ -103,10 +124,22 @@ def _progress(iterable, total):
 class HybridNetTrainer:
     def __init__(self, mode: str, cfg, weights=None, efficienttrack_weights=None,
                  run_name=None, training_mode: str = "all", device="cuda", seed: int = 2,
-                 graph: bool = True):
+                 graph: bool = True, mesh="auto"):
         self.cfg = cfg
         self.training_mode = training_mode
-        self.device = torch.device(device)
+        if isinstance(mesh, str):  # "auto": the JAX trainer's mesh over the world
+            mesh = None
+            if multihost.world_size() > 1:
+                multihost.initialize_distributed()
+                mesh = auto_train_mesh(int(cfg.HYBRIDNET.BATCH_SIZE),
+                                       int(cfg.HYBRIDNET.NUM_CAMERAS))
+        self.mesh = mesh
+        # a rank outside the mesh, or past rank 0 when the mesh is one device
+        self.idle = (mesh is not None and not mesh.member) or (
+            mesh is None and not is_primary_host())
+        self.primary = is_primary_host()
+        graphed.check_capturable(graph, device, mesh)
+        self.device = graphed.rank_device(device) if mesh is not None else torch.device(device)
         self.seed = seed
         # float32 masters computing in bf16 at TPU.TRAIN_DTYPE bfloat16, as JAX's
         # dtype=jnp.bfloat16 with param_dtype float32
@@ -122,8 +155,11 @@ class HybridNetTrainer:
         if run_name is None:
             run_name = "Run_" + time.strftime("%Y%m%d-%H%M%S")
         self.model_savepath = os.path.join(cfg.savePaths["HybridNet"], run_name)
-        os.makedirs(self.model_savepath, exist_ok=True)
-        self.logger = NetLogger(os.path.join(cfg.logPaths["HybridNet"], run_name))
+        if self.primary:
+            os.makedirs(self.model_savepath, exist_ok=True)
+            self.logger = NetLogger(os.path.join(cfg.logPaths["HybridNet"], run_name))
+        else:
+            self.logger = NullLogger()
         self.lossMeter = AverageMeter()
         self.accuracyMeter = AverageMeter()
 
@@ -141,6 +177,8 @@ class HybridNetTrainer:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         set_generator(self.model, self.generator)
+        if mesh is not None and mesh.member:
+            self.model.set_mesh(mesh, int(cfg.HYBRIDNET.NUM_CAMERAS))
         set_fused_cache(self.model, False)  # the eval step reads the weights trained in place
         self.graphs = graphed.TrainGraphs(self.device, self.generator, enabled=graph)
         self.color_aug = make_color_aug(cfg.AUGMENTATION, cfg.DATASET.MEAN, cfg.DATASET.STD)
@@ -175,6 +213,9 @@ class HybridNetTrainer:
                                lambda: self._train_fn(optimizer), b)
 
     def _train_fn(self, optimizer):
+        if self.mesh is not None:
+            return make_hybridnet_train_step(self, optimizer, self.mesh)
+
         def step(b: dict):
             loss, points = self.forward(b)
             optimizer.zero_grad(set_to_none=True)
@@ -194,17 +235,28 @@ class HybridNetTrainer:
     def _eval_fn(self, b: dict):
         self.model.eval()
         try:
-            return self.forward(b)
+            loss, points = self.forward(b)
         finally:
             self.model.train()
+        if self.mesh is not None:
+            loss = global_loss(loss, self.mesh, 1.0 / self.mesh.n_cameras)
+        return loss, points
+
+    def upload(self, upload, b: dict) -> dict:
+        """A collated host batch on the device, as this rank's step takes it
+        (``train_step.shard_batch`` under a camera-sharded mesh)."""
+        return shard_batch(upload(host_batch(b)), self.mesh, b["imgs"].shape[1])
 
     def train(self, training_set, validation_set, num_epochs, start_epoch=0,
               streamlitWidgets=None, resume_from=None) -> dict:
-        from ..dataset.loader import DataLoader, maybe_preload, trainer_worker_mode
+        from ..dataset.loader import maybe_preload, trainer_worker_mode
 
         cfg = self.cfg.HYBRIDNET
         if streamlitWidgets is not None:
             raise NotImplementedError("the Streamlit monitor is not ported yet (ROADMAP.md A.13)")
+        if self.idle:
+            clp.info("this rank is outside the training mesh and idles")
+            return {"idle": True}
         device_aug = (self._device_aug() and training_set.set_name == "train"
                       and not training_set.analysisMode)
         training_set.device_targets = True
@@ -216,10 +268,8 @@ class HybridNetTrainer:
         worker_mode = trainer_worker_mode(self.cfg)
         batch = int(cfg.BATCH_SIZE)
         self.graphs.reset()  # graphs live for one call, as JAX's jitted closures
-        train_loader = DataLoader(training_set, batch_size=batch, shuffle=True,
-                                  num_workers=workers, worker_mode=worker_mode)
-        val_loader = DataLoader(validation_set, batch_size=batch, shuffle=False,
-                                num_workers=workers, worker_mode=worker_mode)
+        train_loader, val_loader = multihost.make_dp_loaders(
+            training_set, validation_set, batch, workers, self.mesh, worker_mode=worker_mode)
         steps_per_epoch = len(train_loader)
         max_lr = float(cfg.MAX_LEARNING_RATE)
         labels = optim.hybridnet_freeze_labels(self.model, self.training_mode)
@@ -256,10 +306,10 @@ class HybridNetTrainer:
         from ..utils.preemption import POD_POLL_STRIDE, PreemptionGuard
 
         upload = HostToDevice(self.device)
-        guard = PreemptionGuard()
+        guard = PreemptionGuard(*self._stop_group())
 
         def to_device(b):
-            return upload(host_batch(b))
+            return self.upload(upload, b)
 
         # One-step-delayed metric readback (as the JAX trainer): step k + 1
         # is dispatched before step k's loss and points are read.
@@ -267,7 +317,7 @@ class HybridNetTrainer:
 
         def consume(p):
             loss, pts, gt = p
-            acc = calculate_accuracy_mm(pts.cpu().numpy(), gt)
+            acc = calculate_accuracy_mm(multihost.local_np(pts), gt)
             self.lossMeter.update(float(loss))
             if acc != -1:
                 self.accuracyMeter.update(acc)
@@ -280,7 +330,7 @@ class HybridNetTrainer:
                 train_loader.set_epoch(epoch)
                 self.generator.manual_seed(
                     int(np.random.SeedSequence([self.seed, epoch]).generate_state(1)[0]))
-                bar = _progress(train_loader, steps_per_epoch)
+                bar = _progress(train_loader, steps_per_epoch) if self.primary else train_loader
                 for b in bar:
                     lr = schedule(step) * lr_scale
                     loss, pts = self.train_step(to_device(b), optimizer, lr)
@@ -318,7 +368,7 @@ class HybridNetTrainer:
 
                 size = self.cfg.KEYPOINTDETECT.MODEL_SIZE
                 if (epoch + 1) % int(cfg.CHECKPOINT_SAVE_INTERVAL) == 0 \
-                        and epoch + 1 < num_epochs:
+                        and epoch + 1 < num_epochs and self.primary:
                     self.save_checkpoint(f"HybridNet-{size}_Epoch_{epoch + 1}")
                     checkpoints.save_train_state(
                         os.path.join(self.model_savepath, "train_state.ckpt"),
@@ -329,14 +379,15 @@ class HybridNetTrainer:
                 if epoch % int(cfg.VAL_INTERVAL) == 0:
                     for b in val_loader:
                         loss, pts = self.eval_step(to_device(b))
-                        acc = calculate_accuracy_mm(pts.cpu().numpy(),
+                        acc = calculate_accuracy_mm(multihost.local_np(pts),
                                                     np.asarray(b["keypoints3D"]))
                         self.lossMeter.update(float(loss))
                         if acc != -1:
                             self.accuracyMeter.update(acc)
-                    print("Val. Epoch: {}/{}. Loss: {:.3f}. Acc: {:.2f}".format(
-                        epoch + 1, num_epochs, self.lossMeter.read(),
-                        self.accuracyMeter.read()))
+                    if self.primary:
+                        print("Val. Epoch: {}/{}. Loss: {:.3f}. Acc: {:.2f}".format(
+                            epoch + 1, num_epochs, self.lossMeter.read(),
+                            self.accuracyMeter.read()))
                     results["val_loss"] = self.lossMeter.read()
                     results["val_acc"] = self.accuracyMeter.read()
                     history["val_loss"].append(results["val_loss"])
@@ -355,9 +406,21 @@ class HybridNetTrainer:
 
         return results
 
+    def _stop_group(self) -> tuple:
+        """The preemption guard's (signals, group, device): the mesh's group,
+        its flag on the rank's GPU under NCCL."""
+        from ..utils.preemption import DEFAULT_SIGNALS
+
+        if self.mesh is None:
+            return DEFAULT_SIGNALS, None, "cpu"
+        return (DEFAULT_SIGNALS, self.mesh.group,
+                self.device if self.mesh.backend == "nccl" else "cpu")
+
     def _save_preempted(self, opt_state: dict, resume_epoch: int) -> None:
-        """Write a full resumable train state; a resumed run restarts the
-        interrupted epoch from its beginning."""
+        """Write a full resumable train state (rank 0); a resumed run
+        restarts the interrupted epoch from its beginning."""
+        if not self.primary:
+            return
         path = os.path.join(self.model_savepath, "train_state.ckpt")
         checkpoints.save_train_state(path, self.model.state_dict(), opt_state, resume_epoch,
                                      self.cfg.KEYPOINTDETECT.MODEL_SIZE)
@@ -365,6 +428,8 @@ class HybridNetTrainer:
                     f"{path} (resumes at epoch {resume_epoch + 1})")
 
     def save_checkpoint(self, name: str) -> None:
+        if not self.primary:
+            return
         state = self.model.state_dict()
         checkpoints.save_checkpoint(state, os.path.join(self.model_savepath, name + ".ckpt"),
                                     self.cfg.KEYPOINTDETECT.MODEL_SIZE)

@@ -66,3 +66,17 @@ class AverageMeter:
         if self.count == 0:
             return float("nan")
         return self.sum / self.count
+
+
+class NullLogger:
+    """``NetLogger``'s interface, writing nothing: the logger of a rank that
+    is not the primary one (``utils/preemption.is_primary_host``)."""
+
+    def _log(self, *args) -> None:
+        pass
+
+    update_train_loss = update_train_accuracy = update_val_loss = _log
+    update_val_accuracy = update_learning_rate = _log
+
+    def close(self):
+        pass

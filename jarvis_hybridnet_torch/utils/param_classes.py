@@ -3,8 +3,9 @@
 
 A copy of ``Predict3DParams`` and ``Predict2DParams`` from
 ``jarvis_hybridnet_tpu/utils/param_classes.py``, with the same fields and
-defaults. The port's drivers run on one device: a ``process_count`` above 1
-(pod streaming) is refused by them."""
+defaults. ``process_index`` / ``process_count`` override a driver's pod
+identity (its data group and the number of groups), as in the JAX package;
+left None, a multi-process run takes them from its mesh."""
 
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ class Predict3DParams:
     # reference trt_mode ('off'/'new'/'previous'); the port takes 'off' only
     trt_mode: str = "off"
     progress_bar: Any = None
-    # multi-host (pod) streaming identity; the port runs one process
+    # multi-host (pod) streaming identity (None: the mesh's)
     process_index: Any = None
     process_count: Any = None
     merge_shards: bool = True
@@ -42,7 +43,7 @@ class Predict2DParams:
     number_frames: int = -1
     trt_mode: str = "off"
     progress_bar: Any = None
-    # multi-host (pod) streaming identity; the port runs one process
+    # multi-host (pod) streaming identity (None: the mesh's)
     process_index: Any = None
     process_count: Any = None
     merge_shards: bool = True

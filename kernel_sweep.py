@@ -294,7 +294,7 @@ def sweep_k5probe(say, dev) -> None:
             raise SystemExit(f"kernel_sweep: nvcc failed for probe {name!r}:\n{log}")
         fn = ctypes.CDLL(str(lib)).repro_grid_gather
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float] + [i] * 3 + [p]
+        fn.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float] + [i] * 4 + [p]
         fn.restype = ctypes.c_int
         fns[name] = fn
     rows, c3d, chm, cams = repro_inputs(dev)
@@ -312,7 +312,7 @@ def sweep_k5probe(say, dev) -> None:
                 build.check(fn(b(rows), b(c3d), b(chm), *(b(t) for t in cams), b(out),
                                b(idx) if name.startswith("precomputed") else None, B, C, J,
                                rows.stride(2), 130, 36, plan.tile, 4.0, k5.MODES[mode],
-                               plan.smem, 1, build.stream()), "K5 probe")
+                               plan.smem, 1, C, build.stream()), "K5 probe")
             say(f"  {name:42s}: {chip_smoke.graph_ms(call):.4f} ms")
         say(f"  {'zero_() of the volume (the write alone)':42s}: "
             f"{chip_smoke.graph_ms(out.zero_):.4f} ms")
@@ -1124,14 +1124,14 @@ def sweep_k12(say, dev) -> None:
             for plan in dict.fromkeys((best, fastest)):
                 for name, lib in libs.items():
                     fn = lib.repro_grid_gather_backward
-                    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+                    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
                     fn.restype = ctypes.c_int
 
                     def call(fn=fn, plan=plan):
                         b = build.ptr
                         build.check(fn(b(grad), b(idx), b(buf), 1, 12, J, S, hs2, n,
                                        k5.MODES[mode], plan.tile, plan.win, plan.smem,
-                                       plan.threads, build.stream()), "K12 probe")
+                                       plan.threads, 12, build.stream()), "K12 probe")
                     say(f"  tile {plan.tile} win {plan.win} block {plan.threads}, phase "
                         f"{name:28s}: {chip_smoke.graph_ms(call):.4f} ms")
             say(f"  phase {'zeroing the buffer alone':38s}: "

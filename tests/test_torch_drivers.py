@@ -174,11 +174,17 @@ def test_predict2d_driver_matches_jax(project, monkeypatch):
     assert nan_rows < FRAMES
 
 
-def test_drivers_refuse_what_is_not_ported(project):
-    root, rec, _ = project
+def test_drivers_refuse_what_is_not_ported(project, monkeypatch):
+    root, rec, weights = project
     with pytest.raises(ValueError, match="A.13"):
         predict3D(Predict3DParams(project_name="Proj", recording_path=str(rec),
                                   trt_mode="new"), device="cpu")
-    with pytest.raises(ValueError, match="A.12"):
-        predict2D(Predict2DParams(project_name="Proj", recording_path=str(rec),
-                                  process_count=2), device="cpu")
+    # pod streaming is ported (parallel/): one process as data group 0 of 2
+    # writes its shard, and the merge refuses the missing shard 1
+    monkeypatch.setenv("JARVIS_PARENT_DIR", str(root))
+    with pytest.raises(RuntimeError, match="missing"):
+        predict2D(Predict2DParams(project_name="Proj", recording_path=str(rec / "Cam0.avi"),
+                                  weights_center_detect=weights["center"],
+                                  weights_keypoint_detect=weights["keypoint"],
+                                  output_dir=str(root / "out" / "pod_shard"),
+                                  process_index=0, process_count=2), device="cpu")

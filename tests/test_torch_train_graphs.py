@@ -691,3 +691,35 @@ def test_replays_equal_the_eager_steps_on_the_card(seeded, cuda_device):
             assert all(torch.equal(a, b) for a, b in zip(outs[0] + tuple(states[0]),
                                                           outs[1] + tuple(states[1]))), n
     assert len(trainers[0].graphs.steps["train"][1].graphs) == 1
+
+
+def test_chip_smoke_run_verdict():
+    """``chip_smoke.py``'s rule for a graphed ``train()`` against eager runs
+    that are not bit-equal (``run_verdict``), on gaps alone: a graphed run
+    within twice the eager runs' spread holds; one whose state's largest
+    difference, its RMS difference or its history lies beyond twice the
+    spread from every eager run is refused; the nearest eager run counts,
+    not the first."""
+    import itertools
+
+    import chip_smoke
+
+    def gaps(runs, g):
+        """(state gap, history gap) from ``g`` to each run and between every
+        pair of runs: each run is (largest, RMS, history) on one line."""
+        def gap(a, b):
+            return (False, abs(a[0] - b[0]), abs(a[1] - b[1])), abs(a[2] - b[2])
+        return ([gap(g, e) for e in runs],
+                [gap(a, b) for a, b in itertools.combinations(runs, 2)])
+
+    eager = [(0.0, 0.0, 0.0), (1.0, 0.1, 0.02), (0.5, 0.05, 0.01), (0.2, 0.02, 0.05)]
+    assert chip_smoke.run_verdict(*gaps(eager, (1.5, 0.15, 0.04)))[0]
+    assert chip_smoke.run_verdict(*gaps(eager, (2.9, 0.29, 0.04)))[0]  # 2.9 from the first
+    assert chip_smoke.run_verdict(*gaps(eager, (-1.5, -0.15, -0.09)))[0]
+    # beyond twice the spread in one of the three
+    assert not chip_smoke.run_verdict(*gaps(eager, (3.1, 0.1, 0.02)))[0]
+    assert not chip_smoke.run_verdict(*gaps(eager, (1.0, 0.31, 0.02)))[0]
+    assert not chip_smoke.run_verdict(*gaps(eager, (1.0, 0.1, 0.16)))[0]
+    held, words = chip_smoke.run_verdict(*gaps(eager, (1.0, 0.1, 0.15)))
+    assert held and "history 1.000e-01 from the nearest eager run" in words
+    assert "the 4 eager runs 5.000e-02 apart" in words
