@@ -132,7 +132,15 @@ replayed, so host launch gaps do not count; ``wall_ms`` is the event time
 of calls launched one by one from Python; the kernels line counts each
 path's launches on its eager step. Prints the card, the predict3D
 rates, one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line. Exits non-zero on any failure, or when no CUDA device is present.
+line. The last phase, ``cli``, drives the port through its command line
+(``jarvis-torch``, ``ui/cli.py``) in this process with click's ``CliRunner``
+at full width: create-project on a 12-camera dataset, the production
+values set in the project's config.yaml, train hybridNet for one epoch,
+predict predict3D on a 16-frame recording, analyze analyze-validation-data
+and visualize create-videos3D, each checked against the direct calls
+(:func:`cli_phase`; the kernels line's ``cli`` path counts the wrappers'
+launches over the commands: eager calls, graph warm-ups and captures; the
+replays of a captured graph call no wrapper and are not counted). Exits non-zero on any failure, or when no CUDA device is present.
 Per-shape details go to ``chiprun_out/chip_smoke.txt``; the training
 steps' device time by kernel to ``chip_smoke_train_profile.txt`` (3D_only),
 ``chip_smoke_train_all_profile.txt`` and ``chip_smoke_train2d_profile.txt``.
@@ -1203,7 +1211,7 @@ def driver_phase(kernels, cfg, predictor, frames, out_dir, recorder, note):
     from jarvis_hybridnet_torch import native
     note(f"host decode (information only): cv2 imports: {have_cv2}; native video library "
          f"builds and loads: {native.video_available()}")
-    return counts
+    return counts, r
 
 
 # The serving paths as captured CUDA graphs (prediction/export.py): each
@@ -4623,6 +4631,227 @@ def check_c_total(kernels, recorder, counts, note, smi) -> list:
     torch.cuda.empty_cache()
     return entries
 
+CLI_FRAMES = 16  # frames of the cli phase's recording
+# the cli phase's commands: train hybridNet (3D_only), predict predict3D and
+# analyze analyze-validation-data
+CLI_KERNELS = TRAINING_KERNELS + ("resize_normalize", "argmax2d")
+# the production values the cli phase sets in the created project's config.yaml,
+# as training_project writes them (G = 72)
+CLI_CONFIG = {
+    "CENTERDETECT": {"IMAGE_SIZE": 256, "BATCH_SIZE": 4},
+    "KEYPOINTDETECT": {"BOUNDING_BOX_SIZE": 256, "BATCH_SIZE": 4},
+    "HYBRIDNET": {"ROI_CUBE_SIZE": 144, "GRID_SPACING": 2, "BATCH_SIZE": 1},
+    "TPU": {"INFERENCE_DTYPE": "bfloat16", "REPRO_MODE": "quarter_fused", "FRAME_BATCH": T,
+            "TRAIN_DTYPE": "float32"},
+}
+
+
+def cli_recording(parent: str, dataset: str) -> str:
+    """A CLI_FRAMES-frame MJPG recording of the dataset's cameras under
+    ``parent``: frame t of camera c is camera c's JPEG of the dataset's
+    frameset t mod the framesets (train, then val)."""
+    import cv2
+
+    rec = os.path.join(parent, "recording")
+    os.makedirs(rec)
+    sets = [(split, f) for split, n in TRAIN_SPLITS for f in range(n)]
+    for c in range(CAMS):
+        imgs = [cv2.imread(os.path.join(dataset, split, "Session", f"Frame_{f}", f"Cam{c}.jpg"))
+                for split, f in sets]
+        w = cv2.VideoWriter(os.path.join(rec, f"Cam{c}.avi"), cv2.VideoWriter_fourcc(*"MJPG"),
+                            30, (W, H))
+        for t in range(CLI_FRAMES):
+            w.write(imgs[t % len(imgs)])
+        w.release()
+    return rec
+
+
+def cli_phase(kernels, ckpt, note, smi, driver_rate: float) -> dict:
+    """``jarvis-torch`` (``jarvis_hybridnet_torch/ui/cli.py``) on the card,
+    in this process through click's ``CliRunner``, at full width, in a
+    temporary parent directory under chiprun_out/: ``create-project
+    --dataset3d`` on the synthetic 12-camera 1280x1024 dataset of
+    :func:`training_data` (NUM_CAMERAS, NUM_JOINTS, the bounding box a
+    multiple of 64 and the cube of 4 x spacing checked), the production
+    values of CLI_CONFIG set in its config.yaml (bbox 256, cube 144 at 2 mm:
+    G = 72, bf16 inference, quarter_fused, FRAME_BATCH 8), ``train hybridNet
+    --num_epochs 1`` from the committed checkpoint (3D_only, graphed),
+    ``predict predict3D`` on a CLI_FRAMES-frame 12-camera MJPG recording,
+    ``analyze analyze-validation-data`` and ``visualize create-videos3D``,
+    with CenterDetect's stride-2 head scaled by 8 (as the CPU tests scale it)
+    so that framesets pass the gate. The launches are counted over the
+    commands alone: eager calls, graph warm-ups and captures, not the
+    replays of captured graphs. Then the checks against direct calls: data3D.csv equal
+    row for row to ``predict3D()`` on the same recording with the same
+    weights, points_HybridNet.csv and frame_names.csv equal to the project's
+    predictor on the same val framesets (padded to FRAME_BATCH, read as the
+    analysis reads them), 12 videos of CLI_FRAMES frames. Each command's
+    wall seconds and predict3D's poses/s through the CLI are printed.
+    Returns the launch counts."""
+    import csv
+    import shutil
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+    import yaml
+    from click.testing import CliRunner
+
+    from jarvis_hybridnet_torch.analysis.analyze import _native_frameset_stream
+    from jarvis_hybridnet_torch.config.project_manager import ProjectManager
+    from jarvis_hybridnet_torch.dataset.dataset3d import Dataset3D
+    from jarvis_hybridnet_torch.models.weights import params_from_jax
+    from jarvis_hybridnet_torch.prediction.loaders import make_predictor3d
+    from jarvis_hybridnet_torch.prediction.predict3d import predict3D
+    from jarvis_hybridnet_torch.testing import synthetic_rig, write_dataset3d
+    from jarvis_hybridnet_torch.training.train_interface import get_latest_weights_path
+    from jarvis_hybridnet_torch.ui.cli import cli
+    from jarvis_hybridnet_torch.utils.ckpt_io import read_ckpt, write_ckpt
+    from jarvis_hybridnet_torch.utils.param_classes import Predict3DParams
+    from jarvis_hybridnet_torch.utils.utils import latest_run_dir
+
+    t_phase = time.perf_counter()
+    parent = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(REPO, "chiprun_out"))
+    os.environ["JARVIS_PARENT_DIR"] = parent
+    proj = os.path.join(parent, "projects", "Cli")
+    try:
+        dataset = write_dataset3d(os.path.join(parent, "datasets", "Synth"),
+                                  synthetic_rig(CAMS, W, H), W, H, 23, splits=TRAIN_SPLITS,
+                                  extent_mm=100.0, seed=5)
+        rec = cli_recording(parent, dataset)
+        tree = read_ckpt(ckpt["CenterDetect"])
+        tree["deconv1"]["kernel"] = np.asarray(tree["deconv1"]["kernel"]) * 8.0
+        center = os.path.join(parent, "weights", "CenterDetect_x8.ckpt")
+        write_ckpt(center, tree)
+        note(f"cli: dataset, {CLI_FRAMES}-frame recording of {CAMS} cameras and weights "
+             f"written in {time.perf_counter() - t_phase:.2f} s")
+        walls = {}
+
+        def command(*args):
+            t0 = time.perf_counter()
+            res = CliRunner().invoke(cli, ["--device", "cuda", *args], catch_exceptions=False)
+            torch.cuda.synchronize()
+            walls[" ".join(args[:2])] = time.perf_counter() - t0
+            if res.exit_code != 0:
+                fail(f"jarvis-torch {' '.join(args)} exited {res.exit_code}: "
+                     f"{res.output[-2000:]}")
+            return res.output
+
+        def commands():
+            command("create-project", "--dataset3d", "Synth", "Cli")
+            with open(os.path.join(proj, "config.yaml")) as f:
+                made = yaml.safe_load(f)
+            derived = (made["HYBRIDNET"]["NUM_CAMERAS"], made["KEYPOINTDETECT"]["NUM_JOINTS"],
+                       made["KEYPOINTDETECT"]["BOUNDING_BOX_SIZE"],
+                       made["HYBRIDNET"]["ROI_CUBE_SIZE"], made["HYBRIDNET"]["GRID_SPACING"])
+            note(f"cli create-project: NUM_CAMERAS {derived[0]}, NUM_JOINTS {derived[1]}, "
+                 f"BOUNDING_BOX_SIZE {derived[2]}, ROI_CUBE_SIZE {derived[3]}, GRID_SPACING "
+                 f"{derived[4]}")
+            if (derived[:2] != (CAMS, 23) or derived[2] % 64
+                    or derived[3] % (4 * derived[4])):
+                fail(f"create-project derived {derived}")
+            for section, values in CLI_CONFIG.items():
+                made.setdefault(section, {}).update(values)
+            with open(os.path.join(proj, "config.yaml"), "w") as f:
+                yaml.safe_dump(made, f)
+            out = command("train", "hybridNet", "--num_epochs", "1", "--weights_hybridnet",
+                          ckpt["HybridNet"], "Cli")
+            if "Successfully finished training" not in out:
+                fail(f"train hybridNet did not finish: {out[-2000:]}")
+            command("predict", "predict3D", "--weights_center_detect", center, "Cli", rec)
+            command("analyze", "analyze-validation-data", "--weights_center_detect", center,
+                    "Cli")
+            command("visualize", "create-videos3D", "Cli")
+
+        _, counts = path_launches(commands, kernels, CLI_KERNELS, "cli", ShapeRecorder())
+        note(f"cli launches over the commands (eager calls, graph warm-ups and captures; "
+             f"graph replays not counted): {json.dumps(counts)}")
+
+        # train: the run's final weights, found as 'latest' finds them
+        trained = get_latest_weights_path("Cli", "HybridNet")
+        start = params_from_jax(read_ckpt(ckpt["HybridNet"]), "small")
+        back = params_from_jax(read_ckpt(trained), "small")
+        moved = [k for k in back if k.startswith("v2vNet.") and k.endswith(".weight")
+                 and not torch.equal(back[k], start[k])]
+        frozen = all(torch.equal(back[k], start[k]) for k in back if k.startswith("effTrack."))
+        note(f"cli train hybridNet: {os.path.relpath(trained, parent)}; V2V weights changed "
+             f"{len(moved)}, 2D net unchanged {frozen}")
+        if not moved or not frozen:
+            fail("train hybridNet (3D_only) did not train V2V alone")
+
+        # predict3D: the command's rows against predict3D() called directly
+        run = latest_run_dir(os.path.join(proj, "predictions", "predictions3D"))
+        direct_dir = os.path.join(parent, "direct3D")
+        t0 = time.perf_counter()
+        predict3D(Predict3DParams("Cli", rec, weights_center_detect=center,
+                                  weights_hybridnet=trained, output_dir=direct_dir),
+                  device="cuda")
+        direct_s = time.perf_counter() - t0
+        with open(os.path.join(run, "data3D.csv"), newline="") as f, \
+                open(os.path.join(direct_dir, "data3D.csv"), newline="") as g:
+            rows, direct = list(csv.reader(f)), list(csv.reader(g))
+        valid_rows = sum(not r[0].lower().startswith("nan") for r in rows[2:])
+        note(f"cli predict predict3D: data3D.csv {len(rows)} rows ({valid_rows} of "
+             f"{CLI_FRAMES} framesets through the gate), equal row for row to predict3D() "
+             f"called directly: {rows == direct}")
+        if rows != direct or len(rows) != CLI_FRAMES + 2:
+            fail("the predict3D command's data3D.csv differs from the direct call's")
+
+        # analysis: the command's CSVs against the project's predictor on the
+        # same val framesets, read and padded as the analysis reads them
+        pm = ProjectManager()
+        pm.load("Cli")
+        cfg = pm.get_cfg()
+        ds = Dataset3D(cfg, set="val", analysisMode=True)
+        pipe = _native_frameset_stream(ds, cfg)
+        if pipe is not None:
+            imgs = [a for _, a in pipe]
+            pipe.close()
+        else:
+            imgs = [ds[i]["imgs"] for i in range(len(ds))]
+        batch = np.stack(imgs + [imgs[-1]] * (T - len(imgs)))
+        pred = make_predictor3d(cfg, ds.rigs["Session"], center, trained, device="cuda")
+        pts, _, valid = (a[:len(imgs)].cpu().numpy() for a in pred(batch))
+        adir = latest_run_dir(os.path.join(proj, "analysis"))
+        names = open(os.path.join(adir, "frame_names.csv")).read().split()
+        got = np.loadtxt(os.path.join(adir, "points_HybridNet.csv"), delimiter=",",
+                         ndmin=2).reshape(-1, 23, 3)
+        want_names = [ds.imgs[ds.dataset["framesets"][k]["frames"][0]]["file_name"]
+                      for k, v in zip(ds.frameset_keys, valid) if v]
+        same = names == want_names and np.array_equal(got, pts[valid].astype(np.float64))
+        note(f"cli analyze analyze-validation-data: {len(names)} of {len(imgs)} val framesets "
+             f"through the gate ({'uint8 frames, native pipeline' if pipe is not None else 'float32 frames through cv2'}); "
+             f"frame names and points equal to the project's predictor: {same}")
+        if not same:
+            fail("analyze-validation-data's CSVs differ from the project's predictor")
+
+        # videos: one a camera, CLI_FRAMES frames each
+        vdir = latest_run_dir(os.path.join(proj, "visualization"))
+        lengths = {}
+        for name in sorted(os.listdir(vdir)):
+            cap = cv2.VideoCapture(os.path.join(vdir, name))
+            n = 0
+            while cap.read()[0]:
+                n += 1
+            cap.release()
+            lengths[name] = n
+        note(f"cli visualize create-videos3D: {len(lengths)} videos, frames {sorted(set(lengths.values()))}")
+        if len(lengths) != CAMS or set(lengths.values()) != {CLI_FRAMES}:
+            fail(f"create-videos3D wrote {lengths}")
+
+        predict_s = walls["predict predict3D"]
+        note(f"cli wall seconds per command: {json.dumps({k: round(v, 2) for k, v in walls.items()})}; "
+             f"predict3D through the CLI {CLI_FRAMES / predict_s:.2f} poses/s ({CLI_FRAMES} "
+             f"frames, weights, graph capture and video decode included; the direct call "
+             f"{CLI_FRAMES / direct_s:.2f} poses/s), beside the driver phase's streaming loop "
+             f"{driver_rate:.2f} poses/s; card: {smi}")
+    finally:
+        os.environ.pop("JARVIS_PARENT_DIR", None)
+        shutil.rmtree(parent, ignore_errors=True)
+    note(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4793,7 +5022,8 @@ def main() -> int:
     path_counts["twophase"] = twophase_phase(kernels, cfg, rig, ckpt, frames, points, recorder,
                                              note)
     phase("driver")
-    path_counts["driver"] = driver_phase(kernels, cfg, predictor, frames, out_dir, recorder,
+    path_counts["driver"], driver_rate = driver_phase(kernels, cfg, predictor, frames, out_dir,
+                                                      recorder,
                                          note)
     phase("graphs")
     graph_phase(kernels, cfg, rig, ckpt, frames, predictor, note, smi)
@@ -5111,6 +5341,9 @@ def main() -> int:
             note(f"instance_norm_act bf16 {shape} {act}: {ulps:.1f} bf16 ulps (tol 3)")
             if ulps > 3.0:
                 fail(f"instance_norm_act bf16 check {shape}")
+
+    phase("cli")
+    path_counts["cli"] = cli_phase(kernels, ckpt, note, smi, driver_rate)
 
     phase("end")
     report.extend(train_entries)

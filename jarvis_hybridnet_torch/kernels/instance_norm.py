@@ -44,17 +44,43 @@ def instance_norm_act_plain(x: torch.Tensor, act: str = "none",
     As the JAX reference, the normalized value is rounded to x's dtype
     before the activation, ``add_relu`` rounds the sum before the ReLU, and
     SiLU is y * (1 / (1 + exp(-y))) rounded after each op, as XLA evaluates
-    ``jax.nn.silu`` in bfloat16. Differentiable through autograd.
+    ``jax.nn.silu`` in bfloat16 (``exp`` through :func:`_exp`).
+    Differentiable through autograd.
     """
     mean, rstd = _statistics(x)
     y = ((x.float() - mean) * rstd).to(x.dtype)
     if act == "silu":
-        return y * (1.0 / (1.0 + torch.exp(-y)))
+        return y * (1.0 / (1.0 + _exp(-y)))
     if act == "relu":
         return F.relu(y)
     if act == "add_relu":
         return F.relu(y + skip)
     return y
+
+
+def _exp(t: torch.Tensor) -> torch.Tensor:
+    """``torch.exp``; a float32 result on the CPU is checked against float64.
+    torch's float32 ``exp`` on the CPU goes to MKL's vector library, a chunk
+    of at most 2048 values a thread, which now and then computes one worker
+    thread's chunk at reduced accuracy (4e-5 relative) on a process's first
+    call and not again (ROADMAP.md C.4). A result more than 1e-6 relative
+    from float64 is computed once more, and the call raises if it is still
+    off; so the result is torch's usual one whatever the call's order."""
+    out = torch.exp(t)
+    if t.device.type != "cpu" or t.dtype != torch.float32:
+        return out
+    big = torch.finfo(torch.float32).max
+    exact = torch.exp(t.detach().double()).float().clamp(max=big)
+
+    def close(r):
+        return bool(torch.isclose(r.detach().clamp(max=big), exact, rtol=1e-6, atol=1e-30,
+                                  equal_nan=True).all())
+
+    if not close(out):
+        out = torch.exp(t)
+        if not close(out):
+            raise RuntimeError("float32 exp on the CPU stays more than 1e-6 from float64")
+    return out
 
 
 def _statistics(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

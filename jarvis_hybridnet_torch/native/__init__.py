@@ -1,9 +1,10 @@
 """ctypes bindings for the native host libraries: the video decoder
-(libjarvis_video.so) and the JPEG decode + crop of the 3D training dataset
-(libjarvis_host.so).
+(libjarvis_video.so) and the JPEG decode of the 3D datasets
+(libjarvis_host.so): one file, a threaded batch, the decode + crop of the
+training dataset and the prefetching frameset pipeline of the validation
+analysis.
 
-A copy of the video part and of ``available`` / ``decode_crop_batch`` of
-``jarvis_hybridnet_tpu/native/__init__.py`` (:142, :380); the port builds
+A copy of ``jarvis_hybridnet_tpu/native/__init__.py``; the port builds
 its own libraries from the sources beside this file, on demand, with the
 bundled Makefile (g++, the libav libraries or libjpeg, and pthreads). When
 the toolchain or a library is unavailable, ``load_video()`` / ``load()``
@@ -40,8 +41,9 @@ def _build(target: str) -> bool:
 
 
 def load():
-    """Load (building if necessary) the JPEG decode + crop library; None
-    when g++ or libjpeg is unavailable (the dataset then decodes with cv2)."""
+    """Load (building if necessary) the JPEG decode library; None when g++
+    or libjpeg is unavailable (the datasets and the analysis then decode
+    with cv2)."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
@@ -52,18 +54,91 @@ def load():
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:
         return None
+    lib.jh_decode_jpeg_file.restype = ctypes.c_int
+    lib.jh_decode_jpeg_file.argtypes = [
+        ctypes.c_char_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.jh_decode_batch.restype = ctypes.c_int
+    lib.jh_decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+    ]
     lib.jh_decode_crop_batch.restype = ctypes.c_int
     lib.jh_decode_crop_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32, ctypes.c_void_p,
         ctypes.c_int32, ctypes.c_void_p,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
     ]
+    lib.jh_pipeline_create.restype = ctypes.c_void_p
+    lib.jh_pipeline_create.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32,
+    ]
+    lib.jh_pipeline_next2.restype = ctypes.c_int32
+    lib.jh_pipeline_next2.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.jh_pipeline_destroy.restype = None
+    lib.jh_pipeline_destroy.argtypes = [ctypes.c_void_p]
     _lib = lib
     return _lib
 
 
 def available() -> bool:
     return load() is not None
+
+
+def probe_jpeg(path: str) -> tuple[int, int] | None:
+    """(width, height) of a JPEG, or None."""
+    lib = load()
+    if lib is None:
+        return None
+    w = ctypes.c_int32()
+    h = ctypes.c_int32()
+    if lib.jh_decode_jpeg_file(path.encode(), None,
+                               ctypes.byref(w), ctypes.byref(h)) != 0:
+        return None
+    return int(w.value), int(h.value)
+
+
+def decode_jpeg(path: str) -> np.ndarray | None:
+    """Decode a JPEG to an (H, W, 3) RGB uint8 array."""
+    lib = load()
+    if lib is None:
+        return None
+    size = probe_jpeg(path)
+    if size is None:
+        return None
+    w, h = size
+    out = np.empty((h, w, 3), np.uint8)
+    # the probed size goes in as the expected size: the decode refuses the
+    # file (instead of overflowing ``out``) if it changed since the probe
+    wv = ctypes.c_int32(w)
+    hv = ctypes.c_int32(h)
+    if lib.jh_decode_jpeg_file(
+        path.encode(), out.ctypes.data_as(ctypes.c_void_p),
+        ctypes.byref(wv), ctypes.byref(hv),
+    ) != 0:
+        return None
+    return out
+
+
+def decode_batch(paths: list[str], width: int, height: int,
+                 num_threads: int | None = None) -> np.ndarray | None:
+    """Threaded decode of n same-sized JPEGs -> (n, H, W, 3) uint8."""
+    lib = load()
+    if lib is None:
+        return None
+    if num_threads is None:
+        num_threads = min(len(paths), os.cpu_count() or 1)
+    out = np.empty((len(paths), height, width, 3), np.uint8)
+    ok = lib.jh_decode_batch(
+        _c_paths(paths), len(paths), out.ctypes.data_as(ctypes.c_void_p),
+        width, height, num_threads,
+    )
+    return out if ok == len(paths) else None
 
 
 def decode_crop_batch(paths: list[str], centers: np.ndarray, bbox: int,
@@ -323,3 +398,67 @@ def _c_paths(paths: list[str]):
     arr = (ctypes.c_char_p * len(paths))()
     arr[:] = [p.encode() for p in paths]
     return arr
+
+
+class FramesetPipeline:
+    """Prefetching multi-camera frameset decoder (background C++ threads):
+    iterating yields ``(index, frames (C, H, W, 3) uint8 RGB)`` in order,
+    full frames or, with ``bbox`` and ``centers`` (n, C, 2), centered crops."""
+
+    def __init__(self, framesets: list[list[str]], width: int, height: int,
+                 centers: np.ndarray | None = None, bbox: int = 0,
+                 num_threads: int | None = None, prefetch: int = 2):
+        lib = load()
+        if lib is None:
+            raise RuntimeError("native pipeline unavailable")
+        self._lib = lib
+        self.cameras = len(framesets[0])
+        self.num_items = len(framesets)
+        self.width, self.height, self.bbox = width, height, bbox
+        self._paths = _c_paths([p for fs in framesets for p in fs])  # kept alive
+        if centers is not None:
+            centers = np.ascontiguousarray(centers, np.int32)
+            self._centers = centers  # kept alive
+            cptr = centers.ctypes.data_as(ctypes.c_void_p)
+        else:
+            self._centers = None
+            cptr = None
+        if num_threads is None:
+            num_threads = os.cpu_count() or 1
+        self._handle = lib.jh_pipeline_create(
+            self._paths, self.num_items, self.cameras, cptr, bbox,
+            width, height, num_threads, prefetch,
+        )
+
+    def __iter__(self):
+        side = self.bbox if self.bbox > 0 else None
+        h = side or self.height
+        w = side or self.width
+        while True:
+            out = np.empty((self.cameras, h, w, 3), np.uint8)
+            ok = ctypes.c_int32()
+            idx = self._lib.jh_pipeline_next2(
+                self._handle, out.ctypes.data_as(ctypes.c_void_p),
+                ctypes.byref(ok),
+            )
+            if idx < 0:
+                return
+            if ok.value != self.cameras:
+                # a zero-filled camera slice would corrupt whatever is
+                # computed from it (validation metrics, crops)
+                raise RuntimeError(
+                    f"frameset {idx}: only {ok.value}/{self.cameras} cameras "
+                    "decoded (missing, corrupt, or wrong-sized image)"
+                )
+            yield idx, out
+
+    def close(self):
+        if self._handle:
+            self._lib.jh_pipeline_destroy(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

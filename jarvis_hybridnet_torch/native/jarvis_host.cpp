@@ -1,15 +1,15 @@
-// Native host-side JPEG decode + crop of the 3D training dataset: the
-// PyTorch port's copy of ``jh_decode_crop_batch`` and its helpers from
-// jarvis_hybridnet_tpu/native/jarvis_host.cpp (the batch decode and the
-// prefetching frameset pipeline there have no caller in the port).
+// Native host-side data pipeline of the PyTorch port: a copy of
+// jarvis_hybridnet_tpu/native/jarvis_host.cpp (the JPEG decode, the
+// threaded batch decode, the decode + crop of the 3D training dataset and
+// the prefetching frameset pipeline of the validation analysis).
 //
 // The reference's only native code is a pair of TensorRT converter plugins
 // (libs/conv_transpose{2,3}d_converter, SURVEY.md §2.10) that exist to keep
 // its GPU compute path fast. On TPU, XLA needs no converter plugins — the
 // part of the system that genuinely wants native code is the *host* side:
 // feeding the chip. This library implements a multi-threaded JPEG decode +
-// crop, exposed through a plain C ABI consumed via ctypes (no pybind11
-// required).
+// crop pipeline with a prefetching ring buffer, exposed through a plain C
+// ABI consumed via ctypes (no pybind11 required).
 //
 // Build: make -C jarvis_hybridnet_torch/native   (g++ + libjpeg + pthreads)
 
@@ -19,9 +19,13 @@
 #include <jpeglib.h>
 
 #include <atomic>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <mutex>
+#include <queue>
+#include <string>
 #include <thread>
 #include <vector>
 
@@ -101,6 +105,33 @@ int jh_decode_jpeg_file(const char* path, uint8_t* out, int32_t* width,
   jpeg_destroy_decompress(&cinfo);
   fclose(f);
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Threaded batch decode: n files -> (n, height, width, 3) uint8.
+// All images must share the given dimensions. Returns the number of files
+// decoded successfully.
+// ---------------------------------------------------------------------------
+int jh_decode_batch(const char** paths, int32_t n, uint8_t* out,
+                    int32_t width, int32_t height, int32_t num_threads) {
+  if (num_threads < 1) num_threads = 1;
+  std::atomic<int32_t> next(0), ok(0);
+  const size_t frame_bytes = static_cast<size_t>(width) * height * 3;
+
+  auto worker = [&]() {
+    while (true) {
+      const int32_t i = next.fetch_add(1);
+      if (i >= n) return;
+      int32_t w = width, h = height;  // expected dims: mismatch -> -3
+      if (jh_decode_jpeg_file(paths[i], out + frame_bytes * i, &w, &h) == 0) {
+        ok.fetch_add(1);
+      }
+    }
+  };
+  std::vector<std::thread> threads;
+  for (int t = 0; t < num_threads; ++t) threads.emplace_back(worker);
+  for (auto& t : threads) t.join();
+  return ok.load();
 }
 
 // ---------------------------------------------------------------------------
@@ -271,6 +302,128 @@ int jh_decode_crop_batch(const char** paths, int32_t n,
   for (int t = 0; t < num_threads; ++t) threads.emplace_back(worker);
   for (auto& t : threads) t.join();
   return ok.load();
+}
+
+// ---------------------------------------------------------------------------
+// Prefetching frameset pipeline: a background thread pool decodes batches
+// of framesets ahead of the consumer into a bounded ring of slots.
+// ---------------------------------------------------------------------------
+struct JhPipeline {
+  std::vector<std::string> paths;  // flattened framesets x cameras
+  int32_t cameras = 0;
+  int32_t bbox = 0;  // 0 -> full frames
+  std::vector<int32_t> centers;    // (num_items*cameras*2) when bbox > 0
+  int32_t width = 0, height = 0;
+  int32_t num_threads = 1;
+
+  struct Item {
+    int32_t index;
+    int32_t ok;  // cameras decoded successfully (< cameras = failure)
+    std::vector<uint8_t> buf;
+  };
+  std::queue<Item> ready;
+  std::mutex mu;
+  std::condition_variable cv_ready, cv_space;
+  size_t max_ready = 2;
+  int32_t next_item = 0;
+  int32_t items_done = 0;  // pushed to `ready` (guards completion)
+  int32_t total_items = 0;
+  std::thread producer;
+  std::atomic<bool> stop{false};
+};
+
+JhPipeline* jh_pipeline_create(const char** paths, int32_t num_items,
+                               int32_t cameras, const int32_t* centers,
+                               int32_t bbox, int32_t width, int32_t height,
+                               int32_t num_threads, int32_t prefetch) {
+  auto* p = new JhPipeline();
+  p->paths.reserve(static_cast<size_t>(num_items) * cameras);
+  for (int32_t i = 0; i < num_items * cameras; ++i) p->paths.push_back(paths[i]);
+  p->cameras = cameras;
+  p->bbox = bbox;
+  if (bbox > 0 && centers != nullptr) {
+    p->centers.assign(centers,
+                      centers + static_cast<size_t>(num_items) * cameras * 2);
+  }
+  p->width = width;
+  p->height = height;
+  p->num_threads = num_threads < 1 ? 1 : num_threads;
+  p->total_items = num_items;
+  p->max_ready = prefetch < 1 ? 1 : prefetch;
+
+  p->producer = std::thread([p]() {
+    const int32_t side_w = p->bbox > 0 ? p->bbox : p->width;
+    const int32_t side_h = p->bbox > 0 ? p->bbox : p->height;
+    const size_t item_bytes =
+        static_cast<size_t>(p->cameras) * side_h * side_w * 3;
+    while (!p->stop.load()) {
+      int32_t item;
+      {
+        std::unique_lock<std::mutex> lk(p->mu);
+        if (p->next_item >= p->total_items) return;
+        item = p->next_item++;
+      }
+      std::vector<uint8_t> buf(item_bytes);
+      std::vector<const char*> cpaths(p->cameras);
+      for (int32_t c = 0; c < p->cameras; ++c)
+        cpaths[c] = p->paths[static_cast<size_t>(item) * p->cameras + c].c_str();
+      // jh_decode_*_batch spawn fresh threads per item; at pipeline rates
+      // (tens of items/s) the create/join cost is <1% of the decode time,
+      // not worth a persistent pool
+      int32_t ok;
+      if (p->bbox > 0) {
+        ok = jh_decode_crop_batch(cpaths.data(), p->cameras,
+                                  p->centers.data() +
+                                      static_cast<size_t>(item) * p->cameras * 2,
+                                  p->bbox, buf.data(), p->width, p->height,
+                                  p->num_threads);
+      } else {
+        ok = jh_decode_batch(cpaths.data(), p->cameras, buf.data(), p->width,
+                             p->height, p->num_threads);
+      }
+      std::unique_lock<std::mutex> lk(p->mu);
+      p->cv_space.wait(lk, [p]() {
+        return p->ready.size() < p->max_ready || p->stop.load();
+      });
+      if (p->stop.load()) return;
+      p->ready.push(JhPipeline::Item{item, ok < 0 ? 0 : ok, std::move(buf)});
+      p->items_done++;
+      p->cv_ready.notify_one();
+    }
+  });
+  return p;
+}
+
+// Blocks until the next frameset is decoded; copies it into out and writes
+// the number of successfully decoded cameras to *ok (missing/corrupt/
+// mismatched files leave their slice zero-filled — the caller decides).
+// Returns the item index, or -1 when the pipeline is exhausted or stopped.
+int32_t jh_pipeline_next2(JhPipeline* p, uint8_t* out, int32_t* ok) {
+  std::unique_lock<std::mutex> lk(p->mu);
+  p->cv_ready.wait(lk, [p]() {
+    return !p->ready.empty() || p->items_done >= p->total_items ||
+           p->stop.load();
+  });
+  if (p->ready.empty()) return -1;
+  auto item = std::move(p->ready.front());
+  p->ready.pop();
+  p->cv_space.notify_one();
+  lk.unlock();
+  std::memcpy(out, item.buf.data(), item.buf.size());
+  if (ok != nullptr) *ok = item.ok;
+  return item.index;
+}
+
+int32_t jh_pipeline_next(JhPipeline* p, uint8_t* out) {
+  return jh_pipeline_next2(p, out, nullptr);
+}
+
+void jh_pipeline_destroy(JhPipeline* p) {
+  p->stop.store(true);
+  p->cv_space.notify_all();
+  p->cv_ready.notify_all();
+  if (p->producer.joinable()) p->producer.join();
+  delete p;
 }
 
 }  // extern "C"

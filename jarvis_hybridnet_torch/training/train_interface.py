@@ -15,7 +15,8 @@ False (``training/graphed.py``). HybridNet trains in every freeze mode
 (``all``, ``bifpn``, ``last_layers``, ``3D_only``), and both at
 ``TPU.TRAIN_DTYPE`` float32 or bfloat16. Both first run the project's
 configuration checks (``config/checks.py``) and stop, logging each problem,
-where one fails, as the JAX package's do.
+where one fails, as the JAX package's do. ``get_latest_weights_path`` finds
+a project's newest final weights of one network.
 """
 
 from __future__ import annotations
@@ -151,3 +152,14 @@ def train_hybridnet(project_name, num_epochs, weights_keypoint_detect,
     if results is not None:
         results.update(out, trainer=trainer)
     return _report_final(out, "mm")
+
+
+def get_latest_weights_path(project_name, module):
+    """The newest run's final weights of ``module`` ('CenterDetect',
+    'KeypointDetect' or 'HybridNet') in the project, or None."""
+    from .checkpoints import get_latest_weights
+
+    project = ProjectManager()
+    if not project.load(project_name):
+        return None
+    return get_latest_weights(project.get_cfg(), module)
