@@ -87,9 +87,7 @@ counts, capture ms, pool bytes, the batch's copy into the static buffers;
 then each path's ``train()`` for 2 epochs graphed against eager (seeded
 host draws, one loader thread; the generator reseeded per epoch between
 replays) under the same rule (against TRAIN_RUN_EAGER eager runs where
-they are not bit-equal); then the loops of 3D_only, ``all`` and both 2D
-nets as a user runs them (4 loader threads), eager and graphed, their rate
-from the steps' call times (``chip_smoke_train_graphs.txt``: the graphed
+they are not bit-equal) (``chip_smoke_train_graphs.txt``: the graphed
 steps' kernels by name and count). Then bf16 training
 (``TPU.TRAIN_DTYPE: bfloat16``: float32 masters, bf16 compute): every
 training path's eager bf16 step counted (its kernels launched, the bf16
@@ -106,6 +104,22 @@ CONV_ROUND_TOL of its float64 value rounded once; K11 and K12 (each mode) at the
 ``all`` step's rows within half a bf16 ulp of the float64 plain value plus
 twice the float32 plain version's error, timed beside ``index_add_`` into
 bf16 rows.
+Then the loaders phase (``loaders_phase``): the loops of 3D_only, ``all``
+and both 2D nets as a user runs them (``train_hybridnet`` /
+``train_efficienttrack``, host augmentation and decode included), eager
+and graphed with 4 loader threads, and graphed with 4 process workers (the
+default ``DATALOADER_WORKER_MODE``) at float32 and at bf16: each loop's rate
+from its steps' call times and its ratio to the step's rate of this run
+(eager or graphed), its set-up, first step and each epoch's start, its launch counts
+(the kernels line's ``loop_<kind>_<path>`` paths; the process loops' equal
+to the thread loops'); the float32 process KeypointDetect loop drives the
+Streamlit monitor's protocol on five recording widgets, call for call the
+JAX trainers'; the threads' and the process workers' batches byte for byte
+(host augmentation off); two process-pool epochs forked after the graph
+captures under ``PreemptionGuard`` (every batch, no worker left, an eval
+replay bit-equal before and after); KeypointDetect's 2-epoch run against
+one epoch saved in the JAX package's train-state layout and resumed
+(bit-equal, or else ``run_verdict`` against eight eager runs).
 Then the C.9 trace (ROADMAP.md: the bf16 ``all`` exact eager twins on four
 seeds of the batches; where a pair parts, the first tensor that differs,
 ``flip_verdict``'s readings, K12's bf16 rows and ``repro_rows_to_bf16``
@@ -1690,15 +1704,19 @@ NETS_2D = ("CenterDetect", "KeypointDetect")
 
 
 def training_project(parent: str, dataset: str, epochs: int, bbox: int, cube: int,
-                     spacing: int, joints: int, cameras: int, workers: int = 4) -> None:
-    """The synthetic project ``Train`` whose ``train_hybridnet`` and
+                     spacing: int, joints: int, cameras: int, workers: int = 4,
+                     name: str = "Train", worker_mode: str = "process",
+                     dtype: str = "float32") -> None:
+    """The synthetic project ``name`` (``Train``) whose ``train_hybridnet`` and
     ``train_efficienttrack`` runs the training phases drive: MonkeyHand's
     networks (256^2 CenterDetect input, ``bbox``^2 crops), batch 4 for the
-    2D nets and 1 for HybridNet (3D_only, quarter_fused), float32, the
-    default color augmentation on the device (``TPU.DEVICE_AUG``)."""
+    2D nets and 1 for HybridNet (3D_only, quarter_fused), ``TPU.TRAIN_DTYPE``
+    ``dtype`` (float32), the default color augmentation on the device
+    (``TPU.DEVICE_AUG``), ``workers`` loader workers in ``worker_mode`` (the
+    default's 'process')."""
     from jarvis_hybridnet_torch.testing import write_project
 
-    write_project(parent, "Train", {
+    write_project(parent, name, {
         "DATASET": {"DATASET_2D": dataset, "DATASET_3D": dataset},
         "CENTERDETECT": {"MODEL_SIZE": "small", "IMAGE_SIZE": 256, "BATCH_SIZE": 4,
                          "NUM_EPOCHS": epochs},
@@ -1706,8 +1724,9 @@ def training_project(parent: str, dataset: str, epochs: int, bbox: int, cube: in
                            "BOUNDING_BOX_SIZE": bbox, "BATCH_SIZE": 4, "NUM_EPOCHS": epochs},
         "HYBRIDNET": {"ROI_CUBE_SIZE": cube, "GRID_SPACING": spacing, "BATCH_SIZE": 1,
                       "NUM_EPOCHS": epochs, "NUM_CAMERAS": cameras},
-        "TPU": {"REPRO_MODE": "quarter_fused", "TRAIN_DTYPE": "float32"},
+        "TPU": {"REPRO_MODE": "quarter_fused", "TRAIN_DTYPE": dtype},
         "DATALOADER_NUM_WORKERS": workers,
+        "DATALOADER_WORKER_MODE": worker_mode,
     })
 
 
@@ -1935,7 +1954,8 @@ def training_data(parent: str, note) -> None:
     under ``parent`` (12 cameras of 1280x1024 JPEG frames on the synthetic
     rig, 23 seeded keypoints spanning under 144 mm, each frame with its
     bounding box and 2D keypoints; 4 train and 2 val framesets: 48 and 24
-    images for the 2D nets), and ``JARVIS_PARENT_DIR`` set to it."""
+    images for the 2D nets), the loaders phase's projects on it
+    (``LOOP_KINDS``), and ``JARVIS_PARENT_DIR`` set to it."""
     from jarvis_hybridnet_torch.testing import synthetic_rig, write_dataset3d
 
     t0 = time.perf_counter()
@@ -1943,6 +1963,10 @@ def training_data(parent: str, note) -> None:
                               synthetic_rig(CAMS, W, H), W, H, 23, splits=TRAIN_SPLITS,
                               extent_mm=100.0, seed=5)
     training_project(parent, dataset, TRAIN_EPOCHS, 256, 144, 2, 23, CAMS)
+    for name, mode, dtype in sorted({k[:3] for k in LOOP_KINDS.values()} - {
+            ("Train", "process", "float32")}):
+        training_project(parent, dataset, TRAIN_EPOCHS, 256, 144, 2, 23, CAMS, name=name,
+                         worker_mode=mode, dtype=dtype)
     note(f"training: synthetic dataset of {sum(n for _, n in TRAIN_SPLITS)} framesets "
          f"x {CAMS} cameras of {W}x{H} JPEG written in {time.perf_counter() - t0:.2f} s")
     os.environ["JARVIS_PARENT_DIR"] = parent
@@ -3493,12 +3517,74 @@ def train_graph_run(cfg, ckpt, label, net, mode, repro, note, smi) -> dict:
     return dict(held=held, words=words)
 
 
-def train_graph_loop(ckpt, label, net, mode, graph, note, smi) -> float:
-    """``train_hybridnet`` / ``train_efficienttrack`` as a user runs them (the
-    project's 4 loader threads, TRAIN_EPOCHS epochs, host augmentation and
-    decode included) with ``graph``: the loop's framesets/s or images/s from
-    its steps' call times (``loop_rate``; the graphed loop's warm-up and
-    capture left out)."""
+# the loaders phase: the user's loops of these paths, in each of these kinds
+LOOP_PATHS = (("3D_only", "HybridNet", "3D_only"), ("all", "HybridNet", "all"),
+              ("CenterDetect", "CenterDetect", None), ("KeypointDetect", "KeypointDetect", None))
+# kind: (project, DATALOADER_WORKER_MODE, TPU.TRAIN_DTYPE, graphed); each
+# loop has 4 loader workers. training_data writes the projects beside
+# ``Train`` (process workers at float32, the default)
+LOOP_KINDS = {"eager": ("LoopThread", "thread", "float32", False),
+              "thread": ("LoopThread", "thread", "float32", True),
+              "process": ("Train", "process", "float32", True),
+              "process bf16": ("LoopBf16", "process", "bfloat16", True)}
+
+
+@contextlib.contextmanager
+def epoch_clock():
+    """Each shuffled (training) loader's epoch inside the block, as (the
+    seconds from its iterator's start to its first batch: in the process
+    modes a fresh pool of workers forked and its first batch built; the
+    seconds from that start to the loop's request past its last batch: the
+    epoch's training as a user waits for it)."""
+    from jarvis_hybridnet_torch.dataset import loader
+
+    epochs = []
+    iterate = loader.DataLoader.__iter__
+
+    def timed(self):
+        t0 = time.perf_counter()
+        it = iterate(self)
+        first = None
+        try:
+            for b in it:
+                if first is None:
+                    first = time.perf_counter() - t0
+                yield b
+            if self.shuffle:
+                epochs.append((first, time.perf_counter() - t0))
+        finally:
+            it.close()
+
+    loader.DataLoader.__iter__ = timed
+    try:
+        yield epochs
+    finally:
+        loader.DataLoader.__iter__ = iterate
+
+
+def loop_kernels(net: str, mode) -> tuple:
+    """The hand-written kernels a training loop of ``net`` in ``mode`` launches."""
+    if net != "HybridNet":
+        return TRAIN2D_KERNELS
+    return TRAINING_KERNELS if mode == "3D_only" else TRAINING_ALL_KERNELS
+
+
+def train_graph_loop(kernels, ckpt, label, net, mode, kind, note, smi, widgets=None) -> dict:
+    """``train_hybridnet`` / ``train_efficienttrack`` as a user runs them on
+    the project of ``kind`` (``LOOP_KINDS``: 4 loader threads or 4 process
+    workers, float32 or bf16, eager or graphed; TRAIN_EPOCHS epochs, host
+    augmentation and decode included), ``widgets`` passed to the monitor:
+    the launch counts (set to 0 just before, read just after; every kernel
+    of the path launched), the loop's rate from its steps' call times
+    (``loop_rate``; the warm-up and capture left out), the set-up (the call
+    to its first step), the first step (its first to its second step call),
+    each training epoch's start and whole wall time (``epoch_clock``), this
+    process's resident set and gc-tracked objects (what a forked worker
+    shares with it copy-on-write), and the run's history."""
+    import gc
+
+    import torch
+
     from jarvis_hybridnet_torch.training import graphed
     from jarvis_hybridnet_torch.training.train_interface import (
         train_efficienttrack,
@@ -3507,35 +3593,344 @@ def train_graph_loop(ckpt, label, net, mode, graph, note, smi) -> float:
     from jarvis_hybridnet_torch.training.trainer2d import EfficientTrackTrainer
     from jarvis_hybridnet_torch.training.trainer3d import HybridNetTrainer
 
+    project, worker_mode, dtype, graph = LOOP_KINDS[kind]
+    words = (f"{'graphed' if graph else 'eager'} (4 "
+             f"{'loader threads' if worker_mode == 'thread' else 'process workers'}"
+             f"{', bf16' if dtype == 'bfloat16' else ''})")
     res = {}
-    if net == "HybridNet":
-        with loop_clock(HybridNetTrainer) as times:
-            ok = train_hybridnet("Train", TRAIN_EPOCHS, None, ckpt["HybridNet"], mode=mode,
-                                 run_name=f"Loop_{label}_{graph}", device="cuda",
-                                 results=res, graph=graph)
-        per_epoch, batch = TRAIN_SPLITS[0][1], 1
-    else:
-        with loop_clock(EfficientTrackTrainer) as times:
-            ok = train_efficienttrack(net, "Train", TRAIN_EPOCHS, ckpt[net],
-                                      run_name=f"Loop_{graph}", device="cuda", results=res,
-                                      graph=graph)
-        per_epoch, batch = len(times) // TRAIN_EPOCHS, 4
+    run = f"Loop_{label}_{kind.replace(' ', '_')}"
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with epoch_clock() as epochs:
+        if net == "HybridNet":
+            with loop_clock(HybridNetTrainer) as times:
+                ok = train_hybridnet(project, TRAIN_EPOCHS, None, ckpt["HybridNet"], mode=mode,
+                                     run_name=run, device="cuda", results=res, graph=graph,
+                                     streamlit_widgets=widgets)
+            per_epoch, batch = TRAIN_SPLITS[0][1], 1
+        else:
+            with loop_clock(EfficientTrackTrainer) as times:
+                ok = train_efficienttrack(net, project, TRAIN_EPOCHS, ckpt[net], run_name=run,
+                                          device="cuda", results=res, graph=graph,
+                                          streamlit_widgets=widgets)
+            per_epoch, batch = len(times) // TRAIN_EPOCHS, 4
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
     if not ok:
-        fail(f"the {'graphed' if graph else 'eager'} {label} training loop did not finish")
-    rate_ = loop_rate(times, per_epoch, batch, graphed.WARMUP + 1 if graph else 2)
-    note(f"train graph {label} loop {'graphed' if graph else 'eager'}: {rate_:.2f} "
-         f"{'framesets/s' if net == 'HybridNet' else 'images/s'} (the median interval between "
-         f"two steps of an epoch, {len(times)} steps, 4 loader threads, host augmentation and "
-         f"JPEG decode included); card: {smi}")
-    return rate_
+        fail(f"the {kind} {label} training loop did not finish")
+    for name in loop_kernels(net, mode):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched in the {kind} {label} training loop")
+    out = dict(rate=loop_rate(times, per_epoch, batch, graphed.WARMUP + 1 if graph else 2),
+               setup_s=times[0] - t0, first_step_s=times[1] - times[0],
+               epoch_start_s=[e[0] for e in epochs], epoch_s=[e[1] for e in epochs],
+               steps=len(times), per_epoch=per_epoch, seconds=seconds, counts=counts,
+               history=res["history"], rss_gb=host_rss_gb(), objects=len(gc.get_objects()))
+    unit = "framesets/s" if net == "HybridNet" else "images/s"
+    note(f"train graph {label} loop {words}: {out['rate']:.2f} {unit} (the median interval "
+         f"between two steps of an epoch, {len(times)} steps, host augmentation and JPEG decode "
+         f"included); set-up {out['setup_s']:.3f} s, first step {out['first_step_s']:.3f} s, "
+         f"epoch starts {', '.join(f'{x:.3f}' for x in out['epoch_start_s'])} s, epochs "
+         f"{', '.join(f'{x:.3f}' for x in out['epoch_s'])} s; the loop {seconds:.1f} s; this "
+         f"process's resident set {out['rss_gb']:.2f} GB, {out['objects']} gc-tracked objects; "
+         f"card: {smi}")
+    return out
+
+
+def host_rss_gb() -> float:
+    """This process's resident set (``VmRSS``), GB: what a forked worker
+    shares copy-on-write with it."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1e6
+    return float("nan")
+
+
+class RecordingWidget:
+    """A stand-in for one Streamlit widget: every call the monitor makes on
+    it goes into the shared ``log``."""
+
+    def __init__(self, index: int, log: list):
+        self.index, self.log = index, log
+
+    def _record(self, method, *args):
+        self.log.append((self.index, method) + tuple(
+            {k: list(v) for k, v in a.items()} if isinstance(a, dict) else a for a in args))
+
+    def markdown(self, text):
+        self._record("markdown", text)
+
+    def progress(self, fraction):
+        self._record("progress", fraction)
+
+    def line_chart(self, data):
+        self._record("line_chart", data)
+
+
+def monitor_expected(mode: str, unit: str, epochs: int, steps: int, history: dict) -> list:
+    """The calls the JAX package's trainers make on five widgets over a run
+    of ``history``: ``start``, one ``step`` a step, one ``epoch`` an epoch
+    with the history so far, through the port's monitor (the CPU tests hold
+    it to JAX's call for call)."""
+    from jarvis_hybridnet_torch.utils.st_monitor import StreamlitTrainingMonitor
+
+    log: list = []
+    monitor = StreamlitTrainingMonitor([RecordingWidget(i, log) for i in range(5)], mode,
+                                       acc_unit=unit)
+    monitor.start(epochs)
+    for epoch in range(epochs):
+        for count in range(steps):
+            monitor.step(count, steps)
+        monitor.epoch(epoch, epochs, {k: v[:epoch + 1] for k, v in history.items()})
+    return log
+
+
+def batch_bytes(b) -> list:
+    """A collated batch as (dtype, shape, bytes) of its leaves in order."""
+    import numpy as np
+
+    if isinstance(b, dict):
+        return [x for k in b for x in [k] + batch_bytes(b[k])]
+    if isinstance(b, (list, tuple)):
+        return [x for v in b for x in batch_bytes(v)]
+    a = np.asarray(b)
+    return [(a.dtype.str, a.shape, a.tobytes())]
+
+
+def loader_batches_equal(note) -> None:
+    """The training dataset's batches through 4 loader threads and through
+    4 process workers, byte for byte over two shuffled epochs, as the
+    trainers load them (device targets), with host augmentation off (each
+    thread and each process worker draws from its own stream): both 2D nets'
+    train split (batch 4) with the mirror and affine probabilities at 0 and
+    the color augmentation off, so that no draw changes a sample, and the
+    3D val split (batch 1: the 3D train split always jitters its crops and
+    cube)."""
+    from jarvis_hybridnet_torch.config.project_manager import ProjectManager
+    from jarvis_hybridnet_torch.dataset.dataset2d import Dataset2D
+    from jarvis_hybridnet_torch.dataset.dataset3d import Dataset3D
+    from jarvis_hybridnet_torch.dataset.loader import DataLoader
+
+    pm = ProjectManager(os.environ["JARVIS_PARENT_DIR"])
+    pm.load("Train")
+    cfg = pm.get_cfg().clone()
+    aug = cfg.AUGMENTATION
+    aug.MIRROR.PROBABILITY = aug.AFFINE_TRANSFORM.PROBABILITY = 0.0
+    aug.COLOR_MANIPULATION.ENABLED = False
+    sets = {"HybridNet val": (functools.partial(Dataset3D, cfg, set="val",
+                                                device_targets=True), 1)}
+    for net in NETS_2D:
+        sets[f"{net} train"] = (functools.partial(Dataset2D, cfg, set="train", mode=net,
+                                                  device_targets=True), 4)
+    for name, (make, batch) in sets.items():
+        t0 = time.perf_counter()
+        got = {}
+        for mode in ("thread", "process"):
+            dl = DataLoader(make(), batch_size=batch, shuffle=True, seed=3, num_workers=4,
+                            worker_mode=mode)
+            got[mode] = []
+            for epoch in range(2):
+                dl.set_epoch(epoch)
+                got[mode] += [batch_bytes(b) for b in dl]
+        equal = got["thread"] == got["process"] and len(got["thread"]) == 2 * len(dl)
+        note(f"loaders {name}: batches (host augmentation off) through 4 loader threads and 4 "
+             f"process workers, 2 shuffled epochs of {len(dl)} batches of {batch}: "
+             f"{'byte for byte equal' if equal else 'DIFFERENT'} "
+             f"({time.perf_counter() - t0:.1f} s)")
+        if not equal:
+            fail(f"loaders {name}: process workers' batches differ from the threads'")
+
+
+def fork_after_device(ckpt, note, smi) -> None:
+    """The fork-after-device stress (the port's counterpart of
+    ``tests/test_dataset.py:494``): after this process's graph captures,
+    with a graphed KeypointDetect trainer's eval graph live, two epochs of
+    the 3D training split (host augmentation on) through 4 process workers
+    under ``PreemptionGuard``: every batch arrives, no worker is left once
+    the epochs end, and the eval graph's replay afterwards is bit-equal to
+    its replay before."""
+    import multiprocessing as mp
+
+    import torch
+
+    from jarvis_hybridnet_torch.config.project_manager import ProjectManager
+    from jarvis_hybridnet_torch.dataset.dataset3d import Dataset3D
+    from jarvis_hybridnet_torch.dataset.loader import DataLoader
+    from jarvis_hybridnet_torch.training import graphed
+    from jarvis_hybridnet_torch.utils.preemption import PreemptionGuard
+
+    pm = ProjectManager(os.environ["JARVIS_PARENT_DIR"])
+    pm.load("Train")
+    cfg = pm.get_cfg()
+    trainer, _ = train_graph_trainer(cfg, ckpt, "KeypointDetect", None, None, True, "Fork")
+    b = train_graph_batches(cfg, "KeypointDetect")[0]
+    for _ in range(graphed.WARMUP + 1):  # the eager warm-ups, the capture
+        trainer.eval_step(b)
+    before = [t.clone() for t in trainer.eval_step(b)]
+    children = {p.pid for p in mp.active_children()}
+    t0 = time.perf_counter()
+    arrived = []
+    with PreemptionGuard():
+        ds = Dataset3D(cfg, set="train", device_targets=True, device_aug=True)
+        dl = DataLoader(ds, batch_size=1, shuffle=True, seed=5, num_workers=4,
+                        worker_mode="process")
+        for epoch in range(2):
+            dl.set_epoch(epoch)
+            arrived.append(sum(1 for _ in dl))
+    epochs_s = time.perf_counter() - t0
+    deadline = time.monotonic() + 20.0
+    while True:
+        left = {p.pid for p in mp.active_children()} - children
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    after = trainer.eval_step(b)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(x, y) for x, y in zip(before, after))
+    note(f"loaders fork after device: 2 epochs of the 3D training split through 4 process "
+         f"workers forked after the graph captures, under PreemptionGuard: batches {arrived} of "
+         f"{len(dl)} an epoch ({epochs_s:.1f} s), workers left {len(left)}, the KeypointDetect "
+         f"eval graph's replay after them {'bit-equal to' if equal else 'DIFFERENT from'} the "
+         f"one before; card: {smi}")
+    if arrived != [len(dl)] * 2 or left or not equal:
+        fail("loaders: the process workers forked after the device work lost a batch, left a "
+             "worker or changed a replay")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def resume_check(ckpt, note, smi) -> None:
+    """KeypointDetect's graphed trainer as a user runs it (4 process
+    workers) with deterministic cuDNN on the val split as its training set
+    (no host draws; the CPU tests' rule): TRAIN_EPOCHS epochs in one run,
+    and one epoch stopped at its end (the preemption path writes
+    ``train_state.ckpt`` in the JAX package's layout) then resumed for the
+    rest. The final parameters, AdamW's state and the history bit-equal,
+    or else the resumed run held to TRAIN_RUN_EAGER eager uninterrupted runs
+    by ``run_verdict`` (C.11)."""
+    import itertools
+
+    import torch
+
+    from jarvis_hybridnet_torch.config.project_manager import ProjectManager
+    from jarvis_hybridnet_torch.dataset.dataset2d import Dataset2D
+    from jarvis_hybridnet_torch.training.trainer2d import EfficientTrackTrainer
+    from jarvis_hybridnet_torch.utils import preemption
+
+    pm = ProjectManager(os.environ["JARVIS_PARENT_DIR"])
+    pm.load("Train")
+    cfg = pm.get_cfg()
+    net = "KeypointDetect"
+
+    def run(name, graph=True, resume=None, stop=False):
+        trainer = EfficientTrackTrainer(net, cfg, weights=ckpt[net], device="cuda",
+                                        run_name=name, graph=graph)
+        sets = [Dataset2D(cfg, set="val", mode=net) for _ in range(2)]
+        guard = preemption.PreemptionGuard.should_stop_global
+        if stop:  # a stop request seen at the end of the first epoch
+            preemption.PreemptionGuard.should_stop_global = (
+                lambda self, stride=None: stride is None)
+        try:
+            out = trainer.train(*sets, TRAIN_EPOCHS, resume_from=resume)
+        finally:
+            preemption.PreemptionGuard.should_stop_global = guard
+        opt = trainer.optimizer
+        state = [*trainer.model.state_dict().values()] + [
+            opt.state[p][k] for p in opt.param_groups[0]["params"] for k in sorted(opt.state[p])]
+        return out, state, trainer.model_savepath
+
+    t0 = time.perf_counter()
+    with deterministic_cudnn():
+        whole, w_state, _ = run("ResumeWhole")
+        first, _, path = run("ResumeFirst", stop=True)
+        if not first.get("preempted"):
+            fail("loaders resume: the run was not stopped at its first epoch's end")
+        resumed, r_state, _ = run("ResumeRest", resume=os.path.join(path, "train_state.ckpt"))
+        hist = {k: first["history"][k] + resumed["history"][k] for k in whole["history"]}
+        if twin_gap(r_state, w_state)[0] and hist == whole["history"]:
+            held, words = True, "bit-equal, the same history"
+        else:
+            eager = [run(f"ResumeEager{i}", graph=False)
+                     for i in range(TRAIN_RUN_EAGER)]
+            eager = [(o["history"], st) for o, st, _ in eager]
+            held, words = run_verdict(
+                [(twin_gap(r_state, st), history_gap(hist, h)) for h, st in eager],
+                [(twin_gap(a[1], b[1]), history_gap(a[0], b[0]))
+                 for a, b in itertools.combinations(eager, 2)])
+    note(f"loaders resume: {net} graphed, 4 process workers, {TRAIN_EPOCHS} epochs in one run "
+         f"against 1 epoch, train_state.ckpt (the JAX package's layout) and a resumed run: "
+         f"{words}; history {json.dumps(hist)}; {time.perf_counter() - t0:.1f} s; card: {smi}")
+    if not held:
+        fail(f"loaders resume: the resumed run differs from the uninterrupted one ({words})")
+    torch.cuda.empty_cache()
+
+
+def loaders_phase(kernels, ckpt, note, smi, f32: list, bf16: list) -> dict:
+    """The user's training loops (``train_graph_loop``) of 3D_only, ``all``
+    and both 2D nets in every ``LOOP_KINDS`` kind: eager and graphed with 4
+    loader threads, and graphed with 4 process workers at float32 and at
+    bf16, each loop's rate beside the rate of the same step (eager or
+    graphed, float32 or bf16) in this run (``train_graph_phase``'s ``f32`` /
+    ``bf16`` results, where given); the graphed process loops' launch counts
+    equal to the graphed thread loops'; the float32 process
+    KeypointDetect loop with five recording widgets, whose calls must be
+    ``monitor_expected``'s. Then ``loader_batches_equal``,
+    ``fork_after_device`` and ``resume_check``. Returns each loop's launch
+    counts by path (``loop_<kind>_<label>``)."""
+    import gc
+
+    import torch
+
+    step_rates = {(g, r["label"]): r[g]["rate"] for r in f32 + bf16 for g in ("eager", "graphed")}
+    counts, rows = {}, []
+    for label, net, mode in LOOP_PATHS:
+        for kind in LOOP_KINDS:
+            log = [] if (kind, label) == ("process", "KeypointDetect") else None
+            widgets = None if log is None else [RecordingWidget(i, log) for i in range(5)]
+            r = train_graph_loop(kernels, ckpt, label, net, mode, kind, note, smi, widgets)
+            counts[f"loop_{kind.replace(' ', '_')}_{label}"] = r["counts"]
+            _, _, dtype, graph = LOOP_KINDS[kind]
+            step = ("graphed" if graph else "eager",
+                    ("bf16 " if dtype == "bfloat16" else "") + label)
+            rows.append((label, kind, r, step[0], step_rates.get(step)))
+            if log is not None:
+                want = monitor_expected(net, "px", TRAIN_EPOCHS, r["per_epoch"], r["history"])
+                steps = sum(1 for c in log if c[:2] == (1, "progress"))
+                note(f"loaders monitor: the {kind} {label} loop with five recording widgets: "
+                     f"{len(log)} calls ({steps} step progress calls over {r['steps']} steps), "
+                     f"{'equal' if log == want else 'NOT EQUAL'} call for call to the "
+                     f"{len(want)} of the JAX trainers' protocol")
+                if log != want or steps != r["steps"]:
+                    fail("loaders: the trainer's monitor calls differ from the JAX trainer's")
+            gc.collect()
+            torch.cuda.empty_cache()
+        thread, process = (counts[f"loop_{k}_{label}"] for k in ("thread", "process"))
+        if thread != process:
+            fail(f"loaders {label}: the process loop's launch counts {json.dumps(process)} "
+                 f"differ from the thread loop's {json.dumps(thread)}")
+    for label, kind, r, name, step in rows:
+        against = (f"the {name} step not measured in this run" if step is None else
+                   f"against the {name} step's {step:.2f} (this run), ratio "
+                   f"{r['rate'] / step:.3f}")
+        note(f"loaders {label} {kind}: loop {r['rate']:.2f} {against}; set-up "
+             f"{r['setup_s']:.3f} s, first step {r['first_step_s']:.3f} s, epoch start "
+             f"{', '.join(f'{x:.3f}' for x in r['epoch_start_s'])} s, epoch "
+             f"{', '.join(f'{x:.3f}' for x in r['epoch_s'])} s; resident set "
+             f"{r['rss_gb']:.2f} GB, {r['objects']} gc-tracked objects; card: {smi}")
+    loader_batches_equal(note)
+    fork_after_device(ckpt, note, smi)
+    resume_check(ckpt, note, smi)
+    return counts
 
 
 def train_graph_phase(kernels, ckpt, note, smi, dtype: str = "float32") -> list:
     """Every training path at ``TPU.TRAIN_DTYPE`` ``dtype`` eager against
     graphed (``train_graph_steps``) and its ``train()`` graphed against
     eager (``train_graph_run``), labelled ``<path>`` at float32 and ``bf16
-    <path>`` at bf16; at float32 then the loops of 3D_only, ``all`` and both
-    2D nets as a user runs them, eager and graphed (``train_graph_loop``).
+    <path>`` at bf16 (the user's loops: ``loaders_phase``).
     ``chiprun_out/chip_smoke_train_graphs.txt`` (float32) or
     ``chip_smoke_train_graphs_bf16.txt`` lists the kernels of each graphed
     step by name and count."""
@@ -3559,12 +3954,6 @@ def train_graph_phase(kernels, ckpt, note, smi, dtype: str = "float32") -> list:
         results.append(res)
         gc.collect()
         torch.cuda.empty_cache()
-    for res, (label, net, mode, _) in zip(results, TRAIN_GRAPH_PATHS):
-        if not bf16 and label in ("3D_only", "all", "CenterDetect", "KeypointDetect"):
-            res["loop"] = {name: train_graph_loop(ckpt, label, net, mode, g, note, smi)
-                           for name, g in (("eager", False), ("graphed", True))}
-            gc.collect()
-            torch.cuda.empty_cache()
     name = f"chip_smoke_train_graphs{'_bf16' if bf16 else ''}.txt"
     with open(os.path.join(REPO, "chiprun_out", name), "w") as log:
         log.write(f"card: {smi}\nkernels a step of each graphed {prefix}training step "
@@ -5061,11 +5450,14 @@ def main() -> int:
         phase("training 2D step card vs CPU")
         train2d_card_vs_cpu(ckpt, note)
         phase("training graphs")
-        train_graph_phase(kernels, ckpt, note, smi)
+        graphs_f32 = train_graph_phase(kernels, ckpt, note, smi)
         phase("training bf16 steps")
         path_counts.update(bf16_steps(kernels, ckpt, recorder, note, smi))
         phase("training bf16 graphs")
-        train_graph_phase(kernels, ckpt, note, smi, "bfloat16")
+        graphs_bf16 = train_graph_phase(kernels, ckpt, note, smi, "bfloat16")
+        phase("loaders")
+        path_counts.update(loaders_phase(kernels, ckpt, note, smi, graphs_f32, graphs_bf16))
+        del graphs_f32, graphs_bf16
         phase("C.9 trace")
         c9_trace(kernels, ckpt, note, smi)
         phase("multi NCCL one rank")

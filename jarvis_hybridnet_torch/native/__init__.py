@@ -30,11 +30,19 @@ _video_tried = False
 
 
 def _build(target: str) -> bool:
+    """``make`` the library, one process at a time: the loader's workers
+    (threads, or processes forked before the library was loaded) may all
+    ask for it at once, and two makes writing one file can leave a torn
+    library for a third to load."""
+    import fcntl
+
     try:
-        subprocess.run(
-            ["make", "-C", _DIR, "-s", target], check=True,
-            capture_output=True, timeout=120,
-        )
+        with open(os.path.join(_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(
+                ["make", "-C", _DIR, "-s", target], check=True,
+                capture_output=True, timeout=120,
+            )
         return True
     except Exception:
         return False

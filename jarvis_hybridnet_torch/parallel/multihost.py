@@ -13,8 +13,9 @@ One process per GPU, launched by ``torchrun`` (which sets ``RANK``,
   ``multihost.py:28-60``).
 - Every rank of a data group agrees on the global sample order of an epoch
   and takes its ``process_batch_slice`` of each global batch
-  (:class:`MultiHostLoader`, on the port's thread ``DataLoader``); the
-  camera ranks of one data group load the same samples.
+  (:class:`MultiHostLoader`, on the port's ``DataLoader`` in the caller's
+  worker mode: ``DATALOADER_WORKER_MODE`` in the trainers); the camera ranks
+  of one data group load the same samples.
 - :func:`process_frame_range` is a recording's contiguous frame range of a
   data group, for the prediction drivers' pod streaming.
 """
@@ -123,6 +124,10 @@ class _IndexView:
         return self._dataset[int(self._indices[i])]
 
     def __getattr__(self, name):
+        # only for names the view does not hold; a view being unpickled in a
+        # 'forkserver' / 'spawn' worker has no ``_dataset`` yet
+        if name.startswith("__") or name in ("_dataset", "_indices"):
+            raise AttributeError(name)
         return getattr(self._dataset, name)
 
 
@@ -132,8 +137,8 @@ class MultiHostLoader:
 
     Every rank constructs the identical seeded shuffle of the dataset,
     takes its ``process_batch_slice`` of each global batch and builds those
-    samples on its thread pool (``dataset.loader.DataLoader``), yielding
-    the host batches of its slice. ``drop_last`` is forced: a step needs
+    samples on its workers (``dataset.loader.DataLoader`` in
+    ``worker_mode``), yielding the host batches of its slice. ``drop_last`` is forced: a step needs
     every data group to contribute an identically-shaped slice.
     ``process_index`` / ``process_count`` are the data index and the data
     axis of the mesh (the camera ranks of one data group load the same

@@ -6,10 +6,12 @@ parameter tree (``models/weights.params_to_jax``) in flax's msgpack format
 (``utils/ckpt_io.write_ckpt``), so its ``load_checkpoint`` reads what the
 port trains; ``.pth`` files hold the state dict under the reference torch
 names, as the JAX package's ``save_torch_checkpoint`` writes them. A train
-state holds the params in the JAX tree, the epoch, and the optimizer state in
-the port's own layout (torch's ``Optimizer.state_dict()`` and the step
-count), in the same msgpack file: a resume from a train state written by the
-JAX package is not supported.
+state is the JAX package's (``checkpoints.py:44-68``): ``{"params": <the JAX
+tree>, "opt_state": <flax's to_state_dict of the optax state>, "epoch"}``,
+the optimizer state converted by ``optim.optax_state``. Either package
+resumes a train state that the other wrote (``optim.load_optax_state``); a
+file in the port's earlier layout (``opt_state: {"optimizer": torch's
+Optimizer.state_dict(), "step"}``) still loads.
 
 A weight spec is resolved as the reference resolves it
 (jarvis/efficienttrack/efficienttrack.py:90-183, train_interface.py:22-50):
@@ -40,6 +42,7 @@ import numpy as np
 from ..models.weights import params_from_jax, params_to_jax
 from ..utils import clp
 from ..utils.ckpt_io import read_ckpt, write_ckpt
+from . import optim
 
 # the head of an EfficientTrack: its shapes follow the joint count
 _HEAD = ("deconv1.weight", "final_conv1.weight", "final_conv2.weight")
@@ -55,25 +58,9 @@ def load_checkpoint(path: str) -> dict:
     return read_ckpt(path)
 
 
-def _to_tree(obj):
-    """A torch optimizer state dict as msgpack-able nested dicts: tensors to
-    numpy, tuples to lists, int keys to strings; a group's lr tensor
-    (``optim.make_optimizer``) to a float, as a float lr is written."""
-    if isinstance(obj, dict) and "param_groups" in obj:
-        groups = [{k: float(v) if k == "lr" else v for k, v in g.items()}
-                  for g in obj["param_groups"]]
-        return {"state": _to_tree(obj["state"]), "param_groups": _to_tree(groups)}
-    if isinstance(obj, dict):
-        return {str(k): _to_tree(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return [_to_tree(v) for v in obj]
-    if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().numpy()
-    return obj
-
-
 def _from_optimizer_tree(tree: dict) -> dict:
-    """The inverse of :func:`_to_tree` for ``Optimizer.state_dict()``."""
+    """``Optimizer.state_dict()`` of the port's earlier train-state layout
+    (tensors as numpy, int keys as strings, a group's lr as a float)."""
     def value(v):
         return torch.from_numpy(np.asarray(v)) if isinstance(v, np.ndarray) else v
 
@@ -86,24 +73,37 @@ def _from_optimizer_tree(tree: dict) -> dict:
 
 def save_train_state(path: str, state: dict, opt_state: dict, epoch: int,
                      model_size: str) -> None:
-    """Full training state for a mid-run resume: params (the JAX tree), the
-    optimizer state (``{"optimizer": Optimizer.state_dict(), "step": int}``,
-    the port's layout) and the epoch."""
+    """Full training state for a mid-run resume, as the JAX package writes
+    it: params (the JAX tree of ``state``), the optimizer state in flax's
+    layout (``optim.optax_state``) and the epoch."""
     write_ckpt(path, {
         "params": params_to_jax(state, model_size),
-        "opt_state": {"optimizer": _to_tree(opt_state["optimizer"]),
-                      "step": int(opt_state["step"])},
+        "opt_state": opt_state,
         "epoch": int(epoch),
     })
 
 
 def load_train_state(path: str, model_size: str):
-    """(state dict, optimizer state as :func:`save_train_state` takes it,
-    epoch) of a train state the port wrote."""
+    """(state dict, optimizer state, epoch) of a train state either package
+    wrote: the optimizer state in flax's layout (numpy leaves), or, from a
+    file of the port's earlier layout, ``{"optimizer": Optimizer.state_dict(),
+    "step": int}``. :func:`restore_optimizer` takes both."""
     tree = read_ckpt(path)
     opt = tree["opt_state"]
-    opt_state = {"optimizer": _from_optimizer_tree(opt["optimizer"]), "step": int(opt["step"])}
-    return params_from_jax(tree["params"], model_size), opt_state, int(tree["epoch"])
+    if "optimizer" in opt:
+        opt = {"optimizer": _from_optimizer_tree(opt["optimizer"]), "step": int(opt["step"])}
+    return params_from_jax(tree["params"], model_size), opt, int(tree["epoch"])
+
+
+def restore_optimizer(optimizer, names: list[str], opt_state: dict, state: dict,
+                      model_size: str) -> int:
+    """Load :func:`load_train_state`'s optimizer state into ``optimizer``
+    (over the parameters ``names``, the model's ``state`` giving the
+    shapes) and return the step count to resume from."""
+    if "optimizer" in opt_state:
+        optim.load_optimizer_state(optimizer, opt_state["optimizer"])
+        return int(opt_state["step"])
+    return optim.load_optax_state(optimizer, names, opt_state, state, model_size)
 
 
 def save_torch_checkpoint(state: dict, path: str) -> None:
@@ -132,7 +132,9 @@ def _latest_run_file(search_path: str, final_names: list[str]) -> str | None:
 
 def get_latest_train_state(cfg, module: str) -> str | None:
     """Newest run's resumable ``train_state.ckpt`` (periodic epoch saves and
-    the preemption path both write it)."""
+    the preemption path both write it) under the project's
+    ``models/<module>/``, where both packages' trainers keep their runs: the
+    port resumes a run of either."""
     search = os.path.join(
         cfg.PARENT_DIR, "projects", cfg.PROJECT_NAME, "models", module
     )

@@ -26,6 +26,14 @@ which computes its step size in the lr's dtype, is bit for bit the update
 at a float lr. SGD is :class:`NesterovSGD`, whose update reads the lr tensor
 on the device on both (torch's multi-tensor SGD reads it on the host).
 
+The train state holds the optimizer's state as the JAX package writes it
+(:func:`optax_state`, read back by :func:`load_optax_state`): flax's
+``to_state_dict`` of ``make_optimizer``'s optax state, with AdamW's
+``exp_avg`` / ``exp_avg_sq`` as ``mu`` / ``nu``, ``NesterovSGD``'s
+``momentum_buffer`` as ``trace``, each in the JAX parameter tree
+(``models/weights.params_to_jax``), and the trainer's step count as every
+int32 ``count``.
+
 Frozen parameters (``optax.multi_transform`` with ``set_to_zero`` in JAX)
 are kept out of the optimizer and set ``requires_grad_(False)``: no update,
 no weight decay. A trained parameter that reaches no loss gets a zero
@@ -40,6 +48,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..models.weights import params_from_jax, params_to_jax
 
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
 ADAM_BETAS = (0.9, 0.999)
@@ -226,3 +236,110 @@ def apply_freeze(model: torch.nn.Module, labels: dict[str, str]) -> list[torch.n
         if labels[name] == "train":
             trained.append(p)
     return trained
+
+
+def _frozen(keys: tuple, mode: str | None) -> bool:
+    """Whether the JAX tree's leaf at ``keys`` is frozen in freeze ``mode``
+    (the JAX package's ``hybridnet_freeze_labels``; None: nothing is)."""
+    if mode is None or keys[0] != "effTrack" or mode == "all":
+        return False
+    if mode == "bifpn":
+        return keys[1] == "backbone_net"
+    if mode == "last_layers":
+        return keys[1] == "backbone_net" or keys[1].startswith("bifpn")
+    return True
+
+
+def _masked(tree, mode: str | None, keys: tuple = ()):
+    """``tree`` with ``{}`` at every frozen leaf, as flax writes the
+    ``MaskedNode`` of ``optax.multi_transform``'s trained branch."""
+    if isinstance(tree, dict):
+        return {k: _masked(v, mode, keys + (k,)) for k, v in tree.items()}
+    return {} if _frozen(keys, mode) else tree
+
+
+def _filled(tree, template):
+    """``tree`` with zeros of ``template``'s leaf where it holds ``{}``."""
+    if isinstance(template, dict):
+        return {k: _filled(tree[k], v) for k, v in template.items()}
+    return np.zeros_like(template) if isinstance(tree, dict) else tree
+
+
+def param_names(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> list[str]:
+    """The names of ``optimizer``'s parameters in its order (the keys of its
+    ``state_dict()["state"]``)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+
+def optax_state(opt_sd: dict, names: list[str], state: dict, step: int, onecycle: bool,
+                model_size: str, freeze_mode: str | None = None) -> dict:
+    """The optimizer state of ``opt_sd`` (an ``Optimizer.state_dict()`` over
+    the parameters ``names``) as flax's ``to_state_dict`` writes the JAX
+    package's optax state (``make_optimizer``): AdamW ``{"0": {"count", "mu",
+    "nu"}, "1": {}, "2": {"count"} | {}}``, SGD ``{"0": {"trace"}, "1":
+    {"count"} | {}}``, the last ``count`` there under OneCycle (``onecycle``)
+    and ``{}`` under the plateau's constant rate; with a ``freeze_mode``
+    (HybridNet, always labelled) inside ``multi_transform``'s
+    ``inner_states`` with ``{}`` at every frozen leaf. ``state`` (the model's
+    state dict) gives the untrained tensors' shapes; a trained tensor without
+    a slot yet (no step taken) writes zeros, as ``tx.init`` does. Every count
+    is ``step`` as int32."""
+    adam = "betas" in opt_sd["param_groups"][0]
+
+    def tree(slot: str) -> dict:
+        sd = {k: torch.zeros(v.shape) for k, v in state.items()}
+        for i, name in enumerate(names):
+            v = opt_sd["state"].get(i, {}).get(slot)
+            if v is not None:
+                sd[name] = v
+        return _masked(params_to_jax(sd, model_size), freeze_mode)
+
+    count = np.asarray(step, np.int32)
+    schedule = {"count": count} if onecycle else {}
+    if adam:
+        inner = {"0": {"count": count, "mu": tree("exp_avg"), "nu": tree("exp_avg_sq")},
+                 "1": {}, "2": schedule}
+    else:
+        inner = {"0": {"trace": tree("momentum_buffer")}, "1": schedule}
+    if freeze_mode is None:
+        return inner
+    return {"inner_states": {"train": {"inner_state": inner}, "freeze": {"inner_state": {}}}}
+
+
+def load_optax_state(optimizer: torch.optim.Optimizer, names: list[str], tree: dict,
+                     state: dict, model_size: str) -> int:
+    """Fill ``optimizer``'s state (over the parameters ``names``) from an
+    optimizer state in the JAX package's layout (:func:`optax_state`; a file
+    of either package), and return its step count: AdamW's ``count``, else
+    the schedule's (0 under the plateau, whose SGD state holds none).
+    ``mu`` / ``nu`` / ``trace`` become ``exp_avg`` / ``exp_avg_sq`` /
+    ``momentum_buffer`` in the parameters' dtype and device, and AdamW's
+    per-parameter ``step`` is the count as a float32 scalar, on the
+    parameters' device in a ``capturable`` group. ``state`` (the model's
+    state dict) gives the shapes of the leaves a frozen tensor leaves
+    empty."""
+    inner = tree["inner_states"]["train"]["inner_state"] if "inner_states" in tree else tree
+    first = inner["0"]
+    adam = isinstance(optimizer, torch.optim.AdamW)
+    if adam != ("mu" in first):
+        raise ValueError(f"the train state holds {'AdamW' if 'mu' in first else 'SGD'}'s "
+                         f"state, the run trains with {type(optimizer).__name__}")
+    schedule = inner["2" if adam else "1"]
+    step = int(first["count"] if adam else schedule.get("count", 0))
+    template = params_to_jax(state, model_size)
+
+    def torch_sd(t: dict) -> dict:
+        return params_from_jax(_filled(t, template), model_size)
+
+    slots = ({"exp_avg": torch_sd(first["mu"]), "exp_avg_sq": torch_sd(first["nu"])} if adam
+             else {"momentum_buffer": torch_sd(first["trace"])})
+    params = [(p, g) for g in optimizer.param_groups for p in g["params"]]
+    for (p, group), name in zip(params, names, strict=True):
+        entry = {}
+        if adam:  # first, as torch's AdamW orders its state
+            entry["step"] = torch.tensor(float(step), dtype=torch.float32,
+                                         device=p.device if group.get("capturable") else "cpu")
+        entry.update({k: v[name].to(device=p.device, dtype=p.dtype) for k, v in slots.items()})
+        optimizer.state[p] = entry
+    return step

@@ -15,8 +15,11 @@ False (``training/graphed.py``). HybridNet trains in every freeze mode
 (``all``, ``bifpn``, ``last_layers``, ``3D_only``), and both at
 ``TPU.TRAIN_DTYPE`` float32 or bfloat16. Both first run the project's
 configuration checks (``config/checks.py``) and stop, logging each problem,
-where one fails, as the JAX package's do. ``get_latest_weights_path`` finds
-a project's newest final weights of one network.
+where one fails, as the JAX package's do. ``resume`` takes a train state
+that either package wrote (the JAX package's layout, ``checkpoints``), and
+``'latest'`` finds the newest run's of either. ``streamlit_widgets`` reach
+the trainers' monitor (``utils/st_monitor``). ``get_latest_weights_path``
+finds a project's newest final weights of one network.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from .trainer3d import HybridNetTrainer
 
 
 def _resolve_resume(resume, cfg, module):
-    """'latest' -> newest run's train_state.ckpt; else a path (or None)."""
+    """'latest' -> newest run's train_state.ckpt (a run of either package);
+    else a path (or None)."""
     if resume is None or resume == "None":
         return None
     if resume == "latest":

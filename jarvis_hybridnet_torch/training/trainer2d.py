@@ -56,9 +56,12 @@ NCCL; drop-connect keeps the rank's part of the global batch's draws.
 Rank 0 alone writes checkpoints, train states and logs; a stop signalled
 on any rank stops every rank at the same step.
 
-Not ported, and raising: the Streamlit monitor (ROADMAP.md A.13). The loader runs
-thread workers whatever ``DATALOADER_WORKER_MODE`` says, and says so when it
-asks for process workers (``loader.trainer_worker_mode``).
+The loaders run the config's ``DATALOADER_WORKER_MODE`` (``process`` by
+default: forked workers, ``dataset/loader.py``), and ``streamlitWidgets``
+drive the Streamlit monitor (``utils/st_monitor``) as the JAX trainer drives
+it: ``start`` once, ``step`` every step, ``epoch`` every epoch. The train
+state is the JAX package's layout (``checkpoints.save_train_state``), so
+either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -264,11 +267,9 @@ class EfficientTrackTrainer:
 
     def train(self, training_set, validation_set, num_epochs, start_epoch=0,
               streamlitWidgets=None, resume_from=None) -> dict:
-        from ..dataset.loader import maybe_preload, trainer_worker_mode
+        from ..dataset.loader import maybe_preload
 
         cfg = self.cfg
-        if streamlitWidgets is not None:
-            raise NotImplementedError("the Streamlit monitor is not ported yet (ROADMAP.md A.13)")
         if self.idle:
             clp.info("this rank is outside the training mesh and idles")
             return {"idle": True}
@@ -278,7 +279,7 @@ class EfficientTrackTrainer:
         maybe_preload(self.main_cfg, training_set, validation_set)
 
         workers = int(self.main_cfg.get("DATALOADER_NUM_WORKERS", 4))
-        worker_mode = trainer_worker_mode(self.main_cfg)
+        worker_mode = str(self.main_cfg.get("DATALOADER_WORKER_MODE", "thread"))
         batch = int(cfg.BATCH_SIZE)
         self.graphs.reset()  # graphs live for one call, as JAX's jitted closures
         train_loader, val_loader = multihost.make_dp_loaders(
@@ -295,12 +296,13 @@ class EfficientTrackTrainer:
             schedule = lambda step: max_lr  # noqa: E731
             plateau = optim.PlateauScheduler(max_lr)
         step = 0
+        names = optim.param_names(self.model, optimizer)
         if resume_from is not None:
             state, opt_state, start_epoch = checkpoints.load_train_state(
                 resume_from, cfg.MODEL_SIZE)
             self.model.load_state_dict(state, strict=True)
-            optim.load_optimizer_state(optimizer, opt_state["optimizer"])
-            step = opt_state["step"]
+            step = checkpoints.restore_optimizer(optimizer, names, opt_state, state,
+                                                 cfg.MODEL_SIZE)
             clp.info(f"Resumed training state from {resume_from} (epoch {start_epoch})")
             if start_epoch >= num_epochs:
                 clp.warning(
@@ -317,6 +319,10 @@ class EfficientTrackTrainer:
         results["history"] = history  # per-epoch curves (tests, GUI)
 
         from ..utils.preemption import POD_POLL_STRIDE, PreemptionGuard
+        from ..utils.st_monitor import StreamlitTrainingMonitor
+
+        monitor = StreamlitTrainingMonitor(streamlitWidgets, self.mode, acc_unit="px")
+        monitor.start(num_epochs)
 
         upload = HostToDevice(self.device)
         guard = PreemptionGuard(group=None if self.mesh is None else self.mesh.group,
@@ -338,8 +344,10 @@ class EfficientTrackTrainer:
             if acc != -1:
                 self.accuracyMeter.update(acc)
 
-        def opt_state():
-            return {"optimizer": optimizer.state_dict(), "step": step}
+        def saved_opt_state():
+            """The optimizer's state in the JAX package's layout."""
+            return optim.optax_state(optimizer.state_dict(), names, self.model.state_dict(),
+                                     step, use_onecycle, cfg.MODEL_SIZE)
 
         with guard:
             for epoch in range(start_epoch, num_epochs):
@@ -350,15 +358,16 @@ class EfficientTrackTrainer:
                 start = ({k: v.clone() for k, v in self.model.state_dict().items()},
                          copy.deepcopy(optimizer.state_dict()), step)
                 bar = _progress(train_loader, steps_per_epoch) if self.primary else train_loader
-                for b in bar:
+                for count, b in enumerate(bar):
                     batch_dev, gt = to_device(b)
                     loss, preds = self.train_step(batch_dev, optimizer,
                                                   schedule(step) * lr_scale)
                     step += 1
                     if guard.should_stop_global(stride=POD_POLL_STRIDE):
                         pending = None
-                        self._save_preempted(start[0], {"optimizer": start[1],
-                                                        "step": start[2]}, epoch)
+                        state0, opt_sd0, step0 = start
+                        self._save_preempted(state0, optim.optax_state(
+                            opt_sd0, names, state0, step0, use_onecycle, cfg.MODEL_SIZE), epoch)
                         results["preempted"] = True
                         return results
                     if pending is not None:
@@ -369,6 +378,8 @@ class EfficientTrackTrainer:
                             "Epoch: {}/{}. Loss: {:.5f}. Acc: {:1.3f}".format(
                                 epoch + 1, num_epochs, self.lossMeter.read(),
                                 self.accuracyMeter.read()))
+                    if streamlitWidgets is not None:
+                        monitor.step(count, steps_per_epoch)
                 if pending is not None:  # flush before epoch-end readers
                     consume(pending)
                     pending = None
@@ -390,7 +401,7 @@ class EfficientTrackTrainer:
                     self.save_checkpoint(f"EfficientTrack-{cfg.MODEL_SIZE}_Epoch_{epoch + 1}")
                     checkpoints.save_train_state(
                         os.path.join(self.model_savepath, "train_state.ckpt"),
-                        self.model.state_dict(), opt_state(), epoch + 1, cfg.MODEL_SIZE)
+                        self.model.state_dict(), saved_opt_state(), epoch + 1, cfg.MODEL_SIZE)
                 if epoch + 1 == num_epochs:
                     self.save_checkpoint(f"EfficientTrack-{cfg.MODEL_SIZE}_final")
 
@@ -417,10 +428,13 @@ class EfficientTrackTrainer:
                     self.lossMeter.reset()
                     self.accuracyMeter.reset()
 
+                if streamlitWidgets is not None:
+                    monitor.epoch(epoch, num_epochs, history)
+
                 # a signal during epoch-end work must not start another epoch
                 # (unless this was the last one: then training is complete)
                 if guard.should_stop_global() and epoch + 1 < num_epochs:
-                    self._save_preempted(self.model.state_dict(), opt_state(), epoch + 1)
+                    self._save_preempted(self.model.state_dict(), saved_opt_state(), epoch + 1)
                     results["preempted"] = True
                     return results
 

@@ -62,9 +62,13 @@ writes checkpoints, train states and logs; a stop signalled on any rank
 stops every rank at the same step (``utils/preemption``). Ranks outside
 the mesh idle.
 
-Not ported yet, and raising: the Streamlit monitor (ROADMAP.md A.13). The loader runs thread workers
-whatever ``DATALOADER_WORKER_MODE`` says, and says so when it asks for
-process workers (``loader.trainer_worker_mode``).
+The loaders run the config's ``DATALOADER_WORKER_MODE`` (``process`` by
+default: forked workers, ``dataset/loader.py``), and ``streamlitWidgets``
+drive the Streamlit monitor (``utils/st_monitor``) as the JAX trainer drives
+it: ``start`` once, ``step`` every step, ``epoch`` every epoch. The train
+state is the JAX package's layout, ``multi_transform``'s labelled state with
+``{}`` at the frozen tensors (``checkpoints.save_train_state``), so either
+package resumes the other's.
 """
 
 from __future__ import annotations
@@ -249,11 +253,9 @@ class HybridNetTrainer:
 
     def train(self, training_set, validation_set, num_epochs, start_epoch=0,
               streamlitWidgets=None, resume_from=None) -> dict:
-        from ..dataset.loader import maybe_preload, trainer_worker_mode
+        from ..dataset.loader import maybe_preload
 
         cfg = self.cfg.HYBRIDNET
-        if streamlitWidgets is not None:
-            raise NotImplementedError("the Streamlit monitor is not ported yet (ROADMAP.md A.13)")
         if self.idle:
             clp.info("this rank is outside the training mesh and idles")
             return {"idle": True}
@@ -265,7 +267,7 @@ class HybridNetTrainer:
         maybe_preload(self.cfg, training_set, validation_set)
 
         workers = int(self.cfg.get("DATALOADER_NUM_WORKERS", 4))
-        worker_mode = trainer_worker_mode(self.cfg)
+        worker_mode = str(self.cfg.get("DATALOADER_WORKER_MODE", "thread"))
         batch = int(cfg.BATCH_SIZE)
         self.graphs.reset()  # graphs live for one call, as JAX's jitted closures
         train_loader, val_loader = multihost.make_dp_loaders(
@@ -275,19 +277,20 @@ class HybridNetTrainer:
         labels = optim.hybridnet_freeze_labels(self.model, self.training_mode)
         trained = optim.apply_freeze(self.model, labels)
         optimizer = optim.make_optimizer(cfg.OPTIMIZER, trained, max_lr)
-        if bool(cfg.USE_ONECYLCLE):
+        use_onecycle = bool(cfg.USE_ONECYLCLE)
+        if use_onecycle:
             schedule = optim.onecycle_schedule(max_lr, steps_per_epoch * num_epochs)
             plateau = None
         else:
             schedule = lambda step: max_lr  # noqa: E731
             plateau = optim.PlateauScheduler(max_lr)
         step = 0
+        size = self.cfg.KEYPOINTDETECT.MODEL_SIZE
+        names = optim.param_names(self.model, optimizer)
         if resume_from is not None:
-            state, opt_state, start_epoch = checkpoints.load_train_state(
-                resume_from, self.cfg.KEYPOINTDETECT.MODEL_SIZE)
+            state, opt_state, start_epoch = checkpoints.load_train_state(resume_from, size)
             self.model.load_state_dict(state, strict=True)
-            optim.load_optimizer_state(optimizer, opt_state["optimizer"])
-            step = opt_state["step"]
+            step = checkpoints.restore_optimizer(optimizer, names, opt_state, state, size)
             clp.info(f"Resumed training state from {resume_from} (epoch {start_epoch})")
             if start_epoch >= num_epochs:
                 clp.warning(
@@ -304,6 +307,10 @@ class HybridNetTrainer:
         results["history"] = history  # per-epoch curves (tests, GUI)
 
         from ..utils.preemption import POD_POLL_STRIDE, PreemptionGuard
+        from ..utils.st_monitor import StreamlitTrainingMonitor
+
+        monitor = StreamlitTrainingMonitor(streamlitWidgets, "HybridNet", acc_unit="mm")
+        monitor.start(num_epochs)
 
         upload = HostToDevice(self.device)
         guard = PreemptionGuard(*self._stop_group())
@@ -322,8 +329,10 @@ class HybridNetTrainer:
             if acc != -1:
                 self.accuracyMeter.update(acc)
 
-        def opt_state():
-            return {"optimizer": optimizer.state_dict(), "step": step}
+        def saved_opt_state():
+            """The optimizer's state in the JAX package's layout."""
+            return optim.optax_state(optimizer.state_dict(), names, self.model.state_dict(),
+                                     step, use_onecycle, size, self.training_mode)
 
         with guard:
             for epoch in range(start_epoch, num_epochs):
@@ -331,7 +340,7 @@ class HybridNetTrainer:
                 self.generator.manual_seed(
                     int(np.random.SeedSequence([self.seed, epoch]).generate_state(1)[0]))
                 bar = _progress(train_loader, steps_per_epoch) if self.primary else train_loader
-                for b in bar:
+                for count, b in enumerate(bar):
                     lr = schedule(step) * lr_scale
                     loss, pts = self.train_step(to_device(b), optimizer, lr)
                     step += 1
@@ -339,7 +348,7 @@ class HybridNetTrainer:
                         if pending is not None:
                             consume(pending)
                             pending = None
-                        self._save_preempted(opt_state(), epoch)
+                        self._save_preempted(saved_opt_state(), epoch)
                         results["preempted"] = True
                         return results
                     if pending is not None:
@@ -350,6 +359,8 @@ class HybridNetTrainer:
                             "Epoch: {}/{}. Loss: {:.4f}. Acc: {:.2f}".format(
                                 epoch + 1, num_epochs, self.lossMeter.read(),
                                 self.accuracyMeter.read()))
+                    if streamlitWidgets is not None:
+                        monitor.step(count, steps_per_epoch)
                 if pending is not None:  # flush before epoch-end readers
                     consume(pending)
                     pending = None
@@ -366,13 +377,12 @@ class HybridNetTrainer:
                 self.lossMeter.reset()
                 self.accuracyMeter.reset()
 
-                size = self.cfg.KEYPOINTDETECT.MODEL_SIZE
                 if (epoch + 1) % int(cfg.CHECKPOINT_SAVE_INTERVAL) == 0 \
                         and epoch + 1 < num_epochs and self.primary:
                     self.save_checkpoint(f"HybridNet-{size}_Epoch_{epoch + 1}")
                     checkpoints.save_train_state(
                         os.path.join(self.model_savepath, "train_state.ckpt"),
-                        self.model.state_dict(), opt_state(), epoch + 1, size)
+                        self.model.state_dict(), saved_opt_state(), epoch + 1, size)
                 if epoch + 1 == num_epochs:
                     self.save_checkpoint(f"HybridNet-{size}_final")
 
@@ -397,10 +407,13 @@ class HybridNetTrainer:
                     self.lossMeter.reset()
                     self.accuracyMeter.reset()
 
+                if streamlitWidgets is not None:
+                    monitor.epoch(epoch, num_epochs, history)
+
                 # a signal during epoch-end work must not start another epoch
                 # (unless this was the last one: then training is complete)
                 if guard.should_stop_global() and epoch + 1 < num_epochs:
-                    self._save_preempted(opt_state(), epoch + 1)
+                    self._save_preempted(saved_opt_state(), epoch + 1)
                     results["preempted"] = True
                     return results
 

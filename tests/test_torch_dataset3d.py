@@ -195,22 +195,61 @@ def test_port_pth_equals_jax_pth(tmp_path):
         assert torch.equal(port[k], ref[k]), k
 
 
-def test_train_state_round_trip(tmp_path):
+def _earlier_layout(opt_sd: dict) -> dict:
+    """An ``Optimizer.state_dict()`` as the port's earlier train states held
+    it: tensors as numpy, int keys as strings, a group's lr as a float."""
+    def tree(obj):
+        if isinstance(obj, dict):
+            return {str(k): tree(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return [tree(v) for v in obj]
+        return obj.detach().numpy() if isinstance(obj, torch.Tensor) else obj
+
+    groups = [{k: float(v) if k == "lr" else v for k, v in g.items()}
+              for g in opt_sd["param_groups"]]
+    return {"state": tree(opt_sd["state"]), "param_groups": tree(groups)}
+
+
+@pytest.mark.parametrize("layout", ["jax", "earlier"])
+def test_train_state_round_trip(tmp_path, layout):
+    """A 3D_only AdamW state over V2V's tensors written in the JAX package's
+    layout (``optim.optax_state``), or in the port's earlier one (torch's
+    ``Optimizer.state_dict()``, which still loads), reads back: the epoch,
+    the step, the parameters and every moment; JAX's reader reads the
+    file."""
+    from jarvis_hybridnet_torch.training import optim
+    from jarvis_hybridnet_torch.utils.ckpt_io import write_ckpt
+
     state = _trained_state()
-    model = torch.nn.Linear(3, 2)
-    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
-    model(torch.randn(4, 3)).sum().backward()
+    names = [k for k in state if k.startswith("v2vNet.")]
+
+    def adamw():
+        params = [state[k].clone().requires_grad_() for k in names]
+        return params, torch.optim.AdamW(params, lr=1e-3, weight_decay=1e-4)
+
+    params, opt = adamw()
+    g = torch.Generator().manual_seed(0)
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=g)
     opt.step()
     path = str(tmp_path / "train_state.ckpt")
-    checkpoints.save_train_state(path, state, {"optimizer": opt.state_dict(), "step": 7}, 3,
-                                 "small")
+    if layout == "jax":
+        checkpoints.save_train_state(path, state, optim.optax_state(
+            opt.state_dict(), names, state, 7, True, "small", "3D_only"), 3, "small")
+    else:
+        write_ckpt(path, {"params": params_to_jax(state, "small"),
+                          "opt_state": {"optimizer": _earlier_layout(opt.state_dict()),
+                                        "step": 7},
+                          "epoch": 3})
     back, opt_state, epoch = checkpoints.load_train_state(path, "small")
-    assert epoch == 3 and opt_state["step"] == 7
+    assert epoch == 3
     assert set(back) <= set(state) and all(torch.equal(back[k], state[k]) for k in back)
-    opt2 = torch.optim.AdamW(model.parameters(), lr=1e-3)
-    opt2.load_state_dict(opt_state["optimizer"])
-    for k, v in opt.state_dict()["state"][0].items():
-        assert torch.equal(opt2.state_dict()["state"][0][k], v)
+    params2, opt2 = adamw()
+    assert checkpoints.restore_optimizer(opt2, names, opt_state, state, "small") == 7
+    for p, q in zip(params, params2):
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(opt2.state[q][k], opt.state[p][k]), k
+        assert float(opt2.state[q]["step"]) == (7 if layout == "jax" else 1)
     assert jax_checkpoints.load_checkpoint(path)["epoch"] == 3  # the JAX reader reads the file
 
 

@@ -608,12 +608,12 @@ def _leaves(tree, prefix=()):
 @pytest.mark.parametrize("name", ["adamw", "sgd"])
 def test_train_state_leaves_are_unchanged(tmp_path, name):
     """A train state written with ``make_optimizer``'s optimizer (the lr a
-    tensor) has the msgpack leaves (paths and types) of one written with
-    torch's optimizer at a float lr, the writer before the lr tensor: the lr
-    a float, AdamW's step a float32 scalar. Each file resumes in the other
-    optimizer (``optim.load_optimizer_state`` keeps the lr tensor and
-    writes the loaded lr into it), and a group written on the card
-    (``capturable``) resumes on the CPU without it."""
+    tensor) has the msgpack leaves (paths, dtypes, shapes) and the values of
+    one written with torch's optimizer at a float lr: the JAX package's
+    layout (``optim.optax_state``) holds no lr, AdamW's count an int32
+    scalar. Each file resumes in the other optimizer, which keeps its own lr
+    tensor, and a group built ``capturable`` (the card's) takes AdamW's step
+    count on the parameters' device as a float32 scalar."""
     def make(kind):
         model = EfficientTrackBackbone("small", 3)
         params = list(model.parameters())
@@ -630,32 +630,41 @@ def test_train_state_leaves_are_unchanged(tmp_path, name):
         model, opt = make(kind)
         _run(opt, list(model.parameters()), (1e-3, 5e-4))
         files[kind] = str(tmp_path / f"{kind}.ckpt")
-        checkpoints.save_train_state(files[kind], model.state_dict(),
-                                     {"optimizer": opt.state_dict(), "step": 2}, 1, "small")
+        state = model.state_dict()
+        checkpoints.save_train_state(files[kind], state, optim.optax_state(
+            opt.state_dict(), optim.param_names(model, opt), state, 2, True, "small"), 1,
+            "small")
     trees = {k: read_ckpt(f)["opt_state"] for k, f in files.items()}
     assert list(_leaves(trees["ours"])) == list(_leaves(trees["torch"]))
-    assert trees["ours"]["optimizer"]["param_groups"][0]["lr"] == 5e-4
+    counts = [v for p, v in _values(trees["ours"]) if p[-1] == "count"]
+    assert counts and all(v.dtype == np.int32 and v.shape == () and v == 2 for v in counts)
+    for (p, x), (_, y) in zip(_values(trees["ours"]), _values(trees["torch"])):
+        np.testing.assert_array_equal(x, y, err_msg=str(p))
     for written, into in (("torch", "ours"), ("ours", "torch")):
-        _, opt_state, epoch = checkpoints.load_train_state(files[written], "small")
+        sd, opt_state, epoch = checkpoints.load_train_state(files[written], "small")
         model, opt = make(into)
         lr = opt.param_groups[0]["lr"]
-        if into == "ours":
-            optim.load_optimizer_state(opt, opt_state["optimizer"])
-            assert opt.param_groups[0]["lr"] is lr and float(lr) == 5e-4
-        else:
-            opt.load_state_dict(opt_state["optimizer"])
-            assert opt.param_groups[0]["lr"] == 5e-4
-        assert len(opt.state) == len(list(model.parameters())) and epoch == 1
+        step = checkpoints.restore_optimizer(opt, optim.param_names(model, opt), opt_state,
+                                             sd, "small")
+        assert step == 2 and epoch == 1 and opt.param_groups[0]["lr"] is lr
+        assert len(opt.state) == len(list(model.parameters()))
         _run(opt, list(model.parameters()), (1e-4,))
     if name == "adamw":
-        _, opt_state, _ = checkpoints.load_train_state(files["ours"], "small")
-        opt_state["optimizer"]["param_groups"][0]["capturable"] = True
+        sd, opt_state, _ = checkpoints.load_train_state(files["ours"], "small")
         model, opt = make("ours")
-        optim.load_optimizer_state(opt, opt_state["optimizer"])
-        assert opt.param_groups[0]["capturable"] is False
-        assert all(s["step"].device.type == "cpu" and float(s["step"]) == 2
-                   for s in opt.state.values())
-        _run(opt, list(model.parameters()), (1e-4,))
+        opt.param_groups[0]["capturable"] = True
+        checkpoints.restore_optimizer(opt, optim.param_names(model, opt), opt_state, sd,
+                                      "small")
+        assert all(s["step"].device == p.device and s["step"].dtype == torch.float32
+                   and float(s["step"]) == 2 for p, s in opt.state.items())
+
+
+def _values(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _values(v, prefix + (k,))
+    else:
+        yield prefix, tree
 
 
 # ------------------------------------------------------------- the card ---

@@ -685,7 +685,9 @@ def test_bf16_checkpoints_stay_float32_and_jax_reads_them(parent, tmp_path, jax_
     step in ``all``, the ``.ckpt`` the trainer writes holds float32 leaves,
     which the JAX package's ``load_checkpoint`` reads into the JAX model's
     tree equal to the trained parameters; the train state's parameters and
-    AdamW moments are float32 too. The same for KeypointDetect's ``.ckpt``."""
+    AdamW moments are float32 too, in the JAX package's layout, which JAX's
+    ``load_train_state`` restores onto its optimizer's state. The same for
+    KeypointDetect's ``.ckpt``."""
     ref = jax_bf16_3d
     trainer = HybridNetTrainer("train", ref["cfg"], weights=HYBRID, device="cpu",
                                run_name="Bf16Ckpt", training_mode="all")
@@ -702,14 +704,22 @@ def test_bf16_checkpoints_stay_float32_and_jax_reads_them(parent, tmp_path, jax_
     for n, p in model.named_parameters():
         assert torch.equal(back[n], p.detach()), n
     state_path = str(tmp_path / "train_state.ckpt")
-    checkpoints.save_train_state(state_path, model.state_dict(),
-                                 {"optimizer": opt.state_dict(), "step": 1}, 1, "small")
+    checkpoints.save_train_state(state_path, model.state_dict(), optim.optax_state(
+        opt.state_dict(), optim.param_names(model, opt), model.state_dict(), 1, True,
+        "small", "all"), 1, "small")
     state, opt_state, epoch = checkpoints.load_train_state(state_path, "small")
     assert epoch == 1 and all(v.dtype == torch.float32 for v in state.values()
                               if v.is_floating_point())
-    moments = [v for s in opt_state["optimizer"]["state"].values() for k, v in s.items()
-               if k.startswith("exp_avg")]
-    assert moments and all(v.dtype == torch.float32 for v in moments)
+    adam = opt_state["inner_states"]["train"]["inner_state"]["0"]
+    moments = jax.tree_util.tree_leaves([adam["mu"], adam["nu"]])
+    assert moments and all(np.asarray(v).dtype == np.float32 for v in moments)
+    # JAX's reader restores it onto its optimizer's state, moments in float32
+    jparams = jax.tree.map(jnp.asarray, params_to_jax(model.state_dict(), "small"))
+    tx = jax_optim.make_optimizer("adamw", jax_optim.onecycle_schedule(LR, 10),
+                                  jax_optim.hybridnet_freeze_labels(jparams, "all"))
+    _, restored, _ = jax_checkpoints.load_train_state(state_path, tx.init(jparams))
+    leaves = jax.tree_util.tree_leaves(restored)
+    assert leaves and all(np.asarray(v).dtype in (np.float32, np.int32) for v in leaves)
 
     cfg = _bf16_cfg(parent)
     cfg.KEYPOINTDETECT.BOUNDING_BOX_SIZE = S2D

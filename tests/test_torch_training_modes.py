@@ -20,8 +20,8 @@ MonkeyHand HybridNet checkpoint), in ``eval()`` as JAX's
   unchanged in both packages; and at lr 1e-1 the trained tensors that reach
   no loss decayed as JAX's optimizer decays them (ROADMAP.md C.3);
 - ``HybridNetTrainer``'s default mode equals JAX's, and both trainers pass
-  thread workers to their loaders with one warning when
-  ``DATALOADER_WORKER_MODE`` asks for process workers.
+  the config's ``DATALOADER_WORKER_MODE`` to their loaders, warning
+  nothing.
 """
 
 import inspect
@@ -346,37 +346,34 @@ class _LoaderBuilt(Exception):
     pass
 
 
+@pytest.mark.parametrize("mode", ["process", "thread", "spawn"])
 @pytest.mark.parametrize("net", ["HybridNet", "KeypointDetect"])
-def test_trainers_pass_thread_workers(parent, monkeypatch, capsys, net):  # noqa: F811
-    """At the default ``DATALOADER_WORKER_MODE`` ('process', as JAX's) a
-    trainer warns once that thread workers stand in and builds its loader
-    with ``worker_mode='thread'``; at 'thread' it says nothing. The loader
-    still refuses a direct 'process' request."""
+def test_trainers_pass_the_config_worker_mode(parent, monkeypatch, capsys, net, mode):  # noqa: F811
+    """Each trainer builds its loaders with ``DATALOADER_WORKER_MODE`` as the
+    config gives it (the default 'process', as JAX's trainers do) and warns
+    nothing: no stand-in worker mode."""
     monkeypatch.setenv("JARVIS_PARENT_DIR", parent)
-    real, seen = loader.DataLoader, []
+    seen = []
 
     def fake_loader(dataset, **kw):
         seen.append(kw["worker_mode"])
         raise _LoaderBuilt
 
     monkeypatch.setattr(loader, "DataLoader", fake_loader)
-    for mode, warned in (("process", 1), ("thread", 0)):
-        cfg = _cfg(parent)
-        assert cfg.DATALOADER_WORKER_MODE == "process"
-        cfg.DATALOADER_WORKER_MODE = mode
-        ds = types.SimpleNamespace(set_name="val", analysisMode=False)
-        if net == "HybridNet":
-            trainer = HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu",
-                                       run_name=f"Workers_{mode}", training_mode="3D_only")
-        else:
-            trainer = EfficientTrackTrainer("KeypointDetect", cfg, weights=None, device="cpu",
-                                            run_name=f"Workers_{mode}")
-        capsys.readouterr()
-        with pytest.raises(_LoaderBuilt):
-            trainer.train(ds, ds, 1)
-        out = capsys.readouterr().out
-        assert out.count("DATALOADER_WORKER_MODE") == warned, out
-        assert seen.pop() == "thread"
-    with pytest.raises(ValueError, match="A.12"):
-        real([], batch_size=1, worker_mode="process")
+    cfg = _cfg(parent)
+    assert cfg.DATALOADER_WORKER_MODE == "process"
+    cfg.DATALOADER_WORKER_MODE = mode
+    ds = types.SimpleNamespace(set_name="val", analysisMode=False)
+    if net == "HybridNet":
+        trainer = HybridNetTrainer("train", cfg, weights=HYBRID, device="cpu",
+                                   run_name=f"Workers_{mode}", training_mode="3D_only")
+    else:
+        trainer = EfficientTrackTrainer("KeypointDetect", cfg, weights=None, device="cpu",
+                                        run_name=f"Workers_{mode}")
+    capsys.readouterr()
+    with pytest.raises(_LoaderBuilt):
+        trainer.train(ds, ds, 1)
+    out = capsys.readouterr().out
+    assert "Warning" not in out and "DATALOADER_WORKER_MODE" not in out, out
+    assert seen == [mode]
 
