@@ -154,7 +154,16 @@ predict predict3D on a 16-frame recording, analyze analyze-validation-data
 and visualize create-videos3D, each checked against the direct calls
 (:func:`cli_phase`; the kernels line's ``cli`` path counts the wrappers'
 launches over the commands: eager calls, graph warm-ups and captures; the
-replays of a captured graph call no wrapper and are not counted). Exits non-zero on any failure, or when no CUDA device is present.
+replays of a captured graph call no wrapper and are not counted). On its
+project ``chip_smoke_export.py`` then runs the phases ``export`` (predict3D
+``--trt_mode new`` under ``TPU.PROFILE_DIR``, predict2D off / new /
+previous) and ``launch-cli`` (a scripted interactive session predicting 3D
+from the saved artifact); their paths ``export_predict3d`` and
+``export_predict2d`` on the kernels line. Every path but the production
+predict3D and predict2D and their drivers' loops is timed at SHORT depth
+(``FULL`` / ``SHORT``).
+Each phase's seconds are printed before the kernels line. Exits non-zero
+on any failure, or when no CUDA device is present.
 Per-shape details go to ``chiprun_out/chip_smoke.txt``; the training
 steps' device time by kernel to ``chip_smoke_train_profile.txt`` (3D_only),
 ``chip_smoke_train_all_profile.txt`` and ``chip_smoke_train2d_profile.txt``.
@@ -193,6 +202,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 T, CAMS, H, W = 8, 12, 1024, 1280
 ITERS = 5
 REPEATS = 3
+# timing depth (runs, steps a run) of the rates, the host's issue time and
+# the profiled runs: the production predict3D (quarter_fused, uint8 frames)
+# and predict2D keep FULL, their drivers' loops too; every other path takes SHORT, one run of fewer
+# steps (no check reads its rates; its profile's kernel counts are held to
+# the same run's launches, at any number of steps)
+FULL = (REPEATS, ITERS)
+SHORT = (1, 3)
 GRAPH_CALLS = 20
 GRAPH_REPLAYS = 5
 
@@ -823,21 +839,49 @@ def k4_bytes(x, out, height: int) -> int:
     return N * rows * W * 3 * x.element_size() + out.numel() * out.element_size()
 
 
-def rate(step, count: int, note, label: str, unit: str) -> float:
-    """Median over REPEATS runs of ITERS calls of ``step`` of ``count`` items
-    per call, per second (host clock around ``torch.cuda.synchronize``)."""
+def run_rates(step, count: int, depth=FULL) -> list:
+    """``count`` items a call of ``step(i)``, per second, in each of the
+    ``depth`` (runs, calls a run) runs (host clock around
+    ``torch.cuda.synchronize``)."""
     import torch
 
+    repeats, iters = depth
     rates = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(ITERS):
+        for i in range(iters):
             step(i)
         torch.cuda.synchronize()
-        rates.append(count * ITERS / (time.perf_counter() - t0))
+        rates.append(count * iters / (time.perf_counter() - t0))
+    return rates
+
+
+def timed_launches(kernels, step, count: int, depth, profile: bool) -> tuple:
+    """(:func:`run_rates`, the step's launches over ``depth[1]`` calls): a
+    profiled run (:func:`profiled_steps`) where ``profile``, else the
+    counts of the rate runs, a run's worth (no profile: its kernel time
+    and busy share are not measured)."""
+    kernels.reset_launch_counts()
+    rates = run_rates(step, count, depth)
+    if profile:
+        return rates, profiled_steps(kernels, step, depth[1])
+    return rates, dict(launches={w: n // depth[0] for w, n in kernels.launch_counts().items()})
+
+
+def profiled_words(r: dict, iters: int) -> str:
+    """A profiled run's numbers for a note, or that there was none."""
+    if "busy" not in r:
+        return "not profiled (SHORT depth)"
+    return (f"profiled {iters} steps: wall {r['wall_ms']:.3f} ms a step, CUDA-event span "
+            f"{r['event_ms']:.3f} ms, kernel time {r['device_ms']:.3f} ms, busy {r['busy']:.3f}")
+
+
+def rate(step, count: int, note, label: str, unit: str, depth=FULL) -> float:
+    """The median of :func:`run_rates`, noted."""
+    rates = run_rates(step, count, depth)
     r = sorted(rates)[len(rates) // 2]
-    note(f"{label}: {r:.2f} {unit}, median of {REPEATS} runs of {ITERS} steps: "
+    note(f"{label}: {r:.2f} {unit}, median of {depth[0]} runs of {depth[1]} steps: "
          f"{', '.join(f'{x:.2f}' for x in rates)}; {count / r * 1e3:.2f} ms per step")
     return r
 
@@ -1070,7 +1114,7 @@ def twophase_phase(kernels, cfg, rig, ckpt, frames, fused_points, recorder, note
     note(f"two-phase launches in one step: {json.dumps(counts)}; host-to-device bytes per "
          f"batch: {h2d} (low-res {low[0].nbytes} + crops {crops.nbytes}) against "
          f"{full[0].nbytes} for the fused path's frames ({full[0].nbytes / h2d:.2f}x)")
-    rate(step, T, note, f"predict3D two-phase (f={f}, frames on the host)", "poses/s")
+    rate(step, T, note, f"predict3D two-phase (f={f}, frames on the host)", "poses/s", SHORT)
     split = {"phase A (low-res frames to the card, K4, CenterDetect, gate, DLT)": 0.0,
              "cx, cy to the host + crop_fn": 0.0,
              "phase B (crops to the card, KeypointDetect, K2, V2V, K3)": 0.0}
@@ -1186,17 +1230,13 @@ def driver_phase(kernels, cfg, predictor, frames, out_dir, recorder, note):
              f"{json.dumps(counts)}")
         if worst > 1e-4:
             fail(f"data3D.csv differs from the predictor's outputs by {worst}")
-        runs = []
-        for _ in range(REPEATS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            stream_predict3d(cfg, predictor, BatchReader(host, ITERS), tmp)
-            torch.cuda.synchronize()
-            runs.append(T * ITERS / (time.perf_counter() - t0))
+        repeats, iters = FULL
+        runs = run_rates(lambda i: stream_predict3d(cfg, predictor, BatchReader(host, iters), tmp),
+                         T * iters, (repeats, 1))
     r = sorted(runs)[len(runs) // 2]
     note(f"driver predict3D: {r:.2f} poses/s through the streaming loop (host batches, "
          f"host-to-device copy of {host[0].nbytes} bytes a batch, CSV rows), median of "
-         f"{REPEATS} runs of {ITERS} batches: {', '.join(f'{x:.2f}' for x in runs)}")
+         f"{repeats} runs of {iters} batches: {', '.join(f'{x:.2f}' for x in runs)}")
     bare = rate(lambda i: predictor(frames[i % 2]), T, note,
                 "bare predictor, same process (frames on the card)", "poses/s")
     from jarvis_hybridnet_torch.utils.transfer import HostToDevice
@@ -1319,7 +1359,7 @@ def issue_ms(step, n: int = ITERS) -> float:
 
 
 def graphed_profile(kernels, step, launches: dict, symbols: dict, label: str,
-                    attempts: int = 3) -> dict:
+                    attempts: int = 3, n: int = ITERS) -> dict:
     """:func:`profiled_steps` of a graphed ``step``, whose profile must show
     each kernel of ``symbols`` (wrapper -> its ``__global__`` names) exactly
     as often as ``launches`` counts the eager steps' launches, and no call
@@ -1331,7 +1371,7 @@ def graphed_profile(kernels, step, launches: dict, symbols: dict, label: str,
     import re
 
     for attempt in range(1, attempts + 1):
-        prof = profiled_steps(kernels, step, primer=True)
+        prof = profiled_steps(kernels, step, n, primer=True)
         seen = {w: sum(c for k, c in prof["kernels"].items() if re.search(p, k))
                 for w, p in symbols.items()}
         if any(seen[w] > launches[w] or prof["launches"][w] for w in symbols):
@@ -1350,16 +1390,18 @@ def same_outputs(a, b) -> bool:
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def graph_path(kernels, label, eager, graphed, steps, count, unit, note, smi) -> dict:
+def graph_path(kernels, label, eager, graphed, steps, count, unit, note, smi,
+               depth=SHORT) -> dict:
     """One serving path eager (``eager(i)``) and graphed (``graphed(i)``),
     each a step on seeded batch i % 2 returning its outputs; ``steps`` are
     the path's ``export.GraphedStep`` objects. The eager step runs under
     ``torch.cuda.set_sync_debug_mode("error")``; four alternating replays
     equal the eager step's outputs bit for bit and the two batches' replays
-    differ; then rates (median of REPEATS runs of ITERS steps), the host's
-    issue time, a profiled run of each (event span, kernel time, busy share)
-    whose calls of K1-K5 and K10 must equal the eager run's launch
-    counts (``graphed_profile``), capture ms and pool bytes."""
+    differ; then rates (the median of ``depth``'s runs), the host's
+    issue time, the eager run's launch counts (at FULL depth from a
+    profiled run: event span, kernel time, busy share), a profiled graphed
+    run whose calls of K1-K5 and K10 must equal them (``graphed_profile``),
+    capture ms and pool bytes."""
     import torch
 
     eager(0)
@@ -1378,20 +1420,17 @@ def graph_path(kernels, label, eager, graphed, steps, count, unit, note, smi) ->
         replays[i % 2] = g
     if same_outputs(replays[0], replays[1]):
         fail(f"{label}: the replays of two different batches give the same outputs")
-    res = {"label": label}
+    repeats, iters = depth
+    res = {"label": label, "iters": iters}
     for name, fn in (("eager", eager), ("graphed", graphed)):
-        rates = []
-        for _ in range(REPEATS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(ITERS):
-                fn(i)
-            torch.cuda.synchronize()
-            rates.append(count * ITERS / (time.perf_counter() - t0))
-        prof = (profiled_steps(kernels, fn) if name == "eager" else
-                graphed_profile(kernels, fn, res["eager"]["launches"], KERNEL_SYMBOLS, label))
-        res[name] = dict(rate=sorted(rates)[REPEATS // 2], rates=rates, issue_ms=issue_ms(fn),
-                         **prof)
+        if name == "eager":  # profiled on the FULL paths alone
+            rates, prof = timed_launches(kernels, fn, count, depth, depth == FULL)
+        else:
+            rates = run_rates(fn, count, depth)
+            prof = graphed_profile(kernels, fn, res["eager"]["launches"], KERNEL_SYMBOLS, label,
+                                   n=iters)
+        res[name] = dict(rate=sorted(rates)[repeats // 2], rates=rates,
+                         issue_ms=issue_ms(fn, iters), **prof)
     e, g = res["eager"], res["graphed"]
     # Beside the hand-written kernels (held below to the launch counters),
     # the two profiles are compared for information only: the tracer drops
@@ -1401,24 +1440,24 @@ def graph_path(kernels, label, eager, graphed, steps, count, unit, note, smi) ->
     # take their vector width from the buffers' alignment
     res["renamed"] = {k: (e["kernels"][k], g["kernels"][k])
                       for k in set(e["kernels"]) | set(g["kernels"])
-                      if e["kernels"][k] != g["kernels"][k]}
+                      if e["kernels"][k] != g["kernels"][k]} if "kernels" in e else {}
     res["capture_ms"] = [ms for s in steps for ms in s.captures.values()]
     res["pool_bytes"] = pool_bytes(steps[0].pool)
-    per = {w: e["launches"][w] // ITERS for w in KERNEL_SYMBOLS if e["launches"][w]}
+    per = {w: e["launches"][w] // iters for w in KERNEL_SYMBOLS if e["launches"][w]}
     note(f"graph {label}: replays bit-equal to the eager step on two alternating batches, the "
          f"two batches' replays differ; eager step passes sync debug 'error'; kernels per step "
          f"(eager launches = graphed profile, profiled {g['attempts']} time(s)) "
          f"{json.dumps(per)}, "
-         f"profiled kernels over {ITERS} steps eager {sum(e['kernels'].values())}, graphed "
+         f"profiled kernels over {iters} steps eager "
+         f"{sum(e['kernels'].values()) if 'kernels' in e else '(not profiled)'}, graphed "
          f"{sum(g['kernels'].values())}, {len(res['renamed'])} names with other counts "
          f"(chip_smoke_graphs.txt)")
     for name in ("eager", "graphed"):
         r = res[name]
-        note(f"graph {label} {name}: {r['rate']:.2f} {unit} (median of {REPEATS} runs of "
-             f"{ITERS} steps: {', '.join(f'{x:.2f}' for x in r['rates'])}); host issue "
-             f"{r['issue_ms']:.3f} ms a step; profiled {ITERS} steps: wall {r['wall_ms']:.3f} ms "
-             f"a step, CUDA-event span {r['event_ms']:.3f} ms, kernel time {r['device_ms']:.3f} "
-             f"ms, busy {r['busy']:.3f}; copies {json.dumps(dict(r['copies']))}; card: {smi}")
+        note(f"graph {label} {name}: {r['rate']:.2f} {unit} (median of {repeats} runs of "
+             f"{iters} steps: {', '.join(f'{x:.2f}' for x in r['rates'])}); host issue "
+             f"{r['issue_ms']:.3f} ms a step; {profiled_words(r, iters)}; copies "
+             f"{json.dumps(dict(r.get('copies', {})))}; card: {smi}")
     note(f"graph {label}: capture (warm-up, capture, first replay) "
          f"{', '.join(f'{x:.1f}' for x in res['capture_ms'])} ms; pool {res['pool_bytes']} bytes; "
          f"graphed / eager rate {g['rate'] / e['rate']:.3f}")
@@ -1497,19 +1536,19 @@ class SpannedPredictor:
         return self.call(imgs)
 
 
-def driver_graph_path(kernels, label, run, expect, per_joint, unit, note, smi) -> dict:
+def driver_graph_path(kernels, label, run, expect, per_joint, unit, note, smi,
+                      depth=SHORT) -> dict:
     """A driver's loop with the graphed predictor (``run(True, n, dir,
     spans)``) against its loop with the eager one (``run(False, ...)``),
     each writing its CSV into ``dir`` over n alternating seeded batches and
     returning its path, the predictor's calls wrapped by ``spans`` (an
     :class:`EventSpans`): the graphed run's rows equal the eager
-    predictor's outputs batch by batch over 4 batches; rates (median of
-    REPEATS runs of ITERS batches); one more run of ITERS batches of each
+    predictor's outputs batch by batch over 4 batches; rates (the median of
+    ``depth``'s runs of its batches); one more run of as many batches of each
     whose predictor calls' event spans are summed against its wall time,
     and the eager loop's kernel time in one profiled run. The graphed loop
-    is not profiled: under torch.profiler a graph replay in the driver's
-    loop (beside the upload's side stream) crashed the process on the card
-    (a segmentation fault in ``CUDAGraph.replay``, torch 2.11, CUDA 12.8)."""
+    is traced in ``chip_smoke_export``'s ``export`` phase (the driver's
+    ``TPU.PROFILE_DIR``), not here."""
     import tempfile
 
     import torch
@@ -1517,34 +1556,30 @@ def driver_graph_path(kernels, label, run, expect, per_joint, unit, note, smi) -
     with tempfile.TemporaryDirectory() as tmp:
         csv_batches(run(True, 4, tmp, EventSpans()), expect, per_joint)
         res = {"label": label}
+        repeats, iters = depth
         for name, graphed in (("eager", False), ("graphed", True)):
-            rates = []
-            for _ in range(REPEATS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run(graphed, ITERS, tmp, EventSpans())
-                torch.cuda.synchronize()
-                rates.append(T * ITERS / (time.perf_counter() - t0))
+            rates = run_rates(lambda i: run(graphed, iters, tmp, EventSpans()), T * iters,
+                              (repeats, 1))
             spans = EventSpans()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            run(graphed, ITERS, tmp, spans)
+            run(graphed, iters, tmp, spans)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-            res[name] = dict(rate=sorted(rates)[REPEATS // 2], rates=rates, wall_ms=wall_ms,
+            res[name] = dict(rate=sorted(rates)[repeats // 2], rates=rates, wall_ms=wall_ms,
                              span_ms=spans.ms())
-        prof = profiled_steps(kernels, lambda i: run(False, ITERS, tmp, EventSpans()), n=1)
+        prof = profiled_steps(kernels, lambda i: run(False, iters, tmp, EventSpans()), n=1)
         res["eager"].update(device_ms=prof["device_ms"], busy=prof["busy"],
                             profiled_wall_ms=prof["wall_ms"])
     for name in ("eager", "graphed"):
         r = res[name]
-        prof = (f"; profiled run: wall {r['profiled_wall_ms'] / ITERS:.3f} ms a batch, kernel "
-                f"time {r['device_ms'] / ITERS:.3f} ms a batch, busy {r['busy']:.3f}"
+        prof = (f"; profiled run: wall {r['profiled_wall_ms'] / iters:.3f} ms a batch, kernel "
+                f"time {r['device_ms'] / iters:.3f} ms a batch, busy {r['busy']:.3f}"
                 if "busy" in r else "")
-        note(f"graph driver {label} {name}: {r['rate']:.2f} {unit} (median of {REPEATS} runs of "
-             f"{ITERS} batches: {', '.join(f'{x:.2f}' for x in r['rates'])}); a run of {ITERS} "
-             f"batches: wall {r['wall_ms'] / ITERS:.3f} ms a batch, the predictor calls' "
-             f"CUDA-event span {r['span_ms'] / ITERS:.3f} ms a batch, "
+        note(f"graph driver {label} {name}: {r['rate']:.2f} {unit} (median of {repeats} runs of "
+             f"{iters} batches: {', '.join(f'{x:.2f}' for x in r['rates'])}); a run of {iters} "
+             f"batches: wall {r['wall_ms'] / iters:.3f} ms a batch, the predictor calls' "
+             f"CUDA-event span {r['span_ms'] / iters:.3f} ms a batch, "
              f"{r['span_ms'] / r['wall_ms']:.3f} of the wall{prof}; card: {smi}")
     note(f"graph driver {label}: rows of 4 alternating batches equal the eager predictor's "
          f"outputs bit for bit; graphed / eager rate "
@@ -1586,7 +1621,7 @@ def graph_phase(kernels, cfg, rig, ckpt, frames, predictor, note, smi) -> list:
             ("predict3D quarter_fused, float32 frames", predictor, graphed, float_frames)):
         results.append(graph_path(kernels, label, lambda i: eager(batches[i % 2]),
                                   lambda i: gpred(batches[i % 2]), [gpred.step], T, "poses/s",
-                                  note, smi))
+                                  note, smi, FULL if batches is frames else SHORT))
     # the copy of one batch into the static input of a graph, on the card
     # (the driver's upload lands in a tensor of its own first)
     static, fresh = torch.empty_like(frames[0]), frames[1].clone()
@@ -1632,7 +1667,7 @@ def graph_phase(kernels, cfg, rig, ckpt, frames, predictor, note, smi) -> list:
                                   dtype="bfloat16", device="cuda", graph=g) for g in (False, True)}
     results.append(graph_path(kernels, "predict2D", lambda i: pred2d[False](imgs[i % 2]),
                               lambda i: pred2d[True](imgs[i % 2]), [pred2d[True].step], T,
-                              "frames/s", note, smi))
+                              "frames/s", note, smi, FULL))
 
     # the drivers' loops over seeded host batches, the graphed predictors
     # built above against the eager ones
@@ -1646,7 +1681,7 @@ def graph_phase(kernels, cfg, rig, ckpt, frames, predictor, note, smi) -> list:
 
     expect3d = [[a.cpu().numpy() for a in predictor(fr)] for fr in frames]
     results.append(driver_graph_path(kernels, "predict3D (stream_predict3d)", run3d, expect3d,
-                                     len(PER_JOINT), "poses/s", note, smi))
+                                     len(PER_JOINT), "poses/s", note, smi, FULL))
     host_low = [lo.cpu().numpy() for lo in low]
 
     def run_twophase(graph, n, tmp, spans):
@@ -1673,16 +1708,16 @@ def graph_phase(kernels, cfg, rig, ckpt, frames, predictor, note, smi) -> list:
 
     expect2d = [[a.cpu().numpy() for a in pred2d[False](im)] for im in imgs]
     results.append(driver_graph_path(kernels, "predict2D (stream_rows)", run2d, expect2d, 3,
-                                     "frames/s", note, smi))
+                                     "frames/s", note, smi, FULL))
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke_graphs.txt"), "w") as log:
         log.write(f"card: {smi}\nkernels a step of each graphed path (torch.profiler, "
-                  f"{ITERS} replays; drivers: a run of {ITERS} batches)\n")
+                  f"over its profiled replays)\n")
         for r in results:
             if "kernels" not in r["graphed"]:  # the drivers' loops
                 continue
             log.write(f"{r['label']}:\n")
             for key, count in r["graphed"]["kernels"].most_common():
-                log.write(f"  {count / ITERS:8.1f}  {key[:160]}\n")
+                log.write(f"  {count / r['iters']:8.1f}  {key[:160]}\n")
             for key, (eager, graphed) in sorted(r.get("renamed", {}).items()):
                 log.write(f"  name differs, calls eager {eager} graphed {graphed}: {key[:160]}\n")
     return results
@@ -3276,24 +3311,35 @@ def train_graph_trainer(cfg, ckpt, net, mode, repro, graph, run_name, mesh=None,
     return trainer, optim.make_optimizer(optimizer, params, TRAIN_GRAPH_LRS[0])
 
 
+# (net, seed, the config's text) -> the host arrays of its two train batches
+HOST_BATCHES: dict = {}
+
+
 def train_graph_batches(cfg, net, seed: int = 11) -> list:
     """Two different train batches of ``net``'s step on the card, with their
     color records (3D: framesets 0 and 1; 2D: images 0-3 and 4-7), the host's
-    draws seeded with ``seed``."""
+    draws seeded with ``seed``. The host arrays are drawn once for each
+    (net, seed, config) and uploaded anew for every caller."""
     from jarvis_hybridnet_torch.dataset.dataset2d import Dataset2D
     from jarvis_hybridnet_torch.dataset.dataset3d import Dataset3D
     from jarvis_hybridnet_torch.dataset.loader import _collate
     from jarvis_hybridnet_torch.training import trainer2d, trainer3d
     from jarvis_hybridnet_torch.utils.transfer import HostToDevice
 
+    key = (net, seed, str(cfg))
+    if key not in HOST_BATCHES:
+        if net == "HybridNet":
+            ds = seeded_set(Dataset3D(cfg, set="train", device_targets=True, device_aug=True),
+                            seed)
+            HOST_BATCHES[key] = [trainer3d.host_batch(_collate([ds[i]])) for i in (0, 1)]
+        else:
+            ds = seeded_set(Dataset2D(cfg, set="train", mode=net, device_targets=True,
+                                      device_aug=True), seed)
+            HOST_BATCHES[key] = [
+                trainer2d.host_batch(_collate([ds[i] for i in range(k, k + 4)]))[0]
+                for k in (0, 4)]
     up = HostToDevice("cuda")
-    if net == "HybridNet":
-        ds = seeded_set(Dataset3D(cfg, set="train", device_targets=True, device_aug=True), seed)
-        return [dict(up(trainer3d.host_batch(_collate([ds[i]])))) for i in (0, 1)]
-    ds = seeded_set(Dataset2D(cfg, set="train", mode=net, device_targets=True, device_aug=True),
-                    seed)
-    return [dict(up(trainer2d.host_batch(_collate([ds[i] for i in range(k, k + 4)]))[0]))
-            for k in (0, 4)]
+    return [dict(up(h)) for h in HOST_BATCHES[key]]
 
 
 def train_graph_steps(kernels, cfg, ckpt, label, net, mode, repro, note, smi) -> dict:
@@ -3306,12 +3352,12 @@ def train_graph_steps(kernels, cfg, ckpt, label, net, mode, repro, note, smi) ->
     them after its first step under ``torch.cuda.set_sync_debug_mode
     ("error")``; the three steps' outputs, parameters and AdamW state are
     compared (``twin_verdict``); then 5 eval steps the same way. Then, with
-    cuDNN as a user runs it, a fresh eager and graphed trainer each: rates
-    (median of REPEATS runs of ITERS steps at lr 1e-6), the host's issue
-    time, a profiled run of each (event span, kernel time, busy share)
-    whose calls of the hand-written kernels equal the eager run's launch
-    counts (``graphed_profile``), capture ms, pool bytes and the batch's
-    copy into the static buffers."""
+    cuDNN as a user runs it, the first eager twin and the graphed twin
+    recaptured, at SHORT depth: rates (at lr 1e-6), the host's issue time, the
+    eager run's launch counts, and a profiled graphed run (event span,
+    kernel time, busy share) whose calls of the hand-written kernels equal
+    them (``graphed_profile``); capture ms, pool bytes and the batch's copy
+    into the static buffers."""
     import torch
 
     from jarvis_hybridnet_torch.training import graphed
@@ -3372,30 +3418,29 @@ def train_graph_steps(kernels, cfg, ckpt, label, net, mode, repro, note, smi) ->
             if not held or len(step.graphs) != 1:
                 fail(f"train graph {label} {kind}: the replays do not hold to their eager "
                      f"twins ({words}) or {len(step.graphs)} graphs were captured")
-        del twins
-    (eager, eopt), (gtrain, gopt) = (train_graph_trainer(cfg, ckpt, net, mode, repro, g,
-                                                         f"Rate{g}_{label}")
-                                     for g in (False, True))
+    # the rates with cuDNN as a user runs it: the first eager twin (an eager
+    # trainer keeps no algorithm choice across calls) and the graphed twin
+    # with its graphs dropped (a capture keeps the algorithms it was
+    # captured with), which captures anew as a fresh trainer does
+    (eager, eopt), (gtrain, gopt) = twins[0], twins[2]
+    gtrain.graphs.reset()
+    del twins
     fns = {"eager": lambda i: eager.train_step(batches[i % 2], eopt, 1e-6),
            "graphed": lambda i: gtrain.train_step(batches[i % 2], gopt, 1e-6)}
+    repeats, iters = SHORT
     for name, fn in fns.items():
         for i in range(graphed.WARMUP + 1):
             fn(i)
-        rates = []
-        for _ in range(REPEATS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(ITERS):
-                fn(i)
-            torch.cuda.synchronize()
-            rates.append(batch * ITERS / (time.perf_counter() - t0))
-        prof = (profiled_steps(kernels, fn) if name == "eager" else
-                graphed_profile(kernels, fn, res["eager"]["launches"], TRAIN_KERNEL_SYMBOLS,
-                                f"train graph {label}"))
-        res[name] = dict(rate=sorted(rates)[REPEATS // 2], rates=rates, issue_ms=issue_ms(fn),
-                         **prof)
+        if name == "eager":
+            rates, prof = timed_launches(kernels, fn, batch, SHORT, False)
+        else:
+            rates = run_rates(fn, batch, SHORT)
+            prof = graphed_profile(kernels, fn, res["eager"]["launches"], TRAIN_KERNEL_SYMBOLS,
+                                   f"train graph {label}", n=iters)
+        res[name] = dict(rate=sorted(rates)[repeats // 2], rates=rates,
+                         issue_ms=issue_ms(fn, iters), **prof)
     e, g = res["eager"], res["graphed"]
-    per = {w: n // ITERS for w, n in e["launches"].items() if n}
+    per = {w: n // iters for w, n in e["launches"].items() if n}
     step = gtrain.graphs.steps["train"][1]
     (_, static, _), = step.graphs.values()
     src = batches[1]
@@ -3403,16 +3448,14 @@ def train_graph_steps(kernels, cfg, ckpt, label, net, mode, repro, note, smi) ->
                capture_ms=list(step.captures.values()),
                copy_ms=graph_ms(lambda: [buf.copy_(src[k]) for k, buf in static.items()]))
     note(f"train graph {label}: kernels per step (eager launches = graphed profile, profiled "
-         f"{g['attempts']} time(s)) {json.dumps(per)}; profiled kernels over {ITERS} steps eager "
-         f"{sum(e['kernels'].values())}, graphed {sum(g['kernels'].values())}")
+         f"{g['attempts']} time(s)) {json.dumps(per)}; profiled kernels over {iters} steps, "
+         f"graphed {sum(g['kernels'].values())}")
     for name in ("eager", "graphed"):
         r = res[name]
-        note(f"train graph {label} {name}: {r['rate']:.2f} {unit} (median of {REPEATS} runs of "
-             f"{ITERS} steps: {', '.join(f'{x:.2f}' for x in r['rates'])}), "
+        note(f"train graph {label} {name}: {r['rate']:.2f} {unit} (median of {repeats} runs of "
+             f"{iters} steps: {', '.join(f'{x:.2f}' for x in r['rates'])}), "
              f"{batch * 1e3 / r['rate']:.3f} ms a step; host issue {r['issue_ms']:.3f} ms; "
-             f"profiled {ITERS} steps: wall {r['wall_ms']:.3f} ms a step, CUDA-event span "
-             f"{r['event_ms']:.3f} ms, kernel time {r['device_ms']:.3f} ms, busy {r['busy']:.3f}; "
-             f"card: {smi}")
+             f"{profiled_words(r, iters)}; card: {smi}")
     note(f"train graph {label}: capture (capture and first replay) "
          f"{', '.join(f'{x:.1f}' for x in res['capture_ms'])} ms; pool {res['pool_bytes']} "
          f"bytes (the train step's); the batch's copy into the static buffers "
@@ -3957,11 +4000,11 @@ def train_graph_phase(kernels, ckpt, note, smi, dtype: str = "float32") -> list:
     name = f"chip_smoke_train_graphs{'_bf16' if bf16 else ''}.txt"
     with open(os.path.join(REPO, "chiprun_out", name), "w") as log:
         log.write(f"card: {smi}\nkernels a step of each graphed {prefix}training step "
-                  f"(torch.profiler, {ITERS} replays)\n")
+                  f"(torch.profiler, {SHORT[1]} replays)\n")
         for r in results:
             log.write(f"{r['label']}:\n")
             for key, count in r["graphed"]["kernels"].most_common():
-                log.write(f"  {count / ITERS:8.1f}  {key[:160]}\n")
+                log.write(f"  {count / SHORT[1]:8.1f}  {key[:160]}\n")
     return results
 
 
@@ -4510,8 +4553,8 @@ def multi_train_steps(kernels, cfg, ckpt, batch: dict, mesh, repro: str, label: 
     the global batch; this rank's part of it under ``mesh``), with cuDNN's
     deterministic algorithms: per step the loss and every trained tensor's
     gradient and value, on the host; the launch counts of the two steps;
-    with ``timed``, the step's rate (median of REPEATS runs of ITERS steps)
-    and a profiled run's busy share."""
+    with ``timed``, the step's rate (SHORT depth) and a profiled run's busy
+    share."""
     import torch
 
     from jarvis_hybridnet_torch.parallel.train_step import shard_batch
@@ -4538,16 +4581,9 @@ def multi_train_steps(kernels, cfg, ckpt, batch: dict, mesh, repro: str, label: 
         def fn(i):
             trainer.train_step(b, opt, 1e-6)
 
-        rates = []
-        for _ in range(REPEATS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(ITERS):
-                fn(i)
-            torch.cuda.synchronize()
-            rates.append(b["imgs"].shape[0] * ITERS / (time.perf_counter() - t0))
-        out["rate"] = sorted(rates)[REPEATS // 2]
-        out["busy"] = profiled_steps(kernels, fn)["busy"]
+        rates = run_rates(fn, b["imgs"].shape[0], SHORT)
+        out["rate"] = sorted(rates)[SHORT[0] // 2]
+        out["busy"] = profiled_steps(kernels, fn, SHORT[1])["busy"]
     return out
 
 
@@ -4623,16 +4659,9 @@ def multi_predict(kernels, predictor, frames, timed: bool = True) -> dict:
         def fn(i):
             predictor(mine)
 
-        rates = []
-        for _ in range(REPEATS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(ITERS):
-                fn(i)
-            torch.cuda.synchronize()
-            rates.append(mine.shape[0] * ITERS / (time.perf_counter() - t0))
-        out["rate"] = sorted(rates)[REPEATS // 2]
-        out["busy"] = profiled_steps(kernels, fn)["busy"]
+        rates = run_rates(fn, mine.shape[0], SHORT)
+        out["rate"] = sorted(rates)[SHORT[0] // 2]
+        out["busy"] = profiled_steps(kernels, fn, SHORT[1])["busy"]
     return out
 
 
@@ -4749,20 +4778,14 @@ def multi_nccl_phase(kernels, ckpt, note, smi) -> dict:
             def fn(i, trainer=trainer, opt=opt):
                 trainer.train_step(batches[i % 2], opt, 1e-6)
 
-            rates = []
-            for _ in range(REPEATS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for i in range(ITERS):
-                    fn(i)
-                torch.cuda.synchronize()
-                rates.append(ITERS / (time.perf_counter() - t0))
-            prof = profiled_steps(kernels, fn)
-            res[name] = dict(rate=sorted(rates)[REPEATS // 2],
-                             ms=1e3 / sorted(rates)[REPEATS // 2], busy=prof["busy"],
+            repeats, iters = SHORT
+            rates = run_rates(fn, 1, SHORT)
+            prof = profiled_steps(kernels, fn, iters)
+            res[name] = dict(rate=sorted(rates)[repeats // 2],
+                             ms=1e3 / sorted(rates)[repeats // 2], busy=prof["busy"],
                              device_ms=prof["device_ms"],
-                             records=sum(prof["kernels"].values()) / ITERS,
-                             copies=sum(prof["copies"].values()) / ITERS)
+                             records=sum(prof["kernels"].values()) / iters,
+                             copies=sum(prof["copies"].values()) / iters)
         d, p = res["distributed"], res["non-distributed"]
         replayed = len(issued)
         note(f"multi NCCL one rank: the graphed all quarter_fused float32 step (full width, "
@@ -4773,7 +4796,7 @@ def multi_nccl_phase(kernels, ckpt, note, smi) -> dict:
              f"{p['copies']:.1f}; the gradient all-reduce ({dist.get_backend()}) issued from "
              f"Python {kinds['eager']} times in the {graphed.WARMUP} eager steps, "
              f"{kinds['capture']} in the capture and {replayed} times in "
-             f"{REPEATS * ITERS + ITERS} replays (a world of one rank: NCCL copies nothing "
+             f"{SHORT[0] * SHORT[1] + SHORT[1]} replays (a world of one rank: NCCL copies nothing "
              f"and launches no kernel); step {d['ms']:.3f} ms "
              f"({d['rate']:.2f} framesets/s, busy {d['busy']:.3f}, kernels {d['device_ms']:.3f} "
              f"ms) against {p['ms']:.3f} ms ({p['rate']:.2f}, busy {p['busy']:.3f}, kernels "
@@ -5035,27 +5058,35 @@ CLI_CONFIG = {
 }
 
 
-def cli_recording(parent: str, dataset: str) -> str:
-    """A CLI_FRAMES-frame MJPG recording of the dataset's cameras under
-    ``parent``: frame t of camera c is camera c's JPEG of the dataset's
-    frameset t mod the framesets (train, then val)."""
+def cli_recording(parent: str, dataset: str, frames: int = CLI_FRAMES,
+                  name: str = "recording") -> str:
+    """A ``frames``-frame MJPG recording of the dataset's cameras in
+    ``parent/name``: frame t of camera c is camera c's JPEG of the dataset's
+    frameset t mod the framesets (train, then val); the cameras are written
+    on threads of their own."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import cv2
 
-    rec = os.path.join(parent, "recording")
+    rec = os.path.join(parent, name)
     os.makedirs(rec)
     sets = [(split, f) for split, n in TRAIN_SPLITS for f in range(n)]
-    for c in range(CAMS):
+
+    def camera(c):
         imgs = [cv2.imread(os.path.join(dataset, split, "Session", f"Frame_{f}", f"Cam{c}.jpg"))
                 for split, f in sets]
         w = cv2.VideoWriter(os.path.join(rec, f"Cam{c}.avi"), cv2.VideoWriter_fourcc(*"MJPG"),
                             30, (W, H))
-        for t in range(CLI_FRAMES):
+        for t in range(frames):
             w.write(imgs[t % len(imgs)])
         w.release()
+
+    with ThreadPoolExecutor(min(CAMS, os.cpu_count() or 1)) as pool:
+        list(pool.map(camera, range(CAMS)))
     return rec
 
 
-def cli_phase(kernels, ckpt, note, smi, driver_rate: float) -> dict:
+def cli_phase(kernels, ckpt, note, smi, driver_rate: float, then=None) -> dict:
     """``jarvis-torch`` (``jarvis_hybridnet_torch/ui/cli.py``) on the card,
     in this process through click's ``CliRunner``, at full width, in a
     temporary parent directory under chiprun_out/: ``create-project
@@ -5076,7 +5107,10 @@ def cli_phase(kernels, ckpt, note, smi, driver_rate: float) -> dict:
     predictor on the same val framesets (padded to FRAME_BATCH, read as the
     analysis reads them), 12 videos of CLI_FRAMES frames. Each command's
     wall seconds and predict3D's poses/s through the CLI are printed.
-    Returns the launch counts."""
+    ``then(ctx)``, where given, runs before the parent directory goes, on
+    the project, the recording, the weights and the direct call's rows,
+    launches and clock (``chip_smoke_export``'s phases). Returns the launch
+    counts."""
     import csv
     import shutil
     import tempfile
@@ -5086,6 +5120,8 @@ def cli_phase(kernels, ckpt, note, smi, driver_rate: float) -> dict:
     import torch
     import yaml
     from click.testing import CliRunner
+
+    import chip_smoke_export
 
     from jarvis_hybridnet_torch.analysis.analyze import _native_frameset_stream
     from jarvis_hybridnet_torch.config.project_manager import ProjectManager
@@ -5173,9 +5209,10 @@ def cli_phase(kernels, ckpt, note, smi, driver_rate: float) -> dict:
         run = latest_run_dir(os.path.join(proj, "predictions", "predictions3D"))
         direct_dir = os.path.join(parent, "direct3D")
         t0 = time.perf_counter()
-        predict3D(Predict3DParams("Cli", rec, weights_center_detect=center,
-                                  weights_hybridnet=trained, output_dir=direct_dir),
-                  device="cuda")
+        with chip_smoke_export.driver_clock() as off_clock:
+            _, off_counts = chip_smoke_export.counted(kernels, lambda: predict3D(Predict3DParams(
+                "Cli", rec, weights_center_detect=center, weights_hybridnet=trained,
+                output_dir=direct_dir), device="cuda"))
         direct_s = time.perf_counter() - t0
         with open(os.path.join(run, "data3D.csv"), newline="") as f, \
                 open(os.path.join(direct_dir, "data3D.csv"), newline="") as g:
@@ -5235,10 +5272,15 @@ def cli_phase(kernels, ckpt, note, smi, driver_rate: float) -> dict:
              f"frames, weights, graph capture and video decode included; the direct call "
              f"{CLI_FRAMES / direct_s:.2f} poses/s), beside the driver phase's streaming loop "
              f"{driver_rate:.2f} poses/s; card: {smi}")
+        note(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
+        if then is not None:
+            then(dict(parent=parent, dataset=dataset, rec=rec, center=center, hybrid=trained,
+                      keypoint=ckpt["KeypointDetect"], direct_dir=direct_dir,
+                      off_counts=off_counts,
+                      off_first_s=off_clock["steps"][0] - off_clock["start"]))
     finally:
         os.environ.pop("JARVIS_PARENT_DIR", None)
         shutil.rmtree(parent, ignore_errors=True)
-    note(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -5278,8 +5320,11 @@ def main() -> int:
         log.write(msg + "\n")
         log.flush()
 
+    starts = []  # (phase, its start in s into the run)
+
     def phase(name: str) -> None:
-        note(f"phase {name}: starts {time.perf_counter() - t_start:.1f} s into the run")
+        starts.append((name, time.perf_counter() - t_start))
+        note(f"phase {name}: starts {starts[-1][1]:.1f} s into the run")
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5376,7 +5421,7 @@ def main() -> int:
             lambda: pred(frames[0]), kernels, MODE_PATH_KERNELS, mode, recorder)
         if not torch.isfinite(mode_points[mode]).all():
             fail(f"non-finite points on the {mode} path")
-        rate(lambda i: pred(frames[i % 2]), T, note, f"predict3D {mode}", "poses/s")
+        rate(lambda i: pred(frames[i % 2]), T, note, f"predict3D {mode}", "poses/s", SHORT)
         note(f"predict3D {mode} launches in one step: {json.dumps(mode_launches[mode])}")
         stage_breakdown(pred, frames[0], note, iters=3)
         del pred
@@ -5735,9 +5780,16 @@ def main() -> int:
                 fail(f"instance_norm_act bf16 check {shape}")
 
     phase("cli")
-    path_counts["cli"] = cli_phase(kernels, ckpt, note, smi, driver_rate)
+    import chip_smoke_export
+
+    path_counts["cli"] = cli_phase(
+        kernels, ckpt, note, smi, driver_rate,
+        then=lambda ctx: path_counts.update(chip_smoke_export.run_phases(
+            sys.modules[__name__], kernels, ctx, note, smi, phase)))
 
     phase("end")
+    note("phase seconds: " + json.dumps(
+        {a: round(tb - ta, 1) for (a, ta), (_, tb) in zip(starts, starts[1:])}))
     report.extend(train_entries)
     # every kernel's launches on each path (one step; the driver: two batches;
     # training: the whole run)

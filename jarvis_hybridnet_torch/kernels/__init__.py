@@ -47,6 +47,15 @@ Each wrapper counts the calls that launch its CUDA source in
   adds each pixel's sum once, in 16-byte reductions; half_fused takes a
   thread per (point, 4 joints) and no tile.
 
+The serving kernels, K1, K2, K3, K4, K5 and K10, are registered operators
+(``torch.library.custom_op``, namespace ``jarvis_torch``, listed in
+``SERVING_OPS``): each wrapper calls its op, whose CPU implementation is the
+plain version and whose CUDA implementation is the kernel's launch through
+its ctypes binding (counting the launch), and a fake implementation gives
+the output shapes and dtypes. So ``torch.export`` keeps each kernel as one
+node of an exported predictor (``prediction/export.py``), and a loaded
+artifact launches the same kernels, counted alike, as the live predictor.
+
 ``InstanceNormAct`` (K1 forward, K6 backward), ``hybridnet_loss`` (K7),
 ``Heatmap2DLoss`` (K8, through ``heatmap2d_loss``), ``QuarterGather`` (K2
 forward, K11 backward) and ``GridGather`` (K5 forward, K12 backward) are the
@@ -98,6 +107,10 @@ WRAPPERS = (instance_norm_act, repro_quarter_gather, repro_grid_gather, soft_arg
             repro_quarter_gather_backward, repro_grid_gather_backward)
 
 
+SERVING_OPS = ("instance_norm_act", "repro_quarter_gather", "repro_grid_gather", "soft_argmax",
+               "resize_normalize", "argmax2d")
+
+
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
@@ -119,6 +132,6 @@ __all__ = [
     "repro_grid_gather_backward_plain", "repro_grid_gather_plain",
     "repro_quarter_gather", "repro_quarter_gather_backward",
     "repro_quarter_gather_backward_plain", "repro_quarter_gather_plain",
-    "reset_launch_counts", "resize_normalize", "resize_normalize_plain",
+    "SERVING_OPS", "reset_launch_counts", "resize_normalize", "resize_normalize_plain",
     "soft_argmax", "soft_argmax_plain",
 ]

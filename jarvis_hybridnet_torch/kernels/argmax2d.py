@@ -1,7 +1,7 @@
 """K10: per (image, channel) heatmap argmax and maximum (``csrc/argmax2d.cu``).
 
 Replaces the JAX package's ``ops/heatmap.py::argmax_2d`` (:15);
-``ops/heatmap.argmax_2d`` dispatches between it and its plain version.
+``ops/heatmap.argmax_2d`` calls it. Registered as ``jarvis_torch::argmax2d``.
 """
 
 from __future__ import annotations
@@ -117,18 +117,34 @@ def plan_of(hm: torch.Tensor, **kw) -> Plan:
 
 def argmax2d(hm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(xy (N, C, 2) int32, maxvals (N, C) float32) of heatmaps ``hm`` (N, H,
-    W, C), float32 or bfloat16, read through their strides (no copy). A CPU
-    tensor runs the plain version; a CUDA tensor launches K10 (one
-    ``__global__`` launch on the current stream, planned by
-    :func:`launch_plan`)."""
-    if build.on_cpu(hm):
-        return argmax_2d_plain(hm)
+    W, C), float32 or bfloat16, read through their strides (no copy). Runs
+    the registered op ``jarvis_torch::argmax2d``: a CPU tensor runs the plain
+    version; a CUDA tensor launches K10 (one ``__global__`` launch on the
+    current stream, planned by :func:`launch_plan`)."""
+    build.on_cpu(hm)
+    return _op(hm)
+
+
+@torch.library.custom_op("jarvis_torch::argmax2d", mutates_args=(), device_types="cpu")
+def _op(hm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return argmax_2d_plain(hm)
+
+
+@_op.register_kernel("cuda")
+def _launch(hm):
     if hm.dtype not in _DTYPES or hm.dim() != 4:
         raise ValueError(f"argmax2d: expected float32 or bfloat16 (N, H, W, C), got "
                          f"{hm.dtype} {tuple(hm.shape)}")
     xy, maxv = launch(hm, plan_of(hm))
     argmax2d.launches += 1
     return xy, maxv
+
+
+@_op.register_fake
+def _(hm):
+    N, C = hm.shape[0], hm.shape[-1]
+    return (hm.new_empty((N, C, 2), dtype=torch.int32),
+            hm.new_empty((N, C), dtype=torch.float32))
 
 
 argmax2d.launches = 0

@@ -184,6 +184,15 @@ def sync_words(device, name: str, count: int = 2):
     return words
 
 
+def no_output(like):
+    """The empty float32 tensor a registered op returns on ``like``'s
+    device in place of an output it was not asked for (an op's outputs are
+    fixed by its schema)."""
+    import torch
+
+    return like.new_empty((0,), dtype=torch.float32)
+
+
 def on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU (the plain version runs);
     False when all are on one CUDA device (the kernel runs)."""

@@ -3,7 +3,8 @@
 Replaces ``tools/fused_norm_bench.py::_kernel`` (the repo's Pallas kernel)
 and ``models/layers.py:22`` ``instance_norm`` with its consumers. CUDA source:
 ``csrc/instance_norm_act.cu``: one launch per call, one thread block cluster
-per sample, each CTA holding its span of rows in shared memory.
+per sample, each CTA holding its span of rows in shared memory. Registered as
+``jarvis_torch::instance_norm_act``.
 """
 
 from __future__ import annotations
@@ -218,18 +219,30 @@ def instance_norm_act(x: torch.Tensor, act: str = "none", skip: torch.Tensor | N
     """InstanceNorm of x (N, S, C) over S, then ``act``.
 
     ``act`` is one of none / silu / relu / add_relu; add_relu returns
-    relu(IN(x) + skip). A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel (one ``__global__`` launch). With ``return_stats``
-    it returns (out, stats): stats float32 (N, C, 2), the (mean, rstd) the
-    normalization used, which the backward (K6) starts from.
+    relu(IN(x) + skip). Runs the registered op
+    ``jarvis_torch::instance_norm_act``: a CPU tensor runs the plain version;
+    a CUDA tensor launches the kernel (one ``__global__`` launch). With
+    ``return_stats`` it returns (out, stats): stats float32 (N, C, 2), the
+    (mean, rstd) the normalization used, which the backward (K6) starts from.
     """
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if (act == "add_relu") != (skip is not None):
         raise ValueError("skip is given exactly when act == 'add_relu'")
-    if build.on_cpu(x, skip):
-        out = instance_norm_act_plain(x, act, skip)
-        return (out, stats_plain(x)) if return_stats else out
+    build.on_cpu(x, skip)
+    out, stats = _op(x, act, skip, return_stats)
+    return (out, stats) if return_stats else out
+
+
+@torch.library.custom_op("jarvis_torch::instance_norm_act", mutates_args=(), device_types="cpu")
+def _op(x: torch.Tensor, act: str, skip: torch.Tensor | None,
+        return_stats: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    out = instance_norm_act_plain(x, act, skip)
+    return out, stats_plain(x) if return_stats else build.no_output(x)
+
+
+@_op.register_kernel("cuda")
+def _launch(x, act, skip, return_stats):
     build.require(x, "x", _DTYPES, ndim=3)
     if skip is not None:
         build.require(skip, "skip", (x.dtype,), ndim=3)
@@ -250,7 +263,14 @@ def instance_norm_act(x: torch.Tensor, act: str = "none", skip: torch.Tensor | N
                 _DTYPES[x.dtype], build.stream())
     build.check(err, "instance_norm_act")
     instance_norm_act.launches += 1
-    return (out, stats) if return_stats else out
+    return out, stats if return_stats else build.no_output(x)
+
+
+@_op.register_fake
+def _(x, act, skip, return_stats):
+    n, _, c = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((n, c, 2), dtype=torch.float32) if return_stats else build.no_output(x))
 
 
 instance_norm_act.launches = 0

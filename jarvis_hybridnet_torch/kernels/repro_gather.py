@@ -33,7 +33,8 @@ scatter-added into each camera's rows at the saved indices. For bf16 rows
 are rounded once to bf16 rows (``round_rows``); JAX adds rounded
 cotangents into a bf16 table. Its plain version, the scatter
 (``scatter_rows_plain``) and ``round_rows`` also serve K12
-(``repro_grid_gather.py``).
+(``repro_grid_gather.py``). K2's forward is registered as
+``jarvis_torch::repro_quarter_gather``.
 """
 
 from __future__ import annotations
@@ -332,11 +333,26 @@ def require_row_dtype(rows: torch.Tensor) -> None:
 
 def _quarter_gather(rows, center3d, center_hm, P, K, D, g4: int, step: float,
                     return_indices: bool, ct: int):
-    """The forward alone: the plain version on the CPU, else one K2 launch."""
-    if build.on_cpu(rows, center3d, center_hm, P, K, D):
-        half, idx = repro_quarter_gather_plain(rows, center3d, center_hm, P, K,
-                                               D, g4, step, ct)
-        return (half, idx) if return_indices else half
+    """The forward alone, through the registered op
+    ``jarvis_torch::repro_quarter_gather``: the plain version on the CPU,
+    else one K2 launch."""
+    build.on_cpu(rows, center3d, center_hm, P, K, D)
+    out, idx = _op(rows, center3d, center_hm, P, K, D, int(g4), float(step), return_indices,
+                   int(ct))
+    return (out, idx) if return_indices else out
+
+
+@torch.library.custom_op("jarvis_torch::repro_quarter_gather", mutates_args=(),
+                         device_types="cpu")
+def _op(rows: torch.Tensor, center3d: torch.Tensor, center_hm: torch.Tensor, P: torch.Tensor,
+        K: torch.Tensor, D: torch.Tensor, g4: int, step: float, return_indices: bool,
+        ct: int) -> tuple[torch.Tensor, torch.Tensor]:
+    half, idx = repro_quarter_gather_plain(rows, center3d, center_hm, P, K, D, g4, step, ct)
+    return half, idx if return_indices else build.no_output(rows)
+
+
+@_op.register_kernel("cuda")
+def _launch(rows, center3d, center_hm, P, K, D, g4, step, return_indices, ct):
     B, C, hs, J, S = check_cameras(rows, center3d, center_hm, P, K, D)
     dev = rows.device
     out = torch.empty((B, 2 * g4, 2 * g4, 2 * g4, J), dtype=torch.float32,
@@ -349,7 +365,16 @@ def _quarter_gather(rows, center3d, center_hm, P, K, D, g4: int, step: float,
                 _DTYPES[rows.dtype], ct, build.stream())
     build.check(err, "repro_quarter_gather")
     repro_quarter_gather.launches += 1
-    return (out, idx) if return_indices else out
+    return out, idx if return_indices else build.no_output(rows)
+
+
+@_op.register_fake
+def _(rows, center3d, center_hm, P, K, D, g4, step, return_indices, ct):
+    B, C, J = rows.shape[0], rows.shape[1], rows.shape[3]
+    n = 2 * g4
+    return (rows.new_empty((B, n, n, n, J), dtype=torch.float32),
+            rows.new_empty((B, C, g4 ** 3), dtype=torch.int32) if return_indices
+            else build.no_output(rows))
 
 
 class QuarterGather(torch.autograd.Function):

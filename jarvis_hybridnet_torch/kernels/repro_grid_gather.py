@@ -7,7 +7,8 @@ half-grid gather and, for half, the 0.25/0.75 value upsample). CUDA source:
 ``csrc/repro_grid_gather.cu``: one launch per call, a block per
 (frameset, tile) work item, a tile being ``TILE[mode]``^3 half-grid points;
 the rows are read in 16-byte loads, so they must be padded
-(``repro_gather.pad_rows``).
+(``repro_gather.pad_rows``). The forward is registered as
+``jarvis_torch::repro_grid_gather``.
 
 The rows are gathered in their own dtype and summed in float32. JAX's
 exact mode gathers float32 (``hybridnet.py:73,84-85``); a bf16 row widened
@@ -198,11 +199,27 @@ repro_grid_gather.launches = 0
 
 def _grid_gather(rows, center3d, center_hm, P, K, D, grid_size: int, grid_spacing: float,
                  mode: str, return_indices: bool, ct: int):
-    """The forward alone: the plain version on the CPU, else one K5 launch."""
-    if build.on_cpu(rows, center3d, center_hm, P, K, D):
-        vol, idx = repro_grid_gather_plain(rows, center3d, center_hm, P, K, D, grid_size,
-                                           grid_spacing, mode, ct)
-        return (vol, idx) if return_indices else vol
+    """The forward alone, through the registered op
+    ``jarvis_torch::repro_grid_gather``: the plain version on the CPU, else
+    one K5 launch."""
+    build.on_cpu(rows, center3d, center_hm, P, K, D)
+    vol, idx = _op(rows, center3d, center_hm, P, K, D, int(grid_size), float(grid_spacing),
+                   mode, return_indices, int(ct))
+    return (vol, idx) if return_indices else vol
+
+
+@torch.library.custom_op("jarvis_torch::repro_grid_gather", mutates_args=(), device_types="cpu")
+def _op(rows: torch.Tensor, center3d: torch.Tensor, center_hm: torch.Tensor, P: torch.Tensor,
+        K: torch.Tensor, D: torch.Tensor, grid_size: int, grid_spacing: float, mode: str,
+        return_indices: bool, ct: int) -> tuple[torch.Tensor, torch.Tensor]:
+    vol, idx = repro_grid_gather_plain(rows, center3d, center_hm, P, K, D, grid_size,
+                                       grid_spacing, mode, ct)
+    return vol, idx if return_indices else build.no_output(rows)
+
+
+@_op.register_kernel("cuda")
+def _launch(rows, center3d, center_hm, P, K, D, grid_size, grid_spacing, mode, return_indices,
+            ct):
     B, C, hs, J, S = check_cameras(rows, center3d, center_hm, P, K, D)
     if (S * rows.element_size()) % 16 or rows.data_ptr() % 16:
         raise ValueError("repro_grid_gather: rows must start on 16 bytes and lie a multiple of "
@@ -211,7 +228,17 @@ def _grid_gather(rows, center3d, center_hm, P, K, D, grid_size: int, grid_spacin
     out = run_plan(plan, rows, center3d, center_hm, P, K, D, grid_size, grid_spacing,
                    return_indices, c_total=ct)
     repro_grid_gather.launches += 1
-    return out
+    return out if return_indices else (out, build.no_output(rows))
+
+
+@_op.register_fake
+def _(rows, center3d, center_hm, P, K, D, grid_size, grid_spacing, mode, return_indices, ct):
+    B, C, J = rows.shape[0], rows.shape[1], rows.shape[3]
+    n = grid_size // 2 if mode == "half_fused" else grid_size
+    n_idx = grid_size ** 3 if mode == "exact" else (grid_size // 2) ** 3
+    return (rows.new_empty((B, n, n, n, J), dtype=torch.float32),
+            rows.new_empty((B, C, n_idx), dtype=torch.int32) if return_indices
+            else build.no_output(rows))
 
 
 class GridGather(torch.autograd.Function):

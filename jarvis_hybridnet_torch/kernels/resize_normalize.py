@@ -6,7 +6,7 @@ Replaces ``ops/image.py`` ``resize_bilinear`` (:64), ``resize_bilinear_mxu``
 ``predictor2d.py:83-92`` use them: uint8 frames are divided by 255 after the
 resize, float32 frames in [0, 1] are not (the JAX ``value_scale``). CUDA
 source: ``csrc/resize_normalize.cu``, one instantiation per (input, output)
-type.
+type. Registered as ``jarvis_torch::resize_normalize`` (``kernels/__init__``).
 """
 
 from __future__ import annotations
@@ -76,9 +76,22 @@ def resize_normalize(x: torch.Tensor, height: int, width: int, mean, std,
     """Resize frames (N, H, W, 3) to (N, height, width, 3) with half-pixel
     bilinear taps and no antialias, then (x / value_scale - mean) / std, for
     uint8 frames (value_scale 255) or float32 frames in [0, 1] (value_scale
-    1). Computes in float32 and rounds once to ``dtype`` (f32 or bf16)."""
-    if build.on_cpu(x):
-        return resize_normalize_plain(x, height, width, mean, std, dtype)
+    1). Computes in float32 and rounds once to ``dtype`` (f32 or bf16).
+    Runs the registered op ``jarvis_torch::resize_normalize``: the plain
+    version on a CPU tensor, K4 on a CUDA tensor."""
+    build.on_cpu(x)
+    return _op(x, int(height), int(width), [float(v) for v in mean],
+               [float(v) for v in std], dtype)
+
+
+@torch.library.custom_op("jarvis_torch::resize_normalize", mutates_args=(), device_types="cpu")
+def _op(x: torch.Tensor, height: int, width: int, mean: list[float], std: list[float],
+        dtype: torch.dtype) -> torch.Tensor:
+    return resize_normalize_plain(x, height, width, mean, std, dtype)
+
+
+@_op.register_kernel("cuda")
+def _launch(x, height, width, mean, std, dtype):
     build.require(x, "x", _INPUTS, ndim=4)
     if x.shape[-1] != 3 or dtype not in _DTYPES:
         raise ValueError(f"expected (N, H, W, 3) uint8/f32 -> f32/bf16, got "
@@ -88,15 +101,18 @@ def resize_normalize(x: torch.Tensor, height: int, width: int, mean, std,
     hi0, hi1, hw1 = _device_tables(height, H, dev)
     wi0, wi1, ww1 = _device_tables(width, W, dev)
     out = torch.empty((N, height, width, 3), dtype=dtype, device=x.device)
-    m = [float(v) for v in mean]
-    s = [float(v) for v in std]
     p = build.ptr
     err = _fn()(p(x), p(out), N, H, W, height, width, p(hi0), p(hi1), p(hw1),
-                p(wi0), p(wi1), p(ww1), *m, *s, _DTYPES[dtype],
+                p(wi0), p(wi1), p(ww1), *mean, *std, _DTYPES[dtype],
                 int(x.dtype == torch.float32), build.stream())
     build.check(err, "resize_normalize")
     resize_normalize.launches += 1
     return out
+
+
+@_op.register_fake
+def _(x, height, width, mean, std, dtype):
+    return x.new_empty((x.shape[0], height, width, 3), dtype=dtype)
 
 
 resize_normalize.launches = 0

@@ -4,7 +4,8 @@ Replaces ``models/hybridnet.py:95-114``. CUDA source: ``csrc/soft_argmax.cu``:
 one launch per call, a thread block cluster per frameset whose CTAs stream
 contiguous spans of its volume and merge their sums in rank order through
 distributed shared memory. Optionally it also writes the double-softplus
-volume (``heatmap_final``) in the same pass.
+volume (``heatmap_final``) in the same pass. Registered as
+``jarvis_torch::soft_argmax``.
 
 Without the volume output the kernel's softplus uses the fast intrinsics
 ``__expf`` and ``__logf`` (CUDA's documented bounds: 2 + |1.173 x| ulps,
@@ -139,10 +140,24 @@ def soft_argmax(vol: torch.Tensor, center3d: torch.Tensor, grid_spacing: float,
     int32 cube centers. Voxel (x, y, z) maps to
     ``(x, y, z) * grid_spacing * 2 - cube / 2 + center3d``. With
     ``return_volume`` the double-softplus volume (B, g, g, g, J) float32
-    (JAX's ``heatmap_final``) comes back third, from the same pass.
+    (JAX's ``heatmap_final``) comes back third, from the same pass. Runs the
+    registered op ``jarvis_torch::soft_argmax``: the plain version on CPU
+    tensors, K3 on CUDA tensors.
     """
-    if build.on_cpu(vol, center3d):
-        return soft_argmax_plain(vol, center3d, grid_spacing, cube, return_volume)
+    build.on_cpu(vol, center3d)
+    points, conf, heat = _op(vol, center3d, float(grid_spacing), float(cube), return_volume)
+    return (points, conf, heat) if return_volume else (points, conf)
+
+
+@torch.library.custom_op("jarvis_torch::soft_argmax", mutates_args=(), device_types="cpu")
+def _op(vol: torch.Tensor, center3d: torch.Tensor, grid_spacing: float, cube: float,
+        return_volume: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    out = soft_argmax_plain(vol, center3d, grid_spacing, cube, return_volume)
+    return out if return_volume else (*out, build.no_output(vol))
+
+
+@_op.register_kernel("cuda")
+def _launch(vol, center3d, grid_spacing, cube, return_volume):
     build.require(vol, "vol", _DTYPES, ndim=5)
     build.require(center3d, "center3d", (torch.int32,), ndim=2)
     B, g, J = vol.shape[0], vol.shape[1], vol.shape[-1]
@@ -153,7 +168,15 @@ def soft_argmax(vol: torch.Tensor, center3d: torch.Tensor, grid_spacing: float,
     _check_schedulable(plan, _DTYPES[vol.dtype])
     out = run_plan(plan, vol, center3d, grid_spacing, cube, return_volume)
     soft_argmax.launches += 1
-    return out
+    return out if return_volume else (*out, build.no_output(vol))
+
+
+@_op.register_fake
+def _(vol, center3d, grid_spacing, cube, return_volume):
+    B, J = vol.shape[0], vol.shape[-1]
+    f32 = torch.float32
+    return (vol.new_empty((B, J, 3), dtype=f32), vol.new_empty((B, J), dtype=f32),
+            vol.new_empty(vol.shape, dtype=f32) if return_volume else build.no_output(vol))
 
 
 soft_argmax.launches = 0

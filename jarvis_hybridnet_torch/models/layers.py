@@ -154,17 +154,24 @@ def conv(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     bias``); oneDNN on the CPU would fold the bias into the convolution's
     one rounding, cuDNN's path adds it after as here."""
     dt = compute_dtype(m)
-    w = m.weight.to(dt)
-    b = None if m.bias is None else m.bias.to(dt)
+    w = _cast(m.weight, dt)
+    b = None if m.bias is None else _cast(m.bias, dt)
     fn = _FUNCTIONS[type(m)]
     if isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
         args = (m.stride, m.padding, m.output_padding, m.groups, m.dilation)
     else:
         args = (m.stride, m.padding, m.dilation, m.groups)
     if b is None or dt == torch.float32:
-        return _apply(fn, x.to(dt), w, b, args)
-    y = _apply(fn, x.to(dt), w, None, args)
+        return _apply(fn, _cast(x, dt), w, b, args)
+    y = _apply(fn, _cast(x, dt), w, None, args)
     return y + b.reshape(-1, *(1,) * (y.dim() - 2))
+
+
+def _cast(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``t.to(dt)``, skipped where ``t`` is in ``dt`` already (``to``
+    returns ``t`` itself then), so a traced graph (``prediction/export``)
+    holds no cast that does nothing."""
+    return t if t.dtype == dt else t.to(dt)
 
 
 def _apply(fn, x: torch.Tensor, w: torch.Tensor, b, args: tuple) -> torch.Tensor:

@@ -57,9 +57,15 @@ class Basic3DBlock(_Dropped):
         weight. With grad enabled they are computed from the live weight in
         every call, so the weight gets their gradient; under ``no_grad``
         they are cached until the weight changes, where ``cache_fused`` is
-        on, else computed in every call."""
+        on, else computed in every call. Under ``torch.export`` the cache
+        that :func:`fill_fused_cache` filled is read, so the traced graph
+        holds the kernels the live module uses as its constants
+        (``prediction/export.export_predictor``)."""
         w, dt = self.block[0].weight, compute_dtype(self.block[0])
-        if (torch.is_grad_enabled() and w.requires_grad) or not self.cache_fused:
+        if torch.compiler.is_compiling() and self._fused is not None:
+            return self._fused[1], self._fused[2]
+        if ((torch.is_grad_enabled() and w.requires_grad) or not self.cache_fused
+                or torch.compiler.is_compiling()):
             return prepare_fused_weights(w, dt)
         key = (w.data_ptr(), w._version, w.dtype, dt, w.device)
         if self._fused is None or self._fused[0] != key:
@@ -74,6 +80,17 @@ class Basic3DBlock(_Dropped):
         else:
             x = conv(self.block[0], x)
         return self.drop(instance_norm(x, "relu"))
+
+
+def fill_fused_cache(module: nn.Module) -> nn.Module:
+    """Compute the fused kernels of every fused ``Basic3DBlock`` under
+    ``module`` from its current weights into its cache (turned on)."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, Basic3DBlock) and m.fused_up:
+                m.cache_fused = True
+                m._fused_weights()
+    return module
 
 
 def set_fused_cache(module: nn.Module, on: bool) -> nn.Module:

@@ -15,14 +15,13 @@ SIGMA_EXP_3D = 1.7  # the 3D target's exponent (heatmap.py:127)
 
 def argmax_2d(heatmaps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel spatial argmax (the JAX package's ``ops/heatmap.py::
-    argmax_2d``) of (..., H, W, C) heatmaps, read through their strides: the
-    plain version on a CPU tensor, K10 on a CUDA tensor. Returns (xy (..., C,
+    argmax_2d``) of (..., H, W, C) heatmaps, read through their strides, by the
+    op ``jarvis_torch::argmax2d``: the plain version on a CPU tensor, K10 on
+    a CUDA tensor. Returns (xy (..., C,
     2) int32, maxvals (..., C) float32, exact for a bfloat16 input): the
     first maximal index m in row-major order, x = m % W, y = m // W."""
-    from ..kernels.argmax2d import argmax2d, argmax_2d_plain  # the kernels import this module
+    from ..kernels.argmax2d import argmax2d  # the kernels import this module
 
-    if heatmaps.device.type == "cpu":
-        return argmax_2d_plain(heatmaps)
     h, w, c = heatmaps.shape[-3:]
     lead = heatmaps.shape[:-3]
     xy, maxvals = argmax2d(heatmaps.reshape(-1, h, w, c))

@@ -20,6 +20,11 @@ of ``FRAME_BATCH`` frames, so a driver captures one graph. A replay's
 outputs are clones, so batch k's pending outputs keep their values while
 batch k + 1 runs.
 
+``params.trt_mode`` (:func:`compiled_predictor`): 'new' exports the
+predictor to ``projects/<p>/compiled-models/`` (``export.export_predictor``),
+'previous' loads it from there instead of building it, 'off' neither.
+``TPU.PROFILE_DIR`` traces the loop (:func:`profile_trace`).
+
 Pod streaming, as the JAX drivers do it on a pod (``predict3d.py:35-92``,
 ``predict2d.py:30-52``), with one process per GPU (``torchrun``): with
 ``WORLD_SIZE`` > 1 the drivers join the world and mesh it
@@ -43,6 +48,7 @@ a project, decode video or show progress.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import os
 import time
@@ -54,14 +60,62 @@ from ..parallel.mesh import make_mesh, plan_inference_devices
 from ..utils import clp
 from ..utils.param_classes import Predict2DParams
 from ..utils.transfer import HostToDevice
+from . import compile_cache
 from .video_io import open_single_video_reader
 
 
-def check_params(params) -> None:
-    """The port's drivers run the predictors as they are."""
-    if params.trt_mode != "off":
-        raise ValueError(f"trt_mode {params.trt_mode!r}: exporting or loading a compiled "
-                         "predictor is not ported yet (ROADMAP.md A.13); use 'off'")
+def compiled_predictor(params, cfg, kind: str, shape, make, mesh=None):
+    """The driver's predictor under ``params.trt_mode``, as the JAX drivers
+    pick it (``predict3d.py:316-337``, ``predict2d.py:150-172``): 'previous'
+    loads the artifact of this pipeline, input ``shape`` and numerics
+    (``export.artifact_path``) where it exists, outside a mesh; else
+    ``make()`` builds the predictor, and 'new' exports it there (outside a
+    mesh: a sharded step's collectives are not exported)."""
+    from . import export
+
+    artifact = export.artifact_path(cfg, kind, shape)
+    if params.trt_mode == "previous" and mesh is None:
+        if os.path.isfile(artifact):
+            clp.info(f"Loading exported predictor: {artifact}")
+            return export.load_predictor(artifact)
+        clp.warning(f"No exported predictor at {artifact}; building it.")
+    predictor = make()
+    if params.trt_mode == "new":
+        if mesh is not None:
+            clp.warning("trt_mode 'new' exports no predictor under a mesh of several ranks.")
+        else:
+            import torch
+
+            export.export_predictor(predictor, torch.zeros(shape, dtype=torch.uint8), artifact)
+            clp.info(f"Exported compiled predictor: {artifact}")
+    return predictor
+
+
+@contextlib.contextmanager
+def profile_trace(cfg, predictor, shape):
+    """``TPU.PROFILE_DIR``: a ``torch.profiler`` trace of the driver's loop
+    from its first step to its last (the JAX drivers' ``jax.profiler``
+    trace, ``predict3d.py:339-355``), written by ``tensorboard_trace_handler``
+    into the directory; CPU and, on the card, CUDA activity. A graphed step
+    is captured for the batch ``shape`` before the trace starts: the loop's
+    steps are then replays, which the trace records kernel by kernel, and no
+    capture runs under the profiler. Without the key, nothing."""
+    profile_dir = cfg.get("TPU", {}).get("PROFILE_DIR")
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if predictor.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+        predictor(torch.zeros(shape, dtype=torch.uint8, device=predictor.device))
+        torch.cuda.synchronize(predictor.device)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        yield
+    clp.info(f"Trace of the prediction loop written to {profile_dir}")
 
 
 def inference_mesh(cfg, num_cameras: int = 0, n_cam: int = 1):
@@ -234,12 +288,12 @@ def output_dir(project, cfg, params, kind: str, mesh=None) -> str:
 
 
 def predict2D(params: Predict2DParams, device="cuda") -> str | None:
-    check_params(params)
     project = ProjectManager()
     if not project.load(params.project_name):
         clp.error(f"Could not load project: {params.project_name}! Aborting...")
         return None
     cfg = project.cfg
+    compile_cache.configure(cfg, params.trt_mode)
     mesh = inference_mesh(cfg) if params.process_count is None else None
     pi, pc = _pod_identity(params, mesh)
     output_dir(project, cfg, params, "2D", mesh)
@@ -278,17 +332,22 @@ def predict2D(params: Predict2DParams, device="cuda") -> str | None:
             number_frames=number_frames,
             batch_size=batch,
         )
+        W, H = reader.img_size
+        shape = (batch, H, W, 3)
         if predictor is None:
             from ..parallel.predict_step import build_sharded_predict2d
 
-            predictor = build_sharded_predict2d(cfg, params.weights_center_detect,
+            predictor = compiled_predictor(
+                params, cfg, "predict2D", shape,
+                lambda: build_sharded_predict2d(cfg, params.weights_center_detect,
                                                 params.weights_keypoint_detect, mesh=mesh,
-                                                device=device)
+                                                device=device), mesh)
         steps = _fused_steps(predictor, reader)
         update, close = progress_callback(params, reader.number_frames)
         try:
-            stream_rows(cfg, steps, os.path.join(params.output_dir, csv_name + suffix),
-                        ("x", "y", "confidence"), update, header=not suffix)
+            with profile_trace(cfg, predictor, shape):
+                stream_rows(cfg, steps, os.path.join(params.output_dir, csv_name + suffix),
+                            ("x", "y", "confidence"), update, header=not suffix)
         finally:
             close()
             reader.release()

@@ -13,6 +13,10 @@ while the previous one's rows are written. On the card each step (each
 phase of the split cascade) replays a CUDA graph (``predict2d.py``'s
 docstring).
 
+``params.trt_mode`` and ``TPU.PROFILE_DIR`` as in ``predict2d.py``: 'new'
+exports the fused predictor, 'previous' loads it (and so runs the fused
+cascade where ``TPU.TWO_PHASE`` is set), the trace covers the fused loop.
+
 With ``TPU.TWO_PHASE`` and the native video library, the split cascade
 streams instead: the reader's paired low-resolution ring feeds phase A, the
 host cuts the crops out of the full-resolution ring, phase B runs on them.
@@ -35,16 +39,18 @@ from ..utils import clp
 from ..utils.calibration import CameraRig, load_camera_rigs
 from ..utils.param_classes import Predict3DParams
 from ..utils.transfer import HostToDevice
+from . import compile_cache
 from .loaders import make_predictor3d_twophase
 from .predict2d import (
     _fused_steps,
     _pod_identity,
     _write_info,
-    check_params,
+    compiled_predictor,
     finish_pod,
     inference_mesh,
     output_dir,
     pod_frame_shard,
+    profile_trace,
     progress_callback,
     stream_rows,
 )
@@ -135,17 +141,18 @@ def _predict3d_twophase(params, cfg, rig, video_paths, batch, device, shard):
 
 
 def predict3D(params: Predict3DParams, device="cuda") -> str | None:
-    check_params(params)
     project = ProjectManager()
     if not project.load(params.project_name):
         clp.error(f"Could not load project: {params.project_name}! Aborting...")
         return None
     cfg = project.cfg
+    compile_cache.configure(cfg, params.trt_mode)
 
     rig = get_camera_rig(cfg, params.dataset_name)
     video_paths = get_video_paths(params.recording_path, rig.camera_names)
     tpu = cfg.get("TPU", {})
-    two_phase = bool(tpu.get("TWO_PHASE", False))
+    # a loaded artifact is the fused cascade: 'previous' skips the split one
+    two_phase = params.trt_mode != "previous" and bool(tpu.get("TWO_PHASE", False))
     if two_phase:
         from .. import native
 
@@ -186,14 +193,20 @@ def predict3D(params: Predict3DParams, device="cuda") -> str | None:
             number_frames=number_frames,
             batch_size=batch,
         )
-        predictor = build_sharded_predict3d(cfg, rig, params.weights_center_detect,
+        W, H = reader.img_size
+        shape = (batch, len(video_paths[cams]), H, W, 3)
+        predictor = compiled_predictor(
+            params, cfg, "predict3D", shape,
+            lambda: build_sharded_predict3d(cfg, rig, params.weights_center_detect,
                                             params.weights_hybridnet, mesh=mesh,
                                             shard_cameras=mesh is not None, device=device,
-                                            graph=mesh is None or mesh.backend == "nccl")
+                                            graph=mesh is None or mesh.backend == "nccl"),
+            mesh)
         update, close = progress_callback(params, reader.number_frames)
         try:
-            stream_predict3d(cfg, predictor, reader, params.output_dir, update, suffix,
-                             write=writer)
+            with profile_trace(cfg, predictor, shape):
+                stream_predict3d(cfg, predictor, reader, params.output_dir, update, suffix,
+                                 write=writer)
         finally:
             close()
             reader.release()

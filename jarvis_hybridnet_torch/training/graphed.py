@@ -54,7 +54,7 @@ import time
 
 import torch
 
-from ..prediction.export import _clone
+from ..prediction.export import _clone, capture
 
 WARMUP = 2  # eager steps of a key before its capture
 
@@ -137,7 +137,7 @@ class GraphedTrainStep:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, pool=self.pool):
+        with capture(graph, self.pool):
             out = self.fn(static)
         graph.replay()
         torch.cuda.synchronize(self.device)

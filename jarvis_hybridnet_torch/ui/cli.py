@@ -14,9 +14,11 @@ device receives: ``jarvis-torch --device cpu predict predict3D P rec/``
 runs on the CPU. With ``--device cuda`` and no card the entry point raises;
 nothing carries on on the CPU.
 
-Not ported yet, each raising with its ROADMAP.md item: ``launch-cli`` (the
-interactive CLI), ``launch`` (the Streamlit GUI) and ``--trt_mode new`` /
-``previous`` (the predict drivers raise, ``prediction/predict2d.py``).
+``launch-cli`` runs the interactive CLI (``ui/interactive_cli.py``) and
+``launch`` the Streamlit GUI (``ui/gui/jarvis_gui.py``), each on the root
+``--device``; ``launch`` reports an error and returns where streamlit is
+not installed, as the JAX package's does. ``--trt_mode new`` / ``previous``
+export / load the compiled predictor (``prediction/export.py``).
 
 Run it as ``jarvis-torch ...`` once the package is installed, or as
 ``python3 -m jarvis_hybridnet_torch.ui.cli ...``. yaml and the modules of
@@ -70,11 +72,6 @@ def _device() -> str:
     return click.get_current_context().find_root().params["device"]
 
 
-def _not_ported(what: str, item: str):
-    raise click.ClickException(f"{what} is not ported to the PyTorch package yet "
-                               f"(ROADMAP.md {item}); use the JAX package's 'jarvis'.")
-
-
 @click.group(cls=OrderedGroup)
 @click.option("--device", default="cuda", show_default=True,
               help="Device the networks run on: 'cuda' (the card) or 'cpu'.")
@@ -88,14 +85,22 @@ def cli(device):
 
 @cli.command()
 def launch():
-    """Launch the Streamlit GUI in your browser (not ported yet)."""
-    _not_ported("The Streamlit GUI ('launch')", "A.13")
+    """Launch the Streamlit GUI in your browser."""
+    try:
+        import streamlit.web.bootstrap as bootstrap
+    except ImportError:
+        clp.error("streamlit is not installed in this environment.")
+        return
+    gui = os.path.join(os.path.dirname(__file__), "gui", "jarvis_gui.py")
+    bootstrap.run(gui, False, [_device()], {})
 
 
 @cli.command(name="launch-cli")
 def launch_cli():
-    """Launch the interactive CLI in this terminal (not ported yet)."""
-    _not_ported("The interactive CLI ('launch-cli')", "A.13")
+    """Launch the interactive CLI in this terminal."""
+    from .interactive_cli import launch_interactive_prompt
+
+    launch_interactive_prompt(_device())
 
 
 @cli.command(name="create-project")
@@ -235,7 +240,8 @@ def predict():
 @click.option("--number_frames", default=-1)
 @click.option("--trt_mode", default="off",
               type=click.Choice(["off", "new", "previous"]),
-              help="Compiled-predictor mode; only 'off' is ported (ROADMAP.md A.13).")
+              help="Compiled-predictor mode: 'new' exports the predictor to the "
+                   "project's compiled-models, 'previous' loads it from there.")
 @click.argument("project_name")
 @click.argument("video_path")
 def predict2d_cmd(project_name, video_path, weights_center_detect, weights_keypoint_detect,

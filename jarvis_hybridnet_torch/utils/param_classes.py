@@ -24,7 +24,7 @@ class Predict3DParams:
     frame_start: int = 0
     number_frames: int = -1
     dataset_name: Any = None
-    # reference trt_mode ('off'/'new'/'previous'); the port takes 'off' only
+    # reference trt_mode ('off'/'new'/'previous'): prediction/export.py
     trt_mode: str = "off"
     progress_bar: Any = None
     # multi-host (pod) streaming identity (None: the mesh's)

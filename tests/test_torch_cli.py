@@ -12,17 +12,19 @@ a 144 mm cube at 4 mm, float32, CenterDetect's head scaled by 8 so that its
 maxima straddle the gates) ``predict predict3D`` / ``predict2D`` with
 ``--device cpu`` write the CSVs of the port's direct calls, within the
 drivers' bounds of the JAX CLI's (3D: points 2e-2 mm, confidences 1e-4;
-2D: points identical, confidences 1e-5), and ``visualize create-videos3D``
+2D: points identical, confidences 1e-5), with ``--trt_mode`` 'new' and
+'previous' the direct calls' CSVs, and ``visualize create-videos3D``
 / ``create-videos2D`` write the direct calls' videos, frame for frame
 JAX's ``create_videos3D`` / ``create_videos2D`` on the same CSV (the 3D
-projections within 1e-3 px of JAX's ``project_points``). ``launch``,
-``launch-cli`` and ``--trt_mode new`` raise with their ROADMAP item, and
-``--device cuda`` without a card raises.
+projections within 1e-3 px of JAX's ``project_points``). ``launch-cli``
+runs the interactive CLI and ``launch`` the GUI (or reports streamlit
+missing, as JAX's does), and ``--device cuda`` without a card raises.
 """
 
 import csv
 import os
 import pathlib
+import shutil
 
 import click
 import numpy as np
@@ -84,7 +86,7 @@ def parent(tmp_path_factory):
     rig = synthetic_rig(CAMS, W, H)
     write_dataset3d(str(root / "datasets" / "Synth"), rig, W, H, JOINTS,
                     splits=(("train", 4), ("val", 2)), extent_mm=40.0, seed=4)
-    for name in ("Port", "Direct", "Jax"):
+    for name in ("Port", "Direct", "Jax", "Trt"):
         write_project(str(root), name, PREDICT_CONFIG)
     write_project(str(root), "Train", TRAIN_CONFIG)
 
@@ -111,9 +113,9 @@ def parent(tmp_path_factory):
     return root, rec, weights
 
 
-def _invoke(command, args, parent_dir, monkeypatch):
+def _invoke(command, args, parent_dir, monkeypatch, input=None):
     monkeypatch.setenv("JARVIS_PARENT_DIR", str(parent_dir))
-    result = CliRunner().invoke(command, args, catch_exceptions=False)
+    result = CliRunner().invoke(command, args, catch_exceptions=False, input=input)
     assert result.exit_code == 0, result.output
     return result
 
@@ -480,22 +482,71 @@ def test_create_videos2d_command_matches_direct_call_and_jax(parent, predicted2d
     np.testing.assert_array_equal(got["Cam1.mp4"], ref["Cam1.mp4"])
 
 
-# ------------------------------------------------------ what is not ported ---
-@pytest.mark.parametrize("args", [["launch"], ["launch-cli"]])
-def test_unported_surfaces_raise_with_their_roadmap_item(args):
-    result = CliRunner().invoke(cli, args)
-    assert result.exit_code != 0
-    assert "ROADMAP.md A.13" in result.output
+# ------------------------------------------ launch, launch-cli, trt_mode ---
+def test_launch_cli_runs_the_interactive_cli(parent, monkeypatch):
+    """``launch-cli`` opens the port's interactive menus, whose entry points
+    run on the root ``--device``; the menus print as the JAX package's."""
+    root, _, _ = parent
+    port = _invoke(cli, ["--device", "cpu", "launch-cli"], root, monkeypatch, input="q\n")
+    jax = _invoke(jax_cli, ["launch-cli"], root, monkeypatch, input="q\n")
+    assert "Welcome to JARVIS (PyTorch / CUDA edition) interactive CLI!" in port.output
+    assert port.output.split("\n")[1:] == jax.output.split("\n")[1:]
+    from jarvis_hybridnet_torch.ui import interactive_cli
+
+    seen = []
+    monkeypatch.setattr(interactive_cli, "launch_interactive_prompt", seen.append)
+    _invoke(cli, ["--device", "cpu", "launch-cli"], root, monkeypatch)
+    assert seen == ["cpu"]
 
 
-@pytest.mark.parametrize("kind", ["predict2D", "predict3D"])
-def test_trt_mode_new_raises_with_its_roadmap_item(parent, kind, monkeypatch):
-    root, rec, _ = parent
-    monkeypatch.setenv("JARVIS_PARENT_DIR", str(root))
-    path = str(rec / "Cam0.avi") if kind == "predict2D" else str(rec)
-    with pytest.raises(ValueError, match="A.13"):
-        CliRunner().invoke(cli, ["--device", "cpu", "predict", kind, "--trt_mode", "new",
-                                 "Port", path], catch_exceptions=False)
+def test_launch_runs_the_gui_or_reports_streamlit_missing(parent, monkeypatch):
+    """``launch`` runs the port's Streamlit GUI on the root ``--device``
+    through streamlit's bootstrap (a stand-in here), or, where streamlit is
+    not installed, says so and returns, as the JAX package's does."""
+    import sys
+    import types
+
+    root, _, _ = parent
+    monkeypatch.setitem(sys.modules, "streamlit", None)  # not installed
+    port = _invoke(cli, ["--device", "cpu", "launch"], root, monkeypatch)
+    jax = _invoke(jax_cli, ["launch"], root, monkeypatch)
+    assert "streamlit is not installed" in port.output and port.output == jax.output
+    runs = []
+    web = types.ModuleType("streamlit.web")
+    web.bootstrap = types.SimpleNamespace(run=lambda *a: runs.append(a))
+    monkeypatch.setitem(sys.modules, "streamlit", types.ModuleType("streamlit"))
+    monkeypatch.setitem(sys.modules, "streamlit.web", web)
+    monkeypatch.setitem(sys.modules, "streamlit.web.bootstrap", web.bootstrap)
+    _invoke(cli, ["--device", "cpu", "launch"], root, monkeypatch)
+    (script, hello, args, flags), = runs
+    assert script.endswith(os.path.join("jarvis_hybridnet_torch", "ui", "gui", "jarvis_gui.py"))
+    assert os.path.isfile(script) and (hello, args, flags) == (False, ["cpu"], {})
+
+
+@pytest.mark.parametrize("kind, modes", [("predict2D", ("new", "previous")),
+                                         ("predict3D", ("previous",))],
+                         ids=["predict2D", "predict3D"])
+def test_trt_mode_runs_and_matches_the_direct_call(parent, kind, modes, predicted2d,
+                                                   predicted3d, monkeypatch):
+    """``predict ... --trt_mode``: 'new' exports the predictor into the
+    project's compiled-models, 'previous' loads it; 'previous' without an
+    artifact builds the predictor. The CSVs equal the direct call's."""
+    root, rec, weights = parent
+    path = str(rec / "Cam1.avi") if kind == "predict2D" else str(rec)
+    args = (["--weights_keypoint_detect", weights["keypoint"]] if kind == "predict2D"
+            else ["--weights_hybridnet", weights["hybrid"]])
+    direct = (predicted2d if kind == "predict2D" else predicted3d)["direct"]
+    name = "data2D.csv" if kind == "predict2D" else "data3D.csv"
+    for mode in modes:
+        _port(["predict", kind, "--weights_center_detect", weights["center"], *args,
+               "--trt_mode", mode, "Trt", path], root, monkeypatch)
+        run = _latest(root, "Trt", "predictions", f"predictions{kind[-2:]}")
+        with open(os.path.join(run, name)) as f, open(os.path.join(direct, name)) as g:
+            assert f.read() == g.read(), mode
+        shutil.rmtree(run)  # the next run's directory is stamped to the second
+    arts = sorted(os.listdir(root / "projects" / "Trt" / "compiled-models"))
+    assert [a for a in arts if a.startswith(kind)] == (
+        [f"{kind}_2x256x320x3_quarter_fused-float32.pt2"] if "new" in modes else [])
 
 
 def test_device_cuda_without_a_card_raises(parent, monkeypatch):

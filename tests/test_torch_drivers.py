@@ -69,7 +69,8 @@ def project(tmp_path_factory):
         "TPU": {"FRAME_BATCH": 2, "INFERENCE_DTYPE": "float32", "MESH_DATA_AXIS": 1},
     }
     for name, extra in (("Proj", {}), ("ProjTwoPhase", {"TWO_PHASE": True,
-                                                        "LOWRES_FACTOR": 4})):
+                                                        "LOWRES_FACTOR": 4}),
+                        ("ProjTrt", {}), ("ProjTrace", {"PROFILE_DIR": str(root / "trace")})):
         proj = root / "projects" / name
         proj.mkdir(parents=True)
         c = {**cfg, "TPU": {**cfg["TPU"], **extra}}
@@ -121,6 +122,30 @@ def _compare(port_csv, jax_csv, per_joint, point_tol, conf_tol):
     return int(nan.sum())
 
 
+_JAX_RUNS = {}  # (parent, driver, project) -> the JAX driver's output directory
+
+
+def _jax_run(project, kind, name="Proj"):
+    """The JAX driver of ``kind`` on project ``name`` (predict2D: camera 1's
+    video), run once a module."""
+    root, rec, weights = project
+    key = (str(root), kind, name)
+    if key not in _JAX_RUNS:
+        kw = dict(project_name=name, weights_center_detect=weights["center"])
+        # JAX writes to a directory of its own: its default name, stamped to
+        # the second, could be the port's and overwrite the port's CSV
+        if kind == "predict3D":
+            _JAX_RUNS[key] = jax_predict3D(jax_params.Predict3DParams(
+                **kw, recording_path=str(rec), weights_hybridnet=weights["hybrid"],
+                output_dir=str(root / "out" / f"{name}_jax")))
+        else:
+            _JAX_RUNS[key] = jax_predict2D(jax_params.Predict2DParams(
+                **kw, recording_path=str(rec / "Cam1.avi"),
+                weights_keypoint_detect=weights["keypoint"],
+                output_dir=str(root / "out" / "2d_jax")))
+    return _JAX_RUNS[key]
+
+
 def _run_3d(project, monkeypatch, name):
     root, rec, weights = project
     monkeypatch.setenv("JARVIS_PARENT_DIR", str(root))
@@ -128,8 +153,7 @@ def _run_3d(project, monkeypatch, name):
               weights_center_detect=weights["center"], weights_hybridnet=weights["hybrid"])
     out = predict3D(Predict3DParams(**kw, output_dir=str(root / "out" / f"{name}_port")),
                     device="cpu")
-    ref = jax_predict3D(jax_params.Predict3DParams(
-        **kw, output_dir=str(root / "out" / f"{name}_jax")))
+    ref = _jax_run(project, "predict3D", name)
     with open(os.path.join(out, "info.yaml")) as f, open(os.path.join(ref, "info.yaml")) as g:
         assert yaml.safe_load(f) == yaml.safe_load(g)
     return _compare(os.path.join(out, "data3D.csv"), os.path.join(ref, "data3D.csv"),
@@ -161,10 +185,7 @@ def test_predict2d_driver_matches_jax(project, monkeypatch):
               weights_center_detect=weights["center"],
               weights_keypoint_detect=weights["keypoint"])
     out = predict2D(Predict2DParams(**kw), device="cpu")
-    # JAX writes to a directory of its own: its default name, stamped to the
-    # second, could be the port's and overwrite the port's CSV
-    ref = jax_predict2D(jax_params.Predict2DParams(
-        **kw, output_dir=str(root / "out" / "2d_jax")))
+    ref = _jax_run(project, "predict2D")
     assert out != ref
     assert os.path.basename(out).startswith("Predictions_2D_")
     assert os.path.dirname(out) == str(root / "projects" / "Proj" / "predictions" /
@@ -176,9 +197,6 @@ def test_predict2d_driver_matches_jax(project, monkeypatch):
 
 def test_drivers_refuse_what_is_not_ported(project, monkeypatch):
     root, rec, weights = project
-    with pytest.raises(ValueError, match="A.13"):
-        predict3D(Predict3DParams(project_name="Proj", recording_path=str(rec),
-                                  trt_mode="new"), device="cpu")
     # pod streaming is ported (parallel/): one process as data group 0 of 2
     # writes its shard, and the merge refuses the missing shard 1
     monkeypatch.setenv("JARVIS_PARENT_DIR", str(root))
@@ -188,3 +206,70 @@ def test_drivers_refuse_what_is_not_ported(project, monkeypatch):
                                   weights_keypoint_detect=weights["keypoint"],
                                   output_dir=str(root / "out" / "pod_shard"),
                                   process_index=0, process_count=2), device="cpu")
+
+
+# ------------------------------------------- trt_mode and PROFILE_DIR ---
+
+def _port_run(project, monkeypatch, kind, name, out, **kw):
+    """The port's driver of ``kind`` on project ``name`` into ``out``: the
+    CSV's path."""
+    root, rec, weights = project
+    monkeypatch.setenv("JARVIS_PARENT_DIR", str(root))
+    if kind == "predict3D":
+        predict3D(Predict3DParams(project_name=name, recording_path=str(rec),
+                                  weights_center_detect=weights["center"],
+                                  weights_hybridnet=weights["hybrid"],
+                                  output_dir=str(root / "out" / out), **kw), device="cpu")
+        return root / "out" / out / "data3D.csv"
+    predict2D(Predict2DParams(project_name=name, recording_path=str(rec / "Cam1.avi"),
+                              weights_center_detect=weights["center"],
+                              weights_keypoint_detect=weights["keypoint"],
+                              output_dir=str(root / "out" / out), **kw), device="cpu")
+    return root / "out" / out / "data2D.csv"
+
+
+@pytest.mark.parametrize("kind", ["predict3D", "predict2D"])
+def test_drivers_trt_modes_match_off_and_jax(project, monkeypatch, kind):
+    """``trt_mode`` 'new' exports the predictor into the project's
+    compiled-models and predicts with it, 'previous' loads that artifact
+    (and nothing else): both CSVs equal 'off''s text, and within the
+    drivers' bounds of the JAX driver's on the same inputs."""
+    from jarvis_hybridnet_torch.prediction import export
+
+    root = project[0]
+    loaded = []
+    load = export.load_predictor
+    monkeypatch.setattr(export, "load_predictor", lambda p: loaded.append(p) or load(p))
+    text = {mode: _port_run(project, monkeypatch, kind, "ProjTrt", f"trt_{kind}_{mode}",
+                            trt_mode=mode).read_text()
+            for mode in ("off", "new", "previous")}
+    from jarvis_hybridnet_torch.config.project_manager import ProjectManager
+
+    pm = ProjectManager()
+    assert pm.load("ProjTrt")
+    shape = (2, CAMS, H, W, 3) if kind == "predict3D" else (2, H, W, 3)
+    artifact = export.artifact_path(pm.get_cfg(), kind, shape)
+    assert export.list_artifacts(pm.get_cfg(), kind) == [os.path.basename(artifact)]
+    assert loaded == [artifact]
+    assert text["new"] == text["off"] and text["previous"] == text["off"]
+    ref = _jax_run(project, kind)  # the same config, weights and inputs as ProjTrt's
+    if kind == "predict3D":
+        _compare(root / "out" / f"trt_{kind}_previous" / "data3D.csv",
+                 os.path.join(ref, "data3D.csv"), ("x", "y", "z", "confidence"), 2e-2, 1e-4)
+    else:
+        _compare(root / "out" / f"trt_{kind}_previous" / "data2D.csv",
+                 os.path.join(ref, "data2D.csv"), ("x", "y", "confidence"), 0.0, 1e-5)
+
+
+@pytest.mark.parametrize("kind", ["predict3D", "predict2D"])
+def test_drivers_profile_dir_writes_a_trace(project, monkeypatch, kind):
+    """``TPU.PROFILE_DIR``: the driver's loop under ``torch.profiler``
+    writes a trace file there, and its rows equal the untraced run's."""
+    root = project[0]
+    trace = root / "trace"
+    before = set(os.listdir(trace)) if trace.is_dir() else set()
+    traced = _port_run(project, monkeypatch, kind, "ProjTrace", f"traced_{kind}").read_text()
+    plain = _port_run(project, monkeypatch, kind, "Proj", f"untraced_{kind}").read_text()
+    new = set(os.listdir(trace)) - before
+    assert len(new) == 1 and next(iter(new)).endswith(".pt.trace.json")
+    assert traced == plain

@@ -12,7 +12,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "jarvis_hybridnet_tpu")
-SOURCES = sorted((REPO / "jarvis_hybridnet_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted((REPO / "jarvis_hybridnet_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "chip_smoke_export.py"]
 
 
 def _imported_roots(path):
