@@ -5,7 +5,7 @@
 
     python3 chip_smoke.py --baseline-csrc DIR [--baseline-kernel k9|k12]
 
-Builds the twelve CUDA kernel sources from ``jarvis_hybridnet_torch/kernels/csrc``,
+Builds the fourteen CUDA kernel sources from ``jarvis_hybridnet_torch/kernels/csrc``,
 loads the committed MonkeyHand checkpoints through the port's own reader,
 and drives ``make_predictor3d`` at the production configuration (bf16,
 quarter_fused, 12 cameras of 1280x1024 on the synthetic rig, 23 joints,
@@ -140,7 +140,12 @@ rate and busy share (two ranks share the card); K2, K5, K11 and K12 at
 line's ``[c_total=12]`` keys).
 It then checks every kernel against its plain PyTorch version on the card:
 K1, K2 and K4 at every shape a driven path gave them, K3 and K5 at the main
-path's, and times kernel, plain version and library call. A kernel's
+path's, K13 and K14 at every key a driven path gave them (bf16 within
+K13_K14_BF16_ULPS, the share of differing elements printed; the same
+inputs as float32 within K13_K14_F32_ULPS), K1's biased keys bit-equal to
+the bias added first, and times kernel, plain version and library call.
+The serving graphs phase prints each graphed path's kernels, copies and
+kernel ms a step. A kernel's
 ``ms`` is device time: a CUDA graph of ``GRAPH_CALLS`` captured calls is
 replayed, so host launch gaps do not count; ``wall_ms`` is the event time
 of calls launched one by one from Python; the kernels line counts each
@@ -446,10 +451,10 @@ def against_baseline(current, baseline, check) -> tuple[float, float]:
 # the kernels of the quarter_fused main path, and of the paths of the other
 # repro modes (K5 in place of K2)
 MAIN_PATH_KERNELS = ("instance_norm_act", "repro_quarter_gather", "soft_argmax",
-                     "resize_normalize", "argmax2d")
+                     "resize_normalize", "argmax2d", "weighted_fuse", "se_gate")
 OTHER_MODES = ("exact", "half_fused", "half")
 MODE_PATH_KERNELS = ("instance_norm_act", "repro_grid_gather", "soft_argmax", "resize_normalize",
-                     "argmax2d")
+                     "argmax2d", "weighted_fuse", "se_gate")
 
 
 def rows_touched(idx, hs2: int) -> int:
@@ -887,17 +892,21 @@ def rate(step, count: int, note, label: str, unit: str, depth=FULL) -> float:
 
 
 class ShapeRecorder:
-    """What K1, K2, K4, K6, K8, K9 and K10 are called with on each driven
-    path: the (shape, dtype, act) of every K1 and K6 call, the (rows shape,
+    """What K1, K2, K4, K6, K8, K9, K10, K13 and K14 are called with on each
+    driven path: the (shape, dtype, act, with a bias) of every K1 call, the
+    (shape, dtype, act) of every K6 call, the (rows shape,
     rows dtype, g4, step) of every K2 call, the (input shape, input dtype,
     height, width, output dtype) of every K4 call, the heads' shapes,
     strides, input size and sigma of every K8 forward, the images' shape,
     record, border and blur of every K9 call and the heatmaps' shape, dtype
-    and strides of every K10 call, each with its calls per path; K2, K4, K8,
-    K9 and K10 keep their first call's arguments (K8's heads detached). It
+    and strides of every K10 call, the inputs' shapes and dtype, the modes
+    and the merge flag of every K13 call, the (x shape, g shape, dtype) of
+    every K14 call, each with its calls per path; K2, K4, K8, K9, K10, K13
+    and K14 keep their first call's arguments (K8's heads detached). It
     wraps the names by which the models, the predictors and the trainers
-    call the wrappers, and the training steps' autograd Functions' own
-    (``InstanceNormAct.k1``, ``.k6``, ``Heatmap2DLoss.fwd``)."""
+    call the wrappers, the training steps' autograd Functions' own
+    (``InstanceNormAct.k1``, ``.k6``, ``Heatmap2DLoss.fwd``), and K13's and
+    K14's registered ops, which their wrappers call."""
 
     def __init__(self):
         self.k1: dict = {}  # key -> {path: calls}
@@ -908,6 +917,8 @@ class ShapeRecorder:
         self.k8: dict = {}  # key -> (arguments, {path: calls})
         self.k9: dict = {}  # key -> (arguments, {path: calls})
         self.k10: dict = {}  # key -> (arguments, {path: calls})
+        self.k13: dict = {}  # key -> (arguments, {path: calls})
+        self.k14: dict = {}  # key -> (arguments, {path: calls})
 
     @contextlib.contextmanager
     def on(self, path: str):
@@ -932,9 +943,9 @@ class ShapeRecorder:
                 _, per = table.setdefault(key, (args, {}))
             per[path] = per.get(path, 0) + 1
 
-        def rec_k1(x, act="none", skip=None, return_stats=False):
-            count(self.k1, (tuple(x.shape), x.dtype, act))
-            return k1(x, act, skip, return_stats)
+        def rec_k1(x, act="none", skip=None, return_stats=False, bias=None):
+            count(self.k1, (tuple(x.shape), x.dtype, act, bias is not None))
+            return k1(x, act, skip, return_stats, bias=bias)
 
         def rec_k2(rows, center3d, center_hm, P, K, D, g4, step, return_indices=False,
                    c_total=None):
@@ -972,6 +983,19 @@ class ShapeRecorder:
             return k10(hm)
 
         k10_sites = (predictor2d, predictor3d, trainer2d)
+        k13_mod = sys.modules["jarvis_hybridnet_torch.kernels.weighted_fuse"]
+        k14_mod = sys.modules["jarvis_hybridnet_torch.kernels.se_gate"]
+        k13, k14 = k13_mod._op, k14_mod._op
+
+        def rec_k13(w, x0, x1, x2, modes, merge):
+            xs = [t for t in (x0, x1, x2) if t is not None]
+            count(self.k13, (tuple(tuple(t.shape) for t in xs), x0.dtype, tuple(modes), merge),
+                  (w, x0, x1, x2, modes, merge))
+            return k13(w, x0, x1, x2, modes, merge)
+
+        def rec_k14(x, g):
+            count(self.k14, (tuple(x.shape), tuple(g.shape), x.dtype), (x, g))
+            return k14(x, g)
 
         layers.instance_norm_act = rec_k1
         repro.repro_quarter_gather = rec_k2
@@ -981,6 +1005,7 @@ class ShapeRecorder:
         augment.color_aug = rec_k9
         for m in k10_sites:
             m.argmax_2d = rec_k10
+        k13_mod._op, k14_mod._op = rec_k13, rec_k14
         try:
             yield
         finally:
@@ -992,6 +1017,7 @@ class ShapeRecorder:
             augment.color_aug = k9
             for m in k10_sites:
                 m.argmax_2d = k10
+            k13_mod._op, k14_mod._op = k13, k14
 
     def calls(self, name: str, path: str) -> int:
         table = {"instance_norm_act": self.k1, "instance_norm_act_backward": self.k6,
@@ -999,7 +1025,9 @@ class ShapeRecorder:
                  "resize_normalize": {k: per for k, (_, per) in self.k4.items()},
                  "heatmap2d_loss_fwd": {k: per for k, (_, per) in self.k8.items()},
                  "color_aug": {k: per for k, (_, per) in self.k9.items()},
-                 "argmax2d": {k: per for k, (_, per) in self.k10.items()}}[name]
+                 "argmax2d": {k: per for k, (_, per) in self.k10.items()},
+                 "weighted_fuse": {k: per for k, (_, per) in self.k13.items()},
+                 "se_gate": {k: per for k, (_, per) in self.k14.items()}}[name]
         return sum(per.get(path, 0) for per in table.values())
 
 
@@ -1007,8 +1035,8 @@ def path_launches(run, kernels, names, path, recorder):
     """Launch counts of one call of ``run`` (counts set to 0 just before,
     read just after); fails unless every kernel of ``names`` launched, and
     unless ``recorder``, which records the arguments of K1, K2, K4, K6, K8,
-    K9 and K10 over the call under ``path``, saw as many calls of each as
-    were counted."""
+    K9, K10, K13 and K14 over the call under ``path``, saw as many calls of
+    each as were counted."""
     import torch
 
     torch.cuda.synchronize()
@@ -1021,7 +1049,8 @@ def path_launches(run, kernels, names, path, recorder):
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the {path} path")
     for name in ("instance_norm_act", "repro_quarter_gather", "resize_normalize",
-                 "instance_norm_act_backward", "heatmap2d_loss_fwd", "color_aug", "argmax2d"):
+                 "instance_norm_act_backward", "heatmap2d_loss_fwd", "color_aug", "argmax2d",
+                 "weighted_fuse", "se_gate"):
         if recorder.calls(name, path) != counts[name]:
             fail(f"recorded {recorder.calls(name, path)} calls of {name} on the {path} path, "
                  f"counted {counts[name]} launches")
@@ -1041,7 +1070,8 @@ def predict2d_phase(kernels, cfg, ckpt, frames, recorder, note):
                             dtype="bfloat16", device="cuda", graph=False)
     pred(imgs[0])
     out, counts = path_launches(lambda: pred(imgs[0]), kernels,
-                                ("instance_norm_act", "resize_normalize", "argmax2d"), "predict2d",
+                                ("instance_norm_act", "resize_normalize", "argmax2d",
+                                 "weighted_fuse", "se_gate"), "predict2d",
                                 recorder)
     points, conf, valid = out
     if not (torch.isfinite(points).all() and torch.isfinite(conf).all()):
@@ -1272,7 +1302,8 @@ def driver_phase(kernels, cfg, predictor, frames, out_dir, recorder, note):
 # __global__ symbol of the serving kernels, as torch.profiler names it
 KERNEL_SYMBOLS = {"instance_norm_act": r"\bin_fused<", "repro_quarter_gather": r"\brepro_tile<",
                   "repro_grid_gather": r"\brepro_grid<", "soft_argmax": r"\bsa_cluster<",
-                  "resize_normalize": r"\bresize_norm<", "argmax2d": r"\bk10<"}
+                  "resize_normalize": r"\bresize_norm<", "argmax2d": r"\bk10<",
+                  "weighted_fuse": r"\bweighted_fuse_k<", "se_gate": r"\bse_gate_k<"}
 
 
 def pool_bytes(pool) -> int:
@@ -1458,6 +1489,10 @@ def graph_path(kernels, label, eager, graphed, steps, count, unit, note, smi,
              f"{iters} steps: {', '.join(f'{x:.2f}' for x in r['rates'])}); host issue "
              f"{r['issue_ms']:.3f} ms a step; {profiled_words(r, iters)}; copies "
              f"{json.dumps(dict(r.get('copies', {})))}; card: {smi}")
+    note(f"graph {label}: the graphed replays run "
+         f"{sum(g['kernels'].values()) / iters:.1f} kernels and "
+         f"{sum(g['copies'].values()) / iters:.1f} copies / sets a step, kernel time "
+         f"{g['device_ms']:.3f} ms a step; card: {smi}")
     note(f"graph {label}: capture (warm-up, capture, first replay) "
          f"{', '.join(f'{x:.1f}' for x in res['capture_ms'])} ms; pool {res['pool_bytes']} bytes; "
          f"graphed / eager rate {g['rate'] / e['rate']:.3f}")
@@ -3044,7 +3079,8 @@ TRAIN_KERNEL_SYMBOLS = {
     "color_aug": r"\bk9_(bands|flat)\b", "argmax2d": r"\bk10<",
     "repro_quarter_gather": r"\brepro_tile<", "repro_grid_gather": r"\brepro_grid<",
     "repro_quarter_gather_backward": r"\bgather_backward\b",
-    "repro_grid_gather_backward": r"\b(grid|point)_backward\b", "soft_argmax": r"\bsa_cluster<"}
+    "repro_grid_gather_backward": r"\b(grid|point)_backward\b", "soft_argmax": r"\bsa_cluster<",
+    "weighted_fuse": r"\bweighted_fuse_k<", "se_gate": r"\bse_gate_k<"}
 TRAIN_GRAPH_LRS = (2e-4, 5e-5, 3e-4, 1e-4, 1.5e-4)  # 2 eager steps, a capture, 2 replays
 # where two eager steps from the same state differ (K11 / K12 add with float
 # atomics), a replay's distance to its eager twin and the eager twins' own
@@ -5284,6 +5320,139 @@ def cli_phase(kernels, ckpt, note, smi, driver_rate: float, then=None) -> dict:
     return counts
 
 
+# K13 and K14: bf16 within one ulp of the plain version's value (each rounds
+# once from the same float32 or bf16 chain; the tolerance leaves room for a
+# libdevice function that rounds otherwise than torch's own kernel), float32
+# within two ulps
+K13_K14_BF16_ULPS = 1.0
+K13_K14_F32_ULPS = 2.0
+
+
+def elem_ulps(kernel_out, plain_out, bits: int) -> tuple[float, float]:
+    """(largest |kernel - plain| in ulps of each element's |plain| for a
+    type of ``bits`` mantissa bits, share of elements that differ)."""
+    import torch
+
+    k, p = kernel_out.float(), plain_out.float()
+    mag = p.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
+    return float(((k - p).abs() / ulp).max()), float((k != p).float().mean())
+
+
+def k13_bytes(args) -> int:
+    """Bytes K13 must move: each input's elements the output reads (a pooled
+    input's 2x2 windows, an upsampled input's source once) and the output."""
+    from jarvis_hybridnet_torch.kernels.weighted_fuse import MODES, _out_size
+
+    w, x0, x1, x2, modes, merge = args
+    oh, ow = _out_size(x0, modes[0])
+    out = x0.shape[0] * x0.shape[1] * oh * ow
+    reads = sum(4 * out if m == MODES["pool"] else t.numel()
+                for t, m in zip((x0, x1, x2), modes) if t is not None)
+    return (reads + out) * x0.element_size()
+
+
+def k14_bytes(args) -> int:
+    """Bytes K14 must move: x read and the output written once, and the gate."""
+    x, g = args
+    return (2 * x.numel() + g.numel()) * x.element_size()
+
+
+def check_k13_k14(kernels, recorder, launches, note, log, smi) -> list:
+    """K13 and K14 at every key a driven path gave them, on the arguments of
+    its first call there: the kernel against the plain version in the
+    path's dtype ("own"; bf16: K13_K14_BF16_ULPS, the share of differing
+    elements printed) and on the same inputs cast to float32
+    (K13_K14_F32_ULPS); K13 also at weights (2^-24, 1, 2^-24) of a 3-input
+    fusion, where the sum's order shows in the last bit. The main path's keys are timed; the two
+    entries of the kernels line sum their times over the main path's
+    launches (``launches``: the quarter_fused step's counts)."""
+    import torch
+
+    ops = torch.ops.jarvis_torch
+    k13_mod = sys.modules["jarvis_hybridnet_torch.kernels.weighted_fuse"]
+    names = {v: k for k, v in k13_mod.MODES.items()}
+
+    def k13_plain(w, x0, x1, x2, modes, merge):
+        xs = [t for t in (x0, x1, x2) if t is not None]
+        return k13_mod.weighted_fuse_plain(w, xs, [names[m] for m in modes], merge)
+
+    def as_f32(args):
+        return tuple(a.float() if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16
+                     else a for a in args)
+
+    with torch.no_grad():  # the plain versions record no graph
+        entries = []
+        for label, table, op, plain, nbytes, source, replaces in (
+                ("weighted_fuse", recorder.k13, ops.weighted_fuse, k13_plain, k13_bytes,
+                 "weighted_fuse.cu", "jarvis_hybridnet_tpu/models/bifpn.py:20"),
+                ("se_gate", recorder.k14, ops.se_gate, kernels.se_gate_plain, k14_bytes,
+                 "se_gate.cu", "jarvis_hybridnet_tpu/models/efficientnet.py:175")):
+            sums = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+            worst = {"own": (0.0, 0.0), "float32": (0.0, 0.0)}
+            log.write(f"{label} per key: key count ms wall_ms plain_ms bound_ms | own dtype ulps, "
+                      f"share differing | float32 ulps, share differing | calls per path\n")
+            for key, (args, per) in table.items():
+                res = {}
+                for kind, a in (("own", args), ("float32", as_f32(args))):
+                    ko, po = op(*a), plain(*a)
+                    res[kind] = elem_ulps(ko, po, 7 if ko.dtype == torch.bfloat16 else 23)
+                    if ko.dtype != po.dtype or ko.stride() != po.stride():
+                        fail(f"{label} {key}: output {ko.dtype} {ko.stride()}, plain {po.dtype} "
+                             f"{po.stride()}")
+                    worst[kind] = tuple(max(x, y) for x, y in zip(worst[kind], res[kind]))
+                    if kind == "own":
+                        sums["max_abs_err"] = max(sums["max_abs_err"],
+                                                  float((ko.float() - po.float()).abs().max()))
+                bf16 = args[1 if label == "weighted_fuse" else 0].dtype == torch.bfloat16
+                if ((bf16 and res["own"][0] > K13_K14_BF16_ULPS)
+                        or res["float32"][0] > K13_K14_F32_ULPS):
+                    fail(f"{label} {key}: {res} ulps from the plain version (tolerance "
+                         f"{K13_K14_BF16_ULPS} bf16, {K13_K14_F32_ULPS} float32)")
+                count = per.get("quarter_fused", 0)
+                times = {}
+                if count:
+                    times = dict(ms=graph_ms(lambda: op(*args)),
+                                 wall_ms=cuda_ms(lambda: op(*args)),
+                                 plain_ms=cuda_ms(lambda: plain(*args), iters=5),
+                                 bound_ms=nbytes(args) / HBM_BYTES_PER_S * 1e3)
+                    for k, v in times.items():
+                        sums[k] += v * count
+                log.write(f"  {key} x{count} "
+                          + " ".join(f"{times.get(k, float('nan')):.4f}"
+                                     for k in ("ms", "wall_ms", "plain_ms", "bound_ms"))
+                          + f" | {res['own'][0]:.1f} {res['own'][1]:.2e} | "
+                          f"{res['float32'][0]:.1f} {res['float32'][1]:.2e} | "
+                          f"{json.dumps(per)}\n")
+            note(f"{label}: {len(table)} keys over the driven paths; worst {worst['own'][0]:.1f} "
+                 f"ulps in the path's dtype (bf16 tolerance {K13_K14_BF16_ULPS:g}), at most "
+                 f"{worst['own'][1]:.2e} of the elements differing; on the same inputs as "
+                 f"float32 {worst['float32'][0]:.1f} ulps (tolerance {K13_K14_F32_ULPS:g}), at "
+                 f"most {worst['float32'][1]:.2e} differing; the main path's "
+                 f"{launches[label]} launches {sums['ms']:.4f} ms "
+                 f"(wall {sums['wall_ms']:.4f}, plain {sums['plain_ms']:.4f}, bound "
+                 f"{sums['bound_ms']:.4f}); card: {smi}")
+            entries.append(dict(name=label, route="cuda", kernels_per_call=1,
+                                source=f"jarvis_hybridnet_torch/kernels/csrc/{source}",
+                                replaces=replaces, launches=launches[label], bound_by="bytes",
+                                library_ms=None, **sums))
+        # the weights' sum: torch's order on the card against the kernel's
+        three = next((a for a, _ in recorder.k13.values() if a[3] is not None and not a[5]), None)
+        if three is not None:
+            a = as_f32(three)
+            probe = torch.tensor([2.0 ** -24, 1.0, 2.0 ** -24], device=a[1].device)
+            a = (probe, *a[1:])
+            ko, po = ops.weighted_fuse(*a), k13_plain(*a)
+            ulps, share = elem_ulps(ko, po, 23)
+            note(f"weighted_fuse sum order: torch sums (2^-24, 1, 2^-24) on the card to "
+                 f"1 + {float(probe.sum()) - 1.0:.3e}; the kernel at these weights "
+                 f"{'bit-equal to' if torch.equal(ko, po) else 'differs from'} the plain version "
+                 f"({ulps:.1f} float32 ulps, {share:.2e} of the elements)")
+            if ulps > K13_K14_F32_ULPS:
+                fail(f"weighted_fuse at the sum-order probe: {ulps} float32 ulps")
+        return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-csrc", metavar="DIR",
@@ -5339,10 +5508,12 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     note(f"build: {time.perf_counter() - t0:.1f} s for {len(build.SOURCES)} kernels")
-    for name, label in (("repro_grid_gather", "K5"), ("instance_norm_act_backward", "K6"),
+    for name, label in (("instance_norm_act", "K1"), ("repro_grid_gather", "K5"),
+                        ("instance_norm_act_backward", "K6"),
                         ("hybridnet_loss", "K7"), ("heatmap2d_loss", "K8"),
                         ("color_aug", "K9"), ("argmax2d", "K10"),
-                        ("repro_gather_backward", "K11"), ("repro_grid_gather_backward", "K12")):
+                        ("repro_gather_backward", "K11"), ("repro_grid_gather_backward", "K12"),
+                        ("weighted_fuse", "K13"), ("se_gate", "K14")):
         log.write(f"ptxas for {name}.cu ({label}):\n")
         for line in ptxas_lines(name):
             log.write(f"  {line}\n")
@@ -5650,23 +5821,29 @@ def main() -> int:
     acts = {"none": lambda y, s: y, "silu": lambda y, s: F.silu(y),
             "relu": lambda y, s: F.relu(y), "add_relu": lambda y, s: F.relu(y + s)}
     k1 = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
+    k1_bias = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0)
     worst_ulps = worst_f32 = worst_stats = 0.0
-    log.write("K1 instance_norm_act per shape: shape dtype act count ms wall_ms plain_ms "
+    log.write("K1 instance_norm_act per shape: shape dtype act bias count ms wall_ms plain_ms "
               "library_ms bound_ms error (bf16 ulps; float32 abs) | cluster threads span "
               "resident ring_rows smem max_active_clusters | calls per path (count: calls on "
               "the main path; shapes off it are checked, not timed)\n")
     off_main = 0
-    for (shape, dtype, act), per in sorted(recorder.k1.items(),
-                                           key=lambda kv: -math.prod(kv[0][0])):
+    for (shape, dtype, act, biased), per in sorted(recorder.k1.items(),
+                                                   key=lambda kv: -math.prod(kv[0][0])):
         count = per.get("quarter_fused", 0)
         g = torch.Generator(device=dev).manual_seed(3)
         x = torch.randn(shape, device=dev, dtype=torch.float32, generator=g).mul(2).add(0.5)
         x = x.to(dtype)
         skip = torch.randn(shape, device=dev, generator=g).to(dtype) if act == "add_relu" else None
-        ko = kernels.instance_norm_act(x, act, skip)
-        po = kernels.instance_norm_act_plain(x, act, skip)
-        so, stats = kernels.instance_norm_act(x, act, skip, return_stats=True)
-        ref = stats_plain(x)
+        b = (torch.randn(shape[-1], device=dev, generator=g).mul(3).to(dtype) if biased
+             else None)
+        ko = kernels.instance_norm_act(x, act, skip, bias=b)
+        po = kernels.instance_norm_act_plain(x, act, skip, b)
+        so, stats = kernels.instance_norm_act(x, act, skip, return_stats=True, bias=b)
+        ref = stats_plain(x if b is None else x + b)
+        if b is not None and not torch.equal(ko, kernels.instance_norm_act(x + b, act, skip)):
+            fail(f"instance_norm_act {shape} {dtype} {act}: with its bias operand not bit-equal "
+                 f"to the bias added first")
         srel = max(float((stats[..., i] - ref[..., i]).abs().max()
                          / ref[..., i].abs().max().clamp_min(1e-30)) for i in (0, 1))
         worst_stats = max(worst_stats, srel)
@@ -5697,15 +5874,15 @@ def main() -> int:
                      f"{plan.ring_rows} {plan.smem} {max_active_clusters(plan, dtype)}")
         if not count:
             off_main += 1
-            log.write(f"  {shape} {dtype} {act} x0 - - - - - {ulps} | {plan_cols} | "
+            log.write(f"  {shape} {dtype} {act} {biased} x0 - - - - - {ulps} | {plan_cols} | "
                       f"{json.dumps(per)}\n")
             continue
         xn = x.permute(0, 2, 1)  # (N, C, S) for the library call
         sn = None if skip is None else skip.permute(0, 2, 1)
         times = dict(
-            ms=graph_ms(lambda: kernels.instance_norm_act(x, act, skip)),
-            wall_ms=cuda_ms(lambda: kernels.instance_norm_act(x, act, skip)),
-            plain_ms=cuda_ms(lambda: kernels.instance_norm_act_plain(x, act, skip)),
+            ms=graph_ms(lambda: kernels.instance_norm_act(x, act, skip, bias=b)),
+            wall_ms=cuda_ms(lambda: kernels.instance_norm_act(x, act, skip, bias=b)),
+            plain_ms=cuda_ms(lambda: kernels.instance_norm_act_plain(x, act, skip, b)),
             # F.instance_norm refuses a single spatial element
             library_ms=(graph_ms(lambda: acts[act](F.instance_norm(xn), sn))
                         if shape[1] > 1 else 0.0))
@@ -5713,11 +5890,19 @@ def main() -> int:
         times["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         for k, v in times.items():
             k1[k] += v * count
-        log.write(f"  {shape} {dtype} {act} x{count} {times['ms']:.4f} {times['wall_ms']:.4f} "
+            if biased and k in k1_bias:
+                k1_bias[k] += v * count
+        k1_bias["launches"] += count if biased else 0
+        log.write(f"  {shape} {dtype} {act} {biased} x{count} {times['ms']:.4f} "
+                  f"{times['wall_ms']:.4f} "
                   f"{times['plain_ms']:.4f} {times['library_ms']:.4f} {times['bound_ms']:.4f} "
                   f"{ulps} | {plan_cols} | {json.dumps(per)}\n")
-    note(f"instance_norm_act: {len(recorder.k1)} (shape, dtype, act) over the driven paths, "
-         f"{off_main} of them off the main path; worst {worst_ulps:.1f} bf16 ulps vs plain "
+    note(f"instance_norm_act: {len(recorder.k1)} (shape, dtype, act, bias) over the driven "
+         f"paths, {off_main} of them off the main path, "
+         f"{sum(1 for key in recorder.k1 if key[3])} with the bias operand (each bit-equal to "
+         f"the bias added first); the main path's {k1_bias['launches']} biased launches "
+         f"{k1_bias['ms']:.4f} ms (wall {k1_bias['wall_ms']:.4f}, plain {k1_bias['plain_ms']:.4f}, "
+         f"bound {k1_bias['bound_ms']:.4f}); worst {worst_ulps:.1f} bf16 ulps vs plain "
          f"(tolerance 3) over the bf16 ones, {worst_f32:.2e} abs (tolerance 1e-5) over the "
          f"float32 ones; statistics output within {worst_stats:.2e} relative of the plain "
          f"statistics (tolerance 1e-6)")
@@ -5725,7 +5910,12 @@ def main() -> int:
         name="instance_norm_act", route="cuda", kernels_per_call=1,
         source="jarvis_hybridnet_torch/kernels/csrc/instance_norm_act.cu",
         replaces="tools/fused_norm_bench.py:58", launches=launches["instance_norm_act"],
-        bound_by="bytes", **k1))
+        bound_by="bytes", **k1, **{f"bias_{k}": v for k, v in k1_bias.items()}))
+
+    phase("K13, K14 checks")
+    report.extend(check_k13_k14(kernels, recorder, launches, note, log, smi))
+    recorder.k13.clear()  # the maps they hold
+    recorder.k14.clear()
 
     phase("cascade card vs CPU")
     # the whole cascade on the card against the same cascade on the CPU (the

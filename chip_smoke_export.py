@@ -12,17 +12,21 @@ session is held to:
 - ``export``: on a 64-frame recording of the same cameras (eight batches),
   ``predict3D`` 'off', then with ``trt_mode`` 'new' (the live predictor,
   exported to ``projects/Cli/compiled-models/``, predicts the rows) and
-  ``TPU.PROFILE_DIR`` set: the trace files name K1-K4's and K10's
-  ``__global__`` symbols as often as the loop replayed them (the first
+  ``TPU.PROFILE_DIR`` set: the trace files name K1-K4's, K10's, K13's and
+  K14's ``__global__`` symbols as often as the loop replayed them (the first
   replay's few records the tracer misses apart), and the loop's poses/s
   over its last seven batches stands beside the untraced 'off' run's; then
+  the production predictor in half_fused (K5 in place of K2), graphed, two
+  seeded batches replayed inside the drivers' ``profile_trace`` after a
+  marker kernel: every replay's K5 records whole; then
   ``predict2D`` on camera 0's 16-frame video 'off', 'new' and 'previous';
   every CSV equal to 'off''s row for row (the same text, so the same
   float32 values); the export and load seconds, each run's first batch;
 - ``launch-cli``: one scripted ``jarvis-torch launch-cli`` session
   (``ui/interactive_cli.py`` with ``input`` answered by the script) that
   predicts 3D with the compiled mode 'previous': its rows equal the direct
-  call's. The loaded artifacts launch K1-K4 and K10 (K2: quarter_fused) as
+  call's. The loaded artifacts launch K1-K4, K10, K13 and K14 (K2:
+  quarter_fused) as
   often as the live predictors (two eager warm-ups and a capture of one
   graph; the replays count nothing), counted on the kernels line's paths
   ``export_predict3d`` and ``export_predict2d``; an artifact of another
@@ -50,7 +54,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SERVING = ("instance_norm_act", "repro_quarter_gather", "soft_argmax", "resize_normalize",
-           "argmax2d")
+           "argmax2d", "weighted_fuse", "se_gate")
+# the half_fused trace's kernels: K5 in place of K2
+SERVING_K5 = tuple("repro_grid_gather" if k == "repro_quarter_gather" else k for k in SERVING)
+K5_TRACE_ATTEMPTS = 3  # the tracer drops a kernel record now and then
 # framesets of the traced predict3D loop and of the untraced run it is
 # timed against: eight batches of the production FRAME_BATCH
 TRACE_FRAMES = 64
@@ -182,6 +189,66 @@ def check_trace(cs, trace_dir, counts, clock, off_clock, note, smi) -> None:
                 "other counts than the loop's replays")
 
 
+def trace_records(trace_dir: str, symbols: dict) -> dict:
+    """Kernel records of each wrapper's ``__global__`` symbols in the trace
+    files under ``trace_dir``, counted after the last marker kernel."""
+    names = []
+    for n in sorted(os.listdir(trace_dir)):
+        with open(os.path.join(trace_dir, n)) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        marks = [e["ts"] for e in events if "spin_kernel" in e["name"]]
+        names += [e["name"] for e in events if not marks or e["ts"] > max(marks)]
+    return {w: sum(1 for n in names if re.search(p, n)) for w, p in symbols.items()}
+
+
+def k5_trace(cs, kernels, ctx, note, smi) -> None:
+    """The production predictor (bf16, 12 cameras) in half_fused, whose
+    gather is K5, graphed: two seeded batches replayed inside the drivers'
+    ``profile_trace`` (``TPU.PROFILE_DIR``; the graph captured before the
+    trace starts) after a marker kernel, which the tracer may miss. Every
+    replay's K5 records are whole (twice the eager step's launches), and no
+    serving kernel is recorded more often than the two replays launch it;
+    a trace short of records is taken again, up to K5_TRACE_ATTEMPTS
+    times."""
+    import torch
+
+    from jarvis_hybridnet_torch.prediction.loaders import make_predictor3d
+    from jarvis_hybridnet_torch.prediction.predict2d import profile_trace
+    from jarvis_hybridnet_torch.testing import monkeyhand_cfg, synthetic_rig
+
+    t0 = time.perf_counter()
+    cfg = monkeyhand_cfg()
+    cfg.TPU.REPRO_MODE = "half_fused"
+    pred = make_predictor3d(cfg, synthetic_rig(cs.CAMS, cs.W, cs.H), ctx["center"],
+                            ctx["hybrid"], dtype="bfloat16", device="cuda", graph=True)
+    shape = (cs.T, cs.CAMS, cs.H, cs.W, 3)
+    frames = [torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(s))
+              for s in (5, 6)]
+    _, counts = counted(kernels, lambda: pred.eager_step(frames[0]))
+    per_step = {w: counts[w] for w in SERVING_K5}
+    symbols = {w: cs.KERNEL_SYMBOLS[w] for w in SERVING_K5}
+    for attempt in range(1, K5_TRACE_ATTEMPTS + 1):
+        cfg.TPU.PROFILE_DIR = os.path.join(ctx["parent"], f"trace_half_fused_{attempt}")
+        with profile_trace(cfg, pred, shape):
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            for f in frames:
+                pred(f)
+            torch.cuda.synchronize()
+        seen = trace_records(cfg.TPU.PROFILE_DIR, symbols)
+        if any(seen[w] > 2 * per_step[w] for w in SERVING_K5):
+            cs.fail(f"trace half_fused: {seen} kernel records for two replays of {per_step}")
+        if seen["repro_grid_gather"] == 2 * per_step["repro_grid_gather"] > 0:
+            break
+    note(f"trace half_fused: two graphed batches under TPU.PROFILE_DIR, kernel records "
+         f"{json.dumps(seen)} for two replays of {json.dumps(per_step)} a step (trace "
+         f"{attempt} of at most {K5_TRACE_ATTEMPTS}); {time.perf_counter() - t0:.1f} s; "
+         f"card: {smi}")
+    if seen["repro_grid_gather"] != 2 * per_step["repro_grid_gather"]:
+        cs.fail("trace half_fused: the replays' K5 records are not whole")
+
+
 def export_phase(cs, kernels, ctx, note, smi) -> dict:
     """``export``: on a TRACE_FRAMES-frame recording predict3D 'off', then
     'new' under ``TPU.PROFILE_DIR`` (its trace: :func:`check_trace`); then
@@ -218,6 +285,7 @@ def export_phase(cs, kernels, ctx, note, smi) -> dict:
             or not serving(counts) == serving(off_counts) == serving(ctx["off_counts"])):
         cs.fail("predict3D trt_mode new: rows or launches differ from 'off''s, or no export")
     check_trace(cs, trace_dir, counts, clock, off_clock, note, smi)
+    k5_trace(cs, kernels, ctx, note, smi)
 
     video = os.path.join(ctx["rec"], sorted(os.listdir(ctx["rec"]))[0])
     runs = {}

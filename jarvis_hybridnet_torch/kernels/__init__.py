@@ -46,8 +46,18 @@ Each wrapper counts the calls that launch its CUDA source in
   each camera's points by pixel inside a window over the tile's box and
   adds each pixel's sum once, in 16-byte reductions; half_fused takes a
   thread per (point, 4 joints) and no tile.
+- weighted_fuse (K13), a BiFPN fusion or EfficientTrack's merge: a thread
+  per (pixel, channel vector) reads 2-3 channels-last maps in place (same
+  size, nearest x2 / x4 upsample, 2x2 max pool), normalizes the raw weights
+  itself, and writes the float32 sum (and SiLU) rounded once;
+- se_gate (K14), x * sigmoid(g) with g per (sample, channel): the SE gate,
+  and SiLU as ``se_gate(r, r)``; a block of lanes x channel vectors of one
+  sample computes its sigmoids once and walks its rows.
 
-The serving kernels, K1, K2, K3, K4, K5 and K10, are registered operators
+K13 and K14 have no backward yet: their wrappers run the plain version's
+autograd chain where grad is enabled and an input requires it.
+
+The serving kernels, K1, K2, K3, K4, K5, K10, K13 and K14, are registered operators
 (``torch.library.custom_op``, namespace ``jarvis_torch``, listed in
 ``SERVING_OPS``): each wrapper calls its op, whose CPU implementation is the
 plain version and whose CUDA implementation is the kernel's launch through
@@ -99,16 +109,18 @@ from .repro_grid_gather import (
     repro_grid_gather_plain,
 )
 from .resize_normalize import resize_normalize, resize_normalize_plain
+from .se_gate import se_gate, se_gate_plain
 from .soft_argmax import soft_argmax, soft_argmax_plain
+from .weighted_fuse import weighted_fuse, weighted_fuse_plain
 
 WRAPPERS = (instance_norm_act, repro_quarter_gather, repro_grid_gather, soft_argmax,
             resize_normalize, instance_norm_act_backward, hybridnet_loss_fwd,
             hybridnet_loss_bwd, heatmap2d_loss_fwd, heatmap2d_loss_bwd, color_aug, argmax2d,
-            repro_quarter_gather_backward, repro_grid_gather_backward)
+            repro_quarter_gather_backward, repro_grid_gather_backward, weighted_fuse, se_gate)
 
 
 SERVING_OPS = ("instance_norm_act", "repro_quarter_gather", "repro_grid_gather", "soft_argmax",
-               "resize_normalize", "argmax2d")
+               "resize_normalize", "argmax2d", "weighted_fuse", "se_gate")
 
 
 def reset_launch_counts() -> None:
@@ -133,5 +145,6 @@ __all__ = [
     "repro_quarter_gather", "repro_quarter_gather_backward",
     "repro_quarter_gather_backward_plain", "repro_quarter_gather_plain",
     "SERVING_OPS", "reset_launch_counts", "resize_normalize", "resize_normalize_plain",
-    "soft_argmax", "soft_argmax_plain",
+    "se_gate", "se_gate_plain", "soft_argmax", "soft_argmax_plain", "weighted_fuse",
+    "weighted_fuse_plain",
 ]

@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("instance_norm_act", "repro_quarter_gather", "repro_grid_gather",
            "soft_argmax", "resize_normalize", "instance_norm_act_backward", "hybridnet_loss",
            "heatmap2d_loss", "color_aug", "argmax2d", "repro_gather_backward",
-           "repro_grid_gather_backward")
+           "repro_grid_gather_backward", "weighted_fuse", "se_gate")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -34,9 +34,14 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # nvcc from contracting anything else into an FMA. soft_argmax flushes
 # denormals, which drops the scaling around its exp2 / log2 operations. K8
 # and K9 round every product before its sum, as their plain versions do,
-# and so do K11 / K12 in their transposed stencils.
-# ptxas reports K5's-K12's registers and spills into their build logs.
-_EXTRA_FLAGS = {"repro_quarter_gather": ["--fmad=false"],
+# and so do K11 / K12 in their transposed stencils. K13 and K14 round every
+# operation with __f*_rn intrinsics and keep nvcc's default FMA setting, as
+# torch's own kernels are built, so libdevice's expf and log1pf are the ones
+# torch's exp and log1p run.
+# ptxas reports K1's and K5's-K14's registers and spills into their build
+# logs.
+_EXTRA_FLAGS = {"instance_norm_act": ["-Xptxas=-v"],
+                "repro_quarter_gather": ["--fmad=false"],
                 "repro_grid_gather": ["--fmad=false", "-Xptxas=-v"],
                 "soft_argmax": ["-ftz=true"],
                 "instance_norm_act_backward": ["-Xptxas=-v"],
@@ -45,7 +50,9 @@ _EXTRA_FLAGS = {"repro_quarter_gather": ["--fmad=false"],
                 "color_aug": ["--fmad=false", "-Xptxas=-v"],
                 "argmax2d": ["-Xptxas=-v"],
                 "repro_gather_backward": ["--fmad=false", "-Xptxas=-v"],
-                "repro_grid_gather_backward": ["--fmad=false", "-Xptxas=-v"]}
+                "repro_grid_gather_backward": ["--fmad=false", "-Xptxas=-v"],
+                "weighted_fuse": ["-Xptxas=-v"],
+                "se_gate": ["-Xptxas=-v"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

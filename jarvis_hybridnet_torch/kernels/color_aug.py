@@ -20,6 +20,7 @@ import math
 import torch
 
 from . import build
+from .instance_norm import _exp
 
 PARAM_KEYS = ("blur_sigma", "noise_scale", "noise_pc", "noise_seed",
               "contrast", "mul", "chan_mul")
@@ -85,7 +86,7 @@ def blur_taps(sigma: torch.Tensor, radius: int) -> torch.Tensor:
     their sum (summed in order); the delta where sigma <= 1e-3."""
     offs = torch.arange(-radius, radius + 1, dtype=torch.float32, device=sigma.device)
     sig = torch.clamp_min(sigma.reshape(-1, 1).float(), 1e-3)
-    taps = torch.exp(-(offs * offs) / ((2.0 * sig) * sig))
+    taps = _exp(-(offs * offs) / ((2.0 * sig) * sig))
     total = taps[:, 0]
     for k in range(1, taps.shape[1]):
         total = total + taps[:, k]

@@ -35,6 +35,10 @@
 //   4. Normalize and apply the epilogue, rounding to the working type where
 //      the JAX code rounds (after the norm, after the residual add, per op
 //      inside SiLU).
+// Optionally a per-channel bias is added to every element as it is read,
+// rounded to the working type (the value of the separate `conv + bias` that
+// flax's bf16 nn.Conv rounds before the norm), so the convolution before the
+// norm need not add it in a launch of its own.
 // Optionally (the training step's forward) rank 0 of each cluster writes the
 // (mean, rstd) the epilogue used, float32 (N, C, 2): K6, the backward,
 // starts from them and recomputes nothing.
@@ -76,13 +80,22 @@ __device__ __forceinline__ int span_hi(int rank, int span, int S) {
   return min(S, (rank + 1) * span);
 }
 
-template <typename T, int V>
+// Element k of a thread's vector as read: x, or with kBias x + bias[k]
+// rounded to T (bias: the thread's channels of the bias).
+template <typename T, bool kBias>
+__device__ __forceinline__ float biased(T v, const float* bias, int k) {
+  if constexpr (kBias) return round_to<T>(__fadd_rn(to_f(v), bias[k]));
+  return to_f(v);
+}
+
+template <typename T, int V, bool kBias>
 __device__ __forceinline__ Vec<T, V> epilogue(const Vec<T, V>& a, const Vec<T, V>& b,
-                                              const float* m, const float* rstd, int act) {
+                                              const float* m, const float* rstd,
+                                              const float* bias, int act) {
   Vec<T, V> o;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    float y = round_to<T>((to_f(a.v[v]) - m[v]) * rstd[v]);
+    float y = round_to<T>((biased<T, kBias>(a.v[v], bias, v) - m[v]) * rstd[v]);
     if (act == ACT_SILU) {  // y * 1/(1 + exp(-y)), rounded per op as XLA does in bf16
       const float e = round_to<T>(expf(-y));
       const float sig = round_to<T>(1.f / round_to<T>(1.f + e));
@@ -105,12 +118,14 @@ __device__ __forceinline__ Vec<T, V> load(const T* p) {
 // One thread's share of the block: row lane `lane` of L, channels c0..c0+V.
 // The row pointers given to it point at row 0 of the span, in whatever
 // memory holds the rows it is asked for (shared or global).
-template <typename T, int V>
+template <typename T, int V, bool kBias>
 struct Lane {
   int lane, L, C, c0;
   bool on;
+  float bias[V];  // with kBias, the bias of channels c0..c0+V
 
-  // sums (kSquares false) or squared deviations from m of rows [lo, hi)
+  // sums (kSquares false) or squared deviations from m of rows [lo, hi),
+  // each element with its bias added (kBias)
   template <bool kSquares>
   __device__ __forceinline__ void accumulate(const T* x, int lo, int hi, const float* m,
                                              float* acc) const {
@@ -125,7 +140,7 @@ struct Lane {
       for (int u = 0; u < U; ++u)
 #pragma unroll
         for (int v = 0; v < V; ++v) {
-          const float d = to_f(a[u].v[v]) - (kSquares ? m[v] : 0.f);
+          const float d = biased<T, kBias>(a[u].v[v], bias, v) - (kSquares ? m[v] : 0.f);
           acc[v] += kSquares ? d * d : d;
         }
     }
@@ -133,7 +148,7 @@ struct Lane {
       const Vec<T, V> a = load<T, V>(x + (size_t)r * C + c0);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        const float d = to_f(a.v[v]) - (kSquares ? m[v] : 0.f);
+        const float d = biased<T, kBias>(a.v[v], bias, v) - (kSquares ? m[v] : 0.f);
         acc[v] += kSquares ? d * d : d;
       }
     }
@@ -157,13 +172,13 @@ struct Lane {
 #pragma unroll
       for (int u = 0; u < U; ++u)
         *reinterpret_cast<Vec<T, V>*>(out + (size_t)(r + u * L) * C + c0) =
-            epilogue<T, V>(a[u], b[u], m, rstd, act);
+            epilogue<T, V, kBias>(a[u], b[u], m, rstd, bias, act);
     }
     for (; r < hi; r += L) {
       const size_t i = (size_t)r * C + c0;
       if (act == ACT_ADD_RELU) b[0] = load<T, V>(skip + i);
       *reinterpret_cast<Vec<T, V>*>(out + i) =
-          epilogue<T, V>(load<T, V>(x + i), b[0], m, rstd, act);
+          epilogue<T, V, kBias>(load<T, V>(x + i), b[0], m, rstd, bias, act);
     }
   }
 };
@@ -234,11 +249,12 @@ struct Ring {
 // multiple of q), or 0: then every span is resident, or resident is 0 and
 // the rows take plain loads. data_off, ring_off: byte offsets of the
 // resident rows and of the ring in dynamic shared memory.
-template <typename T, int V>
+template <typename T, int V, bool kBias>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-    in_fused(const T* __restrict__ x, const T* __restrict__ skip, T* __restrict__ out,
-             float* __restrict__ stats, int S, int C, int span, int resident, int ring_rows,
-             int q, int data_off, int ring_off, float eps, int act) {
+    in_fused(const T* __restrict__ x, const T* __restrict__ skip,
+             const T* __restrict__ bias_in, T* __restrict__ out, float* __restrict__ stats,
+             int S, int C, int span, int resident, int ring_rows, int q, int data_off,
+             int ring_off, float eps, int act) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
@@ -246,8 +262,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
   const int G = C / V;  // channel vectors per row
   const int L = (int)blockDim.x / G;
-  const Lane<T, V> me{(int)threadIdx.x / G, L, C, ((int)threadIdx.x % G) * V,
-                      (int)threadIdx.x < L * G};
+  Lane<T, V, kBias> me{(int)threadIdx.x / G, L, C, ((int)threadIdx.x % G) * V,
+                       (int)threadIdx.x < L * G};
+  if constexpr (kBias) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) me.bias[v] = me.on ? to_f(bias_in[me.c0 + v]) : 0.f;
+  }
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // kStages, then the ring's
   float* lane_part = reinterpret_cast<float*>(smem + kAuxOffset);  // [L][C]
   float* cta_mean = lane_part + L * C;                             // [C], read by the cluster
@@ -379,16 +399,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kBias>
 static cudaError_t prepare(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int cluster,
                            int threads, int N, int smem, cudaStream_t st) {
   static bool ready = false;  // function attributes, set once per instantiation
   if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(in_fused<T, V>,
+    cudaError_t e = cudaFuncSetAttribute(in_fused<T, V, kBias>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (e != cudaSuccess) return e;
     // clusters of 9-16 are measured by kernel_sweep.py; the plan uses <= 8
-    e = cudaFuncSetAttribute(in_fused<T, V>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    e = cudaFuncSetAttribute(in_fused<T, V, kBias>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
     if (e != cudaSuccess) return e;
     ready = true;
   }
@@ -407,33 +428,43 @@ static cudaError_t prepare(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, i
 }
 
 struct Args {
-  const void *x, *skip;
+  const void *x, *skip, *bias;
   void *out, *stats;
   int N, S, C, cluster, threads, span, resident, ring_rows, q, data_off, ring_off, smem;
   float eps;
   int act;
 };
 
-template <typename T, int V>
+template <typename T, int V, bool kBias>
 static int launch(const Args& a, cudaStream_t st) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = prepare<T, V>(&cfg, &attr, a.cluster, a.threads, a.N, a.smem, st);
+  cudaError_t e = prepare<T, V, kBias>(&cfg, &attr, a.cluster, a.threads, a.N, a.smem, st);
   if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchKernelEx(&cfg, in_fused<T, V>, (const T*)a.x, (const T*)a.skip, (T*)a.out,
-                         (float*)a.stats, a.S, a.C, a.span, a.resident, a.ring_rows, a.q,
-                         a.data_off, a.ring_off, a.eps, a.act);
+  e = cudaLaunchKernelEx(&cfg, in_fused<T, V, kBias>, (const T*)a.x, (const T*)a.skip,
+                         (const T*)a.bias, (T*)a.out, (float*)a.stats, a.S, a.C, a.span,
+                         a.resident, a.ring_rows, a.q, a.data_off, a.ring_off, a.eps, a.act);
   if (e != cudaSuccess) return (int)e;
   return launch_status();
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kBias>
 static int max_clusters(int cluster, int threads, int smem, int* n) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const cudaError_t e = prepare<T, V>(&cfg, &attr, cluster, threads, 1, smem, 0);
+  const cudaError_t e = prepare<T, V, kBias>(&cfg, &attr, cluster, threads, 1, smem, 0);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveClusters(n, in_fused<T, V>, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(n, in_fused<T, V, kBias>, &cfg);
+}
+
+// the fewer clusters of the two instantiations, with and without a bias
+template <typename T, int V>
+static int max_clusters_any(int cluster, int threads, int smem, int* n) {
+  int with_bias = 0;
+  int e = max_clusters<T, V, false>(cluster, threads, smem, n);
+  if (e == 0) e = max_clusters<T, V, true>(cluster, threads, smem, &with_bias);
+  if (e == 0 && with_bias < *n) *n = with_bias;
+  return e;
 }
 
 // V channels per vector load (bf16: 8, 4, 2, 1; f32: 4, 2, 1); every other
@@ -458,26 +489,30 @@ static int max_clusters(int cluster, int threads, int smem, int* n) {
   } while (0)
 
 // x, skip, out: (N, S, C) contiguous, 16-byte aligned; skip may be null
-// unless act is add_relu. stats: float32 (N, C, 2), (mean, rstd) per
+// unless act is add_relu. bias: (C,) in x's type, added to x as it is read,
+// or null. stats: float32 (N, C, 2), (mean, rstd) per
 // channel, or null. The plan (V, cluster, threads, span, resident,
 // ring_rows, q, data_off, ring_off, smem) comes from
 // kernels/instance_norm.py::launch_plan.
-extern "C" int instance_norm_act(const void* x, const void* skip, void* out, void* stats, int N,
-                                 int S, int C, int V, int cluster, int threads, int span,
-                                 int resident, int ring_rows, int q, int data_off, int ring_off,
-                                 int smem, float eps, int act, int dtype, void* stream) {
-  const Args a{x,    skip,      out, stats,    N,        S,        C,    cluster, threads,
-               span, resident, ring_rows, q, data_off, ring_off, smem, eps,     act};
+extern "C" int instance_norm_act(const void* x, const void* skip, const void* bias, void* out,
+                                 void* stats, int N, int S, int C, int V, int cluster,
+                                 int threads, int span, int resident, int ring_rows, int q,
+                                 int data_off, int ring_off, int smem, float eps, int act,
+                                 int dtype, void* stream) {
+  const Args a{x,    skip,     bias,      out, stats,    N,        S,    C,   cluster,
+               threads, span, resident, ring_rows, q, data_off, ring_off, smem, eps, act};
   const cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(T, V) launch<T, V>(a, st)
+#define LAUNCH(T, V) \
+  (bias != nullptr ? launch<T, V, true>(a, st) : launch<T, V, false>(a, st))
   DISPATCH(dtype, V, LAUNCH);
 #undef LAUNCH
 }
 
-// How many clusters of this plan the card can hold at once (0: none).
+// How many clusters of this plan the card can hold at once (0: none), with
+// a bias operand or without.
 extern "C" int instance_norm_act_max_clusters(int V, int cluster, int threads, int smem,
                                               int dtype, int* n) {
-#define QUERY(T, V) max_clusters<T, V>(cluster, threads, smem, n)
+#define QUERY(T, V) max_clusters_any<T, V>(cluster, threads, smem, n)
   DISPATCH(dtype, V, QUERY);
 #undef QUERY
 }

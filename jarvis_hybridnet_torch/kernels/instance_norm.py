@@ -3,8 +3,12 @@
 Replaces ``tools/fused_norm_bench.py::_kernel`` (the repo's Pallas kernel)
 and ``models/layers.py:22`` ``instance_norm`` with its consumers. CUDA source:
 ``csrc/instance_norm_act.cu``: one launch per call, one thread block cluster
-per sample, each CTA holding its span of rows in shared memory. Registered as
-``jarvis_torch::instance_norm_act``.
+per sample, each CTA holding its span of rows in shared memory. An optional
+per-channel ``bias`` is added to x as it is read, rounded to x's dtype: the
+bias of a bf16 convolution that flax adds after the convolution's rounding
+(``jarvis_hybridnet_tpu/models/layers.py:127-131``), so the port's
+convolution before the norm leaves it to K1 (``models/layers.conv_norm``).
+Registered as ``jarvis_torch::instance_norm_act``.
 """
 
 from __future__ import annotations
@@ -39,8 +43,10 @@ RING_BYTES = 24 * 1024  # bytes of x per ring stage (as many again for skip)
 
 
 def instance_norm_act_plain(x: torch.Tensor, act: str = "none",
-                            skip: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version: x (N, S, C), statistics over S in float32.
+                            skip: torch.Tensor | None = None,
+                            bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version: x (N, S, C), statistics over S in float32;
+    ``bias`` (C,) in x's dtype is added to x first, rounded to x's dtype.
 
     As the JAX reference, the normalized value is rounded to x's dtype
     before the activation, ``add_relu`` rounds the sum before the ReLU, and
@@ -48,6 +54,8 @@ def instance_norm_act_plain(x: torch.Tensor, act: str = "none",
     ``jax.nn.silu`` in bfloat16 (``exp`` through :func:`_exp`).
     Differentiable through autograd.
     """
+    if bias is not None:
+        x = x + bias
     mean, rstd = _statistics(x)
     y = ((x.float() - mean) * rstd).to(x.dtype)
     if act == "silu":
@@ -215,7 +223,7 @@ def stats_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def instance_norm_act(x: torch.Tensor, act: str = "none", skip: torch.Tensor | None = None,
-                      return_stats: bool = False):
+                      return_stats: bool = False, bias: torch.Tensor | None = None):
     """InstanceNorm of x (N, S, C) over S, then ``act``.
 
     ``act`` is one of none / silu / relu / add_relu; add_relu returns
@@ -224,26 +232,37 @@ def instance_norm_act(x: torch.Tensor, act: str = "none", skip: torch.Tensor | N
     a CUDA tensor launches the kernel (one ``__global__`` launch). With
     ``return_stats`` it returns (out, stats): stats float32 (N, C, 2), the
     (mean, rstd) the normalization used, which the backward (K6) starts from.
+    ``bias`` (C,) in x's dtype is added to x as it is read (rounded to x's
+    dtype, the value of ``x + bias``); the backward takes no bias, so the
+    training step's ``InstanceNormAct`` never passes one.
     """
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if (act == "add_relu") != (skip is not None):
         raise ValueError("skip is given exactly when act == 'add_relu'")
-    build.on_cpu(x, skip)
-    out, stats = _op(x, act, skip, return_stats)
+    build.on_cpu(x, skip, bias)
+    out, stats = _op(x, act, skip, return_stats, bias)
     return (out, stats) if return_stats else out
 
 
 @torch.library.custom_op("jarvis_torch::instance_norm_act", mutates_args=(), device_types="cpu")
-def _op(x: torch.Tensor, act: str, skip: torch.Tensor | None,
-        return_stats: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    out = instance_norm_act_plain(x, act, skip)
-    return out, stats_plain(x) if return_stats else build.no_output(x)
+def _op(x: torch.Tensor, act: str, skip: torch.Tensor | None, return_stats: bool,
+        bias: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    # ``bias`` trails with a default, so an artifact exported before it
+    # existed (four arguments) loads and runs as it did
+    out = instance_norm_act_plain(x, act, skip, bias)
+    if not return_stats:
+        return out, build.no_output(x)
+    return out, stats_plain(x if bias is None else x + bias)
 
 
 @_op.register_kernel("cuda")
-def _launch(x, act, skip, return_stats):
+def _launch(x, act, skip, return_stats, bias=None):
     build.require(x, "x", _DTYPES, ndim=3)
+    if bias is not None:
+        build.require(bias, "bias", (x.dtype,), ndim=1)
+        if bias.shape[0] != x.shape[2]:
+            raise ValueError(f"bias shape {tuple(bias.shape)} != ({x.shape[2]},)")
     if skip is not None:
         build.require(skip, "skip", (x.dtype,), ndim=3)
         if skip.shape != x.shape:
@@ -257,7 +276,8 @@ def _launch(x, act, skip, return_stats):
     out = torch.empty_like(x)
     stats = (torch.empty((n, c, 2), dtype=torch.float32, device=x.device) if return_stats
              else None)
-    err = _fn()(build.ptr(x), build.ptr(skip), build.ptr(out), build.ptr(stats), n, s, c,
+    err = _fn()(build.ptr(x), build.ptr(skip), build.ptr(bias), build.ptr(out),
+                build.ptr(stats), n, s, c,
                 plan.vec, plan.cluster, plan.threads, plan.span, plan.resident, plan.ring_rows,
                 plan.q, plan.data_off, plan.ring_off, plan.smem, EPS, ACTS[act],
                 _DTYPES[x.dtype], build.stream())
@@ -267,7 +287,7 @@ def _launch(x, act, skip, return_stats):
 
 
 @_op.register_fake
-def _(x, act, skip, return_stats):
+def _(x, act, skip, return_stats, bias=None):
     n, _, c = x.shape
     return (torch.empty_like(x),
             x.new_empty((n, c, 2), dtype=torch.float32) if return_stats else build.no_output(x))
@@ -299,7 +319,7 @@ def _check_schedulable(plan: Plan, dtype_code: int) -> None:
 def _fn():
     p, i = ctypes.c_void_p, ctypes.c_int
     return build.bind("instance_norm_act", "instance_norm_act",
-                      [p] * 4 + [i] * 13 + [ctypes.c_float, i, i, p])
+                      [p] * 5 + [i] * 13 + [ctypes.c_float, i, i, p])
 
 
 # K6: the backward of K1 (csrc/instance_norm_act_backward.cu)

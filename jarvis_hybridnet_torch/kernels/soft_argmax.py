@@ -25,6 +25,7 @@ import math
 import torch
 
 from . import build
+from .instance_norm import _exp
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,7 +42,7 @@ RUN = 24  # consecutive voxels per lane and tile
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.softplus: logaddexp(x, 0), with no large-x threshold."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    return torch.clamp_min(x, 0.0) + torch.log1p(_exp(-x.abs()))
 
 
 def soft_argmax_plain(vol: torch.Tensor, center3d: torch.Tensor,

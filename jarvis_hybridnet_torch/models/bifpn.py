@@ -7,6 +7,10 @@ from P5 and has 1x1 channel-matching convs.
 
 As in the JAX package, a fusion multiplies float32 weights into its inputs,
 so the fused sum and its SiLU are float32; the next conv casts to its dtype.
+Each fusion is one call of K13 (``kernels.weighted_fuse``), which reads the
+upsampled and pooled inputs in place and, where nothing records a graph,
+writes the result in the inputs' dtype (the next conv's cast: the same
+bits).
 """
 
 from __future__ import annotations
@@ -14,7 +18,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import SeparableConvBlock, conv, instance_norm, max_pool_2x2, silu, upsample_nearest
+from ..kernels import weighted_fuse
+from ..kernels.weighted_fuse import max_pool_2x2
+from .layers import SeparableConvBlock, conv_norm
 
 _UP = ("conv6_up", "conv5_up", "conv4_up", "conv3_up")
 _DOWN = ("conv4_down", "conv5_down", "conv6_down", "conv7_down")
@@ -22,15 +28,6 @@ _FUSION = {"p6_w1": 2, "p5_w1": 2, "p4_w1": 2, "p3_w1": 2,
            "p4_w2": 3, "p5_w2": 3, "p6_w2": 3, "p7_w2": 2}
 _CHANNEL_IN = {"p3_down_channel": 0, "p4_down_channel": 1, "p5_down_channel": 2,
                "p5_to_p6": 2, "p4_down_channel_2": 1, "p5_down_channel_2": 2}
-
-
-def _fuse(w: torch.Tensor, *xs: torch.Tensor) -> torch.Tensor:
-    w = torch.clamp_min(w, 0.0)
-    w = w / (w.sum() + 1e-4)
-    out = w[0] * xs[0].float()
-    for i in range(1, len(xs)):
-        out = out + w[i] * xs[i].float()
-    return silu(out)
 
 
 class BiFPN(nn.Module):
@@ -50,7 +47,7 @@ class BiFPN(nn.Module):
                     [nn.Conv2d(in_channels[level], num_channels, 1)]))
 
     def _down_channel(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        return instance_norm(conv(getattr(self, name)[0], x))
+        return conv_norm(getattr(self, name)[0], x)
 
     def forward(self, inputs):
         if self.first:
@@ -63,17 +60,18 @@ class BiFPN(nn.Module):
         else:
             p3_in, p4_in, p5_in, p6_in, p7_in = inputs
 
-        p6_up = self.conv6_up(_fuse(self.p6_w1, p6_in, upsample_nearest(p7_in, 2)))
-        p5_up = self.conv5_up(_fuse(self.p5_w1, p5_in, upsample_nearest(p6_up, 2)))
-        p4_up = self.conv4_up(_fuse(self.p4_w1, p4_in, upsample_nearest(p5_up, 2)))
-        p3_out = self.conv3_up(_fuse(self.p3_w1, p3_in, upsample_nearest(p4_up, 2)))
+        up, down = ("same", "up2"), ("same", "same", "pool")
+        p6_up = self.conv6_up(weighted_fuse(self.p6_w1, (p6_in, p7_in), up))
+        p5_up = self.conv5_up(weighted_fuse(self.p5_w1, (p5_in, p6_up), up))
+        p4_up = self.conv4_up(weighted_fuse(self.p4_w1, (p4_in, p5_up), up))
+        p3_out = self.conv3_up(weighted_fuse(self.p3_w1, (p3_in, p4_up), up))
 
         if self.first:
             p4_in = self._down_channel("p4_down_channel_2", p4)
             p5_in = self._down_channel("p5_down_channel_2", p5)
 
-        p4_out = self.conv4_down(_fuse(self.p4_w2, p4_in, p4_up, max_pool_2x2(p3_out)))
-        p5_out = self.conv5_down(_fuse(self.p5_w2, p5_in, p5_up, max_pool_2x2(p4_out)))
-        p6_out = self.conv6_down(_fuse(self.p6_w2, p6_in, p6_up, max_pool_2x2(p5_out)))
-        p7_out = self.conv7_down(_fuse(self.p7_w2, p7_in, max_pool_2x2(p6_out)))
+        p4_out = self.conv4_down(weighted_fuse(self.p4_w2, (p4_in, p4_up, p3_out), down))
+        p5_out = self.conv5_down(weighted_fuse(self.p5_w2, (p5_in, p5_up, p4_out), down))
+        p6_out = self.conv6_down(weighted_fuse(self.p6_w2, (p6_in, p6_up, p5_out), down))
+        p7_out = self.conv7_down(weighted_fuse(self.p7_w2, (p7_in, p6_out), ("same", "pool")))
         return p3_out, p4_out, p5_out, p6_out, p7_out

@@ -21,7 +21,8 @@ from dataclasses import dataclass
 
 from torch import nn
 
-from .layers import conv, drop_connect, instance_norm, sigmoid, silu
+from ..kernels import se_gate
+from .layers import conv, drop_connect, instance_norm, silu
 
 # kernel, repeats, in, out, expand, stride, se_ratio (EfficientNet-B0)
 _BASE_STAGES = [
@@ -130,7 +131,7 @@ class MBConvBlock(nn.Module):
         x = instance_norm(conv(self._depthwise_conv, x), "silu")
         se = x.mean(dim=(2, 3), keepdim=True)
         se = conv(self._se_expand, silu(conv(self._se_reduce, se)))
-        x = sigmoid(se) * x
+        x = se_gate(x, se)  # sigmoid(se) * x: K14 where nothing records a graph
         x = instance_norm(conv(self._project_conv, x))
         if spec.id_skip and spec.stride == 1 and spec.in_filters == spec.out_filters:
             if self.training and self.drop_rate:

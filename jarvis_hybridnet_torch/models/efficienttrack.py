@@ -15,10 +15,10 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..kernels.soft_argmax import softplus
+from ..kernels import weighted_fuse
 from .bifpn import BiFPN
 from .efficientnet import EfficientNetFeatures, build_block_plan, truncate_and_tap
-from .layers import SeparableConvBlock, conv, upsample_nearest
+from .layers import SeparableConvBlock, conv
 
 
 @dataclass(frozen=True)
@@ -64,14 +64,12 @@ class EfficientTrackBackbone(nn.Module):
                                      bias=False)
 
     def merged(self, x: torch.Tensor) -> torch.Tensor:
-        """Output of ``first_conv``, which both heads read."""
+        """Output of ``first_conv``, which both heads read. The merge of P3
+        with P4 and P5 upsampled to it is one call of K13."""
         feats = self.backbone_net(x)
         for cell in self.bifpn:
             feats = cell(feats)
-        w = softplus(self.weights_cat)
-        w = w / (w.sum() + 1e-4)
-        x1 = (w[0] * feats[0].float() + w[1] * upsample_nearest(feats[1], 2).float()
-              + w[2] * upsample_nearest(feats[2], 4).float())
+        x1 = weighted_fuse(self.weights_cat, feats[:3], ("same", "up2", "up4"), merge=True)
         return self.first_conv(x1)
 
     def heatmap2(self, x: torch.Tensor) -> torch.Tensor:

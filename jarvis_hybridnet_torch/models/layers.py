@@ -11,10 +11,14 @@ Convolutions compute in their compute dtype (float32 or bfloat16, set by
 bias to it, as flax's ``nn.Conv(dtype=..., param_dtype=float32)`` promotes
 them, so in training autograd carries the gradient back to the float32
 master. Serving rounds the weights once instead (:func:`cast_convs`), which
-gives the same bits. ``sigmoid`` and ``silu`` evaluate 1 / (1 + exp(-x)) op
-by op, so in bfloat16 they round where XLA rounds ``jax.nn.sigmoid`` /
-``jax.nn.silu``. Dropout and drop-connect round their Python scalars to the
-input's dtype first, as JAX rounds a weak-typed scalar (:func:`weak`).
+gives the same bits. Below float32 the bias of a convolution that an
+InstanceNorm follows is added by K1 as it reads the convolution's output
+(:func:`conv_norm`), where nothing records a graph. ``sigmoid`` and ``silu``
+evaluate 1 / (1 + exp(-x)) op by op, so in bfloat16 they round where XLA
+rounds ``jax.nn.sigmoid`` / ``jax.nn.silu``; ``silu`` runs as K14
+(``se_gate(x, x)``) where nothing records a graph. Dropout and drop-connect
+round their Python scalars to the input's dtype first, as JAX rounds a
+weak-typed scalar (:func:`weak`).
 Under data or camera sharding each rank draws the masks of the global batch
 and keeps its own part (:class:`DrawShard`), so a sharded step applies the
 masks the single-process step applies to the whole batch.
@@ -29,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import InstanceNormAct, instance_norm_act
+from ..kernels import InstanceNormAct, instance_norm_act, se_gate
+from ..kernels.se_gate import sigmoid, silu_plain  # noqa: F401  (sigmoid: layers' name)
 
 _CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)
 _FUNCTIONS = {nn.Conv2d: F.conv2d, nn.Conv3d: F.conv3d,
@@ -44,21 +49,33 @@ def weak(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def instance_norm(x: torch.Tensor, act: str = "none",
-                  skip: torch.Tensor | None = None) -> torch.Tensor:
+def records_grad(*tensors) -> bool:
+    """True where autograd would record a graph over ``tensors`` (None
+    entries skipped): grad enabled and one of them requiring it."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def instance_norm(x: torch.Tensor, act: str = "none", skip: torch.Tensor | None = None,
+                  bias: torch.Tensor | None = None) -> torch.Tensor:
     """InstanceNorm over the spatial dims of (N, C, *spatial), then ``act``
     (none / silu / relu / add_relu = relu(IN(x) + skip)), through K1. When
     grad is enabled and an input requires it, through ``InstanceNormAct``
-    (K1 forward, K6 backward); else one K1 call and no graph."""
+    (K1 forward, K6 backward); else one K1 call and no graph, which adds
+    ``bias`` (C,) in x's dtype to x first, rounded to x's dtype (a
+    convolution's bias: :func:`conv_norm`)."""
     n, c = x.shape[0], x.shape[1]
     perm = (0, *range(2, x.dim()), 1)
     inv = (0, x.dim() - 1, *range(1, x.dim() - 1))
     xl = x.permute(perm).contiguous()
     sl = None if skip is None else skip.permute(perm).contiguous().reshape(n, -1, c)
-    if torch.is_grad_enabled() and (x.requires_grad or (skip is not None and skip.requires_grad)):
+    if records_grad(x, skip, bias):
+        if bias is not None:
+            raise ValueError("instance_norm: a bias is added in the no-grad path only")
         y = InstanceNormAct.apply(xl.reshape(n, -1, c), sl, act)
-    else:
+    elif bias is None:
         y = instance_norm_act(xl.reshape(n, -1, c), act, sl)
+    else:
+        y = instance_norm_act(xl.reshape(n, -1, c), act, sl, bias=bias)
     return y.reshape(xl.shape).permute(inv)
 
 
@@ -153,6 +170,26 @@ def conv(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     rounded twice as flax's ``nn.Conv`` rounds it (``lax.conv`` then ``+
     bias``); oneDNN on the CPU would fold the bias into the convolution's
     one rounding, cuDNN's path adds it after as here."""
+    y, b = _conv(m, x)
+    return y if b is None else y + b.reshape(-1, *(1,) * (y.dim() - 2))
+
+
+def conv_norm(m: nn.Module, x: torch.Tensor, act: str = "none",
+              skip: torch.Tensor | None = None) -> torch.Tensor:
+    """``instance_norm(conv(m, x), act, skip)``. Below float32, where
+    nothing records a graph, the convolution leaves its bias to K1, which
+    adds it to each element as it reads it, rounded to the compute dtype:
+    the bits of the separate add, without its launch."""
+    if records_grad(x, skip, m.weight, m.bias):
+        return instance_norm(conv(m, x), act, skip)
+    y, b = _conv(m, x)
+    return instance_norm(y, act, skip, bias=b)
+
+
+def _conv(m: nn.Module, x: torch.Tensor):
+    """(the convolution of a conv module in its compute dtype, the bias in
+    that dtype still to be added after its rounding, or None): at float32
+    the bias goes into the convolution's call."""
     dt = compute_dtype(m)
     w = _cast(m.weight, dt)
     b = None if m.bias is None else _cast(m.bias, dt)
@@ -162,9 +199,8 @@ def conv(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     else:
         args = (m.stride, m.padding, m.dilation, m.groups)
     if b is None or dt == torch.float32:
-        return _apply(fn, _cast(x, dt), w, b, args)
-    y = _apply(fn, _cast(x, dt), w, None, args)
-    return y + b.reshape(-1, *(1,) * (y.dim() - 2))
+        return _apply(fn, _cast(x, dt), w, b, args), None
+    return _apply(fn, _cast(x, dt), w, None, args), b
 
 
 def _cast(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -187,27 +223,10 @@ def _apply(fn, x: torch.Tensor, w: torch.Tensor, b, args: tuple) -> torch.Tensor
     return fn(x, w, b, *args)
 
 
-def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    return 1.0 / (1.0 + torch.exp(-x))
-
-
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * sigmoid(x)
-
-
-def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Pixel repetition. With a graph it is a broadcast, whose backward sums
-    each block's gradient in float32 and rounds once, as XLA's VJP of
-    ``jnp.repeat`` does; ``repeat_interleave``'s would add in bf16."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        n, c, h, w = x.shape
-        return x[:, :, :, None, :, None].expand(n, c, h, factor, w, factor).reshape(
-            n, c, h * factor, w * factor)
-    return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
-
-
-def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    return F.max_pool2d(x, 2, 2)
+    """x * sigmoid(x): the autograd chain where a graph is recorded, else
+    K14 as ``se_gate(x, x)`` (the same bits)."""
+    return silu_plain(x) if records_grad(x) else se_gate(x, x)
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -249,7 +268,8 @@ class SeparableConvBlock(nn.Module):
         self.activation = activation
 
     def forward(self, x):
-        x = conv(self.pointwise_conv, conv(self.depthwise_conv, x))
+        x = conv(self.depthwise_conv, x)
         if self.norm:
-            return instance_norm(x, "silu" if self.activation else "none")
+            return conv_norm(self.pointwise_conv, x, "silu" if self.activation else "none")
+        x = conv(self.pointwise_conv, x)
         return silu(x) if self.activation else x

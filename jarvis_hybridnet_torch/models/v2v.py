@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_upfront import fused_up_conv3d, prepare_fused_weights
-from .layers import compute_dtype, conv, dropout, instance_norm
+from .layers import compute_dtype, conv, conv_norm, dropout, instance_norm, records_grad
 
 DROPOUT = 0.2
 
@@ -74,12 +74,15 @@ class Basic3DBlock(_Dropped):
         return self._fused[1], self._fused[2]
 
     def forward(self, x):
-        if self.fused_up:
-            interior, corr = self._fused_weights()
-            x = fused_up_conv3d(x, interior, corr, self.block[0].bias)
-        else:
-            x = conv(self.block[0], x)
-        return self.drop(instance_norm(x, "relu"))
+        if not self.fused_up:
+            return self.drop(conv_norm(self.block[0], x, "relu"))
+        interior, corr = self._fused_weights()
+        bias = self.block[0].bias
+        if records_grad(x, interior, bias):
+            return self.drop(instance_norm(fused_up_conv3d(x, interior, corr, bias), "relu"))
+        # K1 adds the bias as it reads the convolution (the bits of its add)
+        y = fused_up_conv3d(x, interior, corr)
+        return self.drop(instance_norm(y, "relu", bias=bias.to(y.dtype)))
 
 
 def fill_fused_cache(module: nn.Module) -> nn.Module:
@@ -114,9 +117,8 @@ class Res3DBlock(_Dropped):
         })
 
     def forward(self, x):
-        res = instance_norm(conv(self.res_branch["0"], x), "relu")
-        return self.drop(instance_norm(conv(self.res_branch["3"], res), "add_relu",
-                                       skip=x))
+        res = conv_norm(self.res_branch["0"], x, "relu")
+        return self.drop(conv_norm(self.res_branch["3"], res, "add_relu", skip=x))
 
 
 class Upsample3DBlock(_Dropped):
@@ -127,7 +129,7 @@ class Upsample3DBlock(_Dropped):
         self.block = nn.ModuleList([nn.ConvTranspose3d(cin, cout, 2, 2)])
 
     def forward(self, x):
-        return self.drop(instance_norm(conv(self.block[0], x), "relu"))
+        return self.drop(conv_norm(self.block[0], x, "relu"))
 
 
 class _EncoderDecoder(nn.Module):

@@ -90,10 +90,13 @@ def prepare_fused_weights(weight: torch.Tensor, dtype: torch.dtype):
     return interior.to(dtype).contiguous(memory_format=torch.channels_last_3d), corr
 
 
-def fused_up_conv3d(x: torch.Tensor, interior: torch.Tensor, corr, bias: torch.Tensor):
+def fused_up_conv3d(x: torch.Tensor, interior: torch.Tensor, corr,
+                    bias: torch.Tensor | None = None):
     """== conv3d(stride 2, pad 1)(trilinear_up2(x)) on the half grid.
 
-    x: (B, Cin, L, L, L); kernels from :func:`prepare_fused_weights`.
+    x: (B, Cin, L, L, L); kernels from :func:`prepare_fused_weights`;
+    ``bias`` is added after the sum of the pieces, in its dtype, or left out
+    (K1 adds it: ``models/v2v.Basic3DBlock``).
     """
     x = x.to(interior.dtype)
     y = F.conv3d(x, interior, padding=1)
@@ -109,4 +112,4 @@ def fused_up_conv3d(x: torch.Tensor, interior: torch.Tensor, corr, bias: torch.T
         else:
             c = F.conv2d(piece, w, padding=1)
         y[tuple(index)] += c
-    return y + bias.to(y.dtype).reshape(1, -1, 1, 1, 1)
+    return y if bias is None else y + bias.to(y.dtype).reshape(1, -1, 1, 1, 1)

@@ -91,6 +91,8 @@ def gaussian_heatmaps_on_device(kps: torch.Tensor, input_size: int, output_size:
     wide, peak 255, (0, 0) keypoints and centres off the map skipped. The
     training step builds it inside K8 instead (``kernels/heatmap2d_loss.py``);
     this is K8's plain version's target."""
+    from ..kernels.instance_norm import _exp  # the kernels import this module
+
     st = stamp(input_size, output_size, sigma)
     dev = kps.device
 
@@ -108,7 +110,7 @@ def gaussian_heatmaps_on_device(kps: torch.Tensor, input_size: int, output_size:
     ky = r[None, None, :] - ul[..., 1][..., None]  # (B, J, H)
     dy, dx = ky - f32(st.off), kx - f32(st.off)
     d2 = (dy * dy)[..., :, None] + (dx * dx)[..., None, :]
-    g = 255.0 * torch.exp(-d2 / f32(st.den))
+    g = 255.0 * _exp(-d2 / f32(st.den))
     inside = (((ky >= 0) & (ky < st.ksize))[..., :, None]
               & ((kx >= 0) & (kx < st.ksize))[..., None, :])
     hm = torch.where(inside & valid[..., None, None], g, torch.zeros_like(g))
@@ -122,11 +124,13 @@ def gaussian_heatmaps_3d_on_device(kps_vox: torch.Tensor, kps_world: torch.Tenso
     package sums them; zero for a joint whose ``kps_world`` row is all zero
     (unlabeled). The training step builds it inside K7 instead
     (``kernels/hybridnet_loss.py``); this is K7's plain version's target."""
+    from ..kernels.instance_norm import _exp  # the kernels import this module
+
     r = torch.arange(size, dtype=torch.float32, device=kps_vox.device)
     d = (kps_vox.float()[..., None] - r) / SIGMA_EXP_3D  # (B, J, 3, S)
     d2 = ((d[..., 0, :] ** 2)[..., :, None, None] + (d[..., 1, :] ** 2)[..., None, :, None]
           + (d[..., 2, :] ** 2)[..., None, None, :])
-    g = 255.0 * torch.exp(-0.5 * d2)
+    g = 255.0 * _exp(-0.5 * d2)
     labeled = (kps_world != 0).any(dim=-1)
     g = torch.where(labeled[..., None, None, None], g, torch.zeros_like(g))
     return torch.movedim(g, 1, -1)

@@ -2,7 +2,7 @@
 ``load_predictor``, ``list_artifacts``, ``artifact_path``), the serving
 kernels as registered operators, and ``prediction/compile_cache.py``.
 
-Each registered op (``jarvis_torch::*``, K1-K5 and K10) runs its plain
+Each registered op (``jarvis_torch::*``, K1-K5, K10, K13 and K14) runs its plain
 version on CPU tensors, bit for bit, and passes ``torch.library.opcheck``'s
 schema and fake-tensor checks (its fake gives the real output's shapes,
 dtypes and strides). A live ``Predict3D`` in every repro mode and a live
@@ -10,7 +10,10 @@ dtypes and strides). A live ``Predict3D`` in every repro mode and a live
 CenterDetect 128^2, bbox 128 (128^2 crops), a 48 mm cube at 4 mm: G = 12,
 float32) exported, saved and loaded gives the live predictor's outputs bit
 for bit on two seeded batches, with each serving kernel one node of the
-loaded graph. ``artifact_path`` / ``list_artifacts`` give the JAX package's
+loaded graph (K13 and K14 included), and K1's calls without a bias are
+written as an artifact of the ops before K1's ``bias`` operand wrote them
+(four arguments), so such artifacts load and run as they did.
+``artifact_path`` / ``list_artifacts`` give the JAX package's
 stems (``.pt2`` for ``.jaxexp``) and leave out other modes and dtypes;
 ``compile_cache.configure`` follows a project switch and leaves a directory
 set by someone else alone, as JAX's does (``tests/test_prediction.py``), and
@@ -144,6 +147,9 @@ def test_serving_wrappers_call_their_ops(monkeypatch):
     kernels.soft_argmax(CASES["k3"][1][0], CASES["k3"][1][1], 4.0, 48.0)
     kernels.resize_normalize(CASES["k4_uint8_bf16"][1][0], 8, 8, [0.5] * 3, [0.2] * 3)
     kernels.argmax2d(CASES["k10"][1][0])
+    x = CASES["k1_silu"][1][0].reshape(2, 8, 5, 10).permute(0, 1, 3, 2)
+    kernels.weighted_fuse(torch.ones(2), [x, x], ("same", "same"))
+    kernels.se_gate(x, x[:, :, :1, :1].contiguous())
     assert seen == list(kernels.SERVING_OPS)
 
 
@@ -161,6 +167,19 @@ def _cfg(mode="quarter_fused"):
     cfg = monkeyhand_cfg(center_size=128, bbox=128, cube=48, spacing=4, num_cameras=C)
     cfg.TPU.REPRO_MODE = mode
     return cfg
+
+
+def k1_arguments(path) -> set:
+    """The argument counts of the serialized ``instance_norm_act`` calls of
+    an artifact: 4 without a bias (the form of artifacts exported before the
+    ``bias`` operand existed), 5 with one."""
+    import json
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        name = next(n for n in z.namelist() if n.endswith("models/model.json"))
+        nodes = json.loads(z.read(name))["graph_module"]["graph"]["nodes"]
+    return {len(n["inputs"]) for n in nodes if "instance_norm_act" in n["target"]}
 
 
 def _round_trip(predictor, example, path):
@@ -184,7 +203,10 @@ def check_exported_predict3d(mode, tmp_path):
     batches = [_frames(7), _frames(8)]
     loaded, ops = _round_trip(live, torch.zeros_like(batches[0]), tmp_path / "p3.pt2")
     gather = "repro_quarter_gather" if mode == "quarter_fused" else "repro_grid_gather"
-    assert ops == {"instance_norm_act", "resize_normalize", "argmax2d", gather, "soft_argmax"}
+    assert ops == {"instance_norm_act", "resize_normalize", "argmax2d", gather, "soft_argmax",
+                   "weighted_fuse", "se_gate"}
+    # K1 without a bias in the earlier form; with one (float32: V2V's fused front)
+    assert 4 in k1_arguments(tmp_path / "p3.pt2")
     for frames in batches:
         want, got = live(frames), loaded(frames)
         assert len(got) == 3

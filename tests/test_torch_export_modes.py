@@ -29,7 +29,8 @@ def test_exported_predict2d_equals_live(tmp_path):
     live = make_predictor2d(_cfg(), CENTER, KEYPOINT, dtype="float32", device="cpu")
     batches = [_frames(7)[:, 1], _frames(9)[:, 2]]
     loaded, ops = _round_trip(live, torch.zeros_like(batches[0]), tmp_path / "p2.pt2")
-    assert ops == {"instance_norm_act", "resize_normalize", "argmax2d"}
+    assert ops == {"instance_norm_act", "resize_normalize", "argmax2d", "weighted_fuse",
+                   "se_gate"}
     for frames in batches:
         for g, w in zip(loaded(frames), live(frames)):
             assert g.dtype == w.dtype and torch.equal(g, w)
