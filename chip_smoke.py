@@ -5,7 +5,7 @@
 
     python3 chip_smoke.py --baseline-csrc DIR [--baseline-kernel k9|k12]
 
-Builds the fourteen CUDA kernel sources from ``jarvis_hybridnet_torch/kernels/csrc``,
+Builds the sixteen CUDA kernel sources from ``jarvis_hybridnet_torch/kernels/csrc``,
 loads the committed MonkeyHand checkpoints through the port's own reader,
 and drives ``make_predictor3d`` at the production configuration (bf16,
 quarter_fused, 12 cameras of 1280x1024 on the synthetic rig, 23 joints,
@@ -18,7 +18,7 @@ frames reduced 4x, host crops, phase B) and the streaming loop of the
 ``predict3D`` driver writing ``data3D.csv`` from a reader of seeded
 batches, each path eager (``graph=False``) with the launch counts set to 0
 before one step and read after it; the arguments of K1, K2, K4 and K10 are
-recorded over each path's step. Then every serving path as captured CUDA
+recorded over each path's step (and those of K13-K16). Then every serving path as captured CUDA
 graphs (``graph=True``, ``prediction/export.py``) against its eager step:
 predict3D quarter_fused on uint8 and float32 frames, exact, half_fused,
 half, two-phase phase A and phase B, predict2D, each with its eager step
@@ -143,7 +143,11 @@ K1, K2 and K4 at every shape a driven path gave them, K3 and K5 at the main
 path's, K13 and K14 at every key a driven path gave them (bf16 within
 K13_K14_BF16_ULPS, the share of differing elements printed; the same
 inputs as float32 within K13_K14_F32_ULPS), K1's biased keys bit-equal to
-the bias added first, and times kernel, plain version and library call.
+the bias added first, K15 and K16 at every key a driven path gave them
+(K15: bf16 within K15_BF16_ULPS of its plain version, the share of
+differing elements printed, and the same inputs as float32 within
+K15_F32_TOL of the output's largest magnitude; K16 bit-equal at its
+dtype and at float32), and times kernel, plain version and library call.
 The serving graphs phase prints each graphed path's kernels, copies and
 kernel ms a step. A kernel's
 ``ms`` is device time: a CUDA graph of ``GRAPH_CALLS`` captured calls is
@@ -291,7 +295,7 @@ def stage_breakdown(predictor, frames, note, iters: int = 5) -> None:
     hybrid = predictor.hybrid_model
     with torch.no_grad():
         center_hm, center3d, _ = predictor.centers(frames)
-        crops = predictor.crops(frames, center_hm)
+        crops = predictor.crops(frames, center_hm, predictor.dtype)
         rows = hybrid.heatmap_rows(crops)
         c3d = center3d.to(torch.int32).contiguous()
         cams = [a.expand(frames.shape[0], *a.shape) for a in (predictor.P, predictor.K,
@@ -304,8 +308,10 @@ def stage_breakdown(predictor, frames, note, iters: int = 5) -> None:
                 lambda: predictor.detect(frames),
             "place (gate, DLT by QR, reprojection, clamp)":
                 lambda: predictor.place(preds, maxvals, H, W),
-            "crops + normalize": lambda: predictor.crops(frames, center_hm),
-            "KeypointDetect + pad (heatmap_rows)": lambda: hybrid.heatmap_rows(crops),
+            "crops + normalize (K16)": lambda: predictor.crops(frames, center_hm,
+                                                               predictor.dtype),
+            "KeypointDetect to padded rows (heatmap_rows, K15)":
+                lambda: hybrid.heatmap_rows(crops),
             f"repro + V2V (v2v_output, {hybrid.repro_mode})":
                 lambda: hybrid.v2v_output(rows, center_hm, c3d, *cams),
             "K3 soft_argmax": lambda: kernels.soft_argmax(
@@ -451,10 +457,11 @@ def against_baseline(current, baseline, check) -> tuple[float, float]:
 # the kernels of the quarter_fused main path, and of the paths of the other
 # repro modes (K5 in place of K2)
 MAIN_PATH_KERNELS = ("instance_norm_act", "repro_quarter_gather", "soft_argmax",
-                     "resize_normalize", "argmax2d", "weighted_fuse", "se_gate")
+                     "resize_normalize", "argmax2d", "weighted_fuse", "se_gate", "heatmap_head",
+                     "crop_normalize")
 OTHER_MODES = ("exact", "half_fused", "half")
 MODE_PATH_KERNELS = ("instance_norm_act", "repro_grid_gather", "soft_argmax", "resize_normalize",
-                     "argmax2d", "weighted_fuse", "se_gate")
+                     "argmax2d", "weighted_fuse", "se_gate", "heatmap_head", "crop_normalize")
 
 
 def rows_touched(idx, hs2: int) -> int:
@@ -892,7 +899,7 @@ def rate(step, count: int, note, label: str, unit: str, depth=FULL) -> float:
 
 
 class ShapeRecorder:
-    """What K1, K2, K4, K6, K8, K9, K10, K13 and K14 are called with on each
+    """What K1, K2, K4, K6, K8, K9, K10 and K13-K16 are called with on each
     driven path: the (shape, dtype, act, with a bias) of every K1 call, the
     (shape, dtype, act) of every K6 call, the (rows shape,
     rows dtype, g4, step) of every K2 call, the (input shape, input dtype,
@@ -901,12 +908,14 @@ class ShapeRecorder:
     record, border and blur of every K9 call and the heatmaps' shape, dtype
     and strides of every K10 call, the inputs' shapes and dtype, the modes
     and the merge flag of every K13 call, the (x shape, g shape, dtype) of
-    every K14 call, each with its calls per path; K2, K4, K8, K9, K10, K13
-    and K14 keep their first call's arguments (K8's heads detached). It
+    every K14 call, the (x shape, w shape, dtype, rows width) of every K15
+    call, the (frames shape, dtype, with centers, size, output dtype) of
+    every K16 call, each with its calls per path; K2, K4, K8, K9, K10 and
+    K13-K16 keep their first call's arguments (K8's heads detached). It
     wraps the names by which the models, the predictors and the trainers
     call the wrappers, the training steps' autograd Functions' own
-    (``InstanceNormAct.k1``, ``.k6``, ``Heatmap2DLoss.fwd``), and K13's and
-    K14's registered ops, which their wrappers call."""
+    (``InstanceNormAct.k1``, ``.k6``, ``Heatmap2DLoss.fwd``), and K13's to
+    K16's registered ops, which their wrappers call."""
 
     def __init__(self):
         self.k1: dict = {}  # key -> {path: calls}
@@ -919,6 +928,8 @@ class ShapeRecorder:
         self.k10: dict = {}  # key -> (arguments, {path: calls})
         self.k13: dict = {}  # key -> (arguments, {path: calls})
         self.k14: dict = {}  # key -> (arguments, {path: calls})
+        self.k15: dict = {}  # key -> (arguments, {path: calls})
+        self.k16: dict = {}  # key -> (arguments, {path: calls})
 
     @contextlib.contextmanager
     def on(self, path: str):
@@ -986,6 +997,9 @@ class ShapeRecorder:
         k13_mod = sys.modules["jarvis_hybridnet_torch.kernels.weighted_fuse"]
         k14_mod = sys.modules["jarvis_hybridnet_torch.kernels.se_gate"]
         k13, k14 = k13_mod._op, k14_mod._op
+        k15_mod = sys.modules["jarvis_hybridnet_torch.kernels.heatmap_head"]
+        k16_mod = sys.modules["jarvis_hybridnet_torch.kernels.crop_normalize"]
+        k15, k16 = k15_mod._op, k16_mod._op
 
         def rec_k13(w, x0, x1, x2, modes, merge):
             xs = [t for t in (x0, x1, x2) if t is not None]
@@ -997,6 +1011,15 @@ class ShapeRecorder:
             count(self.k14, (tuple(x.shape), tuple(g.shape), x.dtype), (x, g))
             return k14(x, g)
 
+        def rec_k15(x, w, width):
+            count(self.k15, (tuple(x.shape), tuple(w.shape), x.dtype, width), (x, w, width))
+            return k15(x, w, width)
+
+        def rec_k16(frames, centers, size, mean, std, dtype):
+            count(self.k16, (tuple(frames.shape), frames.dtype, centers is not None, size, dtype),
+                  (frames, centers, size, mean, std, dtype))
+            return k16(frames, centers, size, mean, std, dtype)
+
         layers.instance_norm_act = rec_k1
         repro.repro_quarter_gather = rec_k2
         fn.k1, fn.k6 = staticmethod(rec_k1), staticmethod(rec_k6)
@@ -1006,6 +1029,7 @@ class ShapeRecorder:
         for m in k10_sites:
             m.argmax_2d = rec_k10
         k13_mod._op, k14_mod._op = rec_k13, rec_k14
+        k15_mod._op, k16_mod._op = rec_k15, rec_k16
         try:
             yield
         finally:
@@ -1018,6 +1042,7 @@ class ShapeRecorder:
             for m in k10_sites:
                 m.argmax_2d = k10
             k13_mod._op, k14_mod._op = k13, k14
+            k15_mod._op, k16_mod._op = k15, k16
 
     def calls(self, name: str, path: str) -> int:
         table = {"instance_norm_act": self.k1, "instance_norm_act_backward": self.k6,
@@ -1027,7 +1052,9 @@ class ShapeRecorder:
                  "color_aug": {k: per for k, (_, per) in self.k9.items()},
                  "argmax2d": {k: per for k, (_, per) in self.k10.items()},
                  "weighted_fuse": {k: per for k, (_, per) in self.k13.items()},
-                 "se_gate": {k: per for k, (_, per) in self.k14.items()}}[name]
+                 "se_gate": {k: per for k, (_, per) in self.k14.items()},
+                 "heatmap_head": {k: per for k, (_, per) in self.k15.items()},
+                 "crop_normalize": {k: per for k, (_, per) in self.k16.items()}}[name]
         return sum(per.get(path, 0) for per in table.values())
 
 
@@ -1035,7 +1062,7 @@ def path_launches(run, kernels, names, path, recorder):
     """Launch counts of one call of ``run`` (counts set to 0 just before,
     read just after); fails unless every kernel of ``names`` launched, and
     unless ``recorder``, which records the arguments of K1, K2, K4, K6, K8,
-    K9, K10, K13 and K14 over the call under ``path``, saw as many calls of
+    K9, K10 and K13-K16 over the call under ``path``, saw as many calls of
     each as were counted."""
     import torch
 
@@ -1050,7 +1077,7 @@ def path_launches(run, kernels, names, path, recorder):
             fail(f"kernel {name} was not launched on the {path} path")
     for name in ("instance_norm_act", "repro_quarter_gather", "resize_normalize",
                  "instance_norm_act_backward", "heatmap2d_loss_fwd", "color_aug", "argmax2d",
-                 "weighted_fuse", "se_gate"):
+                 "weighted_fuse", "se_gate", "heatmap_head", "crop_normalize"):
         if recorder.calls(name, path) != counts[name]:
             fail(f"recorded {recorder.calls(name, path)} calls of {name} on the {path} path, "
                  f"counted {counts[name]} launches")
@@ -1071,7 +1098,8 @@ def predict2d_phase(kernels, cfg, ckpt, frames, recorder, note):
     pred(imgs[0])
     out, counts = path_launches(lambda: pred(imgs[0]), kernels,
                                 ("instance_norm_act", "resize_normalize", "argmax2d",
-                                 "weighted_fuse", "se_gate"), "predict2d",
+                                 "weighted_fuse", "se_gate", "heatmap_head", "crop_normalize"),
+                                "predict2d",
                                 recorder)
     points, conf, valid = out
     if not (torch.isfinite(points).all() and torch.isfinite(conf).all()):
@@ -1303,7 +1331,11 @@ def driver_phase(kernels, cfg, predictor, frames, out_dir, recorder, note):
 KERNEL_SYMBOLS = {"instance_norm_act": r"\bin_fused<", "repro_quarter_gather": r"\brepro_tile<",
                   "repro_grid_gather": r"\brepro_grid<", "soft_argmax": r"\bsa_cluster<",
                   "resize_normalize": r"\bresize_norm<", "argmax2d": r"\bk10<",
-                  "weighted_fuse": r"\bweighted_fuse_k<", "se_gate": r"\bse_gate_k<"}
+                  "weighted_fuse": r"\bweighted_fuse_k<", "se_gate": r"\bse_gate_k<",
+                  "heatmap_head": r"\bhead_(mma|mma_par|ffma)\b", "crop_normalize": r"\bcrop_norm<"}
+# what K15 and K16 replaced: cuDNN's ConvTranspose2d and the indexed crop
+# copy, which no graphed serving replay may run any more
+REPLACED_SYMBOLS = r"dgrad2d|index_elementwise"
 
 
 def pool_bytes(pool) -> int:
@@ -1431,8 +1463,11 @@ def graph_path(kernels, label, eager, graphed, steps, count, unit, note, smi,
     differ; then rates (the median of ``depth``'s runs), the host's
     issue time, the eager run's launch counts (at FULL depth from a
     profiled run: event span, kernel time, busy share), a profiled graphed
-    run whose calls of K1-K5 and K10 must equal them (``graphed_profile``),
-    capture ms and pool bytes."""
+    run whose calls of K1-K5, K10 and K13-K16 must equal them
+    (``graphed_profile``) and which runs no cuDNN ConvTranspose2d and no
+    indexed copy (``REPLACED_SYMBOLS``), capture ms and pool bytes."""
+    import re
+
     import torch
 
     eager(0)
@@ -1463,6 +1498,9 @@ def graph_path(kernels, label, eager, graphed, steps, count, unit, note, smi,
         res[name] = dict(rate=sorted(rates)[repeats // 2], rates=rates,
                          issue_ms=issue_ms(fn, iters), **prof)
     e, g = res["eager"], res["graphed"]
+    replaced = {k: c for k, c in g["kernels"].items() if re.search(REPLACED_SYMBOLS, k)}
+    if replaced:
+        fail(f"{label}: the graphed replays still run what K15 / K16 replaced: {replaced}")
     # Beside the hand-written kernels (held below to the launch counters),
     # the two profiles are compared for information only: the tracer drops
     # a few kernel records of eager steps (the first after it starts, now
@@ -3080,7 +3118,8 @@ TRAIN_KERNEL_SYMBOLS = {
     "repro_quarter_gather": r"\brepro_tile<", "repro_grid_gather": r"\brepro_grid<",
     "repro_quarter_gather_backward": r"\bgather_backward\b",
     "repro_grid_gather_backward": r"\b(grid|point)_backward\b", "soft_argmax": r"\bsa_cluster<",
-    "weighted_fuse": r"\bweighted_fuse_k<", "se_gate": r"\bse_gate_k<"}
+    "weighted_fuse": r"\bweighted_fuse_k<", "se_gate": r"\bse_gate_k<",
+    "heatmap_head": r"\bhead_(mma|mma_par|ffma)\b"}
 TRAIN_GRAPH_LRS = (2e-4, 5e-5, 3e-4, 1e-4, 1.5e-4)  # 2 eager steps, a capture, 2 replays
 # where two eager steps from the same state differ (K11 / K12 add with float
 # atomics), a replay's distance to its eager twin and the eager twins' own
@@ -5366,10 +5405,15 @@ def check_k13_k14(kernels, recorder, launches, note, log, smi) -> list:
     (K13_K14_F32_ULPS); K13 also at weights (2^-24, 1, 2^-24) of a 3-input
     fusion, where the sum's order shows in the last bit. The main path's keys are timed; the two
     entries of the kernels line sum their times over the main path's
-    launches (``launches``: the quarter_fused step's counts)."""
+    launches (``launches``: the quarter_fused step's counts); K14's
+    ``library_ms`` is ``F.silu`` on its SiLU keys (x and g one tensor), the
+    one PyTorch call of the same function, beside the kernel's ``silu_ms``
+    on those keys."""
     import torch
+    import torch.nn.functional as F
 
     ops = torch.ops.jarvis_torch
+    silu = dict(ms=0.0, library_ms=0.0, launches=0)  # K14's SiLU keys beside F.silu
     k13_mod = sys.modules["jarvis_hybridnet_torch.kernels.weighted_fuse"]
     names = {v: k for k, v in k13_mod.MODES.items()}
 
@@ -5418,6 +5462,12 @@ def check_k13_k14(kernels, recorder, launches, note, log, smi) -> list:
                                  bound_ms=nbytes(args) / HBM_BYTES_PER_S * 1e3)
                     for k, v in times.items():
                         sums[k] += v * count
+                    if label == "se_gate" and args[0] is args[1]:
+                        # SiLU: one PyTorch call computes it
+                        silu_ms = graph_ms(lambda: F.silu(args[0]))
+                        silu["library_ms"] += silu_ms * count
+                        silu["ms"] += times["ms"] * count
+                        silu["launches"] += count
                 log.write(f"  {key} x{count} "
                           + " ".join(f"{times.get(k, float('nan')):.4f}"
                                      for k in ("ms", "wall_ms", "plain_ms", "bound_ms"))
@@ -5432,10 +5482,18 @@ def check_k13_k14(kernels, recorder, launches, note, log, smi) -> list:
                  f"{launches[label]} launches {sums['ms']:.4f} ms "
                  f"(wall {sums['wall_ms']:.4f}, plain {sums['plain_ms']:.4f}, bound "
                  f"{sums['bound_ms']:.4f}); card: {smi}")
+            extra = {}
+            if label == "se_gate":
+                # the one PyTorch call of the same function exists for SiLU alone
+                extra = dict(library_ms=silu["library_ms"], library_keys="silu",
+                             silu_ms=silu["ms"], silu_launches=silu["launches"])
+                note(f"se_gate: its {silu['launches']} SiLU launches of the main path "
+                     f"{silu['ms']:.4f} ms against F.silu's {silu['library_ms']:.4f} ms on the "
+                     f"same inputs; card: {smi}")
             entries.append(dict(name=label, route="cuda", kernels_per_call=1,
                                 source=f"jarvis_hybridnet_torch/kernels/csrc/{source}",
                                 replaces=replaces, launches=launches[label], bound_by="bytes",
-                                library_ms=None, **sums))
+                                **{"library_ms": None, **sums, **extra}))
         # the weights' sum: torch's order on the card against the kernel's
         three = next((a for a, _ in recorder.k13.values() if a[3] is not None and not a[5]), None)
         if three is not None:
@@ -5451,6 +5509,169 @@ def check_k13_k14(kernels, recorder, launches, note, log, smi) -> list:
             if ulps > K13_K14_F32_ULPS:
                 fail(f"weighted_fuse at the sum-order probe: {ulps} float32 ulps")
         return entries
+
+
+# K15: bf16 within one ulp of the plain version (float32 sums of the same
+# operands rounded once, in another order), an ulp at least K15_ULP_FLOOR
+# of the output's largest magnitude (where a sum cancels to near zero, two
+# float32 orders part by more than the tiny element's ulp); float32 within
+# K15_F32_TOL of the largest magnitude. K16: bit-equal (one IEEE operation
+# at a time in both)
+K15_BF16_ULPS = 1.0
+K15_ULP_FLOOR = 2.0 ** -8
+K15_F32_TOL = 1e-5
+# the card's peak rates for the work of a key's type (NVIDIA's data sheet,
+# dense): bf16 on the tensor cores, float32 outside them
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def k15_bound(args) -> tuple[float, str]:
+    """(least ms, what binds it) of a K15 call: the input, the weight and
+    the output (rows: with its border and spare lanes) moved once, or its
+    multiply-adds (4 Cin a output value, 2 operations each) at the peak
+    rate of its type."""
+    x, w, width = args
+    n, cin, h, wd = x.shape
+    cout = w.shape[1]
+    out = n * (2 * h + 2) * (2 * wd + 2) * width if width else n * cout * 4 * h * wd
+    nbytes = (x.numel() + w.numel() + out) * x.element_size()
+    ops = 2.0 * n * 4 * h * wd * cout * 4 * cin
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[str(x.dtype).replace("torch.", "")] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def k16_bound(args) -> tuple[float, str]:
+    """(least ms, "bytes") of a K16 call: the windows read once, the output
+    written once, the centers."""
+    frames, centers, size, _, _, dtype = args
+    values = frames.shape[0] * size * size * 3
+    nbytes = values * (frames.element_size() + dtype.itemsize)
+    nbytes += 0 if centers is None else centers.numel() * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_k15_k16(kernels, recorder, launches, note, log, smi) -> list:
+    """K15 and K16 at every key a driven path gave them, on the arguments of
+    its first call there, against their plain versions (cuDNN in float32
+    with TF32 off for K15's): in the path's dtype ("own": K15 bf16 within
+    K15_BF16_ULPS, the share of differing elements printed; K16 bit-equal)
+    and with float32 operands (K15 within K15_F32_TOL of the largest
+    magnitude; K16's float32 output bit-equal). The main path's keys are
+    timed (device, wall, plain and, for K15, ``F.conv_transpose2d`` in the
+    key's dtype: the cuDNN call K15 replaced; for rows that call leaves the
+    padding out); the kernels line's two entries sum them over the main
+    path's launches (``launches``: the quarter_fused step's counts). Every
+    key is timed, each noted with its calls per path."""
+    import torch
+    import torch.nn.functional as F
+
+    ops = torch.ops.jarvis_torch
+
+    def k15_args32(a):
+        return (a[0].float(), a[1].float(), a[2])
+
+    def k16_args32(a):
+        return (*a[:5], torch.float32)
+
+    def k15_library(a):
+        x, w, _ = a
+        return lambda: F.conv_transpose2d(x, w, stride=2, padding=1)
+
+    def k15_err(ko, po):
+        k, p = ko.float(), po.float()
+        top = float(p.abs().max())
+        if ko.dtype == torch.float32:
+            return float((k - p).abs().max()) / max(top, 1e-30), float((k != p).float().mean())
+        mag = p.abs().clamp_min(max(K15_ULP_FLOOR * top, torch.finfo(torch.float32).tiny))
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        return float(((k - p).abs() / ulp).max()), float((k != p).float().mean())
+
+    def k16_err(ko, po):
+        return float((ko.float() - po.float()).abs().max()), float((ko != po).float().mean())
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain version's float32 convolution
+    entries = []
+    try:
+        with torch.no_grad():
+            for label, table, op, plain, as32, err, bound, library, source, replaces in (
+                    ("heatmap_head", recorder.k15, ops.heatmap_head, kernels.heatmap_head_plain,
+                     k15_args32, k15_err, k15_bound, k15_library, "heatmap_head.cu",
+                     "jarvis_hybridnet_tpu/models/layers.py:90"),
+                    ("crop_normalize", recorder.k16, ops.crop_normalize,
+                     kernels.crop_normalize_plain, k16_args32, k16_err, k16_bound, None,
+                     "crop_normalize.cu", "jarvis_hybridnet_tpu/prediction/predictor3d.py:136")):
+                sums = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+                if library is not None:
+                    sums["library_ms"] = 0.0
+                binds = {"bytes": 0.0, "operations": 0.0}
+                worst = {"own": (0.0, 0.0), "float32": (0.0, 0.0)}
+                log.write(f"{label} per key: key count ms wall_ms plain_ms library_ms bound_ms "
+                          f"bound_by | own dtype error, share differing | float32 error, share "
+                          f"differing | calls per path (K15 error: bf16 ulps, float32 relative "
+                          f"to the largest magnitude; K16: largest absolute difference)\n")
+                for key, (args, per) in table.items():
+                    res = {}
+                    for kind, a in (("own", args), ("float32", as32(args))):
+                        ko, po = op(*a), plain(*a)
+                        if (ko.dtype, ko.shape, ko.stride()) != (po.dtype, po.shape, po.stride()):
+                            fail(f"{label} {key}: output {ko.dtype} {tuple(ko.shape)} "
+                                 f"{ko.stride()}, plain {po.dtype} {tuple(po.shape)} {po.stride()}")
+                        res[kind] = err(ko, po)
+                        worst[kind] = tuple(max(x, y) for x, y in zip(worst[kind], res[kind]))
+                        if kind == "own":
+                            sums["max_abs_err"] = max(sums["max_abs_err"],
+                                                      float((ko.float() - po.float()).abs().max()))
+                        del ko, po
+                    if label == "heatmap_head":
+                        own_tol = K15_BF16_ULPS if args[0].dtype == torch.bfloat16 else K15_F32_TOL
+                        bad = res["own"][0] > own_tol or res["float32"][0] > K15_F32_TOL
+                    else:
+                        bad = res["own"][1] > 0 or res["float32"][1] > 0
+                    if bad:
+                        fail(f"{label} {key}: {res} from the plain version (tolerance "
+                             f"{K15_BF16_ULPS} bf16 ulps, {K15_F32_TOL} float32; K16 bit-equal)")
+                    count = per.get("quarter_fused", 0)
+                    lim, by = bound(args)
+                    times = dict(ms=graph_ms(lambda: op(*args)),
+                                 wall_ms=cuda_ms(lambda: op(*args)),
+                                 plain_ms=cuda_ms(lambda: plain(*args), iters=5), bound_ms=lim)
+                    if library is not None:
+                        times["library_ms"] = graph_ms(library(args))
+                    for k, v in times.items():
+                        sums[k] += v * count
+                    binds[by] += lim * count
+                    log.write(f"  {key} x{count} "
+                              + " ".join(f"{times.get(k, float('nan')):.4f}"
+                                         for k in ("ms", "wall_ms", "plain_ms", "library_ms",
+                                                   "bound_ms"))
+                              + f" {by} | {res['own'][0]:.3g} {res['own'][1]:.2e} | "
+                              f"{res['float32'][0]:.3g} {res['float32'][1]:.2e} | "
+                              f"{json.dumps(per)}\n")
+                    note(f"{label} {key}: calls per path {json.dumps(per)}; "
+                         + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+                         + f" ({by}); error {res['own'][0]:.3g}, {res['own'][1]:.2e} of the "
+                         f"elements differing; card: {smi}")
+                unit = ("bf16 ulps or float32 relative" if library
+                        else "absolute, bit-equal required")
+                note(f"{label}: {len(table)} keys over the driven paths; in the path's dtype worst "
+                     f"{worst['own'][0]:.3g} ({unit}), at most {worst['own'][1]:.2e} of the "
+                     f"elements differing; float32 operands {worst['float32'][0]:.3g} (share "
+                     f"{worst['float32'][1]:.2e}); the main path's {launches[label]} launches "
+                     f"{sums['ms']:.4f} ms (wall "
+                     f"{sums['wall_ms']:.4f}, plain {sums['plain_ms']:.4f}, bound "
+                     f"{sums['bound_ms']:.4f}"
+                     + (f", library {sums['library_ms']:.4f}" if library is not None else "")
+                     + f"); card: {smi}")
+                entries.append(dict(name=label, route="cuda", kernels_per_call=1,
+                                    source=f"jarvis_hybridnet_torch/kernels/csrc/{source}",
+                                    replaces=replaces, launches=launches[label],
+                                    bound_by=max(binds, key=binds.get),
+                                    **{"library_ms": None, **sums}))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return entries
 
 
 def main() -> int:
@@ -5513,7 +5734,8 @@ def main() -> int:
                         ("hybridnet_loss", "K7"), ("heatmap2d_loss", "K8"),
                         ("color_aug", "K9"), ("argmax2d", "K10"),
                         ("repro_gather_backward", "K11"), ("repro_grid_gather_backward", "K12"),
-                        ("weighted_fuse", "K13"), ("se_gate", "K14")):
+                        ("weighted_fuse", "K13"), ("se_gate", "K14"),
+                        ("heatmap_head", "K15"), ("crop_normalize", "K16")):
         log.write(f"ptxas for {name}.cu ({label}):\n")
         for line in ptxas_lines(name):
             log.write(f"  {line}\n")
@@ -5916,6 +6138,10 @@ def main() -> int:
     report.extend(check_k13_k14(kernels, recorder, launches, note, log, smi))
     recorder.k13.clear()  # the maps they hold
     recorder.k14.clear()
+    phase("K15, K16 checks")
+    report.extend(check_k15_k16(kernels, recorder, launches, note, log, smi))
+    recorder.k15.clear()  # the maps and frames they hold
+    recorder.k16.clear()
 
     phase("cascade card vs CPU")
     # the whole cascade on the card against the same cascade on the CPU (the

@@ -54,7 +54,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SERVING = ("instance_norm_act", "repro_quarter_gather", "soft_argmax", "resize_normalize",
-           "argmax2d", "weighted_fuse", "se_gate")
+           "argmax2d", "weighted_fuse", "se_gate", "heatmap_head", "crop_normalize")
 # the half_fused trace's kernels: K5 in place of K2
 SERVING_K5 = tuple("repro_grid_gather" if k == "repro_quarter_gather" else k for k in SERVING)
 K5_TRACE_ATTEMPTS = 3  # the tracer drops a kernel record now and then

@@ -52,12 +52,25 @@ Each wrapper counts the calls that launch its CUDA source in
   itself, and writes the float32 sum (and SiLU) rounded once;
 - se_gate (K14), x * sigmoid(g) with g per (sample, channel): the SE gate,
   and SiLU as ``se_gate(r, r)``; a block of lanes x channel vectors of one
-  sample computes its sigmoids once and walks its rows.
+  sample computes its sigmoids once and walks its rows;
+- heatmap_head (K15), the stride-2 heatmap head (ConvTranspose2d k4 s2 p1):
+  bf16 on warp-level tensor cores (``mma.sync``, operands by ``ldmatrix``)
+  in persistent blocks that stage the re-laid weight once and walk tiles of
+  input positions with their halo (by ``cp.async``): a product per output
+  parity with 8 or more output channels, the four parities in one product
+  with 1 or 2; else float32 FFMA, 8 threads an input position; optionally
+  written straight into the 3D cascade's padded heatmap rows, border and
+  spare lanes zeroed;
+- crop_normalize (K16), the crop windows of frames at their centers
+  normalized into the network's input type: a thread per vector of a
+  window row.
 
 K13 and K14 have no backward yet: their wrappers run the plain version's
-autograd chain where grad is enabled and an input requires it.
+autograd chain where grad is enabled and an input requires it. K15 and K16
+take no graph either: where one is recorded the models and predictors run
+the convolution and the crop as before.
 
-The serving kernels, K1, K2, K3, K4, K5, K10, K13 and K14, are registered operators
+The serving kernels, K1, K2, K3, K4, K5, K10 and K13-K16, are registered operators
 (``torch.library.custom_op``, namespace ``jarvis_torch``, listed in
 ``SERVING_OPS``): each wrapper calls its op, whose CPU implementation is the
 plain version and whose CUDA implementation is the kernel's launch through
@@ -74,6 +87,7 @@ autograd Functions the training steps go through.
 
 from .argmax2d import argmax2d, argmax_2d_plain
 from .color_aug import color_aug, color_aug_plain
+from .crop_normalize import crop_normalize, crop_normalize_plain
 from .heatmap2d_loss import (
     Heatmap2DLoss,
     heatmap2d_loss,
@@ -82,6 +96,7 @@ from .heatmap2d_loss import (
     heatmap2d_loss_fwd,
     heatmap2d_loss_fwd_plain,
 )
+from .heatmap_head import heatmap_head, heatmap_head_plain
 from .hybridnet_loss import (
     hybridnet_loss,
     hybridnet_loss_bwd,
@@ -116,11 +131,13 @@ from .weighted_fuse import weighted_fuse, weighted_fuse_plain
 WRAPPERS = (instance_norm_act, repro_quarter_gather, repro_grid_gather, soft_argmax,
             resize_normalize, instance_norm_act_backward, hybridnet_loss_fwd,
             hybridnet_loss_bwd, heatmap2d_loss_fwd, heatmap2d_loss_bwd, color_aug, argmax2d,
-            repro_quarter_gather_backward, repro_grid_gather_backward, weighted_fuse, se_gate)
+            repro_quarter_gather_backward, repro_grid_gather_backward, weighted_fuse, se_gate,
+            heatmap_head, crop_normalize)
 
 
 SERVING_OPS = ("instance_norm_act", "repro_quarter_gather", "repro_grid_gather", "soft_argmax",
-               "resize_normalize", "argmax2d", "weighted_fuse", "se_gate")
+               "resize_normalize", "argmax2d", "weighted_fuse", "se_gate", "heatmap_head",
+               "crop_normalize")
 
 
 def reset_launch_counts() -> None:
@@ -134,9 +151,10 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "Heatmap2DLoss", "InstanceNormAct", "WRAPPERS", "argmax2d", "argmax_2d_plain", "color_aug",
-    "color_aug_plain",
+    "color_aug_plain", "crop_normalize", "crop_normalize_plain",
     "heatmap2d_loss", "heatmap2d_loss_bwd", "heatmap2d_loss_bwd_plain", "heatmap2d_loss_fwd",
-    "heatmap2d_loss_fwd_plain", "hybridnet_loss", "hybridnet_loss_bwd",
+    "heatmap2d_loss_fwd_plain", "heatmap_head", "heatmap_head_plain", "hybridnet_loss",
+    "hybridnet_loss_bwd",
     "hybridnet_loss_bwd_plain", "hybridnet_loss_fwd", "hybridnet_loss_fwd_plain",
     "instance_norm_act", "instance_norm_act_backward", "instance_norm_act_backward_plain",
     "instance_norm_act_plain",

@@ -25,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("instance_norm_act", "repro_quarter_gather", "repro_grid_gather",
            "soft_argmax", "resize_normalize", "instance_norm_act_backward", "hybridnet_loss",
            "heatmap2d_loss", "color_aug", "argmax2d", "repro_gather_backward",
-           "repro_grid_gather_backward", "weighted_fuse", "se_gate")
+           "repro_grid_gather_backward", "weighted_fuse", "se_gate", "heatmap_head",
+           "crop_normalize")
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -38,8 +39,9 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # operation with __f*_rn intrinsics and keep nvcc's default FMA setting, as
 # torch's own kernels are built, so libdevice's expf and log1pf are the ones
 # torch's exp and log1p run.
-# ptxas reports K1's and K5's-K14's registers and spills into their build
-# logs.
+# K15 sums with FFMA or tensor cores in float32, rounded once at the end; K16
+# does one IEEE operation at a time, as its plain version. ptxas reports
+# K1's and K5's-K16's registers and spills into their build logs.
 _EXTRA_FLAGS = {"instance_norm_act": ["-Xptxas=-v"],
                 "repro_quarter_gather": ["--fmad=false"],
                 "repro_grid_gather": ["--fmad=false", "-Xptxas=-v"],
@@ -52,7 +54,9 @@ _EXTRA_FLAGS = {"instance_norm_act": ["-Xptxas=-v"],
                 "repro_gather_backward": ["--fmad=false", "-Xptxas=-v"],
                 "repro_grid_gather_backward": ["--fmad=false", "-Xptxas=-v"],
                 "weighted_fuse": ["-Xptxas=-v"],
-                "se_gate": ["-Xptxas=-v"]}
+                "se_gate": ["-Xptxas=-v"],
+                "heatmap_head": ["-Xptxas=-v"],
+                "crop_normalize": ["-Xptxas=-v"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

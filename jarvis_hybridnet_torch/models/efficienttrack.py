@@ -4,8 +4,9 @@
 EfficientNet features, N BiFPN cells, a softplus-weighted merge of three
 scales at P3 (stride 4), one separable conv, then two heads: ``final_conv1``
 (3x3 conv, heatmap at input/4) and ``deconv1`` (ConvTranspose2d k4 s2 p1,
-heatmap at input/2). ``final_conv2`` is the reference's dead parameter,
-kept so reference state dicts load strictly; it is never applied.
+heatmap at input/2; K15 where nothing records a graph). ``final_conv2`` is
+the reference's dead parameter, kept so reference state dicts load
+strictly; it is never applied.
 """
 
 from __future__ import annotations
@@ -15,10 +16,10 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..kernels import weighted_fuse
+from ..kernels import heatmap_head, weighted_fuse
 from .bifpn import BiFPN
 from .efficientnet import EfficientNetFeatures, build_block_plan, truncate_and_tap
-from .layers import SeparableConvBlock, conv
+from .layers import SeparableConvBlock, _cast, compute_dtype, conv, records_grad
 
 
 @dataclass(frozen=True)
@@ -72,10 +73,22 @@ class EfficientTrackBackbone(nn.Module):
         x1 = weighted_fuse(self.weights_cat, feats[:3], ("same", "up2", "up4"), merge=True)
         return self.first_conv(x1)
 
+    def head2(self, m: torch.Tensor, width: int = 0) -> torch.Tensor:
+        """``deconv1`` on the merged map ``m``: K15 where nothing records a
+        graph (with ``width``, straight into padded heatmap rows,
+        ``heatmap_head``), else the convolution with its autograd graph
+        (no rows: ``width`` must then be 0)."""
+        if records_grad(m, self.deconv1.weight):
+            if width:
+                raise ValueError("head2: rows are written only where no graph is recorded")
+            return conv(self.deconv1, m)
+        dt = compute_dtype(self.deconv1)
+        return heatmap_head(_cast(m, dt), _cast(self.deconv1.weight, dt), width)
+
     def heatmap2(self, x: torch.Tensor) -> torch.Tensor:
         """The stride-2 head alone: what both predictors consume."""
-        return conv(self.deconv1, self.merged(x))
+        return self.head2(self.merged(x))
 
     def forward(self, x: torch.Tensor):
         m = self.merged(x)
-        return conv(self.final_conv1, m), conv(self.deconv1, m)
+        return conv(self.final_conv1, m), self.head2(m)

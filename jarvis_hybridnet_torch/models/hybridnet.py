@@ -31,7 +31,7 @@ from ..kernels.hybridnet_loss import hybridnet_mse_loss  # noqa: F401  (the JAX 
 from ..kernels.repro_gather import padded_width
 from .efficienttrack import EfficientTrackBackbone
 from ..parallel.collectives import camera_sum
-from .layers import DrawShard, compute_dtype, set_draw_shard
+from .layers import DrawShard, compute_dtype, records_grad, set_draw_shard
 from .repro import REPRO_MODES, reproject_rows
 from .v2v import V2VNet
 
@@ -77,15 +77,21 @@ class HybridNetBackbone(nn.Module):
         """Normalized crops (B, C, S, S, 3) -> padded KeypointDetect heatmaps
         as rows (B, C, hs*hs, J) in the compute dtype, hs = S/2 + 2: the
         J-view of a zero-filled buffer whose rows are whole 16-byte loads
-        (``repro_gather.pad_rows``). JAX's exact mode gathers the float32
-        cast of its bf16 heatmaps (``gather_dtype`` None): the same values,
-        and its VJP sums in float32 and rounds once to bf16 at the cast's
+        (``repro_gather.pad_rows``), written by K15 in its rows mode where
+        nothing records a graph. JAX's exact mode gathers the float32 cast
+        of its bf16 heatmaps (``gather_dtype`` None): the same values, and
+        its VJP sums in float32 and rounds once to bf16 at the cast's
         transpose, as K12 does at bf16 rows (``repro_gather.round_rows``)."""
         B, C, S = imgs.shape[0], imgs.shape[1], imgs.shape[2]
         flat = imgs.reshape(B * C, S, S, imgs.shape[-1]).permute(0, 3, 1, 2)
-        hm = self.effTrack.heatmap2(flat)  # (B*C, J, h, h), channels last
-        h, J = hm.shape[-1], self.num_joints
-        width = padded_width(J, hm.element_size())
+        m = self.effTrack.merged(flat)
+        J, dt = self.num_joints, compute_dtype(self.effTrack.deconv1)
+        width = padded_width(J, dt.itemsize)
+        if not records_grad(m, self.effTrack.deconv1.weight):
+            rows = self.effTrack.head2(m, width)  # (B*C, h + 2, h + 2, width)
+            return rows.reshape(B, C, rows.shape[1] * rows.shape[2], width)[..., :J]
+        hm = self.effTrack.head2(m)  # (B*C, J, h, h), channels last
+        h = hm.shape[-1]
         rows = torch.zeros((B, C, h + 2, h + 2, width), dtype=hm.dtype, device=hm.device)
         rows[:, :, 1:-1, 1:-1, :J] = hm.permute(0, 2, 3, 1).reshape(B, C, h, h, J)
         return rows.reshape(B, C, (h + 2) ** 2, width)[..., :J]

@@ -6,8 +6,8 @@ resize + normalize (K4), CenterDetect, first-index argmax, the maxval > 40
 gate (the 3D cascade's gate is >= 2 cameras above 50; the two are kept
 apart), the crop center in full-resolution pixels by truncation, clamped to
 [bbox/2, W - bbox/2 - 1] (one less than the 3D clamp), the bbox^2 crop
-normalized in float32 and cast to the inference dtype, KeypointDetect (K1 in
-both EfficientTracks), its argmax, and the decode
+normalized in float32 and cast to the inference dtype (K16), KeypointDetect
+(K1 in both EfficientTracks, K15 their heads), its argmax, and the decode
 ``points = 2 * xy + crop corner``, ``confidences = min(max, 255) / 255``.
 Everything stays on the predictor's device; nothing synchronizes with the
 host.
@@ -17,8 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import resize_normalize
-from ..kernels.resize_normalize import value_scale
+from ..kernels import crop_normalize, resize_normalize
 from ..models.efficienttrack import EfficientTrackBackbone
 from ..ops.heatmap import argmax_2d
 from .predictor3d import FRAME_DTYPES
@@ -40,8 +39,6 @@ class Predict2D:
         self.std = [float(v) for v in cfg.DATASET.STD]
         self.center_model = center_model
         self.keypoint_model = keypoint_model
-        self.mean_t = torch.tensor(self.mean, dtype=torch.float32, device=self.device)
-        self.std_t = torch.tensor(self.std, dtype=torch.float32, device=self.device)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -69,14 +66,9 @@ class Predict2D:
         """bbox^2 crops at (cx, cy), KeypointDetect and the decode:
         (points2D, confidences, the KeypointDetect heatmaps (T, J, h, w)
         float32)."""
-        T = imgs.shape[0]
-        bbox, hw = self.bbox, self.bbox // 2
-        r = torch.arange(bbox, device=imgs.device)
-        rows = (cy[:, None] - hw + r)[:, :, None]  # (T, bbox, 1)
-        cols = (cx[:, None] - hw + r)[:, None, :]  # (T, 1, bbox)
-        t = torch.arange(T, device=imgs.device)[:, None, None]
-        crops = imgs[t, rows, cols]  # (T, bbox, bbox, 3)
-        crops = ((crops.float() / value_scale(imgs) - self.mean_t) / self.std_t).to(self.dtype)
+        hw = self.bbox // 2
+        crops = crop_normalize(imgs, torch.stack([cx, cy], dim=-1), self.bbox, self.mean,
+                               self.std, self.dtype)  # (T, bbox, bbox, 3)
         khm = self.keypoint_model.heatmap2(crops.permute(0, 3, 1, 2)).float()
         kxy, kmax = argmax_2d(khm.permute(0, 2, 3, 1))  # (T, J, 2), (T, J)
         offset = torch.stack([cx - hw, cy - hw], dim=-1)

@@ -7,7 +7,8 @@ normalize (K4),
 CenterDetect, first-index argmax, the >= 2-camera maxval > 50 gate, the
 confidence-weighted DLT of the subject center, its reprojection into every
 camera for the crop centers (truncated, clamped to [bbox/2, W - bbox/2]),
-the bbox^2 crops normalized in float32, then HybridNet (K1 throughout the
+the bbox^2 crops normalized in float32 and rounded to the compute dtype
+(K16), then HybridNet (K15 its 2D net's heads, K1 throughout the
 2D and 3D nets, K2 or K5 reprojection by the configured mode, K3
 soft-argmax). Everything stays on the
 predictor's device; nothing synchronizes with the host.
@@ -32,8 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels import resize_normalize
-from ..kernels.resize_normalize import value_scale
+from ..kernels import crop_normalize, resize_normalize
 from ..models.efficienttrack import EfficientTrackBackbone
 from ..models.hybridnet import HybridNetBackbone
 from ..ops.heatmap import argmax_2d
@@ -66,7 +66,6 @@ class Predict3D:
             return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
         self.P, self.K, self.D = dev(camera_matrices), dev(intrinsics), dev(distortions)
-        self.mean_t, self.std_t = dev(self.mean), dev(self.std)
         self.set_mesh(None)
 
     def set_mesh(self, mesh) -> "Predict3D":
@@ -125,21 +124,23 @@ class Predict3D:
         """:meth:`detect` then :meth:`place`."""
         return self.place(*self.detect(imgs), imgs.shape[2], imgs.shape[3])
 
-    def normalize(self, crops: torch.Tensor) -> torch.Tensor:
-        """uint8 or float [0, 1] crops -> ImageNet-normalized float32."""
-        return (crops.float() / value_scale(crops) - self.mean_t) / self.std_t
+    def normalize(self, crops: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        """uint8 or float [0, 1] crops (T, C, bbox, bbox, 3) ->
+        ImageNet-normalized in float32, rounded to ``dtype``: K16 with each
+        whole crop as its window."""
+        T, C, bbox = crops.shape[:3]
+        out = crop_normalize(crops.reshape(T * C, bbox, bbox, 3), None, bbox, self.mean,
+                             self.std, dtype)
+        return out.reshape(crops.shape)
 
-    def crops(self, imgs: torch.Tensor, center_hm: torch.Tensor) -> torch.Tensor:
-        """The bbox^2 windows at the crop centers, normalized in float32:
-        (T, C, bbox, bbox, 3)."""
-        T, C = imgs.shape[:2]
-        bbox, hw = self.bbox, self.bbox // 2
-        r = torch.arange(bbox, device=imgs.device)
-        rows = (center_hm[..., 1, None] - hw + r)[..., :, None]  # (T, C, bbox, 1)
-        cols = (center_hm[..., 0, None] - hw + r)[..., None, :]  # (T, C, 1, bbox)
-        t = torch.arange(T, device=imgs.device)[:, None, None, None]
-        c = torch.arange(C, device=imgs.device)[None, :, None, None]
-        return self.normalize(imgs[t, c, rows, cols])  # (T, C, bbox, bbox, 3)
+    def crops(self, imgs: torch.Tensor, center_hm: torch.Tensor,
+              dtype=torch.float32) -> torch.Tensor:
+        """The bbox^2 windows at the crop centers (T, C, 2) int32, normalized
+        in float32 and rounded to ``dtype``: (T, C, bbox, bbox, 3), by K16."""
+        T, C, H, W = imgs.shape[:4]
+        out = crop_normalize(imgs.reshape(T * C, H, W, 3), center_hm.reshape(T * C, 2),
+                             self.bbox, self.mean, self.std, dtype)
+        return out.reshape(T, C, self.bbox, self.bbox, 3)
 
     def frames(self, imgs) -> torch.Tensor:
         """``imgs`` on the predictor's device, checked: (T, C, H, W, 3) uint8
@@ -168,7 +169,7 @@ class Predict3D:
         """One step on checked frames on the device, launched op by op."""
         center_hm, center3d, valid = self.centers(imgs)
         local = center_hm[:, self.cams]
-        points, conf = self.hybrid_points(self.crops(imgs, local), local, center3d)
+        points, conf = self.hybrid_points(self.crops(imgs, local, self.dtype), local, center3d)
         return points, conf, valid
 
     def __call__(self, imgs):
@@ -213,7 +214,8 @@ def build_predict3d_twophase(predictor: Predict3D, full_size):
     @torch.no_grad()
     def step_b(crops, cx, cy, center3d):
         center_hm = torch.stack([cx, cy], dim=-1)
-        return predictor.hybrid_points(predictor.normalize(crops), center_hm, center3d)
+        return predictor.hybrid_points(predictor.normalize(crops, predictor.dtype), center_hm,
+                                       center3d)
 
     def phase_a(lowres):
         return phase_a.step(predictor.frames(lowres))

@@ -24,13 +24,15 @@ plain version.
 - The serving modules (EfficientTrack-small on the trained KeypointDetect
   weights, V2V with its fused front on the trained HybridNet's) at no grad,
   where K13, K14 and K1's bias run, give the outputs of the autograd chains
-  (the code before the kernels) bit for bit at bf16 and float32, with 25
+  (the code before the kernels) bit for bit at bf16 and float32 (the
+  stride-2 head: K15 on the same merged map), with 25
   K13, 14 K14 and 31 biased K1 calls a 2D net at bf16 and 11 biased K1
   calls in V2V.
 - C.14: a reduced-accuracy float32 ``exp`` on the CPU is computed again in
   ``layers.sigmoid``, as in K1's SiLU (``test_torch_kernels.py``).
 - ``torch.library.opcheck`` of the new and changed registered ops' schemas
-  and fake implementations on CPU tensors.
+  and fake implementations on CPU tensors (K15 and K16, the head and the
+  crops, among them; ``test_torch_serving_kernels.py`` holds them to JAX).
 """
 
 import importlib
@@ -364,11 +366,17 @@ def test_efficienttrack_no_grad_equals_the_chains(dtype, monkeypatch):
         got = model(x)
     assert counts.n == {"weighted_fuse": 25, "se_gate": 14,
                         "k1_bias": 31 if dtype == "bfloat16" else 0}
+    with torch.no_grad():
+        got_merged = model.merged(x)
     with torch.enable_grad():
         want = model(x)
-    assert counts.n["weighted_fuse"] == 25  # the chains called no op
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w.detach())
+        want_merged = model.merged(x).detach()
+    assert counts.n["weighted_fuse"] == 50  # the chains called no op
+    assert torch.equal(got_merged, want_merged) and torch.equal(got[0], want[0].detach())
+    # the stride-2 head: K15 at no grad (test_torch_serving_kernels.py holds
+    # it to the convolution with a graph), on the same merged map
+    head = kernels.heatmap_head_plain(want_merged, model.deconv1.weight.detach())
+    assert got[1].dtype == want[1].dtype and torch.equal(got[1], head)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -423,6 +431,18 @@ def _op_cases():
         cases[f"k14_silu_strided_{name}"] = (OPS.se_gate, (r_cl.to(dt), r_cl.to(dt)))
         cases[f"k1_bias_{name}"] = (OPS.instance_norm_act,
                                     (k1x.to(dt), "silu", None, True, bias.to(dt)))
+        for cout in (1, 23):  # K15: a one-channel and a keypoint head, plain and as rows
+            head = (cl(2, 16, 5, 7).to(dt), torch.randn(16, cout, 4, 4, generator=g).to(dt))
+            cases[f"k15_c{cout}_{name}"] = (OPS.heatmap_head, (*head, 0))
+            cases[f"k15_c{cout}_rows_{name}"] = (OPS.heatmap_head, (*head, 24))
+    frames = torch.randint(0, 256, (3, 20, 30, 3), dtype=torch.uint8, generator=g)
+    centers = torch.tensor([[5, 5], [29, 0], [15, 10]], dtype=torch.int32)
+    mean, std = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+    for name, f in (("uint8", frames), ("float32", frames.float() / 255)):
+        cases[f"k16_{name}_bf16"] = (OPS.crop_normalize, (f, centers, 8, mean, std,
+                                                         torch.bfloat16))
+        cases[f"k16_{name}_whole"] = (OPS.crop_normalize, (f[:, :8, :8].contiguous(), None, 8,
+                                                          mean, std, torch.float32))
     return cases
 
 
@@ -433,7 +453,8 @@ CASES = _op_cases()
 def test_new_registered_ops_schema_and_fake(name):
     """The op runs its plain version (K13: rounded to the inputs' dtype, in
     channels-last memory, contiguous at one pixel; K14: the strides torch
-    gives ``sigmoid(g) * x``) and passes opcheck's schema and fake-tensor
+    gives ``sigmoid(g) * x``; K15: channels-last, or contiguous rows; K16:
+    contiguous (N, S, S, 3)) and passes opcheck's schema and fake-tensor
     checks (the fake's strides the real output's)."""
     op, args = CASES[name]
     got = op(*args)
@@ -445,4 +466,10 @@ def test_new_registered_ops_schema_and_fake(name):
     elif name.startswith("k14"):
         want = k14.se_gate_plain(*args)
         assert got.stride() == want.stride() and torch.equal(got, want)
+    elif name.startswith("k15"):
+        want = kernels.heatmap_head_plain(*args)
+        assert got.stride() == want.stride() and torch.equal(got, want)
+    elif name.startswith("k16"):
+        want = kernels.crop_normalize_plain(*args)
+        assert got.is_contiguous() and torch.equal(got, want)
     torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor"))

@@ -2,7 +2,7 @@
 ``load_predictor``, ``list_artifacts``, ``artifact_path``), the serving
 kernels as registered operators, and ``prediction/compile_cache.py``.
 
-Each registered op (``jarvis_torch::*``, K1-K5, K10, K13 and K14) runs its plain
+Each registered op (``jarvis_torch::*``, K1-K5, K10, K13-K16) runs its plain
 version on CPU tensors, bit for bit, and passes ``torch.library.opcheck``'s
 schema and fake-tensor checks (its fake gives the real output's shapes,
 dtypes and strides). A live ``Predict3D`` in every repro mode and a live
@@ -10,7 +10,7 @@ dtypes and strides). A live ``Predict3D`` in every repro mode and a live
 CenterDetect 128^2, bbox 128 (128^2 crops), a 48 mm cube at 4 mm: G = 12,
 float32) exported, saved and loaded gives the live predictor's outputs bit
 for bit on two seeded batches, with each serving kernel one node of the
-loaded graph (K13 and K14 included), and K1's calls without a bias are
+loaded graph (K13-K16 included), and K1's calls without a bias are
 written as an artifact of the ops before K1's ``bias`` operand wrote them
 (four arguments), so such artifacts load and run as they did.
 ``artifact_path`` / ``list_artifacts`` give the JAX package's
@@ -150,6 +150,8 @@ def test_serving_wrappers_call_their_ops(monkeypatch):
     x = CASES["k1_silu"][1][0].reshape(2, 8, 5, 10).permute(0, 1, 3, 2)
     kernels.weighted_fuse(torch.ones(2), [x, x], ("same", "same"))
     kernels.se_gate(x, x[:, :, :1, :1].contiguous())
+    kernels.heatmap_head(x, torch.ones(8, 3, 4, 4))
+    kernels.crop_normalize(CASES["k4_uint8_bf16"][1][0], None, 16, [0.5] * 3, [0.2] * 3)
     assert seen == list(kernels.SERVING_OPS)
 
 
@@ -204,7 +206,7 @@ def check_exported_predict3d(mode, tmp_path):
     loaded, ops = _round_trip(live, torch.zeros_like(batches[0]), tmp_path / "p3.pt2")
     gather = "repro_quarter_gather" if mode == "quarter_fused" else "repro_grid_gather"
     assert ops == {"instance_norm_act", "resize_normalize", "argmax2d", gather, "soft_argmax",
-                   "weighted_fuse", "se_gate"}
+                   "weighted_fuse", "se_gate", "heatmap_head", "crop_normalize"}
     # K1 without a bias in the earlier form; with one (float32: V2V's fused front)
     assert 4 in k1_arguments(tmp_path / "p3.pt2")
     for frames in batches:

@@ -30,7 +30,7 @@ def test_exported_predict2d_equals_live(tmp_path):
     batches = [_frames(7)[:, 1], _frames(9)[:, 2]]
     loaded, ops = _round_trip(live, torch.zeros_like(batches[0]), tmp_path / "p2.pt2")
     assert ops == {"instance_norm_act", "resize_normalize", "argmax2d", "weighted_fuse",
-                   "se_gate"}
+                   "se_gate", "heatmap_head", "crop_normalize"}
     for frames in batches:
         for g, w in zip(loaded(frames), live(frames)):
             assert g.dtype == w.dtype and torch.equal(g, w)
